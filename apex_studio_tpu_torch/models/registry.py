@@ -1,0 +1,26 @@
+"""Model family registries (port of ``models/registry.py``).
+
+Keys match manifest ``base`` values: ``flux.base``, ``auto`` (AutoencoderKL),
+``CLIPTextModel``, ``T5EncoderModel``.
+"""
+
+import importlib
+
+from apex_studio_tpu_torch.registry import Registry
+
+transformer_registry = Registry("transformer")
+vae_registry = Registry("vae")
+text_encoder_registry = Registry("text_encoder")
+
+_FAMILIES = (
+    "apex_studio_tpu_torch.models.transformers.flux",
+    "apex_studio_tpu_torch.models.vaes.autoencoder_kl",
+    "apex_studio_tpu_torch.models.text_encoders.t5",
+    "apex_studio_tpu_torch.models.text_encoders.clip",
+)
+
+
+def _load_builtin_families() -> None:
+    """Import every ported family so registration side effects run."""
+    for mod in _FAMILIES:
+        importlib.import_module(mod)

@@ -1,0 +1,8 @@
+"""Schedulers of the port (only the flow-match Euler sampler so far)."""
+
+from apex_studio_tpu_torch.schedulers import flow_match  # noqa: F401  (registers)
+from apex_studio_tpu_torch.schedulers.base import (  # noqa: F401
+    compute_dynamic_shift_mu,
+    create_scheduler,
+    scheduler_registry,
+)

@@ -1,0 +1,82 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA card. The file
+imports no JAX, so it runs on a machine without it:
+``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
+Tolerance: bf16 on unit-normal inputs, max|Δ| ≤ 2e-2·max|ref| and
+‖Δ‖₂ ≤ 1e-2·‖ref‖₂. Both scale with the output, whose typical size falls as
+Sk grows, so a kernel that drops a key tile cannot pass at a long Sk.
+"""
+
+import pytest
+import torch
+
+from apex_studio_tpu_torch.ops.attention import _prep_bias
+from apex_studio_tpu_torch.ops.attention.flash import flash_attention, flash_attention_reference
+
+def assert_agrees(out, ref):
+    d, r = out.float() - ref.float(), ref.float()
+    assert d.abs().max().item() <= 2e-2 * r.abs().max().item()
+    assert torch.linalg.vector_norm(d).item() <= 1e-2 * torch.linalg.vector_norm(r).item()
+
+
+# (name, b, sq, sk, h, d, key lengths or None, causal); a length of 0 masks
+# every key of that batch row.
+CASES = [
+    ("aligned", 1, 128, 128, 2, 128, None, False),
+    ("ragged_kv", 2, 72, 200, 4, 128, None, False),
+    ("ragged_q", 1, 100, 64, 3, 64, None, False),
+    ("key_padding_bias", 2, 64, 96, 2, 128, [50, 96], False),
+    ("fully_masked_row", 2, 64, 160, 2, 64, [50, 0], False),
+    ("causal", 1, 384, 384, 4, 64, None, True),
+    ("causal_ragged", 1, 200, 200, 2, 128, None, True),
+    ("flux_length_kv", 1, 256, 4608, 4, 128, None, False),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_kernel_matches_plain_version(case, cuda):
+    _, b, sq, sk, h, d, lengths, causal = case
+    g = torch.Generator(cuda).manual_seed(0)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).to(torch.bfloat16)
+               for s in (sq, sk, sk))
+    bias = None
+    if lengths is not None:
+        mask = torch.arange(sk, device=cuda)[None, :] < torch.tensor(lengths, device=cuda)[:, None]
+        bias = _prep_bias(None, mask)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias=bias, is_causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_reference(q, k, v, bias=bias, is_causal=causal)
+    assert torch.isfinite(out.float()).all()
+    assert_agrees(out, ref)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_bshd(cuda):
+    """q/k/v as views of one fused projection (non-contiguous BSHD)."""
+    g = torch.Generator(cuda).manual_seed(1)
+    qkv = torch.randn(1, 256, 3, 4, 128, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    out = flash_attention(q, k, v)
+    ref = flash_attention_reference(q, k, v)
+    assert_agrees(out, ref)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn(1, 16, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q, q, q)
+    q = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :32], q[..., :32], q[..., :32])
