@@ -2,13 +2,15 @@
 """Drive the PyTorch/CUDA port (apex_studio_tpu_torch) on one NVIDIA card.
 
 Phases, each printed as one JSON line:
-  card       the card's name and power limit, and the kernels' build time
+  card       the card's name and power limit, the kernels' build time, and
+             what ptxas said of each kernel (registers, spills, warnings)
   kernels    every hand-written kernel against its plain PyTorch version on
              the card, case by case, with the tolerance stated; then what
-             two deliberately faulty versions read against that tolerance
+             three deliberately faulty versions read against that tolerance
   timing     each kernel at the main path's shape: its time (CUDA events,
              warm, median), the plain version's, one PyTorch library call's
-             as a yardstick, and the least time the card could take (bound)
+             as a yardstick, and the least time the card could take (bound);
+             each also as the time per call of 20 queued calls
   reference  a tiny Flux DiT on the card (bf16, kernels) against the same
              weights on the CPU (f32, plain versions)
   main       Flux Dev text-to-image at 1024x1024 through UniversalEngine with
@@ -19,7 +21,7 @@ Phases, each printed as one JSON line:
 then a ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Run from the root of a
-checkout: ``python3 chip_smoke.py`` (``--phases kernels`` for a short run,
+checkout: ``python3 chip_smoke.py`` (``--phases kernels,timing`` for a short run,
 ``--phases kernels,timing,reference,main,trace`` to add the trace).
 """
 
@@ -115,6 +117,23 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Time per call of ``calls`` calls queued between one pair of CUDA events:
+    the card's time alone, as in the denoise loop, where launches queue ahead
+    of the card. ``time_ms`` also counts the host's work before each launch."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 # -- kernels ---------------------------------------------------------------------------
 
 
@@ -148,24 +167,52 @@ def phase_kernels():
     s = FLUX_SHAPE
     q, k, v = qkv(s["b"], s["s"], s["s"], s["h"], s["d"], 0)
     flux_err, flux_ref = run_case("flux_1024px", q, k, v)
-    # What two faults of a kernel would read against the limits at Flux's
-    # shape: the last 64-key tile dropped, and exp2 taken without log2 e (the
-    # softmax at ln 2 of its scale). Each must fall outside them.
+    # What three faults of a kernel would read against the limits at Flux's
+    # shape: the last 64-key tile dropped; exp2 taken without log2 e (the
+    # softmax at ln 2 of its scale); and query rows 64-127 of every 128-row
+    # tile computed with the first 128-key tile replaced by the second (what a
+    # consumer warpgroup that read a stale stage would give). Each must fall
+    # outside them.
+    stale_k, stale_v = k.clone(), v.clone()
+    stale_k[:, :128], stale_v[:, :128] = k[:, 128:256], v[:, 128:256]
+    upper = (torch.arange(s["s"], device="cuda") % 128) >= 64
+    stale = flux_ref.clone()
+    stale[:, upper] = flash_attention_reference(q[:, upper], stale_k, stale_v)
     probes = {
         "dropped_last_key_tile": flash_attention_reference(q, k[:, :-64], v[:, :-64]),
         "softmax_scale_times_ln2": flash_attention_reference(q, k, v, scale=s["d"] ** -0.5 * math.log(2)),
+        "stale_tile_in_second_warpgroup": stale,
     }
     probes = {name: agreement(wrong, flux_ref) for name, wrong in probes.items()}
     emit({"phase": "tolerance_probes", "shape": list(q.shape), "probes": probes})
     check(not any(p["within"] for p in probes.values()),
           f"the kernel tolerance cannot see a faulty kernel: {probes}")
-    del q, k, v, flux_ref
+    del q, k, v, flux_ref, stale, stale_k, stale_v
     run_case("ragged_sq72_sk200", *qkv(2, 72, 200, 4, 128, 1))
     q, k, v = qkv(2, 96, 160, 4, 128, 2)
     lengths = torch.tensor([50, 0], device="cuda")  # batch 1: every key masked
     mask = torch.arange(160, device="cuda")[None, :] < lengths[:, None]
     run_case("key_padding_bias_row_fully_masked", q, k, v, bias=_prep_bias(None, mask))
     run_case("causal_s384_d64", *qkv(1, 384, 384, 4, 64, 3), causal=True)
+    # The edges of the 128 x 128 tiles and of the two 64-row warpgroups.
+    run_case("ragged_sq129_sk257", *qkv(1, 129, 257, 4, 128, 4))
+    run_case("sq40_sk1", *qkv(2, 40, 1, 3, 128, 5))
+    run_case("sk128_exact", *qkv(1, 200, 128, 4, 128, 6))
+    run_case("sk129", *qkv(1, 200, 129, 4, 128, 7))
+    run_case("ragged_sq129_sk257_d64", *qkv(2, 129, 257, 3, 64, 8))
+    run_case("causal_s200_d128", *qkv(2, 200, 200, 3, 128, 9), causal=True)
+    run_case("causal_s384_d128", *qkv(1, 384, 384, 4, 128, 10), causal=True)
+    q, k, v = qkv(2, 150, 300, 4, 128, 11)
+    shared = _prep_bias(None, torch.arange(300, device="cuda")[None, :] < 211)  # [1,1,1,Sk]
+    run_case("bias_1_by_sk_batch_stride_0", q, k, v, bias=shared)
+    g = torch.Generator("cuda").manual_seed(12)
+    fused = torch.randn(2, 257, 3, 4, 128, generator=g, device="cuda").to(torch.bfloat16)
+    run_case("views_of_fused_projection", fused[:, :, 0], fused[:, :, 1], fused[:, :, 2])
+    # The first 128-key tile wholly masked by the bias: the running max starts
+    # at -1e30 log2 e and must recover on the second tile.
+    q, k, v = qkv(1, 130, 300, 4, 128, 13)
+    late = _prep_bias(None, torch.arange(300, device="cuda")[None, :] >= 128)
+    run_case("first_key_tile_bias_masked", q, k, v, bias=late)
     emit({"phase": "kernels", "cases": cases})
     bad = [c["case"] for c in cases if not c["ok"]]
     check(not bad, f"flash kernel disagrees with its plain version: {bad}")
@@ -173,10 +220,33 @@ def phase_kernels():
 
 
 def phase_timing():
+    """Two rows at Flux's query length: the main path's shape against the plain
+    version and the library call, and a ragged Sk with a [1, Sk] bias (tail and
+    bias paths paid) against the library call alone. Returns the first."""
     import torch
     import torch.nn.functional as F
 
     from apex_studio_tpu_torch.ops.attention.flash import flash_attention, flash_attention_reference
+
+    def row(q, k, v, bias, kernel_ms, plain_ms, library_ms, kernel_queued_ms, library_queued_ms):
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        flops = 4.0 * b * h * sq * sk * d
+        # q, k, v (and the bias) read once, o written once
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
+            bias.numel() * 4 if bias is not None else 0)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        out = {"phase": "timing", "kernel": "flash_attention", "shape": list(q.shape), "sk": sk,
+               "bias": bias is not None, "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library_call": "torch.nn.functional.scaled_dot_product_attention",
+               "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "of_bound": bound_ms / kernel_ms, "vs_library": kernel_ms / library_ms,
+               "queued_ms": kernel_queued_ms, "library_queued_ms": library_queued_ms,
+               "flops": flops, "bytes": nbytes, "tflops_achieved": flops / kernel_ms / 1e9}
+        emit(out)
+        return out
 
     s = FLUX_SHAPE
     q, k, v = qkv(s["b"], s["s"], s["s"], s["h"], s["d"], 0)
@@ -184,16 +254,23 @@ def phase_timing():
     plain_ms = time_ms(lambda: flash_attention_reference(q, k, v), reps=20)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    flops = 4.0 * s["b"] * s["h"] * s["s"] * s["s"] * s["d"]
-    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, o written once
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    row = {"phase": "timing", "kernel": "flash_attention", "shape": list(q.shape),
-           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "library_call": "torch.nn.functional.scaled_dot_product_attention",
-           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes, "tflops_achieved": flops / kernel_ms / 1e9}
-    emit(row)
-    return row
+    flux_row = row(q, k, v, None, kernel_ms, plain_ms, library_ms,
+                   queued_ms(lambda: flash_attention(q, k, v)),
+                   queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+
+    sk = 4500
+    k, v, kt, vt = k[:, :sk], v[:, :sk], kt[:, :, :sk].contiguous(), vt[:, :, :sk].contiguous()
+    bias = torch.zeros(1, sk, device="cuda")
+    bias[:, 4400:] = -1e30  # the last 100 keys are padding
+    kernel_ms = time_ms(lambda: flash_attention(q, k, v, bias=bias))
+    # The library call's mask: same values in bf16, its rows 16-byte aligned.
+    mask = torch.zeros(1, 1, 1, 4504, device="cuda", dtype=torch.bfloat16)[..., :sk]
+    mask.copy_(bias[:, None, None, :])
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    row(q, k, v, bias, kernel_ms, None, library_ms,
+        queued_ms(lambda: flash_attention(q, k, v, bias=bias)),
+        queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
+    return flux_row
 
 
 # -- tiny reference ----------------------------------------------------------------------
@@ -359,6 +436,27 @@ def phase_trace(engine):
           "top_kernels": [{"name": n[:90], "calls": c, "ms": t / 1e3} for n, (c, t) in top]})
 
 
+def ptxas_report(log: str) -> dict:
+    """What ptxas said in the build log (``-Xptxas -v``): registers and spill
+    bytes of each kernel for sm_90a, and every warning, C7508 (``setmaxnreg``
+    ignored) among them."""
+    import re
+
+    functions, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)' for 'sm_90a'", line)
+        if m:
+            name = m.group(1)
+            functions.append({"name": name, "registers": None, "spill_bytes": 0})
+        elif name and "spill stores" in line:
+            functions[-1]["spill_bytes"] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif name and "Used" in line and "registers" in line:
+            functions[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    warnings = [ln.strip() for ln in log.splitlines() if "warning" in ln.lower() or "C75" in ln]
+    return {"functions": functions, "warnings": warnings,
+            "setmaxnreg_ignored": any("C7508" in w for w in warnings)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="kernels,timing,reference,main")
@@ -382,13 +480,17 @@ def main() -> int:
         from apex_studio_tpu_torch.ops.attention import flash as flash_mod
 
         t0 = time.perf_counter()
-        flash_mod.build()
+        lib = flash_mod.build()
         build_s = time.perf_counter() - t0
         log = sorted(flash_mod.build_dir().glob("flash_attn_*.log"))
+        ptxas = ptxas_report(log[-1].read_text() if log else "")
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_build_seconds": build_s,
-              "ptxas": [ln for ln in (log[-1].read_text().splitlines() if log else [])
-                        if "registers" in ln or "spill" in ln]})
+              "smem_bytes_a_block": {d: lib.apex_flash_attn_smem_bytes(d) for d in (64, 128)},
+              **ptxas})
+        check(bool(ptxas["functions"]), "the build log names no kernel")
+        spilled = [f["name"] for f in ptxas["functions"] if f["spill_bytes"]]
+        check(not spilled, f"ptxas spilled registers in {spilled}")
         flux_err = phase_kernels() if "kernels" in phases else None
         timing = phase_timing() if "timing" in phases else None
         if "reference" in phases:

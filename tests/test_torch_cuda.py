@@ -21,7 +21,9 @@ def assert_agrees(out, ref):
 
 
 # (name, b, sq, sk, h, d, key lengths or None, causal); a length of 0 masks
-# every key of that batch row.
+# every key of that batch row, one length for b > 1 gives a [1, Sk] bias, and a
+# negative length -n masks the first n keys instead. The second half sits on
+# the edges of the kernel's 128 x 128 tiles and its two 64-row warpgroups.
 CASES = [
     ("aligned", 1, 128, 128, 2, 128, None, False),
     ("ragged_kv", 2, 72, 200, 4, 128, None, False),
@@ -31,6 +33,15 @@ CASES = [
     ("causal", 1, 384, 384, 4, 64, None, True),
     ("causal_ragged", 1, 200, 200, 2, 128, None, True),
     ("flux_length_kv", 1, 256, 4608, 4, 128, None, False),
+    ("sq129_sk257", 1, 129, 257, 4, 128, None, False),
+    ("sq129_sk257_d64", 2, 129, 257, 3, 64, None, False),
+    ("sq40_sk1", 2, 40, 1, 3, 128, None, False),
+    ("sk128_exact", 1, 200, 128, 4, 128, None, False),
+    ("sk129", 1, 200, 129, 4, 128, None, False),
+    ("causal_s384_d128", 1, 384, 384, 4, 128, None, True),
+    ("causal_s200_b2_d128", 2, 200, 200, 3, 128, None, True),
+    ("shared_bias_batch_stride_0", 2, 150, 300, 4, 128, [211], False),
+    ("first_key_tile_bias_masked", 1, 130, 300, 4, 128, [-128], False),
 ]
 
 
@@ -50,7 +61,8 @@ def test_flash_kernel_matches_plain_version(case, cuda):
                for s in (sq, sk, sk))
     bias = None
     if lengths is not None:
-        mask = torch.arange(sk, device=cuda)[None, :] < torch.tensor(lengths, device=cuda)[:, None]
+        cols, n = torch.arange(sk, device=cuda)[None, :], torch.tensor(lengths, device=cuda)[:, None]
+        mask = torch.where(n < 0, cols >= -n, cols < n)
         bias = _prep_bias(None, mask)
     before = flash_attention.launches
     out = flash_attention(q, k, v, bias=bias, is_causal=causal)

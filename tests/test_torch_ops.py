@@ -22,7 +22,11 @@ from apex_studio_tpu_torch.ops.attention import attention as port_attention
 from apex_studio_tpu_torch.ops import embeddings as port_emb
 from apex_studio_tpu_torch.ops import norms as port_norms
 from apex_studio_tpu_torch.ops import rope as port_rope
-from apex_studio_tpu_torch.ops.attention.flash import flash_attention, flash_attention_reference
+from apex_studio_tpu_torch.ops.attention.flash import (
+    flash_attention,
+    flash_attention_reference,
+    flash_attention_tiled_reference,
+)
 
 REL = 1e-4
 
@@ -127,7 +131,75 @@ FLASH_CASES = [
 ]
 
 
+# Cases on the edges of the kernel's 128-row and 128-key tiles and of the two
+# 64-row halves of a query tile: (name, b, sq, sk, h, d, bias, causal). bias is
+# None, "shared" (a [1, Sk] key-padding bias over the last third of the keys)
+# or "late" (the first 128 keys masked, so the running max starts at
+# -1e30·log2 e and must recover on the next tile).
+TILE_EDGE_CASES = [
+    ("sq129_sk257", 1, 129, 257, 2, 32, None, False),
+    ("sq40_sk1", 2, 40, 1, 2, 32, None, False),
+    ("sk128_exact", 1, 72, 128, 2, 32, None, False),
+    ("sk129", 1, 72, 129, 2, 32, None, False),
+    ("causal_s200", 1, 200, 200, 2, 32, None, True),
+    ("causal_s384", 1, 384, 384, 1, 32, None, True),
+    ("shared_bias_b2", 2, 150, 300, 2, 32, "shared", False),
+    ("first_key_tile_bias_masked", 1, 130, 300, 2, 32, "late", False),
+]
+
+
+def tile_edge_bias(kind, sk):
+    if kind is None:
+        return None
+    keep = np.arange(sk) < 2 * sk // 3 if kind == "shared" else np.arange(sk) >= 128
+    return _prep_bias(None, t(keep[None, :]))  # [1, 1, 1, Sk]
+
+
 class TestFlashAttention:
+    @pytest.mark.parametrize("case", TILE_EDGE_CASES, ids=[c[0] for c in TILE_EDGE_CASES])
+    def test_tiled_reference_matches_plain_and_pallas(self, case):
+        """The tile-by-tile emulation of the CUDA kernel against the plain
+        version and the Pallas kernel (interpret mode), f32:
+        max|Δ| ≤ 2e-5·max|ref| (sums taken tile by tile, exp2 against exp)."""
+        _, b, sq, sk, h, d, kind, causal = case
+        q, k, v = qkv(b, sq, sk, h, d, seed=11)
+        bias = tile_edge_bias(kind, sk)
+        out = flash_attention_tiled_reference(t(q), t(k), t(v), bias=bias, is_causal=causal)
+        assert torch.isfinite(out).all()
+        close(out, flash_attention_reference(t(q), t(k), t(v), bias=bias, is_causal=causal), rel=2e-5)
+        pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           bias=None if bias is None else jnp.asarray(bias.numpy()),
+                           is_causal=causal, interpret=True)
+        close(out, pallas, rel=2e-5)
+
+    @pytest.mark.parametrize("case", TILE_EDGE_CASES, ids=[c[0] for c in TILE_EDGE_CASES])
+    def test_tiled_reference_bf16(self, case):
+        """The same emulation on bf16 inputs (P rounded to bf16 before P·V)
+        against the plain version: max|Δ| ≤ 2e-2·max|ref|, ‖Δ‖₂ ≤ 1e-2·‖ref‖₂."""
+        _, b, sq, sk, h, d, kind, causal = case
+        q, k, v = (t(a).to(torch.bfloat16) for a in qkv(b, sq, sk, h, d, seed=12))
+        bias = tile_edge_bias(kind, sk)
+        out = flash_attention_tiled_reference(q, k, v, bias=bias, is_causal=causal)
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        ref = flash_attention_reference(q, k, v, bias=bias, is_causal=causal).float()
+        delta = out.float() - ref
+        assert delta.abs().max().item() <= 2e-2 * ref.abs().max().item()
+        assert torch.linalg.vector_norm(delta).item() <= 1e-2 * torch.linalg.vector_norm(ref).item()
+
+    def test_tiled_reference_reads_views_of_fused_projection(self):
+        fused = t(rnd(2, 257, 3, 2, 32, seed=13))
+        q, k, v = fused.unbind(2)
+        close(flash_attention_tiled_reference(q, k, v), flash_attention_reference(q, k, v), rel=2e-5)
+
+    def test_tiled_reference_fully_masked_row_is_mean_of_v(self):
+        q, k, v = qkv(2, 72, 160, 2, 16)
+        bias = _prep_bias(None, t(key_mask(160, [50, 0])))
+        out = flash_attention_tiled_reference(t(q), t(k), t(v), bias=bias)
+        assert torch.isfinite(out).all()
+        np.testing.assert_allclose(out[1].numpy(), np.broadcast_to(v[1].mean(0), (72, 2, 16)),
+                                   atol=1e-5)
+        close(out, flash_attention_reference(t(q), t(k), t(v), bias=bias), rel=2e-5)
+
     @pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
     def test_reference_and_dispatcher_match_pallas(self, case, monkeypatch):
         monkeypatch.setenv("APEX_PALLAS_INTERPRET", "1")
