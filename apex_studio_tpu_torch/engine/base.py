@@ -4,9 +4,14 @@
 - parses the normalized manifest config and resolves component paths
 - instantiates components lazily on ``self.device``: the scheduler from its
   registry, transformer / VAE / text encoders from the model registries
-- synthetic weights (``APEX_SYNTHETIC_WEIGHTS=bf16``): each module is built on
-  the ``meta`` device, materialized with ``to_empty`` on the target device and
-  filled there with normal(0, 0.02) from a generator seeded by the component
+- every module is built on the ``meta`` device and gets its storage on the
+  target device: from a checkpoint (safetensors / GGUF / torch pickle through
+  the family's key converter and a strict state-dict apply, tensor by tensor),
+  or, with ``APEX_SYNTHETIC_WEIGHTS=bf16|int8|int4``, random values from a
+  generator seeded by the component, large Linear weights straight to int8 /
+  int4 residency (quantize/residency.py)
+- LoRAs of the manifest and the request merged into the transformer at load,
+  and int8 residency as the fallback for a model that crowds the card
 - the seed→latent contract (CPU ``torch.Generator``), timestep handling and
   frame post-processing
 """
@@ -39,6 +44,24 @@ _DTYPES = {
 }
 
 SYNTHETIC_STD = 0.02
+
+
+def select_variant(model_path: Union[str, List[Dict[str, Any]], None],
+                   preferred: Optional[str] = None) -> Optional[Dict[str, Any]]:
+    """Pick a weight variant from a manifest model_path entry."""
+    if model_path is None:
+        return None
+    if isinstance(model_path, str):
+        return {"path": model_path, "variant": "default", "type": "safetensors"}
+    if preferred:
+        for v in model_path:
+            if v.get("variant") == preferred or v.get("precision") == preferred:
+                return dict(v)
+    # Prefer plain safetensors over quantized formats.
+    for v in model_path:
+        if v.get("type", "safetensors") == "safetensors" and v.get("precision") not in ("fp8",):
+            return dict(v)
+    return dict(model_path[0])
 
 
 def configure_float32_matmul() -> None:
@@ -82,6 +105,8 @@ class BaseEngine:
         self.transformer = None
         self.vae = None
         self.text_encoder = None
+        # one entry per LoRA merged at transformer load: source, scale, applied, skipped
+        self.lora_results: List[Dict[str, Any]] = []
 
     # -- path resolution -----------------------------------------------------------
 
@@ -124,6 +149,57 @@ class BaseEngine:
         sel = self.selected_components.get(spec.get("type"), {})
         prec = sel.get("precision") or spec.get("precision") or "bf16"
         return _DTYPES.get(str(prec).lower(), torch.bfloat16)
+
+    def _load_state_dict(self, spec: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """The component's checkpoint as a flat state dict of CPU tensors
+        (numpy arrays from GGUF), or None when the spec names no weights."""
+        from apex_studio_tpu_torch.loaders.safetensors_io import dequantize_fp8_scaled
+
+        sel = self.selected_components.get(spec.get("type"), {})
+        variant = select_variant(spec.get("model_path"), sel.get("variant"))
+        if variant is None:
+            return None
+        local = self._resolve_path(variant["path"])
+        if local is None:
+            raise FileNotFoundError(
+                f"weights not downloaded: {variant['path']} "
+                f"(searched under {self.components_root})")
+        if variant.get("type") == "gguf" or str(local).endswith(".gguf"):
+            from apex_studio_tpu_torch.quantize.gguf import load_gguf_state_dict
+
+            return load_gguf_state_dict(local)
+        sd = self._read_weights_file(local)
+        # extra_model_path components that target this component type are
+        # merged into its state dict under their key_prefix
+        for extra in self.config.get("components", []) or []:
+            if extra.get("type") != "extra_model_path":
+                continue
+            if (extra.get("component") or "transformer") != spec.get("type"):
+                continue
+            ev = select_variant(extra.get("model_path"), None)
+            if ev is None:
+                continue
+            epath = self._resolve_path(ev["path"])
+            if epath is None:
+                raise FileNotFoundError(f"extra weights not downloaded: {ev['path']}")
+            prefix = extra.get("key_prefix") or ""
+            for k, v in self._read_weights_file(Path(epath)).items():
+                sd[prefix + k] = v
+        return dequantize_fp8_scaled(sd)
+
+    def _read_weights_file(self, local: Path) -> Dict[str, torch.Tensor]:
+        from apex_studio_tpu_torch.loaders.safetensors_io import (
+            load_safetensors,
+            load_sharded_safetensors,
+            load_torch_checkpoint,
+        )
+
+        local = Path(local)
+        if local.is_dir():
+            return load_sharded_safetensors(local)
+        if local.suffix in (".pth", ".ckpt", ".pt", ".pkl"):
+            return load_torch_checkpoint(local)
+        return load_safetensors(local)
 
     # -- component loading ------------------------------------------------------------
 
@@ -184,26 +260,29 @@ class BaseEngine:
         return create_scheduler(base or "FlowMatchEulerDiscreteScheduler", cfg or None, **kwargs)
 
     def _instantiate_family(self, registry, spec: Dict[str, Any], converter_family: str):
-        """Shared loader for transformer / VAE / text-encoder families.
+        """Shared loader for transformer / VAE / text-encoder families. The
+        module is built on ``meta`` and gets its storage on ``self.device``.
 
-        Weights are random, from a generator seeded by the component:
-        ``APEX_SYNTHETIC_WEIGHTS=bf16`` (the full-size dry run) or a manifest
-        component with no ``model_path`` (the tiny test models, whose weights
-        tests then carry over from the JAX package). Loading real checkpoints
-        is not ported yet and raises."""
-        from apex_studio_tpu_torch.models.layers import check_residency
-        from apex_studio_tpu_torch.models.registry import _load_builtin_families
+        - ``APEX_SYNTHETIC_WEIGHTS`` set: never touch checkpoints; random
+          weights from a generator seeded by the component. ``int8`` (also
+          ``1``/``true``) makes large Linear weights int8-resident, ``int4``
+          makes the transformer's packed int4 and everything else int8 (the
+          encoders stage out after the encode and gain nothing from 4 bits),
+          any other value (``bf16``) leaves them in the component's dtype.
+        - else a ``model_path``: checkpoint → key converter → strict apply,
+          one tensor at a time.
+        - else (the tiny test manifests): random weights in the component's
+          dtype, which tests then overwrite.
+        """
+        from apex_studio_tpu_torch.loaders.converters import convert_keys, converter_registry
+        from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
+        from apex_studio_tpu_torch.models.registry import _load_builtin_families, transformer_registry
+        from apex_studio_tpu_torch.quantize.residency import materialize_random_int4, materialize_random_int8
 
         _load_builtin_families()
         base = spec.get("base")
         cls = registry.get(base)
         synth = os.environ.get("APEX_SYNTHETIC_WEIGHTS", "")
-        if synth:
-            check_residency(synth)
-        elif spec.get("model_path"):
-            raise NotImplementedError(
-                f"loading checkpoints for {base} is not ported yet (a later slice ports "
-                "loaders/converters.py and safetensors_io.py); set APEX_SYNTHETIC_WEIGHTS=bf16")
         try:
             cfg_dict = self._load_component_config(spec)
         except FileNotFoundError:
@@ -212,18 +291,100 @@ class BaseEngine:
             cfg_dict = None  # synthetic mode: family defaults stand in
         cfg = cls.config_class.from_dict(cfg_dict) if cfg_dict else cls.config_class()
         dtype = self._component_dtype(spec)
+        with torch.device("meta"):
+            model = cls(cfg, dtype=dtype)
+
+        sd = None if synth else self._load_state_dict(spec)
+        if sd is not None:
+            family = converter_family if converter_family in converter_registry else None
+            mapped = convert_keys(family, sd) if family else sd
+            apply_state_dict(model, mapped, device=self.device, strict=True)
+            logger.info("loaded %d tensors for %s onto %s", len(mapped), base, self.device)
+            return model.eval().requires_grad_(False)
+
         seed = zlib.crc32(f"{base}/{converter_family}".encode()) & 0x7FFFFFFF
-        model = materialize_random(lambda: cls(cfg, dtype=dtype), self.device, seed)
-        logger.info("random weights for %s on %s (seed %d)", base, self.device, seed)
-        return model
+        if synth == "int4" and registry is transformer_registry:
+            n = materialize_random_int4(model, device=self.device, seed=seed, scale=SYNTHETIC_STD)
+        elif synth in ("int8", "int4", "1", "true"):
+            n = materialize_random_int8(model, device=self.device, seed=seed, scale=SYNTHETIC_STD)
+        else:  # "bf16", or no checkpoint named: random weights, no residency
+            n = materialize_random_int8(model, device=self.device, seed=seed, scale=SYNTHETIC_STD,
+                                        min_numel=1 << 62)
+        logger.info("random %s weights for %s on %s (seed %d, %d resident weights)",
+                    synth or "unquantized", base, self.device, seed, n)
+        return model.eval().requires_grad_(False)
 
     def _load_transformer(self, spec: Dict[str, Any]):
+        from apex_studio_tpu_torch.loaders.converters import converter_registry
+
         base = spec.get("base") or ""
-        return self._instantiate_family(_registry("transformer"), spec, base.split(".")[0])
+        family = base.split(".")[0]
+        # a sub-variant with its own checkpoint layout registers a dotted
+        # converter ("wan.flashvsr" → "wan_flashvsr")
+        dotted = base.replace(".", "_")
+        if dotted != family and dotted in converter_registry:
+            family = dotted
+        model = self._instantiate_family(_registry("transformer"), spec, family)
+        self._apply_loras(model, family)
+        self._apply_memory_fallback(model, spec)
+        return model
+
+    def _apply_memory_fallback(self, model, spec: Dict[str, Any]) -> None:
+        """Oversized-model fallback for one card. Modes (env
+        ``APEX_MEMORY_FALLBACK`` > the component's ``memory_fallback`` > the
+        manifest's > ``auto``): ``off``, ``int8`` (force int8 residency),
+        ``auto`` (int8 residency only when the parameters alone would take
+        three quarters of the card's free memory)."""
+        from apex_studio_tpu_torch.quantize.residency import apply_int8_residency
+        from apex_studio_tpu_torch.utils.memory import should_stream
+
+        mode = (
+            os.environ.get("APEX_MEMORY_FALLBACK")
+            or spec.get("memory_fallback")
+            or self.config.get("memory_fallback")
+            or "auto"
+        )
+        if mode in ("off", "none", "0"):
+            return
+        if mode == "int8":
+            n = apply_int8_residency(model)
+            logger.info("int8 residency forced: %d weights quantized", n)
+        elif should_stream(model, device=self.device):
+            n = apply_int8_residency(model)
+            logger.warning("model crowds the card's free memory; int8 residency applied to %d "
+                           "weights (set APEX_MEMORY_FALLBACK=off to disable)", n)
+
+    def _apply_loras(self, model, converter_family: str) -> None:
+        """Merge manifest + request-selected LoRAs into the transformer
+        weights at load time. A source that is not on disk is skipped with a
+        warning; what was merged is recorded in ``self.lora_results``."""
+        entries = list(self.config.get("loras") or [])
+        entries += list(self.selected_components.get("loras") or [])
+        if not entries:
+            return
+        from apex_studio_tpu_torch.lora.manager import LoraManager, LoraSpec
+
+        mgr = LoraManager()
+        for entry in entries:
+            spec = LoraSpec.from_manifest_entry(entry)
+            if not spec.source:
+                continue
+            try:
+                applied, skipped = mgr.load_into(model, spec, converter_family=converter_family)
+            except FileNotFoundError as e:
+                logger.warning("skipping LoRA %s: %s", spec.source, e)
+                continue
+            self.lora_results.append({"source": spec.source, "scale": spec.scale,
+                                      "applied": applied, "skipped": skipped})
 
     def _load_vae(self, spec: Dict[str, Any]):
+        from apex_studio_tpu_torch.loaders.converters import converter_registry
+
         base = spec.get("base") or "auto"
         family = "autoencoder_kl" if base in ("auto", "AutoencoderKL") else base.split(".")[0]
+        # VAE checkpoints have their own key layout: prefer a "<family>_vae" converter
+        if f"{family}_vae" in converter_registry:
+            family = f"{family}_vae"
         return self._instantiate_family(_registry("vae"), spec, family)
 
     def _load_text_encoder(self, spec: Dict[str, Any]):
@@ -299,14 +460,10 @@ def _registry(kind: str):
 def materialize_random(build, device: torch.device, seed: int, std: float = SYNTHETIC_STD):
     """Build a module on the ``meta`` device (no host allocation), give it
     storage on ``device`` and fill every floating tensor with normal(0, std)
-    from a generator on that device."""
+    from a generator on that device. No weight is quantized."""
+    from apex_studio_tpu_torch.quantize.residency import materialize_random_int8
+
     with torch.device("meta"):
         model = build()
-    model = model.to_empty(device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    with torch.no_grad():
-        for t in list(model.parameters()) + list(model.buffers()):
-            if t.is_floating_point():
-                t.normal_(0.0, std, generator=gen)
+    materialize_random_int8(model, device=device, seed=seed, scale=std, min_numel=1 << 62)
     return model.eval().requires_grad_(False)

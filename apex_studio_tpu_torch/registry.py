@@ -43,6 +43,9 @@ class Registry:
     def add(self, name: str, obj: Any, **kw: Any) -> Any:
         return self.register(name, **kw)(obj)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
     def get(self, name: Optional[str] = None) -> Any:
         key = name or self._default
         if key is None:

@@ -29,5 +29,9 @@ def get_components_path() -> Path:
     return _sub("components", "COMPONENTS_PATH")
 
 
+def get_lora_path() -> Path:
+    return _sub("loras", "LORA_PATH")
+
+
 def get_cache_path() -> Path:
     return _sub("cache", "CACHE_PATH")

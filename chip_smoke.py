@@ -13,21 +13,38 @@ Phases, each printed as one JSON line:
              each also as the time per call of 20 queued calls
   reference  a tiny Flux DiT on the card (bf16, kernels) against the same
              weights on the CPU (f32, plain versions)
+  residency  the int8 / int4 resident Linear: the int8 product exact against
+             a float64 product at Flux's shapes (1 to 4608 rows), W8A8 and
+             int4 on the card against the same module on the CPU, the LoRA
+             merges into quantized weights against numpy, and one timing line
+             per Flux Linear shape (bf16, W8A8 split into its three passes,
+             int4) beside its bounds
+  checkpoint a Flux DiT at full width (2 + 2 blocks) written in the BFL
+             single-file naming and the full Flux VAE in diffusers naming,
+             loaded back through the engine's checkpoint branch: strict, every
+             parameter bit-equal, forwards equal; then int8 residency applied
+             to the loaded DiT and W8A8 held against the dequant path
   main       Flux Dev text-to-image at 1024x1024 through UniversalEngine with
-             synthetic bf16 weights: three requests of 4 steps each, with the
-             kernels' launch counts read around each request
-  trace      (only when asked for) one more request under torch.profiler:
-             device time by kernel class and the device's idle share
-then a ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
+             synthetic int8-resident weights (W8A8) and a rank-16 LoRA on the
+             19 double blocks' q/k/v merged into them at load: three requests
+             of 4 steps each, the kernels' launch counts read around each
+  trace      (only when asked for) one more int8 request under torch.profiler:
+             device time by kernel class, by W8A8 pass, and the idle share
+  bf16       one request of 4 steps with synthetic bf16 weights
+  int4       one request of 2 steps with the DiT packed int4 (encoders int8)
+then a ``wall`` line, a ``kernels`` line, the card and, last,
+``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Run from the root of a
-checkout: ``python3 chip_smoke.py`` (``--phases kernels,timing`` for a short run,
-``--phases kernels,timing,reference,main,trace`` to add the trace).
+checkout: ``python3 chip_smoke.py`` (``--phases kernels,timing`` for a short run;
+add ``trace`` to the default list for the profile).
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
+import gc
 import json
 import math
 import os
@@ -42,6 +59,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 MANIFEST = REPO / "manifests" / "image" / "flux-dev-text-to-image.yml"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # Kernel against its plain version, bf16 on unit-normal inputs. Both limits
 # scale with the output: at Flux's shape a typical |out| is about 0.02, so a
@@ -50,7 +68,19 @@ MAX_ERR_OF_MAX_REF = 2e-2  # max|Δ| ≤ 2e-2·max|ref|, about 2.5 bf16 ulps of 
 REL_L2_TOL = 1e-2          # ‖Δ‖₂ ≤ 1e-2·‖ref‖₂
 FLUX_SHAPE = dict(b=1, s=4096 + 512, h=24, d=128)
 STEPS = 4
+SIZE = 1024
 BLOCKS = 19 + 38
+DEFAULT_PHASES = "kernels,timing,reference,residency,checkpoint,main,bf16,int4"
+LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
+# W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
+# tie may fall one int8 step apart. int4 and dequant in f32: summation order.
+# A bf16 compute dtype on the card against f32 on the CPU adds bf16's 8 bits.
+W8A8_REL_L2, F32_REL_L2, BF16_REL_L2 = 2e-3, 1e-4, 1e-2
+# W8A8 against the dequant path through 2 + 2 Flux blocks in bf16: twice the 3%
+# the JAX package's gate allows through 1 + 1 blocks in f32, since activation
+# quantization adds about 1% a matmul and the error grows with depth (weight
+# quantization alone reads 3% against the unquantized bf16 model here).
+W8A8_VS_DEQUANT = 6e-2
 PROMPT_A = "A cinematic photograph of a lighthouse on a rocky coast at golden hour"
 PROMPT_B = "An oil painting of a red fox asleep in fresh snow under pine trees"
 
@@ -309,18 +339,376 @@ def phase_reference():
           f"tiny Flux on the card disagrees with the CPU: {rel}")
 
 
+# -- int8 / int4 residency ---------------------------------------------------------------
+
+
+# rows, in, out: Flux Dev's resident Linear shapes at 1024px (image stream 4096
+# rows, text stream 512, joined 4608 in the single blocks, adaLN on 1 row)
+LINEAR_SHAPES = [
+    (4608, 3072, 3072), (4608, 3072, 12288), (4608, 15360, 3072),
+    (4096, 3072, 3072), (4096, 3072, 12288), (4096, 12288, 3072),
+    (512, 3072, 3072), (512, 3072, 12288), (512, 12288, 3072),
+    (1, 3072, 18432), (1, 3072, 9216), (1, 3072, 3072),
+]
+
+
+def resident_linear(k, n, bits, dtype, seed, device="cuda"):
+    """A ``Linear`` built on ``meta`` and filled on ``device``; ``bits`` 8 or 4
+    makes its weight resident whatever its size, ``None`` leaves it ``dtype``."""
+    import torch
+
+    from apex_studio_tpu_torch.models.layers import Linear
+    from apex_studio_tpu_torch.quantize.residency import materialize_random_int4, materialize_random_int8
+
+    with torch.device("meta"):
+        lin = Linear(k, n, dtype=dtype)
+    fill = materialize_random_int4 if bits == 4 else materialize_random_int8
+    fill(lin, device=device, seed=seed, min_numel=1 if bits else 1 << 62)
+    return lin.eval().requires_grad_(False)
+
+
+def residency_exact():
+    """(i) ``int_mm`` (``torch._int_mm`` behind the row padding) against the
+    same product in float64, where every partial sum is an integer below 2**53
+    and so exact. Also that the ``[out, in]`` weight goes in as a view: the
+    memory one call adds beyond its s32 result stays far below the weight's
+    size."""
+    import torch
+
+    from apex_studio_tpu_torch.models.layers import int_mm
+
+    g = torch.Generator("cuda").manual_seed(0)
+    cases = []
+    for k in (3072, 15360):
+        for n in (3072, 18432):
+            w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+            w64 = w.double()
+            for m in (1, 16, 17, 512, 4608):
+                a = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+                int_mm(a, w)  # the library's workspace, if it takes one, is taken here
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                out = int_mm(a, w)
+                torch.cuda.synchronize()
+                added = torch.cuda.max_memory_allocated() - before
+                exact = (out.dtype == torch.int32 and tuple(out.shape) == (m, n)
+                         and torch.equal(out.double(), a.double() @ w64.t()))
+                beyond_output = added - 4 * max(m, 32 if m <= 16 else m) * n  # the s32 result, padded rows too
+                cases.append({"m": m, "k": k, "n": n, "exact": bool(exact), "bytes_added": added,
+                              "bytes_beyond_output": beyond_output, "weight_bytes": w.numel(),
+                              "weight_copied": beyond_output >= w.numel() // 2})
+                del out
+            del w, w64
+    emit({"phase": "residency", "check": "int_mm_exact", "reference": "float64 product", "cases": cases})
+    check(all(c["exact"] for c in cases),
+          f"int_mm is not exact at {[(c['m'], c['k'], c['n']) for c in cases if not c['exact']]}")
+    check(not any(c["weight_copied"] for c in cases), "int_mm copies the weight")
+
+
+def residency_against_cpu():
+    """(ii) W8A8 and int4 Linears on the card against the same weights on the
+    CPU in f32, at one row, 64 rows and a 3-D input."""
+    import torch
+
+    from apex_studio_tpu_torch.quantize.residency import apply_int4_residency, apply_int8_residency
+
+    cases = []
+    for bits in (8, 4):
+        for shape, k, n in (((1,), 3072, 18432), ((64,), 3072, 3072), ((2, 40), 12288, 3072)):
+            cpu = resident_linear(k, n, None, torch.float32, seed=bits + k, device="cpu")
+            (apply_int4_residency if bits == 4 else apply_int8_residency)(cpu, min_numel=1)
+            g = torch.Generator().manual_seed(n)
+            x = torch.randn(*shape, k, generator=g).to(torch.bfloat16)
+            with torch.inference_mode():
+                ref = cpu(x.float())
+            for dtype, tol in ((torch.float32, W8A8_REL_L2 if bits == 8 else F32_REL_L2),
+                               (torch.bfloat16, BF16_REL_L2)):
+                card = resident_linear(k, n, None, dtype, seed=0)
+                card.set_quantized(cpu.weight.cuda(), cpu.weight_scale.cuda(), bits)
+                card.bias.data.copy_(cpu.bias)
+                with torch.inference_mode():
+                    out = card(x.cuda())
+                torch.cuda.synchronize()
+                rel = rel_l2(out.cpu(), ref)
+                cases.append({"bits": bits, "x": [*shape, k], "out": n, "compute": str(dtype)[6:],
+                              "rel_l2": rel, "tol": tol, "max_abs_err": (out.cpu().float() - ref).abs().max().item(),
+                              "ok": out.dtype == dtype and tuple(out.shape) == (*shape, n) and rel <= tol})
+    emit({"phase": "residency", "check": "linear_card_vs_cpu_f32", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    check(not bad, f"resident Linear on the card disagrees with the CPU: {bad}")
+
+
+def residency_merges():
+    """(iii) ``_merge8`` / ``_merge4`` on the card against the same arithmetic
+    in numpy: scales to 1e-6 relative, values equal in 99.9% of entries and
+    never more than one step apart."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.lora.manager import _merge4, _merge8
+
+    rng = np.random.default_rng(0)
+    n, k = 3072, 3072
+    d = (rng.normal(size=(n, LORA_RANK)).astype(np.float32) * 0.01) @ (
+        rng.normal(size=(LORA_RANK, k)).astype(np.float32) * 0.01) * np.float32(LORA_SCALE)
+    s8 = np.full(n, 0.02 / np.sqrt(k) / 127, np.float32)
+    q8 = rng.integers(-127, 128, size=(n, k), dtype=np.int8)
+    packed = rng.integers(0, 256, size=(n // 2, k), dtype=np.uint8)
+    s4 = np.full(n, 0.02 / np.sqrt(k) / 7, np.float32)
+
+    def requantize(w, qmax, lo):
+        absmax = np.abs(w).max(axis=1)
+        new_s = np.where(absmax == 0, 1.0, absmax / np.float32(qmax)).astype(np.float32)
+        return np.clip(np.rint(w / new_s[:, None]), lo, qmax).astype(np.int16), new_s
+
+    ref8, ref_s8 = requantize(q8.astype(np.float32) * s8[:, None] + d, 127, -127)
+    planes = np.concatenate([(packed & 0xF).astype(np.int8) - 8, (packed >> 4).astype(np.int8) - 8])
+    ref4, ref_s4 = requantize(planes.astype(np.float32) * s4[:, None] + d, 7, -8)
+
+    cuda = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    new8, new_s8 = _merge8(cuda(q8), cuda(s8), cuda(d))
+    new4, new_s4 = _merge4(cuda(packed), cuda(s4), cuda(d))
+    torch.cuda.synchronize()
+    got4 = torch.cat([(new4 & 0xF).to(torch.int16) - 8, (new4 >> 4).to(torch.int16) - 8]).cpu().numpy()
+    rows = []
+    for name, got, ref, got_s, ref_s in (("merge8", new8.cpu().numpy().astype(np.int16), ref8, new_s8, ref_s8),
+                                         ("merge4", got4, ref4, new_s4, ref_s4)):
+        scale_err = float(np.abs(got_s.cpu().numpy() / ref_s - 1).max())
+        equal, worst = float((got == ref).mean()), int(np.abs(got - ref).max())
+        rows.append({"merge": name, "shape": [n, k], "equal_share": equal, "max_step_diff": worst,
+                     "scale_rel_err": scale_err, "ok": equal >= 0.999 and worst <= 1 and scale_err <= 1e-6})
+    emit({"phase": "residency", "check": "lora_merge_card_vs_numpy", "cases": rows})
+    check(all(r["ok"] for r in rows), f"quantized LoRA merge disagrees with numpy: {rows}")
+
+
+def residency_timing():
+    """(iv) One line per Flux Linear shape: bf16 ``F.linear``, W8A8 whole and
+    by pass, int4. Each is the time per call of 20 queued calls; the weight
+    rotates through enough copies to exceed the 50 MB L2, as in the model,
+    where every call has its own weight."""
+    import torch
+
+    from apex_studio_tpu_torch.models.layers import int_mm, quantize_rows, rescale
+
+    def rotating(mods, fn):
+        turn = [0]
+
+        def call():
+            turn[0] += 1
+            return fn(mods[turn[0] % len(mods)])
+        return call
+
+    rows = []
+    for m, k, n in LINEAR_SHAPES:
+        copies = min(8, max(2, -(-100_000_000 // (k * n))))
+        plain, w8, w4 = ([resident_linear(k, n, bits, torch.bfloat16, seed=i) for i in range(copies)]
+                         for bits in (None, 8, 4))
+        g = torch.Generator("cuda").manual_seed(m)
+        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        with torch.inference_mode():
+            xq, sx = quantize_rows(x)
+            acc = int_mm(xq, w8[0].weight)
+            t = {
+                "bf16_ms": queued_ms(rotating(plain, lambda lin: lin(x))),
+                "w8a8_ms": queued_ms(rotating(w8, lambda lin: lin(x))),
+                "w8a8_quantize_ms": queued_ms(lambda: quantize_rows(x)),
+                "w8a8_int_mm_ms": queued_ms(rotating(w8, lambda lin: int_mm(xq, lin.weight))),
+                "w8a8_rescale_ms": queued_ms(lambda: rescale(acc, sx, w8[0].weight_scale, torch.bfloat16)),
+                "w4_ms": queued_ms(rotating(w4, lambda lin: lin(x))),
+            }
+        ops = 2.0 * m * k * n
+        io = 2 * m * k + 2 * m * n + 2 * n  # x in, y out, bias: bf16
+        bounds = {}
+        for name, peak, weight_bytes in (("bf16", PEAK_BF16_FLOPS, 2 * k * n),
+                                         ("int8", PEAK_INT8_OPS, k * n + 4 * n),
+                                         ("int4", PEAK_BF16_FLOPS, k * n // 2 + 4 * n)):
+            t_ops, t_bytes = ops / peak * 1e3, (io + weight_bytes) / PEAK_BYTES * 1e3
+            bounds[f"{name}_bound_ms"] = max(t_ops, t_bytes)
+            bounds[f"{name}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        row = {"phase": "residency", "check": "linear_timing", "rows": m, "in": k, "out": n,
+               "weight_copies": copies, **t, **bounds,
+               "int8_tops_achieved": ops / t["w8a8_int_mm_ms"] / 1e9,
+               "bf16_tflops_achieved": ops / t["bf16_ms"] / 1e9}
+        emit(row)
+        rows.append(row)
+        del plain, w8, w4, x, xq, sx, acc
+        release()
+    return rows
+
+
+def phase_residency():
+    residency_exact()
+    release()
+    residency_against_cpu()
+    residency_merges()
+    release()
+    return residency_timing()
+
+
+# -- checkpoints -------------------------------------------------------------------------
+
+
+def phase_checkpoint(home: Path):
+    """Write a Flux DiT (full width, 2 double + 2 single blocks, bf16) in the
+    BFL single-file naming and the full Flux VAE (f32) in diffusers naming,
+    then load both through the engine's checkpoint branch."""
+    import torch
+    import yaml
+
+    from apex_studio_tpu_torch.engine import UniversalEngine
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.loaders.export import flux_bfl_state_dict, published_state_dict
+    from apex_studio_tpu_torch.loaders.safetensors_io import safetensors_keys, save_safetensors
+    from apex_studio_tpu_torch.models.transformers.flux import FluxConfig, FluxTransformer2DModel
+    from apex_studio_tpu_torch.models.vaes.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
+    from apex_studio_tpu_torch.quantize.residency import apply_int8_residency
+
+    root = home / "checkpoint"
+    root.mkdir()
+    depth = {"num_layers": 2, "num_single_layers": 2}
+    dit = materialize_random(lambda: FluxTransformer2DModel(FluxConfig(**depth), dtype=torch.bfloat16),
+                             torch.device("cuda"), seed=11)
+    vae = materialize_random(lambda: AutoencoderKL(AutoencoderKLConfig(), dtype=torch.float32),
+                             torch.device("cuda"), seed=12)
+    t0 = time.perf_counter()
+    save_safetensors(root / "flux1-dev.safetensors", flux_bfl_state_dict(dit.state_dict()))
+    save_safetensors(root / "vae.safetensors", published_state_dict("autoencoder_kl", vae.state_dict()))
+    write_s = time.perf_counter() - t0
+    keys = safetensors_keys(root / "flux1-dev.safetensors")
+    check("model.diffusion_model.double_blocks.0.img_attn.qkv.weight" in keys
+          and "model.diffusion_model.single_blocks.1.linear1.weight" in keys,
+          "the DiT checkpoint is not in the BFL single-file naming")
+
+    doc = yaml.safe_load(MANIFEST.read_text())
+    for comp in doc["spec"]["components"]:
+        if comp["type"] == "transformer":
+            comp.pop("config_path", None)
+            comp.update(config=dict(depth), model_path=str(root / "flux1-dev.safetensors"))
+        elif comp["type"] == "vae":
+            comp.pop("config_path", None)
+            comp.update(config={"latent_channels": 16}, precision="fp32",
+                        model_path=str(root / "vae.safetensors"))
+    (root / "manifest.yml").write_text(yaml.safe_dump(doc))
+
+    os.environ.pop("APEX_SYNTHETIC_WEIGHTS", None)  # the checkpoint branch
+    os.environ["APEX_HOME_DIR"] = str(root)
+    engine = UniversalEngine(root / "manifest.yml", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.load_component_by_type("transformer")  # strict: raises on a missing or unexpected key
+    engine.load_component_by_type("vae")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def same_state(loaded, source, name):
+        got, want = loaded.state_dict(), source.state_dict()
+        check(sorted(got) == sorted(want), f"{name}: loaded keys differ from the written module's")
+        wrong = [k for k in want if got[k].dtype != want[k].dtype or got[k].device != want[k].device
+                 or not torch.equal(got[k], want[k])]
+        check(not wrong, f"{name}: parameters differ after loading: {wrong[:5]}")
+        return len(want), sum(t.numel() for t in want.values())
+
+    n_dit, params_dit = same_state(engine.transformer, dit, "DiT")
+    n_vae, params_vae = same_state(engine.vae, vae, "VAE")
+
+    g = torch.Generator("cuda").manual_seed(3)
+    rand = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    args = (rand(1, 4096, 64), rand(1, 512, 4096), rand(1, 768),
+            torch.tensor([0.7], device="cuda"), torch.tensor([3.5], device="cuda"))
+    z = rand(1, 16, 32, 32)
+    with torch.inference_mode():
+        direct = dit(*args, grid_hw=(64, 64))
+        loaded = engine.transformer(*args, grid_hw=(64, 64))
+        vae_same = torch.equal(engine.vae.decode(z), vae.decode(z))
+        dit_same = torch.equal(loaded, direct)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident = apply_int8_residency(engine.transformer)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        w8a8 = engine.transformer(*args, grid_hw=(64, 64))
+        os.environ["APEX_INT8_COMPUTE"] = "0"
+        try:
+            dequant = engine.transformer(*args, grid_hw=(64, 64))
+        finally:
+            del os.environ["APEX_INT8_COMPUTE"]
+    torch.cuda.synchronize()
+    row = {"phase": "checkpoint", "dit_tensors": n_dit, "dit_parameters": params_dit,
+           "vae_tensors": n_vae, "vae_parameters": params_vae, "file_keys": len(keys),
+           "file_gib": (root / "flux1-dev.safetensors").stat().st_size / 2**30,
+           "seconds_write": write_s, "seconds_load": load_s, "parameters_bit_equal": True,
+           "dit_forward_equal": dit_same, "vae_decode_equal": vae_same,
+           "int8_resident_weights": resident, "seconds_int8_residency": quantize_s,
+           "finite": bool(torch.isfinite(w8a8.float()).all()),
+           "w8a8_vs_dequant_rel_l2": rel_l2(w8a8, dequant), "tol": W8A8_VS_DEQUANT,
+           "w8a8_vs_bf16_rel_l2": rel_l2(w8a8, direct), "dequant_vs_bf16_rel_l2": rel_l2(dequant, direct)}
+    emit(row)
+    check(dit_same, "the loaded DiT's forward differs from the written module's")
+    check(vae_same, "the loaded VAE's decode differs from the written module's")
+    check(resident > 0 and row["finite"], "int8 residency of the loaded DiT failed")
+    check(row["w8a8_vs_dequant_rel_l2"] <= W8A8_VS_DEQUANT,
+          f"W8A8 is {row['w8a8_vs_dequant_rel_l2']} from the dequant path")
+    shutil.rmtree(root, ignore_errors=True)
+    del engine, dit, vae, direct, loaded, w8a8, dequant
+    release()
+
+
 # -- main path ---------------------------------------------------------------------------
 
 
-def phase_main():
+def rel_l2(out, ref) -> float:
+    import torch
+
+    return (torch.linalg.vector_norm(out.float() - ref.float())
+            / torch.linalg.vector_norm(ref.float())).item()
+
+
+def release() -> None:
+    """Hand the memory of what the caller has dropped back to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def write_flux_lora(path: Path) -> int:
+    """A rank-16 PEFT-named LoRA on q/k/v of the 19 double blocks (57
+    adapters), seeded; returns the adapter count."""
+    import numpy as np
+
+    from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
+
+    rng = np.random.default_rng(0)
+    sd = {}
+    for i in range(LORA_BLOCKS):
+        for proj in ("to_q", "to_k", "to_v"):
+            base = f"transformer_blocks.{i}.attn.{proj}"
+            sd[f"{base}.lora_A.weight"] = rng.normal(size=(LORA_RANK, 3072)).astype(np.float32) * 0.01
+            sd[f"{base}.lora_B.weight"] = rng.normal(size=(3072, LORA_RANK)).astype(np.float32) * 0.01
+    save_safetensors(path, sd)
+    return len(sd) // 2
+
+
+def drive(label: str, weights: str, requests, steps: int, home: Path, lora: Path = None,
+          tally_request: int = None):
+    """Requests through ``UniversalEngine`` with synthetic ``weights``
+    (``bf16`` / ``int8`` / ``int4``), each with the kernels' launch counts set
+    to 0 before and read after. ``lora`` goes in as a request LoRA and is
+    merged when the transformer loads. Request ``tally_request`` (1-based)
+    counts the transformer's Linear calls by shape through forward hooks."""
     import numpy as np
     import torch
 
     from apex_studio_tpu_torch.engine import UniversalEngine
+    from apex_studio_tpu_torch.models.layers import Linear
     from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+    from apex_studio_tpu_torch.quantize.residency import count_resident
 
-    os.environ["APEX_SYNTHETIC_WEIGHTS"] = "bf16"
-    engine = UniversalEngine(MANIFEST, device="cuda")
+    os.environ["APEX_SYNTHETIC_WEIGHTS"] = weights
+    os.environ["APEX_HOME_DIR"] = str(home / label)  # its own T5 disk cache
+    selected = {"loras": [{"source": str(lora), "scale": LORA_SCALE}]} if lora else None
+    engine = UniversalEngine(MANIFEST, device="cuda", selected_components=selected)
     tok = make_tokenizer()
     for spec in engine.component_specs.values():
         if spec.get("type") == "text_encoder":
@@ -338,7 +726,17 @@ def phase_main():
 
     engine.vae.decode = observed_decode
 
-    requests = [(PROMPT_A, 0), (PROMPT_B, 1), (PROMPT_A, 0)]
+    apply_loras, lora_seconds = engine._apply_loras, []
+
+    def timed_apply_loras(model, family):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply_loras(model, family)
+        torch.cuda.synchronize()
+        lora_seconds.append(time.perf_counter() - t0)
+
+    engine._apply_loras = timed_apply_loras
+
     results, frames_out = [], []
     for i, (prompt, seed) in enumerate(requests):
         stamps = {}
@@ -347,44 +745,85 @@ def phase_main():
             torch.cuda.synchronize()
             stamps.setdefault(message, time.perf_counter())
 
+        tally, hooks = {}, []
+        if tally_request == i + 1 and engine.transformer is not None:
+            def count(mod, args, out):
+                x = args[0]
+                mode = "bf16" if mod.weight_scale is None else f"int{mod.weight_bits}"
+                key = (x.numel() // x.shape[-1], x.shape[-1], out.shape[-1], mode)
+                tally[key] = tally.get(key, 0) + 1
+
+            hooks = [m.register_forward_hook(count) for m in engine.transformer.modules()
+                     if isinstance(m, Linear)]
         latents_finite.clear()
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launches = 0
         t0 = time.perf_counter()
-        frames = engine.run(prompt=prompt, height=1024, width=1024, num_inference_steps=STEPS,
+        frames = engine.run(prompt=prompt, height=SIZE, width=SIZE, num_inference_steps=steps,
                             guidance_scale=3.5, seed=seed, progress_callback=progress)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         launches = flash_attention.launches
+        for h in hooks:
+            h.remove()
 
-        step_t = [stamps[f"Denoising step {j}/{STEPS}"] for j in range(1, STEPS + 1)]
-        steps = [b - a for a, b in zip([stamps["Timesteps computed"]] + step_t[:-1], step_t)]
+        step_t = [stamps[f"Denoising step {j}/{steps}"] for j in range(1, steps + 1)]
+        per_step = [b - a for a, b in zip([stamps["Timesteps computed"]] + step_t[:-1], step_t)]
         row = {
-            "phase": "main", "request": i + 1, "prompt": prompt[:40], "seed": seed,
+            "phase": label, "weights": weights, "request": i + 1, "prompt": prompt[:40], "seed": seed,
             "seconds_total": total,
             "seconds_encode": stamps["Encoded prompts"] - stamps["Encoding prompts"],
             "seconds_load_transformer": stamps["Initialized latent noise"] - stamps["Encoded prompts"],
-            "seconds_per_step": steps,
+            "seconds_per_step": per_step,
             "seconds_decode": stamps["Completed t2i pipeline"] - stamps["Denoising complete"],
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "flash_launches": launches, "flash_launches_expected": BLOCKS * STEPS,
+            "flash_launches": launches, "flash_launches_expected": BLOCKS * steps,
             "frames": [list(f.shape) for f in frames], "latents_finite": latents_finite,
             "card": torch.cuda.get_device_name(0),
         }
+        if hooks:
+            row["linear_hooks_on"] = True  # this request's step times carry the hooks' host cost
+            row["linear_calls_per_step"] = [
+                {"rows": m, "in": k, "out": n, "weights": mode, "calls": c / steps}
+                for (m, k, n, mode), c in sorted(tally.items(), key=lambda kv: -kv[1])]
+        if i == 0:
+            row["resident_weights"] = count_resident(engine.transformer)
+            row["seconds_lora_merge"] = sum(lora_seconds)
+            row["loras"] = [{"scale": r["scale"], "applied": r["applied"], "skipped": len(r["skipped"])}
+                            for r in engine.lora_results]
         emit(row)
-        check(len(frames) == 1 and frames[0].shape == (1024, 1024, 3) and frames[0].dtype == np.uint8,
-              f"request {i + 1}: bad frames {row['frames']}")
-        check(latents_finite == [True], f"request {i + 1}: latents not finite")
-        check(launches == BLOCKS * STEPS,
-              f"request {i + 1}: flash launched {launches} times, expected {BLOCKS * STEPS}")
+        check(len(frames) == 1 and frames[0].shape == (SIZE, SIZE, 3) and frames[0].dtype == np.uint8,
+              f"{label} request {i + 1}: bad frames {row['frames']}")
+        check(latents_finite == [True], f"{label} request {i + 1}: latents not finite")
+        check(launches == BLOCKS * steps,
+              f"{label} request {i + 1}: flash launched {launches} times, expected {BLOCKS * steps}")
         results.append(row)
         frames_out.append(frames[0])
-    same = bool(np.array_equal(frames_out[0], frames_out[2]))
-    differ = not np.array_equal(frames_out[0], frames_out[1])
-    emit({"phase": "main", "requests_1_3_identical": same, "requests_1_2_differ": differ})
+    return results, frames_out, engine
+
+
+def phase_main(home: Path):
+    """The main path: int8-resident weights computed W8A8, a rank-16 LoRA
+    merged into them at load, three requests."""
+    import numpy as np
+
+    lora = home / "style_rank16.safetensors"
+    adapters = write_flux_lora(lora)
+    rows, frames, engine = drive("main", "int8", [(PROMPT_A, 0), (PROMPT_B, 1), (PROMPT_A, 0)],
+                                 STEPS, home, lora=lora, tally_request=2)
+    first = rows[0]
+    check(first["loras"] == [{"scale": LORA_SCALE, "applied": adapters, "skipped": 0}] and adapters == 57,
+          f"LoRA merge: {first['loras']}, expected {adapters} applied and 0 skipped")
+    check(first["resident_weights"] > 0, "no weight of the transformer is int8-resident")
+    quantized_calls = sum(c["calls"] for c in rows[1]["linear_calls_per_step"] if c["weights"] == "int8")
+    check(quantized_calls > 0, "the main path ran no int8 Linear")
+    same = bool(np.array_equal(frames[0], frames[2]))
+    differ = not np.array_equal(frames[0], frames[1])
+    emit({"phase": "main", "requests_1_3_identical": same, "requests_1_2_differ": differ,
+          "int8_linear_calls_per_step": quantized_calls})
     check(same, "requests 1 and 3 (same prompt and seed) differ")
     check(differ, "requests 1 and 2 (other prompt and seed) are identical")
-    return results, engine
+    return rows, engine
 
 
 def kernel_class(name: str) -> str:
@@ -397,26 +836,56 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def phase_trace(engine):
-    """One more request (prompt A, seed 0: T5 from the disk cache, latents
-    returned, no decode) under torch.profiler: device time by kernel class,
-    the top kernels, and the device's idle share between its first and last
-    kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+W8A8_PASSES = ("quantize_rows", "int_mm", "rescale")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.run(prompt=PROMPT_A, height=1024, width=1024, num_inference_steps=STEPS,
-                   guidance_scale=3.5, seed=0, return_latents=True)
-        torch.cuda.synchronize()
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+def phase_trace(engine):
+    """One more request on the main path's engine (prompt A, seed 0: T5 from
+    the disk cache, latents returned, no decode) under torch.profiler: device
+    time by kernel class, by W8A8 pass (each pass of models/layers.py runs
+    inside a named profiler range for the length of this phase, and a kernel
+    that starts inside a range counts for that pass), the top kernels, and the
+    device's idle share between its first and last kernel."""
+    import functools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from apex_studio_tpu_torch.models import layers
+
+    def ranged(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with record_function(f"w8a8.{name}"):
+                return fn(*args, **kwargs)
+        return call
+
+    passes = {name: getattr(layers, name) for name in W8A8_PASSES}
+    try:
+        for name, fn in passes.items():
+            setattr(layers, name, ranged(name, fn))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.run(prompt=PROMPT_A, height=SIZE, width=SIZE, num_inference_steps=STEPS,
+                       guidance_scale=3.5, seed=0, return_latents=True)
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in passes.items():
+            setattr(layers, name, fn)
+    device = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a named range shows on the device too, from its first kernel to its last
+    ranges = sorted((start, end, name) for name, start, end in device if name.startswith("w8a8."))
+    spans = [d for d in device if not d[0].startswith("w8a8.")]
     if not spans:
         emit({"phase": "trace", "result": "not measured: the profiler recorded no device kernel"})
         return
+    starts = [r[0] for r in ranges]
     by_class, by_name = {}, {}
     for name, start, end in spans:
         c = kernel_class(name)
+        i = bisect.bisect_right(starts, start + 0.5) - 1  # timestamps are microseconds
+        if i >= 0 and start < ranges[i][1] + 0.5:
+            c = ranges[i][2]  # launched by a W8A8 pass, whatever the kernel
         by_class[c] = by_class.get(c, 0.0) + (end - start)
         n, total = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, total + (end - start))
@@ -429,10 +898,13 @@ def phase_trace(engine):
             busy += end - last
             last = end
     window = max(e for _, _, e in spans) - min(s for _, s, _ in spans)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    emit({"phase": "trace", "window_ms": window / 1e3, "busy_ms": busy / 1e3,
-          "idle_share": 1.0 - busy / window,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]
+    emit({"phase": "trace", "weights": os.environ.get("APEX_SYNTHETIC_WEIGHTS"),
+          "window_ms": window / 1e3, "busy_ms": busy / 1e3,
+          "idle_share": 1.0 - busy / window, "kernels": len(spans),
+          "w8a8_ranges_on_device": len(ranges),
           "ms_by_class": {c: t / 1e3 for c, t in sorted(by_class.items())},
+          "share_of_busy": {c: t / busy for c, t in sorted(by_class.items())},
           "top_kernels": [{"name": n[:90], "calls": c, "ms": t / 1e3} for n, (c, t) in top]})
 
 
@@ -459,7 +931,7 @@ def ptxas_report(log: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,timing,reference,main")
+    ap.add_argument("--phases", default=DEFAULT_PHASES)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -475,6 +947,15 @@ def main() -> int:
     (REPO / "build").mkdir(exist_ok=True)
     home = Path(tempfile.mkdtemp(prefix="smoke_home_", dir=REPO / "build"))
     os.environ["APEX_HOME_DIR"] = str(home)
+    wall_start, wall = time.perf_counter(), {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
     try:
         card = card_line()
         from apex_studio_tpu_torch.ops.attention import flash as flash_mod
@@ -491,21 +972,47 @@ def main() -> int:
         check(bool(ptxas["functions"]), "the build log names no kernel")
         spilled = [f["name"] for f in ptxas["functions"] if f["spill_bytes"]]
         check(not spilled, f"ptxas spilled registers in {spilled}")
-        flux_err = phase_kernels() if "kernels" in phases else None
-        timing = phase_timing() if "timing" in phases else None
+        flux_err = timed("kernels", phase_kernels) if "kernels" in phases else None
+        timing = timed("timing", phase_timing) if "timing" in phases else None
         if "reference" in phases:
-            phase_reference()
-        main_rows, engine = phase_main() if "main" in phases else ([], None)
-        if "trace" in phases:
-            check(engine is not None, "the trace phase runs after the main phase")
-            phase_trace(engine)
-        launches = sum(r["flash_launches"] for r in main_rows)
+            timed("reference", phase_reference)
+        if "residency" in phases:
+            timed("residency", phase_residency)
+        if "checkpoint" in phases:
+            timed("checkpoint", phase_checkpoint, home)
+        # The paths through the engine, each request with the launch count set
+        # to 0 just before it and read just after.
+        paths = {}
+        if "main" in phases:
+            paths["main_int8_lora"], engine = timed("main", phase_main, home)
+            if "trace" in phases:
+                timed("trace", phase_trace, engine)
+            del engine
+            release()
+        else:
+            check("trace" not in phases, "the trace phase runs after the main phase")
+        if "bf16" in phases:
+            paths["bf16"] = timed("bf16", drive, "bf16", "bf16", [(PROMPT_A, 0)], STEPS, home)[0]
+            release()
+        if "int4" in phases:
+            paths["int4"] = timed("int4", drive, "int4", "int4", [(PROMPT_A, 0)], 2, home)[0]
+            release()
+        if len(paths) > 1:
+            emit({"phase": "steps", "median_seconds_per_step_after_the_first": {
+                name: statistics.median(t for r in rows if not r.get("linear_hooks_on")
+                                        for t in r["seconds_per_step"][1:])
+                for name, rows in paths.items()}})
+        by_path = {name: sum(r["flash_launches"] for r in rows) for name, rows in paths.items()}
+        steps_run = sum(len(r["seconds_per_step"]) for rows in paths.values() for r in rows)
+        launches = sum(by_path.values())
+        emit({"phase": "wall", "seconds": time.perf_counter() - wall_start, "limit_seconds": 1200,
+              "seconds_by_phase": wall})
         emit({"kernels": [{
             "name": "flash_attention", "route": "cuda",
             "source": "apex_studio_tpu_torch/csrc/flash_attn.cu",
             "replaces": "apex_studio_tpu/ops/attention/pallas_flash.py:218",
-            "launches": launches,
-            "launches_per_step": launches // (STEPS * len(main_rows)) if main_rows else None,
+            "launches": launches, "launches_by_path": by_path,
+            "launches_per_step": launches // steps_run if steps_run else None,
             "max_abs_err": flux_err,
             "ms": timing and timing["ms"], "plain_ms": timing and timing["plain_ms"],
             "bound_ms": timing and timing["bound_ms"], "bound_by": timing and timing["bound_by"],

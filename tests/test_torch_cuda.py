@@ -92,3 +92,53 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :32], q[..., :32], q[..., :32])
+
+
+# -- int8 / int4 resident Linear -------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 17, 40])
+def test_int_mm_small_m_is_exact(m, cuda):
+    """``torch._int_mm`` on the card refuses 16 rows or fewer; ``int_mm`` pads
+    them with zero rows and slices, which changes no value."""
+    from apex_studio_tpu_torch.models.layers import int_mm
+
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, 256), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (64, 256), generator=g, dtype=torch.int8)
+    out = int_mm(a.to(cuda), w.to(cuda))
+    assert out.dtype == torch.int32 and tuple(out.shape) == (m, 64)
+    assert torch.equal(out.cpu().long(), a.long() @ w.long().t())
+
+
+@pytest.mark.cuda
+def test_int_mm_rejects_k_not_multiple_of_8(cuda):
+    from apex_studio_tpu_torch.models.layers import int_mm
+
+    a = torch.zeros(32, 63, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int_mm(a, torch.zeros(8, 63, dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape", [(1, 512), (2, 33, 512)], ids=["row_1", "batch_2x33"])
+def test_resident_linear_matches_the_cpu(bits, shape, cuda):
+    """The same resident Linear on the card and on the CPU, f32 compute:
+    ‖Δ‖₂ ≤ 1e-4·‖ref‖₂ for int4 (two f32 products summed in another order) and
+    2e-3 for W8A8 (``x / sx`` on a rounding tie may fall one step apart)."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.layers import Linear
+    from apex_studio_tpu_torch.quantize.residency import apply_int4_residency, apply_int8_residency
+
+    lin = materialize_random(lambda: Linear(512, 384, dtype=torch.float32), torch.device("cpu"), seed=bits)
+    assert (apply_int4_residency if bits == 4 else apply_int8_residency)(lin, min_numel=1) == 1
+    on_card = materialize_random(lambda: Linear(512, 384, dtype=torch.float32), cuda, seed=0)
+    on_card.set_quantized(lin.weight.to(cuda), lin.weight_scale.to(cuda), bits)
+    on_card.bias.data.copy_(lin.bias)
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+    ref, out = lin(x), on_card(x.to(cuda)).cpu()
+    assert out.shape == ref.shape
+    rel = (torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)).item()
+    assert rel <= (1e-4 if bits == 4 else 2e-3), rel
