@@ -1,5 +1,6 @@
 """BaseEngine — manifest-driven pipeline base (port of
-``apex_studio_tpu/engine/base.py``, the parts the Flux t2i path runs).
+``apex_studio_tpu/engine/base.py``, the parts the Flux t2i and HunyuanVideo
+1.5 paths run).
 
 - parses the normalized manifest config and resolves component paths
 - instantiates components lazily on ``self.device``: the scheduler from its
@@ -12,6 +13,8 @@
   int4 residency (quantize/residency.py)
 - LoRAs of the manifest and the request merged into the transformer at load,
   and int8 residency as the fallback for a model that crowds the card
+- helper components (``load_helper``), the disk-cached VAE encode of
+  conditioning pixels, previews through a light TAE decoder, image inputs
 - the seed→latent contract (CPU ``torch.Generator``), timestep handling and
   frame post-processing
 """
@@ -65,10 +68,10 @@ def select_variant(model_path: Union[str, List[Dict[str, Any]], None],
 
 
 def configure_float32_matmul() -> None:
-    """Float32 matmuls and convolutions run in full f32, not TF32. The VAE
-    runs in f32 (manifest precision) and is compared with the JAX package in
-    f32; TF32 keeps ~3 decimal digits and cuDNN would use it for f32 convs by
-    default. The bf16 DiT and encoders are unaffected by either flag."""
+    """Float32 matmuls and convolutions run in full f32, not TF32: the plain
+    attention routes and norms compute in f32, and a component built in f32
+    is compared with the JAX package in f32. TF32 keeps ~3 decimal digits.
+    The bf16 DiTs and encoders are unaffected by either flag."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -105,6 +108,7 @@ class BaseEngine:
         self.transformer = None
         self.vae = None
         self.text_encoder = None
+        self.helpers: Dict[str, Any] = {}
         # one entry per LoRA merged at transformer load: source, scale, applied, skipped
         self.lora_results: List[Dict[str, Any]] = []
 
@@ -391,6 +395,143 @@ class BaseEngine:
         from apex_studio_tpu_torch.text_encoder import TextEncoder
 
         return TextEncoder(self, spec)
+
+    def load_helper(self, name: str):
+        """Load a helper component (an auxiliary encoder) by its manifest
+        name, else the manifest's first helper; kept in ``self.helpers``."""
+        if name in self.helpers:
+            return self.helpers[name]
+        spec = self.component_specs.get(name)
+        if spec is None:
+            spec = next((s for s in self.component_specs.values() if s.get("type") == "helper"), None)
+        if spec is None:
+            raise KeyError(f"manifest has no helper component named {name!r}")
+        base = spec.get("base") or ""
+        family = "siglip" if "siglip" in base.lower() else base.split(".")[0].lower()
+        model = self._instantiate_family(_registry("text_encoder"), spec, family)
+        self.helpers[name] = model
+        return model
+
+    # -- cached conditioning encode ------------------------------------------------
+
+    @torch.inference_mode()
+    def encode_video_latents(self, video) -> torch.Tensor:
+        """VAE encode of conditioning pixels ``video`` ([B,3,T,H,W] in [-1, 1])
+        on the engine's device, with a disk cache keyed by the VAE's config,
+        the shape and the pixels' f32 bytes: a repeat run skips the encoder."""
+        import dataclasses
+        import hashlib
+
+        from apex_studio_tpu_torch.utils.disk_cache import EmbeddingCache
+
+        arr = np.ascontiguousarray(np.asarray(torch.as_tensor(video).float().cpu()), np.float32)
+        cfg = getattr(self.vae, "cfg", None)
+        cache = EmbeddingCache("vae_encode")
+        payload = {
+            "fn": "vae_encode",
+            "vae": dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else {},
+            "shape": list(arr.shape),
+            "sha": hashlib.sha256(arr.tobytes()).hexdigest(),
+        }
+        hit = cache.load(payload)
+        if hit is not None and hit[0].dtype.kind in "fiu":
+            return torch.from_numpy(np.asarray(hit[0], np.float32)).to(self.device)
+        out = self.vae.encode(torch.from_numpy(arr).to(self.device)).float()
+        cache.store(payload, out.cpu().numpy())
+        return out
+
+    # -- light preview decode ------------------------------------------------------
+
+    def _get_preview_vae(self):
+        """The TAEHV "light VAE" for cheap previews, declared in the VAE
+        component's config as ``light_vae_path`` (+ ``light_vae_config``).
+        None when not declared, or when its file is absent outside
+        synthetic-weight mode (then a big run previews nothing); in that mode
+        an absent file makes a random TAE.
+
+        Unlike the JAX package, a ``light_vae_config`` without a
+        ``light_vae_path`` raises outside synthetic-weight mode: there the JAX
+        engine previews through a randomly initialised TAE, which shows noise.
+        A file that is present but does not load raises too."""
+        if hasattr(self, "_preview_vae_cache"):
+            return self._preview_vae_cache
+        spec = self._spec_for_type("vae")
+        cfg_dict = dict(spec.get("config") or {}) if spec and isinstance(spec.get("config"), dict) else {}
+        if spec and isinstance(spec.get("extra_kwargs"), dict):
+            cfg_dict.update(spec["extra_kwargs"])
+        path, light_cfg = cfg_dict.get("light_vae_path"), cfg_dict.get("light_vae_config")
+        synthetic = bool(os.environ.get("APEX_SYNTHETIC_WEIGHTS", ""))
+        model = None
+        if path or light_cfg is not None:
+            from apex_studio_tpu_torch.models.vaes.tae_vae import TAEConfig, TAEVAE
+
+            cfg = TAEConfig.from_dict(light_cfg or {})
+            local = self._resolve_path(path) if path else None
+            if local is not None:
+                from apex_studio_tpu_torch.loaders.converters import convert_keys
+                from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
+
+                with torch.device("meta"):
+                    model = TAEVAE(cfg, dtype=torch.float32)
+                apply_state_dict(model, convert_keys("tae_vae", self._read_weights_file(local)),
+                                 device=self.device, strict=True)
+                model = model.eval().requires_grad_(False)
+            elif synthetic:
+                # the dry-run tier: a random TAE stands in, so that big runs
+                # can release the full VAE during the denoise
+                model = materialize_random(lambda: TAEVAE(cfg, dtype=torch.float32), self.device,
+                                           seed=zlib.crc32(b"light_vae") & 0x7FFFFFFF)
+            elif not path:
+                raise ValueError("light_vae_config is declared without light_vae_path: previews "
+                                 "would come from a randomly initialised TAE")
+            else:
+                logger.info("light VAE weights not present (%s); no light previews", path)
+        self._preview_vae_cache = model
+        return model
+
+    @torch.inference_mode()
+    def preview_frames(self, latents: torch.Tensor, fallback=None) -> List[np.ndarray]:
+        """Preview frames through the light TAE decoder when the manifest
+        declares one, else through ``fallback`` (a family's
+        ``decode_latents``). At most ``APEX_PREVIEW_MAX_LATENT_T`` (9) latent
+        frames are decoded."""
+        vae = self._get_preview_vae()
+        if vae is None:
+            if fallback is None:
+                raise RuntimeError("no light VAE and no fallback decoder")
+            return fallback(latents)
+        max_t = int(os.environ.get("APEX_PREVIEW_MAX_LATENT_T", "9"))
+        if latents.ndim == 5 and latents.shape[2] > max_t:
+            latents = latents[:, :, :max_t]
+        video = vae.decode(latents.float())  # [B,3,T,H,W]
+        b, c, t, h, w = video.shape
+        return self.tensor_to_frames(video.transpose(1, 2).reshape(b * t, c, h, w))
+
+    # -- media inputs -----------------------------------------------------------------
+
+    @staticmethod
+    def load_image_input(image) -> np.ndarray:
+        """An image input (HWC array, nested list, file path or data URI) as
+        an RGB HWC uint8 array; paths and data URIs are decoded by OpenCV."""
+        if isinstance(image, str):
+            import cv2
+
+            if image.startswith("data:"):
+                import base64
+
+                payload = base64.b64decode(image.split(",", 1)[1])
+                arr = cv2.imdecode(np.frombuffer(payload, np.uint8), cv2.IMREAD_COLOR)
+                if arr is None:
+                    raise ValueError("cannot decode data-URI image")
+            else:
+                arr = cv2.imread(image, cv2.IMREAD_COLOR)
+                if arr is None:
+                    raise FileNotFoundError(f"cannot read image: {image}")
+            return cv2.cvtColor(arr, cv2.COLOR_BGR2RGB)
+        arr = np.asarray(image)
+        if arr.dtype != np.uint8:
+            arr = np.clip(arr, 0, 255).astype(np.uint8)
+        return arr
 
     # -- seed → latents contract ----------------------------------------------------
 

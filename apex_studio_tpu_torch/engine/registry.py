@@ -1,5 +1,6 @@
 """Engine registry + UniversalEngine facade (port of
-``apex_studio_tpu/engine/registry.py``). Only ``("flux", "t2i")`` is ported."""
+``apex_studio_tpu/engine/registry.py``). Ported: ``("flux", "t2i")`` and
+``("hunyuanvideo15", "t2v" | "i2v")``."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import Any, Dict, Optional, Tuple, Type, Union
 
 from apex_studio_tpu_torch.manifest.loader import load_manifest
 
-_ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux",)
+_ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.engine.hunyuanvideo15")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

@@ -1,6 +1,9 @@
 """Checkpoint key conversion: torch module paths → the port's module paths
-(port of ``apex_studio_tpu/loaders/converters.py``, the families the Flux
-text-to-image path loads: ``flux``, ``t5``, ``clip``, ``autoencoder_kl``).
+(port of ``apex_studio_tpu/loaders/converters.py``, the families the ported
+paths load: Flux text-to-image's ``flux``, ``t5``, ``clip``,
+``autoencoder_kl``; HunyuanVideo 1.5's ``hunyuanvideo15``,
+``hunyuanvideo15_vae``, ``qwen2``, ``siglip``, ``tae_vae``, and byT5 through
+``t5``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -253,5 +256,111 @@ converter_registry.add(
         ],
         strip_prefixes=("first_stage_model.",),
         drop=(),
+    ),
+)
+
+converter_registry.add(
+    "qwen2",
+    KeyConverter(
+        renames=[
+            # Qwen2.5-VL exports nest the LM under language_model / model.
+            (r"^model\.language_model\.", ""),
+            (r"^language_model\.model\.", ""),
+            (r"^language_model\.", ""),
+            (r"^model\.", ""),
+            (r"^embed_tokens\.weight$", "embed_tokens"),
+            (r"(q_proj|k_proj|v_proj|o_proj)\.weight$", r"\1.kernel"),
+            (r"\.mlp\.gate_proj\.", ".mlp.w1."),
+            (r"\.mlp\.up_proj\.", ".mlp.w3."),
+            (r"\.mlp\.down_proj\.", ".mlp.w2."),
+            (r"(w1|w2|w3)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"^lm_head\.", r"^visual\.", r"^model\.visual\.", r"rotary_emb"),
+    ),
+)
+
+converter_registry.add(
+    "hunyuanvideo15",
+    KeyConverter(
+        renames=[
+            (r"^x_embedder\.proj\.weight$", "x_embedder.kernel"),
+            (r"^x_embedder\.proj\.bias$", "x_embedder.bias"),
+            (r"^time_embed\.timestep_embedder\.linear_(\d)\.", r"time_linear_\1."),
+            (r"^cond_type_embed\.weight$", "cond_type_embed"),
+            (r"^context_embedder\.time_text_embed\.timestep_embedder\.linear_(\d)\.",
+             r"context_embedder.timestep_linear_\1."),
+            (r"^context_embedder\.time_text_embed\.text_embedder\.linear_(\d)\.",
+             r"context_embedder.text_linear_\1."),
+            (r"^context_embedder\.token_refiner\.refiner_blocks\.", "context_embedder.refiner_blocks."),
+            (r"(refiner_blocks\.\d+)\.attn\.to_out\.0\.", r"\1.to_out."),
+            (r"(refiner_blocks\.\d+)\.attn\.", r"\1."),
+            (r"(refiner_blocks\.\d+)\.ff\.net\.0\.proj\.", r"\1.ff_in."),
+            (r"(refiner_blocks\.\d+)\.ff\.net\.2\.", r"\1.ff_out."),
+            (r"(refiner_blocks\.\d+)\.norm_out\.linear\.", r"\1.ada_linear."),
+            (r"^context_embedder_2\.norm\.", "byt5_norm."),
+            (r"^context_embedder_2\.linear_(\d)\.", r"byt5_linear_\1."),
+            (r"^image_embedder\.norm_in\.", "img_norm_in."),
+            (r"^image_embedder\.norm_out\.", "img_norm_out."),
+            (r"^image_embedder\.linear_(\d)\.", r"img_linear_\1."),
+            (r"\.norm1\.linear\.", ".norm1_linear."),
+            (r"\.norm1_context\.linear\.", ".norm1_context_linear."),
+            (r"\.attn\.to_out\.0\.", ".to_out."),
+            (r"(transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"\.ff(_context)?\.net\.0\.proj\.", r".ff\1.fc1."),
+            (r"\.ff(_context)?\.net\.2\.", r".ff\1.fc2."),
+            (r"^norm_out\.linear\.", "norm_out_linear."),
+            (r"(to_q|to_k|to_v|to_out|to_add_out|add_q_proj|add_k_proj|add_v_proj|fc1|fc2|ff_in|ff_out|ada_linear|proj_in|proj_out|norm1_linear|norm1_context_linear|norm_out_linear|time_linear_\d|timestep_linear_\d|text_linear_\d|byt5_linear_\d|img_linear_\d)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope\.",),
+    ),
+)
+
+converter_registry.add(
+    "hunyuanvideo15_vae",
+    KeyConverter(
+        renames=[
+            # CausalConv3d wraps its conv; flatten the extra level.
+            (r"\.conv\.weight$", ".kernel"),
+            (r"\.conv\.bias$", ".bias"),
+            (r"(conv_shortcut)\.weight$", r"\1.kernel"),
+            (r"(to_q|to_k|to_v|proj_out)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(),
+    ),
+)
+
+converter_registry.add(
+    "tae_vae",
+    KeyConverter(
+        renames=[
+            # MemBlock inner Sequential: conv.{0,2,4} → conv_{0,2,4}
+            (r"\.conv\.([024])\.weight$", r".conv_\1.kernel"),
+            (r"\.conv\.([024])\.bias$", r".conv_\1.bias"),
+            # TPool/TGrow wrap a conv; every remaining .weight is a conv kernel
+            # (the TAE family has no norm layers).
+            (r"\.weight$", ".kernel"),
+        ],
+        strip_prefixes=("taehv.", "vae.", "module."),
+    ),
+)
+
+converter_registry.add(
+    # SigLIP vision tower (transformers SiglipVisionModel layout).
+    "siglip",
+    KeyConverter(
+        renames=[
+            (r"^vision_model\.embeddings\.patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"^vision_model\.embeddings\.patch_embedding\.bias$", "patch_embedding.bias"),
+            (r"^vision_model\.embeddings\.position_embedding\.weight$", "position_embedding"),
+            (r"^vision_model\.post_layernorm\.", "post_layernorm."),
+            (r"^vision_model\.encoder\.layers\.", "layers."),
+            (r"\.mlp\.fc1\.", ".fc1."),
+            (r"\.mlp\.fc2\.", ".fc2."),
+            (r"(q_proj|k_proj|v_proj|out_proj|fc1|fc2)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"^vision_model\.head", r"^text_model", r"^logit_"),
     ),
 )

@@ -1,7 +1,8 @@
 """A port module's state dict under its family's published checkpoint names:
 the inverse of loaders/converters.py for ``flux`` (diffusers naming, or the
-original BFL single-file naming with fused qkv), ``t5``, ``clip`` and
-``autoencoder_kl``.
+original BFL single-file naming with fused qkv), ``t5`` (byT5 too), ``clip``,
+``autoencoder_kl``, ``hunyuanvideo15`` and ``hunyuanvideo15_vae`` (diffusers
+naming) and ``tae_vae`` (TAEHV's ``nn.Sequential`` indices).
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -45,8 +46,42 @@ _CLIP = (
 _AUTOENCODER_KL = (
     (r"\.to_out\.", ".to_out.0."),
 )
+_HUNYUANVIDEO15 = (
+    (r"^x_embedder\.", "x_embedder.proj."),
+    (r"^time_linear_(\d)\.", r"time_embed.timestep_embedder.linear_\1."),
+    (r"^cond_type_embed$", "cond_type_embed.weight"),
+    (r"^context_embedder\.(timestep|text)_linear_(\d)\.",
+     r"context_embedder.time_text_embed.\1_embedder.linear_\2."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.to_out\.", r"context_embedder.refiner_blocks.\1.attn.to_out.0."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.(to_q|to_k|to_v)\.", r"context_embedder.refiner_blocks.\1.attn.\2."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.ff_in\.", r"context_embedder.refiner_blocks.\1.ff.net.0.proj."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.ff_out\.", r"context_embedder.refiner_blocks.\1.ff.net.2."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.ada_linear\.", r"context_embedder.refiner_blocks.\1.norm_out.linear."),
+    (r"^context_embedder\.refiner_blocks\.", "context_embedder.token_refiner.refiner_blocks."),
+    (r"^byt5_norm\.", "context_embedder_2.norm."),
+    (r"^byt5_linear_(\d)\.", r"context_embedder_2.linear_\1."),
+    (r"^img_norm_(in|out)\.", r"image_embedder.norm_\1."),
+    (r"^img_linear_(\d)\.", r"image_embedder.linear_\1."),
+    (r"\.norm1_linear\.", ".norm1.linear."),
+    (r"\.norm1_context_linear\.", ".norm1_context.linear."),
+    (r"^(transformer_blocks\.\d+)\.to_out\.", r"\1.attn.to_out.0."),
+    (r"^(transformer_blocks\.\d+)\.(to_q|to_k|to_v|add_q_proj|add_k_proj|add_v_proj|to_add_out|norm_q|norm_k|"
+     r"norm_added_q|norm_added_k)\.", r"\1.attn.\2."),
+    (r"\.ff(_context)?\.fc1\.", r".ff\1.net.0.proj."),
+    (r"\.ff(_context)?\.fc2\.", r".ff\1.net.2."),
+    (r"^norm_out_linear\.", "norm_out.linear."),
+)
+# every causal conv wraps its Conv3d as ``.conv``; attention projections, the
+# 1×1 shortcut and the RMS norms' ``gamma`` have no extra level
+_HUNYUANVIDEO15_VAE = (
+    (r"^(?!.*\.(?:to_q|to_k|to_v|proj_out|conv_shortcut)\.)(.*)\.(weight|bias)$", r"\1.conv.\2"),
+)
+_TAE_VAE = (
+    (r"\.conv_([024])\.", r".conv.\1."),
+)
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
-    "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL}
+    "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
+    "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -3,7 +3,8 @@
 The port keeps the JAX attribute names, so the mapping is mechanical:
 
 - ``...kernel`` becomes ``...weight``; a 2-D Linear kernel [in, out] is
-  transposed to [out, in] and a 4-D conv kernel HWIO to OIHW;
+  transposed to [out, in], a 4-D conv kernel HWIO to OIHW and a 5-D conv
+  kernel DHWIO to OIDHW;
 - a quantized Linear comes with ``...kernel_scale``: its int8 kernel
   [in, out] becomes an int8 weight [out, in], its nibble-packed int4 kernel
   (uint8 [in, out/2]) the packed weight [out/2, in] (a plain transpose: the
@@ -44,6 +45,8 @@ def convert_jax_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
                 arr = arr.T
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 5:
+                arr = arr.transpose(4, 3, 0, 1, 2)
             else:
                 raise ValueError(f"{key}: kernel of rank {arr.ndim} has no known layout")
         elif parts[-1] == "kernel_scale":

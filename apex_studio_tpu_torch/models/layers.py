@@ -154,6 +154,20 @@ class LayerNorm(nn.Module):
         return _layer_norm(x, self.weight, self.bias, self.eps)
 
 
+class SwiGLU(nn.Module):
+    """w2(silu(w1·x) * w3·x), the LLaMA / Qwen FFN shape."""
+
+    def __init__(self, dim: int, hidden_dim: int, *, use_bias: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.w1 = Linear(dim, hidden_dim, use_bias=use_bias, dtype=dtype)
+        self.w3 = Linear(dim, hidden_dim, use_bias=use_bias, dtype=dtype)
+        self.w2 = Linear(hidden_dim, dim, use_bias=use_bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+
+
 class GELUMLP(nn.Module):
     """fc2(gelu(fc1·x)) — the DiT/ViT FFN shape (tanh GELU by default)."""
 

@@ -1,7 +1,9 @@
 """Model family registries (port of ``models/registry.py``).
 
-Keys match manifest ``base`` values: ``flux.base``, ``auto`` (AutoencoderKL),
-``CLIPTextModel``, ``T5EncoderModel``.
+Keys match manifest ``base`` values: ``flux.base``, ``hunyuanvideo15.base``,
+``auto`` (AutoencoderKL), ``hunyuanvideo15`` (its VAE), ``tae``,
+``CLIPTextModel``, ``T5EncoderModel``, ``Qwen2_5_VLForConditionalGeneration``,
+``SiglipVisionModel``.
 """
 
 import importlib
@@ -17,6 +19,11 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.vaes.autoencoder_kl",
     "apex_studio_tpu_torch.models.text_encoders.t5",
     "apex_studio_tpu_torch.models.text_encoders.clip",
+    "apex_studio_tpu_torch.models.transformers.hunyuanvideo15",
+    "apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae",
+    "apex_studio_tpu_torch.models.vaes.tae_vae",
+    "apex_studio_tpu_torch.models.text_encoders.qwen2",
+    "apex_studio_tpu_torch.models.text_encoders.siglip",
 )
 
 

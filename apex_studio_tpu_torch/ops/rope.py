@@ -1,7 +1,9 @@
 """Rotary position embeddings, real-valued (port of ``ops/rope.py``).
 
-Interleaved-pair convention: feature pairs (2i, 2i+1) rotate together by the
-cos/sin tables of shape [..., head_dim/2]. Tables for numpy positions are built
+Interleaved-pair convention (``apply_rope``, the DiTs): feature pairs
+(2i, 2i+1) rotate together by the cos/sin tables of shape [..., head_dim/2].
+Rotate-half convention (``apply_rope_half``, the HF Llama/Qwen LLMs): feature
+i rotates with feature i + head_dim/2. Tables for numpy positions are built
 in float64 and cast to float32; tensor positions take a float32 path, as in the
 JAX functions.
 """
@@ -51,3 +53,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     out_r = xr * cos - xi * sin
     out_i = xr * sin + xi * cos
     return torch.stack([out_r, out_i], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_rope_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE: ``x·cos + rotate_half(x)·sin`` in float32 with
+    ``rotate_half(x) = [-x[D/2:], x[:D/2]]``; cos/sin [..., D//2] are tiled to
+    D and broadcast over the head axis."""
+    x32 = x.float()
+    d2 = x.shape[-1] // 2
+    cos2 = torch.cat([cos, cos], dim=-1)
+    sin2 = torch.cat([sin, sin], dim=-1)
+    rotated = torch.cat([-x32[..., d2:], x32[..., :d2]], dim=-1)
+    return (x32 * cos2 + rotated * sin2).to(x.dtype)

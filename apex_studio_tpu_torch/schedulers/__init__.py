@@ -1,4 +1,4 @@
-"""Schedulers of the port (only the flow-match Euler sampler so far)."""
+"""Schedulers of the port (the flow-match Euler samplers so far)."""
 
 from apex_studio_tpu_torch.schedulers import flow_match  # noqa: F401  (registers)
 from apex_studio_tpu_torch.schedulers.base import (  # noqa: F401

@@ -1,7 +1,11 @@
-"""Flow-matching Euler sampler (port of the ``FlowMatchEulerDiscreteScheduler``
-of ``apex_studio_tpu/schedulers/flow_match.py``): diffusers-config-compatible,
-with static or dynamic (resolution-dependent) time shifting. It integrates
-dx/dsigma = v with Euler steps: x ← x + (σ_next − σ)·v.
+"""Flow-matching Euler samplers (port of ``apex_studio_tpu/schedulers/flow_match.py``):
+
+- ``FlowMatchEulerDiscreteScheduler``: diffusers-config-compatible, with static
+  or dynamic (resolution-dependent) time shifting (Flux);
+- ``FlowMatchDiscreteScheduler``: HunyuanVideo's, linspace(1→0, n+1) then the
+  SD3 shift.
+
+Both integrate dx/dsigma = v with Euler steps: x ← x + (σ_next − σ)·v.
 """
 
 from __future__ import annotations
@@ -115,6 +119,55 @@ class FlowMatchEulerDiscreteScheduler(SchedulerBase):
             self.sigmas = np.concatenate([sigmas, [1.0]])
         else:
             self.sigmas = np.concatenate([sigmas, [0.0]])
+        self._step_index = None
+
+    def step(self, model_output, timestep, sample, return_dict: bool = False, **_: object):
+        if self._step_index is None:
+            self._step_index = self._resolve_step_index(timestep)
+        i = self._step_index
+        prev = _euler_step(sample, model_output, float(self.sigmas[i]), float(self.sigmas[i + 1]))
+        self._step_index += 1
+        return {"prev_sample": prev} if return_dict else (prev,)
+
+    def step_at(self, model_output, sample, step_index: int):
+        """Stateless indexed step."""
+        return _euler_step(
+            sample, model_output, float(self.sigmas[step_index]), float(self.sigmas[step_index + 1])
+        )
+
+
+@scheduler_registry.register("FlowMatchDiscreteScheduler")
+class FlowMatchDiscreteScheduler(SchedulerBase):
+    """HunyuanVideo's Euler variant: linspace(1→0, n+1) then the SD3 shift."""
+
+    def __init__(
+        self,
+        num_train_timesteps: int = 1000,
+        shift: float = 1.0,
+        reverse: bool = True,
+        solver: str = "euler",
+        **_: object,
+    ):
+        super().__init__(num_train_timesteps=num_train_timesteps, shift=shift, reverse=reverse)
+        if solver != "euler":
+            raise ValueError(f"unsupported solver {solver!r}")
+        self.num_train_timesteps = num_train_timesteps
+        self.shift = shift
+        self.reverse = reverse
+        sigmas = np.linspace(1.0, 0.0, num_train_timesteps + 1, dtype=np.float64)
+        if not reverse:
+            sigmas = sigmas[::-1]
+        self.sigmas = sigmas
+        self.timesteps = (sigmas[:-1] * num_train_timesteps).astype(np.float32)
+
+    def set_timesteps(self, num_inference_steps: int, shift: Optional[float] = None, **_: object) -> None:
+        self.num_inference_steps = num_inference_steps
+        sigmas = np.linspace(1.0, 0.0, num_inference_steps + 1, dtype=np.float64)
+        sigmas = shift_sigmas(sigmas, shift if shift is not None else self.shift)
+        if not self.reverse:
+            sigmas = 1.0 - sigmas
+        self.sigmas = sigmas
+        self.timesteps = (sigmas[:-1] * self.num_train_timesteps).astype(np.float32)
         self._step_index = None
 
     def step(self, model_output, timestep, sample, return_dict: bool = False, **_: object):

@@ -38,6 +38,8 @@ class TextEncoder:
         self.model = None
 
     def _converter_family(self) -> str:
+        if "Qwen2" in self.base:  # Qwen2 and Qwen2.5-VL share one text path and key map
+            return "qwen2"
         if "T5" in self.base:
             return "t5"
         if "CLIP" in self.base:
@@ -70,7 +72,9 @@ class TextEncoder:
     # -- encode ------------------------------------------------------------------
 
     def apply_chat_template(self, prompt: str) -> str:
-        """No ported family uses a chat template yet (Qwen3's comes with it)."""
+        """No ported family wraps prompts here: HunyuanVideo 1.5 builds its
+        Qwen2.5-VL chat text itself (engine/hunyuanvideo15.py), and Qwen3's
+        template comes with Qwen3."""
         return prompt
 
     def tokenize(self, prompts: Sequence[str], max_length: int,

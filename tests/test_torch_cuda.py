@@ -42,6 +42,8 @@ CASES = [
     ("causal_s200_b2_d128", 2, 200, 200, 3, 128, None, True),
     ("shared_bias_batch_stride_0", 2, 150, 300, 4, 128, [211], False),
     ("first_key_tile_bias_masked", 1, 130, 300, 4, 128, [-128], False),
+    # HunyuanVideo 1.5's token refiner: 1000 Qwen2.5-VL tokens, 16 heads, a [1, Sk] text mask
+    ("hyv15_refiner_sk1000_bias", 1, 1000, 1000, 16, 128, [612], False),
 ]
 
 
@@ -92,6 +94,29 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :32], q[..., :32], q[..., :32])
+    q72 = torch.randn(1, 16, 2, 72, device=cuda).to(torch.bfloat16)  # SigLIP so400m's heads
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q72, q72, q72)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [34257, 113457], ids=["hyv15_33_frames", "hyv15_121_frames"])
+def test_flash_kernel_hyv15_joint_attention_row_subsets(s, cuda):
+    """HunyuanVideo 1.5's joint attention at 720p (16 heads of 128, no mask).
+    The plain version's f32 scores cannot be held whole (75 GB at 34,257
+    tokens), so it is computed over all keys for three 128-row subsets of the
+    kernel's output: the first tile, the last (ragged) tile and one across an
+    interior tile edge."""
+    g = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (torch.randn(1, s, 16, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    tail = s % 128 or 128
+    edge = s // 256 * 128
+    for rows in (slice(0, 128), slice(s - tail, s), slice(edge - 64, edge + 64)):
+        ref = flash_attention_reference(q[:, rows], k, v)
+        assert torch.isfinite(out[:, rows].float()).all()
+        assert_agrees(out[:, rows], ref)
 
 
 # -- int8 / int4 resident Linear -------------------------------------------------------

@@ -31,6 +31,12 @@ from apex_studio_tpu.models.transformers.flux import FluxConfig as JaxFluxConfig
 from apex_studio_tpu.models.transformers.flux import FluxTransformer2DModel as JaxFlux
 from apex_studio_tpu.models.vaes.autoencoder_kl import AutoencoderKL as JaxVAE
 from apex_studio_tpu.models.vaes.autoencoder_kl import AutoencoderKLConfig as JaxVAEConfig
+from apex_studio_tpu.models.transformers.hunyuanvideo15 import HYV15Config as JaxHYV15Config
+from apex_studio_tpu.models.transformers.hunyuanvideo15 import HunyuanVideo15Transformer3DModel as JaxHYV15
+from apex_studio_tpu.models.vaes.hunyuanvideo15_vae import AutoencoderKLHunyuanVideo15 as JaxHYV15VAE
+from apex_studio_tpu.models.vaes.hunyuanvideo15_vae import HYV15VAEConfig as JaxHYV15VAEConfig
+from apex_studio_tpu.models.vaes.tae_vae import TAEVAE as JaxTAE
+from apex_studio_tpu.models.vaes.tae_vae import TAEConfig as JaxTAEConfig
 from apex_studio_tpu.quantize.writers import write_gguf
 from apex_studio_tpu_torch.engine.base import materialize_random
 from apex_studio_tpu_torch.loaders import converters, safetensors_io
@@ -39,7 +45,10 @@ from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
 from apex_studio_tpu_torch.models.text_encoders.clip import CLIPTextConfig, CLIPTextEncoder
 from apex_studio_tpu_torch.models.text_encoders.t5 import T5Config, T5Encoder
 from apex_studio_tpu_torch.models.transformers.flux import FluxConfig, FluxTransformer2DModel
+from apex_studio_tpu_torch.models.transformers.hunyuanvideo15 import HunyuanVideo15Transformer3DModel, HYV15Config
 from apex_studio_tpu_torch.models.vaes.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
+from apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae import AutoencoderKLHunyuanVideo15, HYV15VAEConfig
+from apex_studio_tpu_torch.models.vaes.tae_vae import TAEVAE, TAEConfig
 from apex_studio_tpu_torch.quantize.gguf import load_gguf_state_dict
 from tests.torch_port_helpers import assert_close
 
@@ -53,6 +62,12 @@ CLIP = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_laye
 T5 = dict(vocab_size=64, d_model=48, d_kv=8, d_ff=64, num_layers=2, num_heads=4)
 VAE = dict(latent_channels=4, block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4,
            scaling_factor=0.5, shift_factor=0.1)
+HYV15 = dict(in_channels=9, out_channels=4, num_attention_heads=2, attention_head_dim=32, num_layers=2,
+             num_refiner_layers=2, mlp_ratio=2.0, text_embed_dim=32, text_embed_2_dim=16,
+             image_embed_dim=16, rope_axes_dim=(8, 12, 12))
+HYV15_VAE = dict(latent_channels=4, block_out_channels=(8, 16, 32), layers_per_block=1,
+                 spatial_compression_ratio=4, temporal_compression_ratio=2, scaling_factor=1.03682)
+TAE = dict(latent_channels=4, channels=(8, 8, 8, 8), act="leaky_relu", out_range="sym")
 
 
 # -- safetensors ---------------------------------------------------------------------------
@@ -201,6 +216,20 @@ def run_vae(model, is_jax):
     return model.decode(jnp.asarray(z)) if is_jax else model.decode(torch.from_numpy(z))
 
 
+def run_hyv15(model, is_jax):
+    rng = np.random.default_rng(0)
+    args = [rng.normal(size=(1, 9, 2, 4, 4)), np.array([600.0]), rng.normal(size=(1, 6, 32)),
+            np.array([[1, 1, 1, 1, 0, 0]]), rng.normal(size=(1, 3, 16)), np.ones((1, 3)),
+            rng.normal(size=(1, 4, 16))]
+    args = [a.astype(np.int32 if i in (3, 5) else np.float32) for i, a in enumerate(args)]
+    return model(*map(jnp.asarray if is_jax else torch.from_numpy, args))
+
+
+def run_vae3d(model, is_jax):
+    z = np.random.default_rng(0).normal(size=(1, 4, 2, 3, 4)).astype(np.float32)
+    return model.decode(jnp.asarray(z)) if is_jax else model.decode(torch.from_numpy(z))
+
+
 # name: (converter family, port constructor, JAX constructor, exporter, forward)
 FAMILIES = {
     "flux_bfl": ("flux", lambda: FluxTransformer2DModel(FluxConfig(**FLUX), dtype=torch.float32),
@@ -216,6 +245,15 @@ FAMILIES = {
     "autoencoder_kl": ("autoencoder_kl", lambda: AutoencoderKL(AutoencoderKLConfig(**VAE), dtype=torch.float32),
                        lambda: JaxVAE(JaxVAEConfig(**VAE), **F32),
                        lambda sd: published_state_dict("autoencoder_kl", sd), run_vae),
+    "hunyuanvideo15": ("hunyuanvideo15",
+                       lambda: HunyuanVideo15Transformer3DModel(HYV15Config(**HYV15), dtype=torch.float32),
+                       lambda: JaxHYV15(JaxHYV15Config(**HYV15), **F32),
+                       lambda sd: published_state_dict("hunyuanvideo15", sd), run_hyv15),
+    "hunyuanvideo15_vae": ("hunyuanvideo15_vae", lambda: AutoencoderKLHunyuanVideo15(HYV15VAEConfig(**HYV15_VAE)),
+                           lambda: JaxHYV15VAE(JaxHYV15VAEConfig(**HYV15_VAE), rngs=nnx.Rngs(0)),
+                           lambda sd: published_state_dict("hunyuanvideo15_vae", sd), run_vae3d),
+    "tae_vae": ("tae_vae", lambda: TAEVAE(TAEConfig(**TAE)), lambda: JaxTAE(JaxTAEConfig(**TAE), rngs=nnx.Rngs(0)),
+                lambda sd: published_state_dict("tae_vae", sd), run_vae3d),
 }
 
 
@@ -247,7 +285,10 @@ class TestFamilies:
                   "flux_diffusers": "transformer_blocks.0.ff_context.net.0.proj.weight",
                   "t5": "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
                   "clip": "text_model.encoder.layers.1.self_attn.out_proj.bias",
-                  "autoencoder_kl": "decoder.mid_block.attentions.0.to_out.0.weight"}[name]
+                  "autoencoder_kl": "decoder.mid_block.attentions.0.to_out.0.weight",
+                  "hunyuanvideo15": "context_embedder.token_refiner.refiner_blocks.1.attn.to_out.0.weight",
+                  "hunyuanvideo15_vae": "decoder.up_blocks.0.upsamplers.0.conv.conv.weight",
+                  "tae_vae": "decoder.3.conv.4.weight"}[name]
         assert marker in keys
 
     def test_loaded_parameters_equal_what_was_written(self, family):
@@ -278,6 +319,51 @@ class TestFamilies:
         assert sorted(ours) == sorted(ref)
         for k in ours:
             np.testing.assert_array_equal(ours[k].numpy(), np.asarray(ref[k]))
+
+
+class TestHYV15EngineLoad:
+    """The tiny HunyuanVideo 1.5 DiT and VAE written by ``export.py`` in their
+    published naming and read back by the engine from the manifest's
+    ``model_path`` (converter, strict apply onto a ``meta``-built module):
+    every tensor bit-equal to what was written."""
+
+    def test_engine_loads_what_was_written(self, tmp_path, monkeypatch):
+        import copy
+
+        import yaml
+
+        from apex_studio_tpu_torch.engine import UniversalEngine
+        from tests.test_engine_hyv15 import HYV_TINY
+
+        doc = copy.deepcopy(HYV_TINY)
+        written = {}
+        for comp in doc["spec"]["components"]:
+            if comp["type"] == "transformer":
+                cfg, fam = HYV15Config.from_dict(comp["config"]), "hunyuanvideo15"
+                source = materialize_random(lambda: HunyuanVideo15Transformer3DModel(cfg, dtype=torch.float32),
+                                            torch.device("cpu"), seed=5, std=0.1)
+            elif comp["type"] == "vae":
+                cfg, fam = HYV15VAEConfig.from_dict(comp["config"]), "hunyuanvideo15_vae"
+                source = materialize_random(lambda: AutoencoderKLHunyuanVideo15(cfg), torch.device("cpu"),
+                                            seed=6, std=0.1)
+            else:
+                continue
+            comp["precision"] = "fp32"
+            comp["model_path"] = f"hyv15-tiny/{comp['type']}.safetensors"
+            path = tmp_path / "components" / comp["model_path"]
+            path.parent.mkdir(parents=True, exist_ok=True)
+            safetensors_io.save_safetensors(path, published_state_dict(fam, source.state_dict()))
+            written[comp["type"]] = source
+        (tmp_path / "m.yml").write_text(yaml.safe_dump(doc))
+        monkeypatch.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
+        monkeypatch.setenv("APEX_HOME_DIR", str(tmp_path))
+        engine = UniversalEngine(tmp_path / "m.yml", device="cpu")
+        for ctype, source in written.items():
+            loaded = engine.load_component_by_type(ctype).state_dict()
+            want = source.state_dict()
+            assert sorted(loaded) == sorted(want)
+            for k in want:
+                assert loaded[k].dtype == want[k].dtype and torch.equal(loaded[k], want[k]), (ctype, k)
 
 
 class TestStrictApply:
