@@ -1,6 +1,6 @@
 """Engine registry + UniversalEngine facade (port of
-``apex_studio_tpu/engine/registry.py``). Ported: ``("flux", "t2i")`` and
-``("hunyuanvideo15", "t2v" | "i2v")``."""
+``apex_studio_tpu/engine/registry.py``). Ported: ``("flux", "t2i")``,
+``("hunyuanvideo15", "t2v" | "i2v")`` and ``("zimage", "t2i" | "control")``."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ from typing import Any, Dict, Optional, Tuple, Type, Union
 
 from apex_studio_tpu_torch.manifest.loader import load_manifest
 
-_ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.engine.hunyuanvideo15")
+_ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.engine.hunyuanvideo15",
+                  "apex_studio_tpu_torch.engine.zimage")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

@@ -3,7 +3,8 @@
 paths load: Flux text-to-image's ``flux``, ``t5``, ``clip``,
 ``autoencoder_kl``; HunyuanVideo 1.5's ``hunyuanvideo15``,
 ``hunyuanvideo15_vae``, ``qwen2``, ``siglip``, ``tae_vae``, and byT5 through
-``t5``).
+``t5``; ZImage's ``zimage`` (base and control, the Comfy single-file names
+too) and ``qwen3``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -362,5 +363,46 @@ converter_registry.add(
         ],
         strip_prefixes=(),
         drop=(r"^vision_model\.head", r"^text_model", r"^logit_"),
+    ),
+)
+
+converter_registry.add(
+    # Z-Image DiT, base and control; the Comfy single-file names
+    # (all_x_embedder.2-1, all_final_layer.2-1, cap_embedder.0/1, t_embedder.mlp.0/2)
+    "zimage",
+    KeyConverter(
+        renames=[
+            (r"^control_all_x_embedder\.[0-9]+-[0-9]+\.", "control_x_embedder."),
+            (r"^all_x_embedder\.[0-9]+-[0-9]+\.", "x_embedder."),
+            (r"^all_final_layer\.[0-9]+-[0-9]+\.", "final_layer."),
+            (r"^cap_embedder\.0\.", "cap_embedder_norm."),
+            (r"^cap_embedder\.1\.", "cap_embedder_linear."),
+            (r"^t_embedder\.mlp\.0\.", "t_embedder.in_layer."),
+            (r"^t_embedder\.mlp\.2\.", "t_embedder.out_layer."),
+            (r"\.attention\.to_out\.0\.", ".attention.to_out."),
+            # block adaLN is Sequential(Linear); the final layer's Sequential(SiLU, Linear)
+            (r"\.adaLN_modulation\.0\.", ".adaLN_modulation."),
+            (r"\.adaLN_modulation\.1\.", ".adaLN_modulation."),
+            (r"(linear|to_q|to_k|to_v|to_out|w1|w2|w3|in_layer|out_layer|adaLN_modulation|x_embedder|"
+             r"cap_embedder_linear|before_proj|after_proj)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"rope_embedder", r"\.freqs", r"^siglip_"),
+    ),
+)
+
+converter_registry.add(
+    "qwen3",
+    KeyConverter(
+        renames=[
+            (r"^model\.", ""),
+            (r"^embed_tokens\.weight$", "embed_tokens"),
+            (r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)\.weight$", r"\1.kernel"),
+            # HF MLP names → SwiGLU leaf names
+            (r"\.mlp\.gate_proj\.", ".mlp.w1."),
+            (r"\.mlp\.up_proj\.", ".mlp.w3."),
+            (r"\.mlp\.down_proj\.", ".mlp.w2."),
+        ],
+        strip_prefixes=(),
+        drop=(r"^lm_head\.", r"rotary_emb"),
     ),
 )

@@ -2,7 +2,10 @@
 the inverse of loaders/converters.py for ``flux`` (diffusers naming, or the
 original BFL single-file naming with fused qkv), ``t5`` (byT5 too), ``clip``,
 ``autoencoder_kl``, ``hunyuanvideo15`` and ``hunyuanvideo15_vae`` (diffusers
-naming) and ``tae_vae`` (TAEHV's ``nn.Sequential`` indices).
+naming), ``tae_vae`` (TAEHV's ``nn.Sequential`` indices), ``zimage`` (the
+single-file names of the Comfy-Org Z-Image files, control keys included),
+``qwen3`` (transformers' ``Qwen3ForCausalLM``) and ``rife`` (Practical-RIFE's
+``flownet`` keys).
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -79,9 +82,40 @@ _HUNYUANVIDEO15_VAE = (
 _TAE_VAE = (
     (r"\.conv_([024])\.", r".conv.\1."),
 )
+_ZIMAGE = (
+    (r"^control_x_embedder\.", "control_all_x_embedder.2-1."),
+    (r"^x_embedder\.", "all_x_embedder.2-1."),
+    (r"^final_layer\.adaLN_modulation\.", "all_final_layer.2-1.adaLN_modulation.1."),
+    (r"^final_layer\.", "all_final_layer.2-1."),
+    (r"^cap_embedder_norm\.", "cap_embedder.0."),
+    (r"^cap_embedder_linear\.", "cap_embedder.1."),
+    (r"^t_embedder\.in_layer\.", "t_embedder.mlp.0."),
+    (r"^t_embedder\.out_layer\.", "t_embedder.mlp.2."),
+    (r"\.attention\.to_out\.", ".attention.to_out.0."),
+    (r"^((?:control_)?(?:layers|noise_refiner|context_refiner)\.\d+)\.adaLN_modulation\.",
+     r"\1.adaLN_modulation.0."),
+)
+_QWEN3 = (
+    (r"^embed_tokens$", "model.embed_tokens.weight"),
+    (r"\.mlp\.w1\.", ".mlp.gate_proj."),
+    (r"\.mlp\.w3\.", ".mlp.up_proj."),
+    (r"\.mlp\.w2\.", ".mlp.down_proj."),
+    (r"^(layers|norm)\.", r"model.\1."),
+)
+# Practical-RIFE ``flownet``: conv0 entries are Sequential(conv, PReLU), the
+# residual units name their slope ``relu``, lastconv is Sequential(ConvTranspose2d,
+# PixelShuffle)
+_RIFE = (
+    (r"^blocks\.(\d+)\.conv0\.(\d+)\.conv\.", r"block\1.conv0.\2.0."),
+    (r"^blocks\.(\d+)\.conv0\.(\d+)\.act\.", r"block\1.conv0.\2.1."),
+    (r"^blocks\.(\d+)\.convblock\.(\d+)\.act\.", r"block\1.convblock.\2.relu."),
+    (r"^blocks\.(\d+)\.lastconv\.", r"block\1.lastconv.0."),
+    (r"^blocks\.(\d+)\.", r"block\1."),
+)
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
-    "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE}
+    "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
+    "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

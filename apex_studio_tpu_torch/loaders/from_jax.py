@@ -12,7 +12,12 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
   scales become ``weight_scale`` and ``weight_bits`` follows from the
   kernel's dtype (``kernel_bits`` is a static attribute of the JAX module,
   not part of its state);
-- every other parameter keeps its name and layout.
+- a 4-D ``...w`` is a transposed-convolution kernel that the JAX module
+  keeps spatially flipped in HWIO (RIFE's ``Deconv2x``): it becomes
+  ``...weight`` in ``ConvTranspose2d``'s layout ``[in, out, kh, kw]``,
+  unflipped;
+- every other parameter keeps its name and layout (learned tokens, PReLU
+  slopes, embedding tables).
 
 The input is a flat ``{dotted.nnx.path: np.ndarray}`` dict (list indices are
 path components, e.g. ``transformer_blocks.0.attn.to_q.kernel``). Loading is
@@ -49,6 +54,9 @@ def convert_jax_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
                 arr = arr.transpose(4, 3, 0, 1, 2)
             else:
                 raise ValueError(f"{key}: kernel of rank {arr.ndim} has no known layout")
+        elif parts[-1] == "w" and arr.ndim == 4:
+            parts[-1] = "weight"
+            arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
         elif parts[-1] == "kernel_scale":
             parts[-1] = "weight_scale"
         out[".".join(parts)] = arr

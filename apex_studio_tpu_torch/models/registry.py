@@ -3,7 +3,7 @@
 Keys match manifest ``base`` values: ``flux.base``, ``hunyuanvideo15.base``,
 ``auto`` (AutoencoderKL), ``hunyuanvideo15`` (its VAE), ``tae``,
 ``CLIPTextModel``, ``T5EncoderModel``, ``Qwen2_5_VLForConditionalGeneration``,
-``SiglipVisionModel``.
+``SiglipVisionModel``, ``Qwen3ForCausalLM``, ``zimage.base``, ``zimage.control``.
 """
 
 import importlib
@@ -24,6 +24,8 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.vaes.tae_vae",
     "apex_studio_tpu_torch.models.text_encoders.qwen2",
     "apex_studio_tpu_torch.models.text_encoders.siglip",
+    "apex_studio_tpu_torch.models.text_encoders.qwen3",
+    "apex_studio_tpu_torch.models.transformers.zimage",
 )
 
 

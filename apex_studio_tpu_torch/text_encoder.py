@@ -14,6 +14,11 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+# Minimal chat templates per family (the exact strings the encode-only path
+# of HF ``apply_chat_template`` produces).
+_QWEN3_CHAT = "<|im_start|>user\n{prompt}<|im_end|>\n<|im_start|>assistant\n"
+
+
 class TextEncoder:
     def __init__(self, engine, spec: Dict[str, Any]):
         self.engine = engine
@@ -38,6 +43,8 @@ class TextEncoder:
         self.model = None
 
     def _converter_family(self) -> str:
+        if "Qwen3" in self.base:
+            return "qwen3"
         if "Qwen2" in self.base:  # Qwen2 and Qwen2.5-VL share one text path and key map
             return "qwen2"
         if "T5" in self.base:
@@ -72,9 +79,11 @@ class TextEncoder:
     # -- encode ------------------------------------------------------------------
 
     def apply_chat_template(self, prompt: str) -> str:
-        """No ported family wraps prompts here: HunyuanVideo 1.5 builds its
-        Qwen2.5-VL chat text itself (engine/hunyuanvideo15.py), and Qwen3's
-        template comes with Qwen3."""
+        """Qwen3 wraps the prompt in its chat template; the other ported
+        families take it as it is (HunyuanVideo 1.5 builds its Qwen2.5-VL chat
+        text itself, engine/hunyuanvideo15.py)."""
+        if "Qwen3" in self.base:
+            return _QWEN3_CHAT.format(prompt=prompt)
         return prompt
 
     def tokenize(self, prompts: Sequence[str], max_length: int,
@@ -124,7 +133,8 @@ class TextEncoder:
         ids, mask = self.tokenize(texts, max_sequence_length)
         ids_t = torch.from_numpy(ids).long().to(device)
         mask_t = torch.from_numpy(mask).to(device)
+        norm = {"normalize_last": True} if output == "normed" else {}
         with torch.inference_mode():
-            hidden = model(ids_t, attention_mask=mask_t)
+            hidden = model(ids_t, attention_mask=mask_t, **norm)
         cache.store(cache_key, hidden.float().cpu().numpy(), mask)
         return hidden, mask_t

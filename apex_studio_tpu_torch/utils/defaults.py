@@ -35,3 +35,9 @@ def get_lora_path() -> Path:
 
 def get_cache_path() -> Path:
     return _sub("cache", "CACHE_PATH")
+
+
+def get_preprocessor_models_path() -> Path:
+    """Where learned pre- and postprocessors find their checkpoints
+    (``APEX_PREPROCESSOR_MODELS_PATH``, else ``<home>/preprocessor_models``)."""
+    return _sub("preprocessor_models", "PREPROCESSOR_MODELS_PATH")

@@ -40,8 +40,30 @@ Phases, each printed as one JSON line:
              equal), one TAE preview, one decode tile against float64, one
              121-frame request timed per step; the
              DiT's resident Linears timed by shape, and the step split into
-             attention, W8A8 Linears and the rest
-then a ``wall`` line, a ``kernels`` line, the card and, last,
+             attention, W8A8 Linears and the rest; then one 33-frame request
+             through the t2v manifest's own engine
+  zimage     ZImage Turbo t2i at 1024x1024 from its manifest, full width and
+             depth, synthetic int8 weights: a 2 + 2-block DiT at full width on
+             the card (bf16) against the CPU (f32); three requests of the
+             manifest's 9 steps, guidance 0 (34 launches a step, requests 1
+             and 3 identical); the resident Linears at ZImage's shapes; one
+             bf16 request, one CFG request from zimage.yml (68 launches a
+             step) and one control request (51), each of 2 steps
+  prompt_extension
+             PromptExtender on the synthetic int8 Qwen3-4B, greedy, 32 new
+             tokens (36 launches a token); each decode step's logits against
+             the plain attention route from the same caches, and the cached
+             decode against a padded full recompute
+  rife       rife_v4 (default RIFEConfig, seeded f32 weights) over the 33
+             frames the hyv15 phase decoded (seeded 720x1280 frames without
+             it): 65 frames, one against the CPU; the cv2 frame_interpolation
+             once
+The kernels phase holds the kernel at every shape of the table in PERF.md:
+Flux's, the tile edges, biases and causal cases, ZImage's S = 4224 and 4096
+at 30 heads and its 128-token caption block, and Qwen3's one-row decode
+against Sk = 300 with a [1, Sk] bias and a ragged Sk = 437 with a [2, Sk] bias;
+the timing phase times each beside its bound and the library call.
+Then a ``wall`` line, a ``kernels`` line, the card and, last,
 ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Run from the root of a
@@ -79,7 +101,8 @@ FLUX_SHAPE = dict(b=1, s=4096 + 512, h=24, d=128)
 STEPS = 4
 SIZE = 1024
 BLOCKS = 19 + 38
-DEFAULT_PHASES = "kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15"
+DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,"
+                  "prompt_extension,rife")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -106,6 +129,31 @@ HYV15_LINEAR_CALLS = {(111600, 2048, 2048): 432, (111600, 2048, 8192): 108, (111
                       (1857, 2048, 2048): 432, (1857, 2048, 8192): 108, (1857, 8192, 2048): 108,
                       (1, 2048, 12288): 216}
 HYV15_PROMPT = 'A lighthouse keeper walks along the pier at dusk, a sign reads "NORTH LIGHT"'
+HYV15_T2V_MANIFEST = REPO / "manifests" / "video" / "hunyuanvideo-1.5-t2v.yml"
+ZIMAGE_MANIFEST = REPO / "manifests" / "image" / "zimage-turbo.yml"
+ZIMAGE_CFG_MANIFEST = REPO / "manifests" / "image" / "zimage.yml"
+ZIMAGE_CONTROL_MANIFEST = REPO / "manifests" / "image" / "zimage-turbo-control.yml"
+# 1024x1024: 128x128 latents, 64x64 = 4096 image tokens of 30 heads of 128; the
+# prompts below fill a 128-token caption bucket (byte-level tokens, chat template)
+ZIMAGE_TOKENS, ZIMAGE_HEADS, ZIMAGE_STEPS = 4096, 30, 9
+# flash launches a forward: 2 noise refiner + 2 context refiner + 30 layers;
+# the control branch adds its 2 refiner and 15 layer blocks
+ZIMAGE_LAUNCHES, ZIMAGE_CONTROL_LAUNCHES = 2 + 2 + 30, 2 + 2 + 30 + 2 + 15
+# rows, in, out and calls a step of ZImage's resident Linears at 1024px: the 30
+# main layers' q/k/v/out, FFN in (w1, w3) and out over 4096 + 128 tokens, and
+# the one-row adaLN of the 30 layers and the 2 noise refiner blocks
+ZIMAGE_LINEAR_CALLS = {(4224, 3840, 3840): 120, (4224, 3840, 10240): 60, (4224, 10240, 3840): 30,
+                       (1, 256, 15360): 32}
+QWEN3_HEADS, QWEN3_LAYERS, EXTEND_TOKENS = 32, 36, 32
+# Qwen3-4B's logits on the kernel against the plain attention route from the
+# same caches, and its cached decode against a padded recompute: bf16
+# activations and W8A8 Linears through 36 layers, where a one-ulp change of
+# an attention output may move an activation across an int8 rounding step
+QWEN3_REL_L2 = 3e-2
+# RIFE on the card against the same weights on the CPU, both f32 (no TF32):
+# the interpolated frame in [0, 1] within a quarter of a uint8 step, and the
+# uint8 frames at most one level apart
+RIFE_MAX_ABS, RIFE_FRAMES, RIFE_SIZE = 1e-3, 33, (720, 1280)
 # google/byt5-small config.json (the manifest's glyph encoder)
 BYT5_SMALL = {"model_type": "t5", "d_model": 1472, "d_ff": 3584, "d_kv": 64, "num_heads": 6,
               "num_layers": 12, "vocab_size": 384, "relative_attention_num_buckets": 32,
@@ -271,40 +319,110 @@ def phase_kernels():
     q, k, v = qkv(1, 130, 300, 4, 128, 13)
     late = _prep_bias(None, torch.arange(300, device="cuda")[None, :] >= 128)
     run_case("first_key_tile_bias_masked", q, k, v, bias=late)
+    # ZImage (30 heads) and Qwen3's one-row decode (32 heads over the cache)
+    for name, q, k, v, bias in zimage_kernel_inputs():
+        run_case(name, q, k, v, bias=bias)
+        del q, k, v
     emit({"phase": "kernels", "cases": cases})
     bad = [c["case"] for c in cases if not c["ok"]]
     check(not bad, f"flash kernel disagrees with its plain version: {bad}")
-    return flux_err
+    return flux_err, {c["case"]: c["max_abs_err"] for c in cases}
+
+
+def zimage_kernel_inputs():
+    """(case, q, k, v, bias) at the shapes the ZImage path gives the kernel:
+    its main layers over 4096 image + 128 caption tokens, the noise refiner
+    over 4096, the context refiner over a 128-token caption bucket (30 heads
+    of 128, unmasked), and Qwen3's decode step: one query row of 32 heads over
+    the KV cache with the valid prefix as a key-padding bias, at Sk = 300 and
+    at a ragged Sk with a [B, Sk] bias."""
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention import _prep_bias
+
+    def prefix(sk, lengths):
+        return _prep_bias(None, torch.arange(sk, device="cuda")[None, :] < torch.tensor(
+            lengths, device="cuda")[:, None])
+
+    yield ("zimage_layers_s4224_h30", *qkv(1, ZIMAGE_TOKENS + 128, ZIMAGE_TOKENS + 128, ZIMAGE_HEADS, 128, 30),
+           None)
+    yield ("zimage_noise_refiner_s4096_h30", *qkv(1, ZIMAGE_TOKENS, ZIMAGE_TOKENS, ZIMAGE_HEADS, 128, 31), None)
+    yield ("zimage_caption_s128_h30", *qkv(1, 128, 128, ZIMAGE_HEADS, 128, 32), None)
+    yield ("qwen3_decode_sq1_sk300_bias", *qkv(1, 1, 300, QWEN3_HEADS, 128, 33), prefix(300, [292]))
+    yield ("qwen3_decode_sq1_sk437_bias_b2", *qkv(2, 1, 437, QWEN3_HEADS, 128, 34), prefix(437, [400, 437]))
+
+
+def timing_row(q, k, v, bias, kernel_ms, plain_ms, library_ms, kernel_queued_ms, library_queued_ms,
+               case=None):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    flops = 4.0 * b * h * sq * sk * d
+    # q, k, v (and the bias) read once, o written once
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
+        bias.numel() * 4 if bias is not None else 0)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    out = {"phase": "timing", "kernel": "flash_attention", "case": case, "shape": list(q.shape), "sk": sk,
+           "bias": bias is not None, "ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library_call": "torch.nn.functional.scaled_dot_product_attention",
+           "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "of_bound": bound_ms / kernel_ms, "vs_library": kernel_ms / library_ms,
+           "queued_ms": kernel_queued_ms, "library_queued_ms": library_queued_ms,
+           "queued_of_bound": bound_ms / kernel_queued_ms,
+           "flops": flops, "bytes": nbytes, "tflops_achieved": flops / kernel_ms / 1e9,
+           "blocks": -(-sq // 128) * b * h}
+    emit(out)
+    return out
+
+
+def library_mask(bias):
+    """A [B|1, Sk] additive bias as the library call's attn_mask: bf16
+    [B, 1, 1, Sk] with rows 16-byte aligned."""
+    import torch
+
+    if bias is None:
+        return None
+    b, sk = bias.shape[0], bias.shape[-1]
+    mask = torch.zeros(b, 1, 1, sk + (-sk) % 8, device="cuda", dtype=torch.bfloat16)[..., :sk]
+    mask.copy_(bias.reshape(b, 1, 1, sk))
+    return mask
+
+
+def zimage_timing_rows():
+    """The kernel at every ZImage / Qwen3 decode shape beside its plain
+    version, the library call and its bound."""
+    import torch.nn.functional as F
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention, flash_attention_reference
+
+    rows = []
+    for name, q, k, v, bias in zimage_kernel_inputs():
+        bias = None if bias is None else bias.reshape(bias.shape[0], -1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = library_mask(bias)
+        reps = 10 if q.shape[1] > 1024 else 25
+        rows.append(timing_row(
+            q, k, v, bias, time_ms(lambda: flash_attention(q, k, v, bias=bias), reps=reps),
+            time_ms(lambda: flash_attention_reference(q, k, v, bias=bias), reps=reps),
+            time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=reps),
+            queued_ms(lambda: flash_attention(q, k, v, bias=bias)),
+            queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)), case=name))
+        del q, k, v, qt, kt, vt
+        release()
+    return rows
 
 
 def phase_timing():
     """Two rows at Flux's query length: the main path's shape against the plain
     version and the library call, and a ragged Sk with a [1, Sk] bias (tail and
-    bias paths paid) against the library call alone. Returns the first."""
+    bias paths paid) against the library call alone; then the ZImage and Qwen3
+    decode rows. Returns the first row and the ZImage rows."""
     import torch
     import torch.nn.functional as F
 
     from apex_studio_tpu_torch.ops.attention.flash import flash_attention, flash_attention_reference
 
-    def row(q, k, v, bias, kernel_ms, plain_ms, library_ms, kernel_queued_ms, library_queued_ms):
-        b, sq, h, d = q.shape
-        sk = k.shape[1]
-        flops = 4.0 * b * h * sq * sk * d
-        # q, k, v (and the bias) read once, o written once
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
-            bias.numel() * 4 if bias is not None else 0)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        out = {"phase": "timing", "kernel": "flash_attention", "shape": list(q.shape), "sk": sk,
-               "bias": bias is not None, "ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "library_call": "torch.nn.functional.scaled_dot_product_attention",
-               "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "of_bound": bound_ms / kernel_ms, "vs_library": kernel_ms / library_ms,
-               "queued_ms": kernel_queued_ms, "library_queued_ms": library_queued_ms,
-               "flops": flops, "bytes": nbytes, "tflops_achieved": flops / kernel_ms / 1e9}
-        emit(out)
-        return out
 
     s = FLUX_SHAPE
     q, k, v = qkv(s["b"], s["s"], s["s"], s["h"], s["d"], 0)
@@ -312,7 +430,7 @@ def phase_timing():
     plain_ms = time_ms(lambda: flash_attention_reference(q, k, v), reps=20)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    flux_row = row(q, k, v, None, kernel_ms, plain_ms, library_ms,
+    flux_row = timing_row(q, k, v, None, kernel_ms, plain_ms, library_ms,
                    queued_ms(lambda: flash_attention(q, k, v)),
                    queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
 
@@ -321,14 +439,14 @@ def phase_timing():
     bias = torch.zeros(1, sk, device="cuda")
     bias[:, 4400:] = -1e30  # the last 100 keys are padding
     kernel_ms = time_ms(lambda: flash_attention(q, k, v, bias=bias))
-    # The library call's mask: same values in bf16, its rows 16-byte aligned.
-    mask = torch.zeros(1, 1, 1, 4504, device="cuda", dtype=torch.bfloat16)[..., :sk]
-    mask.copy_(bias[:, None, None, :])
+    mask = library_mask(bias)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-    row(q, k, v, bias, kernel_ms, None, library_ms,
+    timing_row(q, k, v, bias, kernel_ms, None, library_ms,
         queued_ms(lambda: flash_attention(q, k, v, bias=bias)),
         queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
-    return flux_row
+    del q, k, v, qt, kt, vt
+    release()
+    return flux_row, zimage_timing_rows()
 
 
 # -- tiny reference ----------------------------------------------------------------------
@@ -978,10 +1096,7 @@ def hyv15_kernel_rows():
         plain_rows = slice(0, min(s, 128))
         plain_ms = time_ms(lambda: flash_attention_reference(q[:, plain_rows], k, v, bias=bias), reps=5)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        mask = None
-        if bias is not None:
-            mask = torch.zeros(1, 1, 1, s + (-s) % 8, device="cuda", dtype=torch.bfloat16)[..., :s]
-            mask.copy_(bias[:, None, None, :])
+        mask = library_mask(bias)
         reps = 5 if s > 4096 else 25
         kernel_ms = time_ms(lambda: flash_attention(q, k, v, bias=bias), reps=reps)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=reps)
@@ -1011,13 +1126,13 @@ def hyv15_kernel_rows():
     return rows, max(c["max_abs_err"] for c in cases)
 
 
-def write_byt5_config(home: Path) -> None:
+def write_byt5_config(home: Path, manifest: Path = HYV15_MANIFEST) -> None:
     """byT5-small's published config.json where the manifest's glyph encoder
     names it (components/<config_path>); the other components' family
     defaults are their published configs."""
     import yaml
 
-    doc = yaml.safe_load(HYV15_MANIFEST.read_text())
+    doc = yaml.safe_load(manifest.read_text())
     spec = next(c for c in doc["spec"]["components"] if c.get("name") == "text_encoder_2")
     path = home / "components" / spec["config_path"]
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -1150,7 +1265,9 @@ def phase_hyv15(home: Path):
                   f"hyv15 preview: {len(preview)} frames, expected {frames_n}")
             del frames_by_request[:], preview
         rows.append(row)
-    del engine, out, decoded
+    del engine, out, decoded, decode  # the bound method holds the engine
+    release()
+    t2v_row, t2v_frames = hyv15_t2v_request(home)
     release()
     linear_rows = residency_timing(list(HYV15_LINEAR_CALLS), phase=label)
     step = rows[2]["median_seconds_per_step_after_the_first"]
@@ -1163,7 +1280,65 @@ def phase_hyv15(home: Path):
         "other_seconds": step - attention_s - linear_s, "attention_share": attention_s / step,
         "w8a8_linear_share": linear_s / step,
         "reckoning": "queued kernel ms x 108 joint + 4 refiner calls; queued W8A8 ms x calls by shape"}})
-    return rows, kernel_rows, kernel_err
+    return rows + [t2v_row], kernel_rows, kernel_err, t2v_frames
+
+
+def hyv15_t2v_request(home: Path):
+    """One 33-frame 720x1280 request through the t2v manifest's own engine
+    (synthetic int8 weights, CFG 6.0, two steps), decoded; its frames go on
+    to the rife phase."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine import UniversalEngine
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    label, frames_n, (height, width) = "hyv15_t2v", HYV15_FRAMES[0], HYV15_SIZE
+    os.environ["APEX_SYNTHETIC_WEIGHTS"] = "int8"
+    os.environ["APEX_HOME_DIR"] = str(home / label)
+    write_byt5_config(home / label, HYV15_T2V_MANIFEST)
+    engine = UniversalEngine(HYV15_T2V_MANIFEST, device="cuda")
+    tok = make_tokenizer()
+    for spec in engine.component_specs.values():
+        if spec.get("type") == "text_encoder":
+            spec["tokenizer"] = tok
+    stamps, peaks, last = {}, {}, [None]
+
+    def progress(p, message, *_a, **_k):
+        torch.cuda.synchronize()
+        stamps.setdefault(message, time.perf_counter())
+        if last[0] is not None:  # the peak of the stage that ends here
+            peaks[last[0]] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        last[0] = message
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    frames = engine.run(prompt=HYV15_PROMPT, negative_prompt="", height=height, width=width,
+                        num_frames=frames_n, num_inference_steps=HYV15_STEPS, guidance_scale=6.0, seed=42,
+                        progress_callback=progress)
+    torch.cuda.synchronize()
+    total, launches = time.perf_counter() - t0, flash_attention.launches
+    steps = [stamps[f"Denoising step {j}/{HYV15_STEPS}"] for j in range(1, HYV15_STEPS + 1)]
+    row = {"phase": "hyv15", "request": "t2v", "manifest": HYV15_T2V_MANIFEST.name, "weights": "int8",
+           "frames_requested": frames_n, "seconds_total": total,
+           "seconds_encode_mllm": stamps["Encoded mllm prompts"] - stamps["Starting pipeline"],
+           "seconds_load": stamps["Components ready"] - stamps["Encoded mllm prompts"],
+           "seconds_denoise": stamps["Denoising complete"] - stamps["Timesteps computed; starting denoise"],
+           "seconds_per_step": [b - a for a, b in zip(
+               [stamps["Timesteps computed; starting denoise"]] + steps[:-1], steps)],
+           "seconds_decode": stamps["Completed pipeline"] - stamps["Denoising complete"],
+           "peak_gib_by_stage": peaks, "peak_gib": max(peaks.values()), "frames": len(frames),
+           "frame_shape": list(frames[0].shape), "flash_launches": launches,
+           "flash_launches_expected": HYV15_LAUNCHES_PER_STEP * HYV15_STEPS}
+    emit(row)
+    check(len(frames) == frames_n and all(f.shape == (height, width, 3) and f.dtype == np.uint8 for f in frames),
+          f"hyv15 t2v: {len(frames)} frames of {frames[0].shape}, expected {frames_n} of {height}x{width}x3")
+    check(launches == HYV15_LAUNCHES_PER_STEP * HYV15_STEPS,
+          f"hyv15 t2v: flash launched {launches} times, expected {HYV15_LAUNCHES_PER_STEP * HYV15_STEPS}")
+    del engine
+    return row, frames
 
 
 def vae_tile_precision(vae, z_denoised) -> dict:
@@ -1213,6 +1388,399 @@ def vae_tile_precision(vae, z_denoised) -> dict:
     emit(row)
     check(row["seeded_normal"]["rel_l2_vs_float64"] <= 2e-2,
           f"the VAE's decode is {row['seeded_normal']['rel_l2_vs_float64']} from float64")
+    return row
+
+
+# -- ZImage Turbo ---------------------------------------------------------------------------
+
+
+def zimage_reference():
+    """A ZImage DiT at full width (dim 3840, 30 heads of 128) with 2 + 2
+    refiner blocks and 2 layers, on the card in bf16 (flash kernel) against
+    the same weights on the CPU in f32 (plain version), within BF16_REL_L2.
+    15 x 17 latent patches give 255 image tokens, so the pad token runs too."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers.zimage import ZImageConfig, ZImageTransformer2DModel
+
+    cfg = ZImageConfig(n_layers=2, n_refiner_layers=2)
+    f32 = materialize_random(lambda: ZImageTransformer2DModel(cfg, dtype=torch.float32), torch.device("cuda"),
+                             seed=21)
+    with torch.no_grad():
+        for prm in f32.parameters():  # both sides hold the same (bf16-representable) weights
+            prm.copy_(prm.to(torch.bfloat16).float())
+    card = materialize_random(lambda: ZImageTransformer2DModel(cfg, dtype=torch.bfloat16), torch.device("cuda"),
+                              seed=0)
+    card.load_state_dict(f32.state_dict())
+    cpu = f32.to("cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, 16, 1, 30, 34)).astype(np.float32))
+    t = torch.tensor([0.6])
+    cap = torch.from_numpy(rng.normal(size=(1, 64, 2560)).astype(np.float32))
+    mask = torch.arange(64)[None] < 50
+    with torch.inference_mode():
+        ref = cpu(x, t, cap, mask)
+        out = card(x.cuda(), t.cuda(), cap.cuda(), mask.cuda()).float().cpu()
+    rel = rel_l2(out, ref)
+    finite = bool(torch.isfinite(out).all())
+    emit({"phase": "zimage", "check": "card_bf16_vs_cpu_f32",
+          "model": "zimage dim 3840, 30 heads, 2 + 2 refiner blocks, 2 layers",
+          "parameters": sum(p.numel() for p in cpu.parameters()), "image_tokens": 255, "caption_bucket": 64,
+          "rel_l2": rel, "max_abs_err": (out - ref).abs().max().item(), "max_abs_ref": ref.abs().max().item(),
+          "tol_rel_l2": BF16_REL_L2, "finite": finite})
+    check(finite and rel <= BF16_REL_L2, f"the ZImage DiT on the card is {rel} from the CPU (limit {BF16_REL_L2})")
+    del f32, card, cpu
+    release()
+
+
+def zimage_drive(label, manifest, weights, requests, steps, home, launches_per_step, **run_kw):
+    """Requests through ``UniversalEngine`` on a ZImage manifest at 1024x1024
+    with synthetic ``weights``, each with the kernel's launch count set to 0
+    before and read after; ``requests`` are (prompt, seed) pairs. Returns the
+    rows, the frames and the engine."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine import UniversalEngine
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    os.environ["APEX_SYNTHETIC_WEIGHTS"] = weights
+    os.environ["APEX_HOME_DIR"] = str(home / label)
+    engine = UniversalEngine(manifest, device="cuda")
+    engine._spec_for_type("text_encoder")["tokenizer"] = make_tokenizer()
+    engine.load_component_by_type("vae")
+    decode, latents_finite = engine.vae.decode, []
+
+    def observed_decode(z):
+        latents_finite.append(bool(torch.isfinite(z).all()))
+        return decode(z)
+
+    engine.vae.decode = observed_decode
+    rows, frames_out = [], []
+    for i, (prompt, seed) in enumerate(requests):
+        stamps, peaks, last = {}, {}, [None]
+
+        def progress(p, message, *_a, **_k):
+            torch.cuda.synchronize()
+            stamps.setdefault(message, time.perf_counter())
+            if last[0] is not None:  # the peak of the stage that ends here
+                peaks[last[0]] = max(peaks.get(last[0], 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+            last[0] = message
+
+        latents_finite.clear()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        frames = engine.run(prompt=prompt, height=SIZE, width=SIZE, num_inference_steps=steps, seed=seed,
+                            progress_callback=progress, **run_kw)
+        torch.cuda.synchronize()
+        total, launches = time.perf_counter() - t0, flash_attention.launches
+        step_t = [stamps[f"Denoising step {j}/{steps}"] for j in range(1, steps + 1)]
+        start = stamps["Timesteps computed; starting denoise"]
+        per_step = [b - a for a, b in zip([start] + step_t[:-1], step_t)]
+        row = {
+            "phase": label, "manifest": manifest.name, "weights": weights, "request": i + 1,
+            "prompt": prompt[:40], "seed": seed, "steps": steps, "seconds_total": total,
+            "seconds_before_pipeline": stamps["Starting text-to-image pipeline"] - t0,
+            "seconds_load": stamps["Components ready"] - stamps["Starting text-to-image pipeline"],
+            "seconds_encode": stamps["Prompts ready"] - stamps["Components ready"],
+            "seconds_denoise": stamps["Denoising complete"] - start,
+            "seconds_per_step": per_step,
+            "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
+            "seconds_decode": stamps["Completed text-to-image pipeline"] - stamps["Denoising complete"],
+            "peak_gib_by_stage": peaks, "peak_gib": max(peaks.values()),
+            "flash_launches": launches, "flash_launches_per_step": launches / steps,
+            "flash_launches_expected": launches_per_step * steps,
+            "frames": [list(f.shape) for f in frames], "latents_finite": latents_finite,
+        }
+        emit(row)
+        check(len(frames) == 1 and frames[0].shape == (SIZE, SIZE, 3) and frames[0].dtype == np.uint8,
+              f"{label} request {i + 1}: bad frames {row['frames']}")
+        check(latents_finite == [True], f"{label} request {i + 1}: latents not finite")
+        check(launches == launches_per_step * steps,
+              f"{label} request {i + 1}: flash launched {launches} times, expected {launches_per_step * steps}")
+        rows.append(row)
+        frames_out.append(frames[0])
+    return rows, frames_out, engine
+
+
+def phase_zimage(home: Path, kernel_rows=()):
+    """ZImage Turbo text-to-image at 1024x1024 from its manifest, full width
+    and depth: the 2 + 2-block card-vs-CPU check; three requests of the
+    manifest's 9 steps with synthetic int8 weights (requests 1 and 3 the same
+    prompt and seed); the resident Linears at ZImage's shapes; then one bf16
+    request, one CFG request (zimage.yml: guidance 4, norm clamp, truncation)
+    and one control request, each of 2 steps. With the timing phase's
+    ``kernel_rows`` it also splits the int8 step into attention, the main
+    layers' W8A8 Linears and the rest."""
+    import numpy as np
+    import yaml
+
+    zimage_reference()
+    run = yaml.safe_load(ZIMAGE_MANIFEST.read_text())["spec"]["defaults"]["run"]
+    check(run["num_inference_steps"] == ZIMAGE_STEPS and run["guidance_scale"] == 0.0
+          and run["height"] == run["width"] == SIZE, f"the manifest's defaults changed: {run}")
+    paths = {}
+    rows, frames, engine = zimage_drive("zimage", ZIMAGE_MANIFEST, "int8",
+                                        [(PROMPT_A, 0), (PROMPT_B, 1), (PROMPT_A, 0)], ZIMAGE_STEPS, home,
+                                        ZIMAGE_LAUNCHES, guidance_scale=0.0)
+    paths["zimage"] = rows
+    from apex_studio_tpu_torch.quantize.residency import count_resident
+
+    same, differ = bool(np.array_equal(frames[0], frames[2])), not np.array_equal(frames[0], frames[1])
+    emit({"phase": "zimage", "requests_1_3_identical": same, "requests_1_2_differ": differ,
+          "resident_weights": count_resident(engine.transformer),
+          "median_seconds_per_step_after_the_first": statistics.median(
+              t for r in rows for t in r["seconds_per_step"][1:])})
+    check(same, "zimage requests 1 and 3 (same prompt and seed) differ")
+    check(differ, "zimage requests 1 and 2 (other prompt and seed) are identical")
+    check(count_resident(engine.transformer) > 0, "no weight of the ZImage DiT is int8-resident")
+    del engine, frames
+    release()
+    linear_rows = residency_timing(list(ZIMAGE_LINEAR_CALLS), phase="zimage")
+    if kernel_rows:
+        step = statistics.median(t for r in rows for t in r["seconds_per_step"][1:])
+        queued = {r["case"]: r["queued_ms"] for r in kernel_rows}
+        attention_s = (30 * queued["zimage_layers_s4224_h30"] + 2 * queued["zimage_noise_refiner_s4096_h30"]
+                       + 2 * queued["zimage_caption_s128_h30"]) / 1e3
+        by = {key: sum(ZIMAGE_LINEAR_CALLS[(r["rows"], r["in"], r["out"])] * r[key] for r in linear_rows) / 1e3
+              for key in ("w8a8_ms", "bf16_ms")}
+        emit({"phase": "zimage", "step_breakdown_int8": {
+            "seconds_per_step": step, "attention_seconds": attention_s,
+            "w8a8_linear_seconds_main_layers": by["w8a8_ms"], "bf16_linear_seconds_same_calls": by["bf16_ms"],
+            "other_seconds": step - attention_s - by["w8a8_ms"], "attention_share": attention_s / step,
+            "w8a8_linear_share": by["w8a8_ms"] / step,
+            "reckoning": "queued kernel ms x (30 at 4224 + 2 at 4096 + 2 at 128 tokens); queued ms x calls "
+                         "of the main layers' Linears and the adaLN rows; other = the rest, the refiners' "
+                         "Linears with it"}})
+    paths["zimage_bf16"] = zimage_drive("zimage_bf16", ZIMAGE_MANIFEST, "bf16", [(PROMPT_A, 0)], 2, home,
+                                        ZIMAGE_LAUNCHES, guidance_scale=0.0)[0]
+    release()
+    # a 2-step schedule at 4096 tokens ends at t_model 0.9968: a truncation
+    # below that would drop CFG from the second step
+    paths["zimage_cfg"] = zimage_drive("zimage_cfg", ZIMAGE_CFG_MANIFEST, "int8", [(PROMPT_B, 2)], 2, home,
+                                       2 * ZIMAGE_LAUNCHES, guidance_scale=4.0, negative_prompt="",
+                                       cfg_normalization=1.0, cfg_truncation=0.999)[0]
+    release()
+    rng = np.random.default_rng(3)
+    control = cv2_smooth(rng, (SIZE, SIZE))
+    inpaint = cv2_smooth(rng, (SIZE, SIZE))
+    mask = np.zeros((SIZE, SIZE, 3), np.uint8)
+    mask[256:768, 192:832] = 255
+    paths["zimage_control"] = zimage_drive(
+        "zimage_control", ZIMAGE_CONTROL_MANIFEST, "int8", [(PROMPT_A, 4)], 2, home, ZIMAGE_CONTROL_LAUNCHES,
+        guidance_scale=0.0, control_image=control, image=inpaint, mask_image=mask, control_context_scale=0.75)[0]
+    release()
+    return paths, linear_rows
+
+
+def cv2_smooth(rng, size):
+    """A seeded smooth RGB uint8 image: random 32x32 colours upscaled."""
+    import cv2
+
+    small = rng.integers(0, 256, size=(32, 32, 3)).astype("uint8")
+    return cv2.resize(small, (size[1], size[0]), interpolation=cv2.INTER_CUBIC)
+
+
+# -- prompt extension ------------------------------------------------------------------------
+
+
+class RecordingTokenizer:
+    """The byte-level tokenizer, recording the ids each ``decode`` gets."""
+
+    def __init__(self):
+        self.tok, self.decoded = make_tokenizer(), []
+
+    def encode(self, text, **kw):
+        return self.tok.encode(text, **kw)
+
+    def decode(self, ids):
+        self.decoded.append(list(ids))
+        return self.tok.decode(ids)
+
+
+class plain_attention:
+    """Within it, the flash backend runs the kernel's plain version."""
+
+    def __enter__(self):
+        from apex_studio_tpu_torch.ops.attention import attention_registry
+        from apex_studio_tpu_torch.ops.attention.flash import flash_attention_reference
+
+        self.saved = attention_registry.get("flash")
+        attention_registry._entries["flash"] = flash_attention_reference
+
+    def __exit__(self, *exc):
+        from apex_studio_tpu_torch.ops.attention import attention_registry
+
+        attention_registry._entries["flash"] = self.saved
+
+
+def phase_prompt_extension(home: Path):
+    """``PromptExtender`` on the resident synthetic Qwen3-4B (int8, the ZImage
+    manifest's text encoder), greedy, 32 new tokens, the launches counted
+    around ``generate``. Then, from the same prompt: prefill, and each decode
+    step on the kernel against the same step on the plain attention route from
+    the same caches (logits); and every position's hidden state against a full
+    recompute of the padded sequence."""
+    import torch
+
+    from apex_studio_tpu_torch.engine import UniversalEngine
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+    from apex_studio_tpu_torch.prompt_extension import PromptExtender
+
+    os.environ["APEX_SYNTHETIC_WEIGHTS"] = "int8"
+    os.environ["APEX_HOME_DIR"] = str(home / "prompt_extension")
+    engine = UniversalEngine(ZIMAGE_MANIFEST, device="cuda")
+    engine.load_component_by_type("text_encoder")
+    model = engine.text_encoder._ensure_model()
+    check(len(model.layers) == QWEN3_LAYERS and model.cfg.num_attention_heads == QWEN3_HEADS,
+          "the manifest's text encoder is not Qwen3-4B")
+    tok = RecordingTokenizer()
+    ext = PromptExtender(model, tok)
+    prompt = "a lighthouse keeper at dusk"
+    ext.generate(prompt, max_new_tokens=2, temperature=0.0)  # warm-up
+    tok.decoded.clear()
+    stamps = []
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = ext.generate(prompt, max_new_tokens=EXTEND_TOKENS, temperature=0.0,
+                        progress_callback=lambda p, m, md: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    total, launches = time.perf_counter() - t0, flash_attention.launches
+    generated = tok.decoded[-1]
+
+    ids = list(make_tokenizer().encode(ext._chat(prompt), add_special_tokens=False).ids)
+    n, cache_len = len(ids), len(ids) + EXTEND_TOKENS
+    emb = model.embed_tokens
+    logits = lambda h: torch.matmul(h, emb.t().to(h.dtype)).float()  # noqa: E731
+    with torch.inference_mode():
+        prompt_ids = torch.tensor([ids], device="cuda")
+        ones = torch.ones_like(prompt_ids, dtype=torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hidden, caches = model.prefill(prompt_ids, ones, cache_len=cache_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        hs, step_rel, step_ms, tokens = [hidden[0, n - 1]], [], [], [int(logits(hidden[0, n - 1]).argmax())]
+        for i, token in enumerate(generated):
+            feed = torch.tensor([[token]], device="cuda")
+            same_caches = [(k.clone(), v.clone()) for k, v in caches]
+            with plain_attention():
+                plain, _ = model.decode_step(feed, n + i, same_caches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            h, caches = model.decode_step(feed, n + i, caches)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            step_rel.append(rel_l2(logits(h[0, 0]), logits(plain[0, 0])))
+            tokens.append(int(logits(h[0, 0]).argmax()))
+            hs.append(h[0, 0])
+        del same_caches, caches
+        # the whole sequence recomputed once, padded by 16 slots the mask hides
+        full = torch.zeros(1, cache_len + 16, dtype=torch.long, device="cuda")
+        full[0, :cache_len] = torch.tensor(ids + generated, device="cuda")
+        mask = torch.zeros_like(full, dtype=torch.int32)
+        mask[0, :cache_len] = 1
+        recompute = model(full, attention_mask=mask, normalize_last=True)[0]
+        recompute_rel = [rel_l2(h, recompute[n - 1 + j]) for j, h in enumerate(hs)]
+    row = {"phase": "prompt_extension", "model": "Qwen3-4B (synthetic int8)", "prompt_tokens": n,
+           "new_tokens": len(generated), "cache_len": cache_len, "text_chars": len(text),
+           "seconds_total": total, "seconds_prefill": prefill_s,
+           "ms_per_token": (total - prefill_s) / len(generated) * 1e3, "decode_step_ms": step_ms,
+           "median_decode_step_ms": statistics.median(step_ms),
+           "seconds_per_step": [(b - a) for a, b in zip([t0] + stamps[:-1], stamps)],
+           "flash_launches": launches, "flash_launches_per_token": launches / len(generated),
+           "flash_launches_expected": QWEN3_LAYERS * EXTEND_TOKENS,
+           "logits_kernel_vs_plain_rel_l2_max": max(step_rel), "logits_rel_l2_by_step": step_rel,
+           "cached_vs_recompute_rel_l2_max": max(recompute_rel), "tol_rel_l2": QWEN3_REL_L2,
+           "greedy_tokens_reproduced": tokens[:-1] == generated}
+    emit(row)
+    check(len(generated) == EXTEND_TOKENS, f"prompt extension generated {len(generated)} tokens")
+    check(launches == QWEN3_LAYERS * EXTEND_TOKENS,
+          f"prompt extension launched the kernel {launches} times, expected {QWEN3_LAYERS * EXTEND_TOKENS}")
+    check(row["greedy_tokens_reproduced"], "the decode steps did not reproduce generate's greedy tokens")
+    check(max(step_rel) <= QWEN3_REL_L2, f"decode logits on the kernel are {max(step_rel)} from the plain route")
+    check(max(recompute_rel) <= QWEN3_REL_L2,
+          f"prefill + decode_step are {max(recompute_rel)} from a full recompute")
+    del engine, model, ext, recompute, hs
+    release()
+    return [row]
+
+
+# -- RIFE ------------------------------------------------------------------------------------
+
+
+def phase_rife(home: Path, frames=None):
+    """``rife_v4`` through ``run_postprocessor`` with the default RIFEConfig and
+    seeded f32 weights, written in Practical-RIFE's naming where the
+    postprocessor looks for them, over 33 frames of 720x1280 (the hyv15
+    phase's t2v frames, else seeded ones): multiplier 2 gives 65 frames. One
+    interpolated frame is held against the same weights on the CPU. The cv2
+    ``frame_interpolation`` runs once first, while no RIFE checkpoint is
+    installed (with one it would run RIFE)."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.loaders.export import published_state_dict
+    from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
+    from apex_studio_tpu_torch.postprocess import run_postprocessor
+    from apex_studio_tpu_torch.postprocess.rife import IFNet, RIFEConfig, RIFEPostprocessor, load_rife
+
+    models = home / "rife_models"
+    models.mkdir()
+    os.environ["APEX_PREPROCESSOR_MODELS_PATH"] = str(models)
+    source = "hyv15 t2v frames" if frames else "seeded"
+    if frames is None:
+        rng = np.random.default_rng(7)
+        frames = [cv2_smooth(rng, RIFE_SIZE) for _ in range(RIFE_FRAMES)]
+    h, w = RIFE_SIZE
+    check(len(frames) == RIFE_FRAMES and frames[0].shape == (h, w, 3), "rife: unexpected input frames")
+
+    t0 = time.perf_counter()
+    flow = run_postprocessor("frame_interpolation", frames[:3], {"multiplier": 2})
+    cv2_s = time.perf_counter() - t0
+    check(len(flow) == 5 and all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in flow),
+          "frame_interpolation: bad frames")
+
+    torch.manual_seed(0)
+    net = IFNet(RIFEConfig())
+    path = models / "rife_v4.safetensors"
+    save_safetensors(path, published_state_dict("rife", net.state_dict()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_postprocessor("rife_v4", frames, {"multiplier": 2})
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    check(len(out) == 2 * RIFE_FRAMES - 1 and all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in out),
+          f"rife: {len(out)} frames, expected {2 * RIFE_FRAMES - 1} of {h}x{w}x3")
+    check(all(np.array_equal(out[2 * i], f) for i, f in enumerate(frames)), "rife changed an input frame")
+
+    card, cpu = load_rife(path, "cuda"), load_rife(path, "cpu")
+    pad = ((0, -h % 32), (0, -w % 32), (0, 0))
+    x0, x1 = (torch.from_numpy(np.pad(f, pad, mode="edge")).permute(2, 0, 1)[None].float() / 255.0
+              for f in frames[:2])
+    with torch.inference_mode():
+        on_card = card(x0.cuda(), x1.cuda(), 0.5).cpu()
+        on_cpu = cpu(x0, x1, 0.5)
+    float_err = (on_card - on_cpu).abs().max().item()
+    cpu_frame = RIFEPostprocessor(model=cpu)._pair(frames[0], frames[1], 0.5)
+    level_diff = int(np.abs(out[1].astype(int) - cpu_frame.astype(int)).max())
+    row = {"phase": "rife", "frames_source": source, "frames_in": len(frames), "frames_out": len(out),
+           "frame_shape": list(out[0].shape), "config": "RIFEConfig() widths (192, 128, 96, 64), scales 8/4/2/1",
+           "parameters": sum(p.numel() for p in net.parameters()), "seconds_total": total,
+           "seconds_per_interpolated_frame": total / (RIFE_FRAMES - 1),
+           "card_vs_cpu_max_abs": float_err, "tol_max_abs": RIFE_MAX_ABS,
+           "card_vs_cpu_uint8_max_level_diff": level_diff, "tol_uint8_levels": 1,
+           "frame_interpolation_cv2_frames": len(flow), "frame_interpolation_cv2_seconds": cv2_s}
+    emit(row)
+    check(float_err <= RIFE_MAX_ABS, f"rife on the card is {float_err} from the CPU (limit {RIFE_MAX_ABS})")
+    check(level_diff <= 1, f"rife's interpolated frame is {level_diff} levels from the CPU's")
+    del card, cpu, out
+    release()
     return row
 
 
@@ -1280,8 +1848,8 @@ def main() -> int:
         check(bool(ptxas["functions"]), "the build log names no kernel")
         spilled = [f["name"] for f in ptxas["functions"] if f["spill_bytes"]]
         check(not spilled, f"ptxas spilled registers in {spilled}")
-        flux_err = timed("kernels", phase_kernels) if "kernels" in phases else None
-        timing = timed("timing", phase_timing) if "timing" in phases else None
+        flux_err, case_err = timed("kernels", phase_kernels) if "kernels" in phases else (None, {})
+        timing, zimage_timing = timed("timing", phase_timing) if "timing" in phases else (None, [])
         if "reference" in phases:
             timed("reference", phase_reference)
         if "residency" in phases:
@@ -1305,9 +1873,19 @@ def main() -> int:
         if "int4" in phases:
             paths["int4"] = timed("int4", drive, "int4", "int4", [(PROMPT_A, 0)], 2, home)[0]
             release()
-        hyv15_rows, hyv15_err = [], None
+        hyv15_rows, hyv15_err, hyv15_frames = [], None, None
         if "hyv15" in phases:
-            paths["hyv15"], hyv15_rows, hyv15_err = timed("hyv15", phase_hyv15, home)
+            paths["hyv15"], hyv15_rows, hyv15_err, hyv15_frames = timed("hyv15", phase_hyv15, home)
+            release()
+        if "zimage" in phases:
+            zimage_paths, _ = timed("zimage", phase_zimage, home, zimage_timing)
+            paths.update(zimage_paths)
+            release()
+        if "prompt_extension" in phases:
+            paths["prompt_extension"] = timed("prompt_extension", phase_prompt_extension, home)
+        if "rife" in phases:
+            timed("rife", phase_rife, home, hyv15_frames)
+            del hyv15_frames
         if len(paths) > 1:
             emit({"phase": "steps", "median_seconds_per_step_after_the_first": {
                 name: statistics.median(t for r in rows if not r.get("linear_hooks_on")
@@ -1332,6 +1910,9 @@ def main() -> int:
             "hyv15_rows": [{k: r[k] for k in ("case", "shape", "bias", "ms", "queued_ms", "plain_ms_first_rows",
                                               "plain_rows", "bound_ms", "bound_by", "library_ms")}
                            for r in hyv15_rows],
+            "zimage_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "bias", "ms", "queued_ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
+                             "max_abs_err": case_err.get(r["case"])} for r in zimage_timing],
         }]})
         print(card)
     except CheckFailed as e:

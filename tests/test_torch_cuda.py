@@ -44,6 +44,16 @@ CASES = [
     ("first_key_tile_bias_masked", 1, 130, 300, 4, 128, [-128], False),
     # HunyuanVideo 1.5's token refiner: 1000 Qwen2.5-VL tokens, 16 heads, a [1, Sk] text mask
     ("hyv15_refiner_sk1000_bias", 1, 1000, 1000, 16, 128, [612], False),
+    # ZImage at 1024px, 30 heads: main layers over 4096 image + 128 caption
+    # tokens, the noise refiner over 4096, the context refiner over a caption bucket
+    ("zimage_layers_s4224_h30", 1, 4224, 4224, 30, 128, None, False),
+    ("zimage_noise_refiner_s4096_h30", 1, 4096, 4096, 30, 128, None, False),
+    ("zimage_caption_s128_h30", 1, 128, 128, 30, 128, None, False),
+    # Qwen3's decode step: one query row over the KV cache, the valid prefix as
+    # a key-padding bias ([1, Sk], then [B, Sk] with a ragged Sk)
+    ("qwen3_decode_sq1_sk300_bias", 1, 1, 300, 32, 128, [292], False),
+    ("qwen3_decode_sq1_sk437_bias_b2", 2, 1, 437, 32, 128, [400, 437], False),
+    ("decode_sq1_sk1_no_bias", 1, 1, 1, 32, 128, None, False),
 ]
 
 
@@ -167,3 +177,49 @@ def test_resident_linear_matches_the_cpu(bits, shape, cuda):
     assert out.shape == ref.shape
     rel = (torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)).item()
     assert rel <= (1e-4 if bits == 4 else 2e-3), rel
+
+
+# -- the ZImage path -------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_qwen3_decode_step_runs_the_kernel_once_a_layer(cuda):
+    """A small Qwen3 in bf16 on the card: ``decode_step`` launches the kernel
+    once a layer (prefill none: its mask is per query) and agrees with a full
+    recompute of the sequence within 3e-2 relative L2."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.text_encoders.qwen3 import Qwen3Config, Qwen3TextEncoder
+
+    cfg = Qwen3Config(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=3,
+                      num_attention_heads=4, num_key_value_heads=2, head_dim=128)
+    model = materialize_random(lambda: Qwen3TextEncoder(cfg), cuda, seed=0, std=0.05)
+    ids = torch.randint(0, 512, (1, 20), generator=torch.Generator().manual_seed(0)).to(cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        _, caches = model.prefill(ids[:, :16], torch.ones(1, 16, dtype=torch.int32, device=cuda), cache_len=20)
+        assert flash_attention.launches == before
+        for pos in range(16, 20):
+            h, caches = model.decode_step(ids[:, pos:pos + 1], pos, caches)
+        assert flash_attention.launches == before + 3 * 4
+        full = model(ids, attention_mask=torch.ones_like(ids), normalize_last=True)[0, -1]
+    rel = (torch.linalg.vector_norm(h[0, 0].float() - full.float()) / torch.linalg.vector_norm(full.float())).item()
+    assert rel <= 3e-2, rel
+
+
+@pytest.mark.cuda
+def test_zimage_dit_launches_the_kernel_per_attention(cuda):
+    """A small ZImage DiT (head dim 128) in bf16 on the card: one launch per
+    attention (2 + 2 refiner blocks, 2 layers), output finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers.zimage import ZImageConfig, ZImageTransformer2DModel
+
+    cfg = ZImageConfig(dim=256, n_layers=2, n_heads=2, n_kv_heads=2, cap_feat_dim=64)
+    model = materialize_random(lambda: ZImageTransformer2DModel(cfg), cuda, seed=0)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 16, 1, 18, 22, generator=g).to(cuda)  # 99 image tokens, padded to 128
+    cap = torch.randn(1, 32, 64, generator=g).to(cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        out = model(x, torch.tensor([0.5], device=cuda), cap, torch.arange(32, device=cuda)[None] < 20)
+    assert flash_attention.launches == before + 2 + 2 + 2
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()

@@ -37,6 +37,9 @@ from apex_studio_tpu.models.vaes.hunyuanvideo15_vae import AutoencoderKLHunyuanV
 from apex_studio_tpu.models.vaes.hunyuanvideo15_vae import HYV15VAEConfig as JaxHYV15VAEConfig
 from apex_studio_tpu.models.vaes.tae_vae import TAEVAE as JaxTAE
 from apex_studio_tpu.models.vaes.tae_vae import TAEConfig as JaxTAEConfig
+from apex_studio_tpu.models.text_encoders.qwen3 import Qwen3Config as JaxQwen3Config
+from apex_studio_tpu.models.text_encoders.qwen3 import Qwen3TextEncoder as JaxQwen3
+from apex_studio_tpu.models.transformers import zimage as jax_zimage
 from apex_studio_tpu.quantize.writers import write_gguf
 from apex_studio_tpu_torch.engine.base import materialize_random
 from apex_studio_tpu_torch.loaders import converters, safetensors_io
@@ -49,6 +52,8 @@ from apex_studio_tpu_torch.models.transformers.hunyuanvideo15 import HunyuanVide
 from apex_studio_tpu_torch.models.vaes.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
 from apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae import AutoencoderKLHunyuanVideo15, HYV15VAEConfig
 from apex_studio_tpu_torch.models.vaes.tae_vae import TAEVAE, TAEConfig
+from apex_studio_tpu_torch.models.text_encoders.qwen3 import Qwen3Config, Qwen3TextEncoder
+from apex_studio_tpu_torch.models.transformers import zimage
 from apex_studio_tpu_torch.quantize.gguf import load_gguf_state_dict
 from tests.torch_port_helpers import assert_close
 
@@ -68,6 +73,11 @@ HYV15 = dict(in_channels=9, out_channels=4, num_attention_heads=2, attention_hea
 HYV15_VAE = dict(latent_channels=4, block_out_channels=(8, 16, 32), layers_per_block=1,
                  spatial_compression_ratio=4, temporal_compression_ratio=2, scaling_factor=1.03682)
 TAE = dict(latent_channels=4, channels=(8, 8, 8, 8), act="leaky_relu", out_range="sym")
+ZIMAGE = dict(dim=64, n_layers=2, n_refiner_layers=1, n_heads=2, n_kv_heads=2, in_channels=4,
+              cap_feat_dim=48, axes_dims=(8, 12, 12), axes_lens=(64, 32, 32))
+ZIMAGE_CONTROL = dict(ZIMAGE, control_layers_places=(0,), control_refiner_layers_places=(0,), control_in_dim=9)
+QWEN3 = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+             num_attention_heads=4, num_key_value_heads=2, head_dim=16)
 
 
 # -- safetensors ---------------------------------------------------------------------------
@@ -230,6 +240,27 @@ def run_vae3d(model, is_jax):
     return model.decode(jnp.asarray(z)) if is_jax else model.decode(torch.from_numpy(z))
 
 
+def run_zimage(model, is_jax):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1, 4, 1, 6, 8)).astype(np.float32)
+    t = np.array([0.4], np.float32)
+    cap = rng.normal(size=(1, 32, 48)).astype(np.float32)
+    mask = np.arange(32)[None] < 19
+    kw = {}
+    if model.cfg.__class__.__name__ == "ZImageControlConfig":
+        cc = rng.normal(size=(1, 9, 1, 6, 8)).astype(np.float32)
+        kw = {"control_context": jnp.asarray(cc) if is_jax else torch.from_numpy(cc), "control_context_scale": 0.7}
+    if is_jax:
+        return model(jnp.asarray(x), jnp.asarray(t), jnp.asarray(cap), jnp.asarray(mask), **kw)
+    return model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(cap), torch.from_numpy(mask), **kw)
+
+
+def zimage_single_file(sd):
+    """The Comfy single-file naming under a ``model.diffusion_model.`` prefix,
+    which the converter strips."""
+    return {"model.diffusion_model." + k: v for k, v in published_state_dict("zimage", sd).items()}
+
+
 # name: (converter family, port constructor, JAX constructor, exporter, forward)
 FAMILIES = {
     "flux_bfl": ("flux", lambda: FluxTransformer2DModel(FluxConfig(**FLUX), dtype=torch.float32),
@@ -254,6 +285,18 @@ FAMILIES = {
                            lambda sd: published_state_dict("hunyuanvideo15_vae", sd), run_vae3d),
     "tae_vae": ("tae_vae", lambda: TAEVAE(TAEConfig(**TAE)), lambda: JaxTAE(JaxTAEConfig(**TAE), rngs=nnx.Rngs(0)),
                 lambda sd: published_state_dict("tae_vae", sd), run_vae3d),
+    "zimage_single_file": ("zimage", lambda: zimage.ZImageTransformer2DModel(zimage.ZImageConfig(**ZIMAGE),
+                                                                             dtype=torch.float32),
+                           lambda: jax_zimage.ZImageTransformer2DModel(jax_zimage.ZImageConfig(**ZIMAGE), **F32),
+                           zimage_single_file, run_zimage),
+    "zimage_control": ("zimage", lambda: zimage.ZImageControlTransformer2DModel(
+                           zimage.ZImageControlConfig(**ZIMAGE_CONTROL), dtype=torch.float32),
+                       lambda: jax_zimage.ZImageControlTransformer2DModel(
+                           jax_zimage.ZImageControlConfig(**ZIMAGE_CONTROL), **F32),
+                       lambda sd: published_state_dict("zimage", sd), run_zimage),
+    "qwen3": ("qwen3", lambda: Qwen3TextEncoder(Qwen3Config(**QWEN3), dtype=torch.float32),
+              lambda: JaxQwen3(JaxQwen3Config(**QWEN3), **F32), lambda sd: published_state_dict("qwen3", sd),
+              run_encoder),
 }
 
 
@@ -288,7 +331,10 @@ class TestFamilies:
                   "autoencoder_kl": "decoder.mid_block.attentions.0.to_out.0.weight",
                   "hunyuanvideo15": "context_embedder.token_refiner.refiner_blocks.1.attn.to_out.0.weight",
                   "hunyuanvideo15_vae": "decoder.up_blocks.0.upsamplers.0.conv.conv.weight",
-                  "tae_vae": "decoder.3.conv.4.weight"}[name]
+                  "tae_vae": "decoder.3.conv.4.weight",
+                  "zimage_single_file": "model.diffusion_model.all_final_layer.2-1.adaLN_modulation.1.weight",
+                  "zimage_control": "control_noise_refiner.0.adaLN_modulation.0.weight",
+                  "qwen3": "model.layers.1.mlp.gate_proj.weight"}[name]
         assert marker in keys
 
     def test_loaded_parameters_equal_what_was_written(self, family):
@@ -459,3 +505,68 @@ class TestGGUF:
             f.write(vals.view(torch.uint8).numpy().tobytes())
         got = load_gguf_state_dict(tmp_path / "b.gguf")
         np.testing.assert_array_equal(got["x"], vals.float().numpy())
+
+
+class TestZImageEngineLoad:
+    """The tiny ZImage DiT of tests/test_engine_zimage.py written as the
+    manifest's two transformer variants, a Comfy single file (``default``)
+    and a GGUF Q8_0 file (``GGUF_Q8_0``, made by the JAX package's writer),
+    and read back by both engines: the single file bit-equal to what was
+    written, the GGUF file within half a Q8_0 step; the port's forward on
+    what it loaded within 1e-4·max|ref| of the JAX engine's."""
+
+    VARIANTS = [{"path": "zimage-tiny/z_image_turbo_bf16.safetensors", "variant": "default",
+                 "precision": "bf16", "type": "safetensors"},
+                {"path": "zimage-tiny/z_image_turbo-Q8_0.gguf", "variant": "GGUF_Q8_0",
+                 "precision": "q8_0", "type": "gguf"}]
+
+    @pytest.fixture(scope="class")
+    def written(self, tmp_path_factory):
+        import copy
+
+        import yaml
+
+        from tests.test_engine_zimage import TINY_MANIFEST
+
+        tmp = tmp_path_factory.mktemp("zimage_engine_load")
+        doc = copy.deepcopy(TINY_MANIFEST)
+        comp = next(c for c in doc["spec"]["components"] if c["type"] == "transformer")
+        comp.update(precision="fp32", model_path=self.VARIANTS)
+        cfg = zimage.ZImageConfig.from_dict(comp["config"])
+        source = materialize_random(lambda: zimage.ZImageTransformer2DModel(cfg, dtype=torch.float32),
+                                    torch.device("cpu"), seed=8, std=0.1)
+        root = tmp / "components" / "zimage-tiny"
+        root.mkdir(parents=True)
+        safetensors_io.save_safetensors(root / "z_image_turbo_bf16.safetensors",
+                                        zimage_single_file(source.state_dict()))
+        comfy = published_state_dict("zimage", source.state_dict())
+        used = write_gguf(root / "z_image_turbo-Q8_0.gguf", {k: v.numpy() for k, v in comfy.items()},
+                          qtype="Q8_0", skip_quant=("norm", "bias", "pad_token"))
+        assert "Q8_0" in used.values() and "F32" in used.values()
+        (tmp / "zimage.yml").write_text(yaml.safe_dump(doc))
+        return tmp, source
+
+    @pytest.mark.parametrize("variant", ["default", "GGUF_Q8_0"])
+    def test_engines_load_the_variant(self, written, variant, monkeypatch):
+        from apex_studio_tpu.engine.registry import UniversalEngine as JaxUniversalEngine
+        from apex_studio_tpu_torch.engine import UniversalEngine
+
+        tmp, source = written
+        monkeypatch.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
+        monkeypatch.setenv("APEX_HOME_DIR", str(tmp))
+        selected = {"transformer": {"variant": variant}}
+        loaded = UniversalEngine(tmp / "zimage.yml", device="cpu",
+                                 selected_components=selected).load_component_by_type("transformer")
+        want, got = source.state_dict(), loaded.state_dict()
+        assert sorted(want) == sorted(got)
+        for k in want:
+            if variant == "default" or any(s in k for s in ("norm", "bias", "pad_token")):
+                assert torch.equal(got[k], want[k]), k
+            else:
+                step = float(want[k].abs().max()) / 127
+                assert float((got[k] - want[k]).abs().max()) <= 0.6 * step, k
+        jm = JaxUniversalEngine(tmp / "zimage.yml", selected_components=selected).load_component_by_type(
+            "transformer")
+        with torch.inference_mode():
+            out = run_zimage(loaded, False)
+        assert_close(out, np.asarray(run_zimage(jm, True)))
