@@ -48,6 +48,9 @@ _DTYPES = {
 
 SYNTHETIC_STD = 0.02
 
+# VAE bases whose checkpoints another family's converter reads
+_VAE_CONVERTERS = {"qwenimage": "wan_vae", "AutoencoderKLQwenImage": "wan_vae"}
+
 
 def select_variant(model_path: Union[str, List[Dict[str, Any]], None],
                    preferred: Optional[str] = None) -> Optional[Dict[str, Any]]:
@@ -389,6 +392,10 @@ class BaseEngine:
         # VAE checkpoints have their own key layout: prefer a "<family>_vae" converter
         if f"{family}_vae" in converter_registry:
             family = f"{family}_vae"
+        # Departure from the JAX engine, which maps a QwenImage VAE file
+        # through the DiT's "qwenimage" converter (no "qwenimage_vae" exists):
+        # that VAE is the Wan architecture and loads through "wan_vae".
+        family = _VAE_CONVERTERS.get(base, family)
         return self._instantiate_family(_registry("vae"), spec, family)
 
     def _load_text_encoder(self, spec: Dict[str, Any]):

@@ -1,6 +1,7 @@
 """Engine registry + UniversalEngine facade (port of
 ``apex_studio_tpu/engine/registry.py``). Ported: ``("flux", "t2i")``,
-``("hunyuanvideo15", "t2v" | "i2v")`` and ``("zimage", "t2i" | "control")``."""
+``("hunyuanvideo15", "t2v" | "i2v")``, ``("zimage", "t2i" | "control")`` and
+``("qwenimage", "t2i" | "edit" | "edit_plus" | "controlnet")``."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, Dict, Optional, Tuple, Type, Union
 from apex_studio_tpu_torch.manifest.loader import load_manifest
 
 _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.engine.hunyuanvideo15",
-                  "apex_studio_tpu_torch.engine.zimage")
+                  "apex_studio_tpu_torch.engine.zimage", "apex_studio_tpu_torch.engine.qwenimage")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

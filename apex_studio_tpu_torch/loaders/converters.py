@@ -4,7 +4,8 @@ paths load: Flux text-to-image's ``flux``, ``t5``, ``clip``,
 ``autoencoder_kl``; HunyuanVideo 1.5's ``hunyuanvideo15``,
 ``hunyuanvideo15_vae``, ``qwen2``, ``siglip``, ``tae_vae``, and byT5 through
 ``t5``; ZImage's ``zimage`` (base and control, the Comfy single-file names
-too) and ``qwen3``).
+too) and ``qwen3``; QwenImage's ``qwenimage`` (DiT and ControlNet) and
+``wan_vae``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -404,5 +405,47 @@ converter_registry.add(
         ],
         strip_prefixes=(),
         drop=(r"^lm_head\.", r"rotary_emb"),
+    ),
+)
+
+converter_registry.add(
+    # QwenImage DiT and its ControlNet (diffusers naming)
+    "qwenimage",
+    KeyConverter(
+        renames=[
+            (r"^time_text_embed\.timestep_embedder\.linear_(\d)\.", r"timestep_linear_\1."),
+            (r"\.img_mod\.1\.", ".img_mod."),
+            (r"\.txt_mod\.1\.", ".txt_mod."),
+            (r"\.attn\.to_out\.0\.", ".to_out."),
+            (r"(transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"\.(img|txt)_mlp\.net\.0\.proj\.", r".\1_mlp.fc1."),
+            (r"\.(img|txt)_mlp\.net\.2\.", r".\1_mlp.fc2."),
+            (r"^norm_out\.linear\.", "norm_out_linear."),
+            (r"(controlnet_blocks\.\d+)\.weight$", r"\1.kernel"),
+            (r"(img_in|txt_in|to_q|to_k|to_v|to_out|to_add_out|add_q_proj|add_k_proj|add_v_proj|img_mod|"
+             r"txt_mod|fc1|fc2|proj_out|norm_out_linear|timestep_linear_\d|controlnet_x_embedder)\.weight$",
+             r"\1.kernel"),
+        ],
+        drop=(r"^pos_embed", r"rotary"),
+    ),
+)
+
+converter_registry.add(
+    # the Wan VAE (diffusers AutoencoderKLWan / AutoencoderKLQwenImage naming):
+    # the resample conv sits at index 1 of a Sequential, the attention's 1×1
+    # convs become raw matrices, RMS gammas are [C, 1, 1(, 1)]
+    "wan_vae",
+    KeyConverter(
+        renames=[
+            (r"\.resample\.1\.", ".resample_conv."),
+            (r"\.to_qkv\.weight$", ".to_qkv_kernel"),
+            (r"\.to_qkv\.bias$", ".to_qkv_bias"),
+            (r"\.proj\.weight$", ".proj_kernel"),
+            (r"\.proj\.bias$", ".proj_bias"),
+            (r"(conv1|conv2|conv_shortcut|conv_in|conv_out|quant_conv|post_quant_conv|time_conv|resample_conv)"
+             r"\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(),
     ),
 )

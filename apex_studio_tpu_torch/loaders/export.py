@@ -4,8 +4,10 @@ original BFL single-file naming with fused qkv), ``t5`` (byT5 too), ``clip``,
 ``autoencoder_kl``, ``hunyuanvideo15`` and ``hunyuanvideo15_vae`` (diffusers
 naming), ``tae_vae`` (TAEHV's ``nn.Sequential`` indices), ``zimage`` (the
 single-file names of the Comfy-Org Z-Image files, control keys included),
-``qwen3`` (transformers' ``Qwen3ForCausalLM``) and ``rife`` (Practical-RIFE's
-``flownet`` keys).
+``qwen3`` (transformers' ``Qwen3ForCausalLM``), ``rife`` (Practical-RIFE's
+``flownet`` keys), ``qwenimage`` (diffusers' QwenImage DiT and ControlNet) and
+``wan_vae`` (diffusers' ``AutoencoderKLWan``, with its ``[C, 1, 1(, 1)]`` RMS
+gammas and 1×1-conv attention weights).
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -112,24 +114,56 @@ _RIFE = (
     (r"^blocks\.(\d+)\.lastconv\.", r"block\1.lastconv.0."),
     (r"^blocks\.(\d+)\.", r"block\1."),
 )
+_QWENIMAGE = (
+    (r"^timestep_linear_(\d)\.", r"time_text_embed.timestep_embedder.linear_\1."),
+    (r"^(transformer_blocks\.\d+)\.(img|txt)_mod\.", r"\1.\2_mod.1."),
+    (r"^(transformer_blocks\.\d+)\.to_out\.", r"\1.attn.to_out.0."),
+    (r"^(transformer_blocks\.\d+)\.(to_q|to_k|to_v|add_q_proj|add_k_proj|add_v_proj|to_add_out|norm_q|norm_k|"
+     r"norm_added_q|norm_added_k)\.", r"\1.attn.\2."),
+    (r"\.(img|txt)_mlp\.fc1\.", r".\1_mlp.net.0.proj."),
+    (r"\.(img|txt)_mlp\.fc2\.", r".\1_mlp.net.2."),
+    (r"^norm_out_linear\.", "norm_out.linear."),
+)
+_WAN_VAE = (
+    (r"\.resample_conv\.", ".resample.1."),
+    (r"\.to_qkv_(weight|bias)$", r".to_qkv.\1"),
+    (r"\.proj_(weight|bias)$", r".proj.\1"),
+)
+
+
+def _wan_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """diffusers' shapes: the attention's 1×1 conv weights ``[O, C, 1, 1]``,
+    its norm's gamma ``[C, 1, 1]``, every other gamma ``[C, 1, 1, 1]``."""
+    if key.endswith((".to_qkv.weight", ".proj.weight")):
+        return value[:, :, None, None]
+    if key.endswith(".norm.gamma"):
+        return value[:, None, None]
+    if key.endswith(".gamma"):
+        return value[:, None, None, None]
+    return value
+
+
+_LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {"wan_vae": _wan_vae_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
-    "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE}
+    "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE, "qwenimage": _QWENIMAGE, "wan_vae": _WAN_VAE}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """``module.state_dict()`` of an unquantized port module → the family's
     published (diffusers / transformers) key naming. Layouts are torch's on
-    both sides, so values pass through untouched."""
+    both sides, so values pass through untouched, except where the published
+    file keeps broadcast singletons (``wan_vae``)."""
     table = [(re.compile(p), r) for p, r in _TABLES[family]]
+    layout = _LAYOUTS.get(family, lambda key, value: value)
     out: Dict[str, torch.Tensor] = {}
     for key, value in state.items():
         if key.endswith("weight_scale"):
             raise ValueError(f"{key}: a quantized module has no published form")
         for pat, repl in table:
             key = pat.sub(repl, key)
-        out[key] = value
+        out[key] = layout(key, value)
     return out
 
 

@@ -12,6 +12,9 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
   scales become ``weight_scale`` and ``weight_bits`` follows from the
   kernel's dtype (``kernel_bits`` is a static attribute of the JAX module,
   not part of its state);
+- a 2-D ``..._kernel`` leaf is a raw ``[in, out]`` projection matrix kept
+  outside a Linear (the Wan VAE attention's ``to_qkv_kernel`` and
+  ``proj_kernel``): it becomes ``..._weight`` ``[out, in]``;
 - a 4-D ``...w`` is a transposed-convolution kernel that the JAX module
   keeps spatially flipped in HWIO (RIFE's ``Deconv2x``): it becomes
   ``...weight`` in ``ConvTranspose2d``'s layout ``[in, out, kh, kw]``,
@@ -54,6 +57,9 @@ def convert_jax_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
                 arr = arr.transpose(4, 3, 0, 1, 2)
             else:
                 raise ValueError(f"{key}: kernel of rank {arr.ndim} has no known layout")
+        elif parts[-1].endswith("_kernel") and arr.ndim == 2:
+            parts[-1] = parts[-1][: -len("kernel")] + "weight"
+            arr = arr.T
         elif parts[-1] == "w" and arr.ndim == 4:
             parts[-1] = "weight"
             arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]

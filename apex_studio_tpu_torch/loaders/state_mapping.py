@@ -35,9 +35,15 @@ def _as_tensor(value: Any) -> torch.Tensor:
 
 
 def port_path(path: str) -> str:
-    """Converted (JAX-leaf) path → the port's parameter path."""
+    """Converted (JAX-leaf) path → the port's parameter path: ``.kernel`` →
+    ``.weight``, and a raw ``..._kernel`` matrix (the Wan VAE attention's
+    ``to_qkv_kernel``) → ``..._weight``, both already in torch's layout."""
     parent, dot, leaf = path.rpartition(".")
-    return parent + dot + "weight" if leaf == "kernel" else path
+    if leaf == "kernel":
+        return parent + dot + "weight"
+    if leaf.endswith("_kernel"):
+        return parent + dot + leaf[: -len("kernel")] + "weight"
+    return path
 
 
 def _reconcile_shape(t: torch.Tensor, target_shape: Tuple[int, ...]) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Keys match manifest ``base`` values: ``flux.base``, ``hunyuanvideo15.base``,
 ``auto`` (AutoencoderKL), ``hunyuanvideo15`` (its VAE), ``tae``,
 ``CLIPTextModel``, ``T5EncoderModel``, ``Qwen2_5_VLForConditionalGeneration``,
-``SiglipVisionModel``, ``Qwen3ForCausalLM``, ``zimage.base``, ``zimage.control``.
+``SiglipVisionModel``, ``Qwen3ForCausalLM``, ``zimage.base``, ``zimage.control``,
+``qwenimage.base``, ``qwenimage.controlnet`` and ``wan.base`` (the Wan VAE, which
+``qwenimage`` and ``AutoencoderKLQwenImage`` name too).
 """
 
 import importlib
@@ -26,6 +28,8 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.text_encoders.siglip",
     "apex_studio_tpu_torch.models.text_encoders.qwen3",
     "apex_studio_tpu_torch.models.transformers.zimage",
+    "apex_studio_tpu_torch.models.transformers.qwenimage",
+    "apex_studio_tpu_torch.models.vaes.wan_vae",
 )
 
 

@@ -49,6 +49,16 @@ Phases, each printed as one JSON line:
              and 3 identical); the resident Linears at ZImage's shapes; one
              bf16 request, one CFG request from zimage.yml (68 launches a
              step) and one control request (51), each of 2 steps
+  qwenimage  QwenImage Edit 2509 at 1024x1024 from its manifest, full width and
+             depth, the 20B DiT int4-resident: a 2-block DiT and ControlNet at
+             full width on the card (bf16) against the CPU (f32); the bench
+             leg's edit request ("make the sky purple", 8 steps, true CFG off)
+             three times (60 launches a step, requests 1 and 3 identical, the
+             repeated prompt a disk-cache hit); one Wan VAE decode against
+             float64; the resident Linears at QwenImage's shapes and the int4
+             step split; edit_plus with two condition images, t2i with true
+             CFG (120 a step), the ControlNet at scales 1 and 0 (65 a step)
+             and one bf16 edit, each of 2 steps
   prompt_extension
              PromptExtender on the synthetic int8 Qwen3-4B, greedy, 32 new
              tokens (36 launches a token); each decode step's logits against
@@ -61,8 +71,10 @@ Phases, each printed as one JSON line:
 The kernels phase holds the kernel at every shape of the table in PERF.md:
 Flux's, the tile edges, biases and causal cases, ZImage's S = 4224 and 4096
 at 30 heads and its 128-token caption block, and Qwen3's one-row decode
-against Sk = 300 with a [1, Sk] bias and a ragged Sk = 437 with a [2, Sk] bias;
-the timing phase times each beside its bound and the library call.
+against Sk = 300 with a [1, Sk] bias and a ragged Sk = 437 with a [2, Sk] bias,
+and QwenImage's joint lengths at 24 heads (the edit request's, a ragged 8256,
+edit_plus's and t2i's); the timing phase times each beside its bound and the
+library call.
 Then a ``wall`` line, a ``kernels`` line, the card and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -102,7 +114,7 @@ STEPS = 4
 SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,"
-                  "prompt_extension,rife")
+                  "qwenimage,prompt_extension,rife")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -154,6 +166,18 @@ QWEN3_REL_L2 = 3e-2
 # the interpolated frame in [0, 1] within a quarter of a uint8 step, and the
 # uint8 frames at most one level apart
 RIFE_MAX_ABS, RIFE_FRAMES, RIFE_SIZE = 1e-3, 33, (720, 1280)
+QWENIMAGE_EDIT_MANIFEST = REPO / "manifests" / "image" / "qwenimage-edit-2509.yml"
+QWENIMAGE_MANIFEST = REPO / "manifests" / "image" / "qwenimage.yml"
+# 1024x1024: 128x128 latents packed 2x2 into 4096 tokens of 24 heads of 128;
+# 60 DiT blocks and 5 ControlNet blocks, one joint launch each
+QWENIMAGE_TOKENS, QWENIMAGE_HEADS, QWENIMAGE_LAYERS, QWENIMAGE_CN_LAYERS = 4096, 24, 60, 5
+QWENIMAGE_EDIT_PROMPT, QWENIMAGE_EDIT_STEPS = "make the sky purple", 8
+# rows, in, out and calls a forward of the edit request's resident Linears: the
+# image stream (4096 noise + 4096 condition rows) q/k/v/out, MLP in and out, and
+# the two 6·d modulations on one row (the text stream's q/k/v/out are added at
+# its bucket's rows)
+QWENIMAGE_LINEAR_CALLS = {(8192, 3072, 3072): 240, (8192, 3072, 12288): 60, (8192, 12288, 3072): 60,
+                          (1, 3072, 18432): 120}
 # google/byt5-small config.json (the manifest's glyph encoder)
 BYT5_SMALL = {"model_type": "t5", "d_model": 1472, "d_ff": 3584, "d_kv": 64, "num_heads": 6,
               "num_layers": 12, "vocab_size": 384, "relative_attention_num_buckets": 32,
@@ -259,10 +283,11 @@ def phase_kernels():
 
     cases = []
 
-    def run_case(name, q, k, v, bias=None, causal=False):
+    def run_case(name, q, k, v, bias=None, causal=False, reference=None):
         out = flash_attention(q, k, v, bias=bias, is_causal=causal)
         torch.cuda.synchronize()
-        ref = flash_attention_reference(q, k, v, bias=bias, is_causal=causal)
+        ref = (reference(q, k, v) if reference is not None
+               else flash_attention_reference(q, k, v, bias=bias, is_causal=causal))
         agree = agreement(out, ref)
         finite = bool(torch.isfinite(out.float()).all())
         cases.append({"case": name, "shape": list(q.shape), "sk": k.shape[1], "causal": causal,
@@ -323,6 +348,12 @@ def phase_kernels():
     for name, q, k, v, bias in zimage_kernel_inputs():
         run_case(name, q, k, v, bias=bias)
         del q, k, v
+    # QwenImage (24 heads) at its joint lengths, ragged ones among them; the
+    # plain version in query-row chunks
+    for name, q, k, v, _ in qwenimage_kernel_inputs():
+        run_case(name, q, k, v, reference=plain_in_row_chunks)
+        del q, k, v
+        release()
     emit({"phase": "kernels", "cases": cases})
     bad = [c["case"] for c in cases if not c["ok"]]
     check(not bad, f"flash kernel disagrees with its plain version: {bad}")
@@ -416,8 +447,8 @@ def zimage_timing_rows():
 def phase_timing():
     """Two rows at Flux's query length: the main path's shape against the plain
     version and the library call, and a ragged Sk with a [1, Sk] bias (tail and
-    bias paths paid) against the library call alone; then the ZImage and Qwen3
-    decode rows. Returns the first row and the ZImage rows."""
+    bias paths paid) against the library call alone; then the ZImage, Qwen3
+    decode and QwenImage rows. Returns the first row and the later rows."""
     import torch
     import torch.nn.functional as F
 
@@ -446,7 +477,7 @@ def phase_timing():
         queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
     del q, k, v, qt, kt, vt
     release()
-    return flux_row, zimage_timing_rows()
+    return flux_row, zimage_timing_rows() + qwenimage_timing_rows()
 
 
 # -- tiny reference ----------------------------------------------------------------------
@@ -1585,6 +1616,379 @@ def cv2_smooth(rng, size):
     return cv2.resize(small, (size[1], size[0]), interpolation=cv2.INTER_CUBIC)
 
 
+# -- QwenImage Edit 2509 ----------------------------------------------------------------------
+
+
+def qwenimage_bucket(prompt: str, system: str) -> int:
+    """The text bucket ``encode_prompt`` gives ``prompt`` with the byte-level
+    tokenizer: the real tokens after the template prefix, rounded up to 32."""
+    from apex_studio_tpu_torch.engine.qwenimage import DROP_IDX
+
+    text = (f"<|im_start|>system\n{system}<|im_end|>\n"
+            f"<|im_start|>user\n{prompt}<|im_end|>\n<|im_start|>assistant\n")
+    true_len = min(len(make_tokenizer().encode(text, add_special_tokens=False).ids), 1024 + DROP_IDX)
+    return -(-max(1, true_len - DROP_IDX) // 32) * 32
+
+
+def qwenimage_lengths() -> dict:
+    """The joint sequence lengths of the QwenImage requests of this script:
+    [text ‖ noise ‖ condition images], 4096 tokens an image at 1024x1024."""
+    from apex_studio_tpu_torch.engine.qwenimage import EDIT_SYSTEM_MESSAGE, SYSTEM_MESSAGE
+
+    edit = qwenimage_bucket(QWENIMAGE_EDIT_PROMPT, EDIT_SYSTEM_MESSAGE)
+    return {"edit_bucket": edit, "edit": edit + 2 * QWENIMAGE_TOKENS, "edit_plus": edit + 3 * QWENIMAGE_TOKENS,
+            "t2i": qwenimage_bucket(PROMPT_A, SYSTEM_MESSAGE) + QWENIMAGE_TOKENS}
+
+
+def qwenimage_kernel_inputs():
+    """(case, q, k, v, bias) at the shapes the QwenImage path gives the kernel
+    (24 heads of 128, unmasked): the edit request's own length, a ragged 8256
+    (4096 + 4096 + a 64-token bucket), edit_plus with two condition images and
+    the t2i request's length."""
+    lengths = qwenimage_lengths()
+    cases = {f"qwenimage_edit_s{lengths['edit']}_h24": lengths["edit"], "qwenimage_ragged_s8256_h24": 8256,
+             f"qwenimage_edit_plus_s{lengths['edit_plus']}_h24": lengths["edit_plus"],
+             f"qwenimage_t2i_s{lengths['t2i']}_h24": lengths["t2i"]}
+    seen = set()
+    for i, (name, s) in enumerate(cases.items()):
+        if s not in seen:
+            seen.add(s)
+            yield (name, *qkv(1, s, s, QWENIMAGE_HEADS, 128, 40 + i), None)
+
+
+def plain_in_row_chunks(q, k, v, rows: int = 2048):
+    """The plain version over query-row chunks (each row is independent of the
+    others, so this is the whole plain output at a bounded score size)."""
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention_reference
+
+    return torch.cat([flash_attention_reference(q[:, i:i + rows], k, v) for i in range(0, q.shape[1], rows)],
+                     dim=1)
+
+
+def qwenimage_timing_rows():
+    """The kernel at the QwenImage shapes beside its plain version (in row
+    chunks), the library call and its bound."""
+    import torch.nn.functional as F
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    rows = []
+    for name, q, k, v, _ in qwenimage_kernel_inputs():
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        rows.append(timing_row(
+            q, k, v, None, time_ms(lambda: flash_attention(q, k, v), reps=10),
+            time_ms(lambda: plain_in_row_chunks(q, k, v), reps=3, warmup=1),
+            time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=10),
+            queued_ms(lambda: flash_attention(q, k, v)),
+            queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)), case=name))
+        del q, k, v, qt, kt, vt
+        release()
+    return rows
+
+
+def qwenimage_reference():
+    """A QwenImage DiT at full width (24 heads of 128, text 3584) with 2 blocks
+    and a 2-block ControlNet, on the card in bf16 (flash kernel) against the
+    same weights on the CPU in f32 (plain version), within BF16_REL_L2: an
+    edit-shaped forward (a 12 x 14 grid, one condition grid, a 64-token text
+    bucket of which 50 rows are real) and a ControlNet-guided one."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import qwenimage
+
+    def pair(build, seed):
+        f32 = materialize_random(lambda: build(torch.float32), torch.device("cuda"), seed=seed)
+        with torch.no_grad():
+            for prm in f32.parameters():  # both sides hold the same (bf16-representable) weights
+                prm.copy_(prm.to(torch.bfloat16).float())
+        card = materialize_random(lambda: build(torch.bfloat16), torch.device("cuda"), seed=0)
+        card.load_state_dict(f32.state_dict())
+        return f32.to("cpu"), card
+
+    dit_cpu, dit = pair(lambda dt: qwenimage.QwenImageTransformer2DModel(
+        qwenimage.QwenImageConfig(num_layers=2), dtype=dt), 22)
+    cn_cpu, cn = pair(lambda dt: qwenimage.QwenImageControlNetModel(
+        qwenimage.QwenImageControlNetConfig(num_layers=2), dtype=dt), 23)
+    rng = np.random.default_rng(0)
+    grid = (12, 14)
+    n = grid[0] * grid[1]
+    x = torch.from_numpy(rng.normal(size=(1, 2 * n, 64)).astype(np.float32))
+    txt = torch.from_numpy(rng.normal(size=(1, 64, 3584)).astype(np.float32))
+    txt[:, 50:] = 0.0
+    t = torch.tensor([0.6])
+    results = {}
+    with torch.inference_mode():
+        for name, fn in (
+                ("edit", lambda m, c, dev: m(x.to(dev), txt.to(dev), t.to(dev), grid_hw=grid,
+                                             extra_segments=(grid,))),
+                ("controlnet", lambda m, c, dev: m(x[:, :n].to(dev), txt.to(dev), t.to(dev), grid_hw=grid,
+                                                   controlnet_block_samples=c(
+                                                       x[:, :n].to(dev), x[:, n:].to(dev), txt.to(dev),
+                                                       t.to(dev), grid_hw=grid, conditioning_scale=0.8)))):
+            ref = fn(dit_cpu, cn_cpu, "cpu")
+            out = fn(dit, cn, "cuda").float().cpu()
+            results[name] = {"rel_l2": rel_l2(out, ref), "max_abs_err": (out - ref).abs().max().item(),
+                             "max_abs_ref": ref.abs().max().item(), "finite": bool(torch.isfinite(out).all())}
+    emit({"phase": "qwenimage", "check": "card_bf16_vs_cpu_f32",
+          "model": "qwenimage dim 3072, 24 heads, 2 blocks + a 2-block ControlNet",
+          "parameters": sum(p.numel() for p in dit_cpu.parameters()) + sum(p.numel() for p in cn_cpu.parameters()),
+          "image_tokens": 2 * n, "text_bucket": 64, "tol_rel_l2": BF16_REL_L2, **results})
+    for name, r in results.items():
+        check(r["finite"] and r["rel_l2"] <= BF16_REL_L2,
+              f"the QwenImage {name} forward on the card is {r['rel_l2']} from the CPU (limit {BF16_REL_L2})")
+    del dit_cpu, dit, cn_cpu, cn
+    release()
+
+
+def qwenimage_vae_precision(vae) -> dict:
+    """One decode of a seeded 32 x 32 latent through the engine's Wan VAE on
+    the card (bf16 compute, f32 parameters, as the manifest resolves it),
+    timed, against the same VAE in float64 (its norms and attention upcast to
+    f32 by design), within 2e-2 relative L2."""
+    import copy
+
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(7)
+    z = torch.randn(1, vae.cfg.z_dim, 1, 32, 32, generator=g, device="cuda")
+    with torch.inference_mode():
+        out = vae.decode(z)
+        ms = time_ms(lambda: vae.decode(z), reps=3, warmup=1)
+        vae64 = copy.deepcopy(vae).double()
+        for m in vae64.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+        rel = rel_l2(out.double(), vae64.decode(z.double()))
+    row = {"phase": "qwenimage", "check": "vae_decode_vs_float64", "latent": list(z.shape),
+           "pixels": list(out.shape), "compute_dtype": str(out.dtype), "decode_ms": ms,
+           "rel_l2_vs_float64": rel, "tol": 2e-2}
+    del vae64, out
+    release()
+    emit(row)
+    check(rel <= 2e-2, f"the Wan VAE's decode is {rel} from float64")
+    return row
+
+
+def write_qwenimage_controlnet_manifest(home: Path) -> Path:
+    """qwenimage.yml with a ``controlnet`` transformer component at the
+    family's full width and default 5 layers (no config: synthetic mode builds
+    the family defaults), typed ``controlnet``."""
+    import yaml
+
+    doc = yaml.safe_load(QWENIMAGE_MANIFEST.read_text())
+    doc["metadata"]["id"] = "qwenimage-controlnet-smoke"
+    doc["spec"]["model_type"] = "controlnet"
+    doc["spec"]["components"].append({"type": "transformer", "name": "controlnet", "label": "ControlNet",
+                                      "base": "qwenimage.controlnet"})
+    path = home / "qwenimage-controlnet.yml"
+    path.write_text(yaml.safe_dump(doc))
+    return path
+
+
+def qwenimage_drive(label, manifest, model_type, weights, requests, steps, home, launches_per_step):
+    """Requests (run keyword dicts) through ``UniversalEngine`` on a QwenImage
+    manifest at 1024x1024 with synthetic ``weights``, each with the kernel's
+    launch count set to 0 before and read after; stages timed from the
+    engine's progress messages (synchronised), the condition encode from a
+    wrapper around it, peaks by stage. Returns the rows, the frames and the
+    engine."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine import UniversalEngine
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    os.environ["APEX_SYNTHETIC_WEIGHTS"] = weights
+    os.environ["APEX_HOME_DIR"] = str(home / label)
+    engine = UniversalEngine(manifest, model_type=model_type, device="cuda")
+    engine._spec_for_type("text_encoder")["tokenizer"] = make_tokenizer()
+    encode_image, decode = engine.encode_image_latents, engine._decode_frames
+    cond_seconds, latents_finite = [], []
+
+    def timed_encode_image(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode_image(*a, **k)
+        torch.cuda.synchronize()
+        cond_seconds.append(time.perf_counter() - t0)
+        return out
+
+    def observed_decode(packed, *a):
+        latents_finite.append(bool(torch.isfinite(packed).all()))
+        return decode(packed, *a)
+
+    engine.encode_image_latents, engine._decode_frames = timed_encode_image, observed_decode
+    instantiate, built = engine._instantiate_family, []
+
+    def counted_instantiate(registry, spec, family):
+        built.append(spec.get("name") or spec.get("type"))
+        return instantiate(registry, spec, family)
+
+    engine._instantiate_family = counted_instantiate
+    start_msg = {"edit": "Starting edit pipeline", "edit_plus": "Starting edit pipeline",
+                 "t2i": "Starting t2i pipeline", "controlnet": "Starting controlnet pipeline"}[model_type]
+    done_msg = start_msg.replace("Starting", "Completed")
+    rows, frames_out = [], []
+    for i, kw in enumerate(requests):
+        stamps, peaks, last = {}, {}, [None]
+
+        def progress(p, message, *_a, **_k):
+            torch.cuda.synchronize()
+            stamps.setdefault(message, time.perf_counter())
+            if last[0] is not None:  # the peak of the stage that ends here
+                peaks[last[0]] = max(peaks.get(last[0], 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+            last[0] = message
+
+        cond_seconds.clear()
+        latents_finite.clear()
+        built.clear()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        frames = engine.run(height=SIZE, width=SIZE, num_inference_steps=steps, progress_callback=progress, **kw)
+        torch.cuda.synchronize()
+        total, launches = time.perf_counter() - t0, flash_attention.launches
+        step_t = [stamps[f"Denoising step {j}/{steps}"] for j in range(1, steps + 1)]
+        start = stamps.get("Timesteps computed", stamps[start_msg])
+        per_step = [b - a for a, b in zip([start] + step_t[:-1], step_t)]
+        row = {
+            "phase": label, "manifest": manifest.name, "model_type": model_type, "weights": weights,
+            "request": i + 1, "prompt": kw.get("prompt", "")[:40], "seed": kw.get("seed"), "steps": steps,
+            "condition_images": len(kw["image"]) if isinstance(kw.get("image"), list) else int("image" in kw),
+            "seconds_total": total, "seconds_per_step": per_step,
+            "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
+            "seconds_condition_encode": sum(cond_seconds),
+            "seconds_decode": stamps[done_msg] - stamps[f"Denoising step {steps}/{steps}"],
+            "peak_gib_by_stage": peaks, "peak_gib": max(peaks.values()),
+            "flash_launches": launches, "flash_launches_per_step": launches / steps,
+            "flash_launches_expected": launches_per_step * steps,
+            "components_built": list(built),
+            "frames": [list(f.shape) for f in frames], "latents_finite": latents_finite,
+        }
+        if "Prompts ready" in stamps:
+            row["seconds_encode"] = stamps["Prompts ready"] - stamps[start_msg]
+            row["peak_gib_encoder_resident"] = peaks[start_msg]
+            row["peak_gib_after_release"] = max(v for k, v in peaks.items() if k != start_msg)
+        if "Timesteps computed" in stamps:
+            row["seconds_denoise"] = step_t[-1] - stamps["Timesteps computed"]
+        emit(row)
+        check(len(frames) == 1 and frames[0].shape == (SIZE, SIZE, 3) and frames[0].dtype == np.uint8,
+              f"{label} request {i + 1}: bad frames {row['frames']}")
+        check(latents_finite == [True], f"{label} request {i + 1}: latents not finite")
+        check(launches == launches_per_step * steps,
+              f"{label} request {i + 1}: flash launched {launches} times, expected {launches_per_step * steps}")
+        rows.append(row)
+        frames_out.append(frames[0])
+    return rows, frames_out, engine
+
+
+def phase_qwenimage(home: Path, kernel_rows=()):
+    """QwenImage Edit 2509 at 1024x1024 from its manifest, full width and
+    depth, the DiT int4-resident (encoder and VAE int8 / bf16): the 2-block
+    card-vs-CPU check; the bench leg's edit request three times (8 steps,
+    true_cfg_scale 1.0; request 2 with another seed); the Wan VAE against
+    float64; the resident Linears at QwenImage's shapes and the step split;
+    then edit_plus with two condition images, t2i with true CFG, the
+    ControlNet at scales 1 and 0, and a bf16 edit, each of 2 steps."""
+    import numpy as np
+
+    from apex_studio_tpu_torch.quantize.residency import count_resident
+
+    qwenimage_reference()
+    lengths = qwenimage_lengths()
+    rng = np.random.default_rng(5)
+    source, second, control = (cv2_smooth(rng, (SIZE, SIZE)) for _ in range(3))
+    edit = dict(image=source, prompt=QWENIMAGE_EDIT_PROMPT, true_cfg_scale=1.0)
+    paths = {}
+    rows, frames, engine = qwenimage_drive(
+        "qwenimage_edit", QWENIMAGE_EDIT_MANIFEST, "edit", "int4",
+        [dict(edit, seed=0), dict(edit, seed=1), dict(edit, seed=0)], QWENIMAGE_EDIT_STEPS, home,
+        QWENIMAGE_LAYERS)
+    paths["qwenimage_edit"] = rows
+    bucket = engine.encode_prompt(QWENIMAGE_EDIT_PROMPT).shape[1]  # a disk-cache hit
+    same, differ = bool(np.array_equal(frames[0], frames[2])), not np.array_equal(frames[0], frames[1])
+    int4_step = statistics.median(t for r in rows for t in r["seconds_per_step"][1:])
+    emit({"phase": "qwenimage", "requests_1_3_identical": same, "requests_1_2_differ": differ,
+          "text_bucket": bucket, "joint_tokens": 2 * QWENIMAGE_TOKENS + bucket,
+          "second_encode_cache_hit": "text_encoder" not in rows[1]["components_built"],
+          "resident_weights": count_resident(engine.transformer),
+          "median_seconds_per_step_after_the_first": int4_step,
+          "seconds_per_request": [r["seconds_total"] for r in rows]})
+    check(same, "qwenimage edit requests 1 and 3 (same inputs and seed) differ")
+    check(differ, "qwenimage edit requests 1 and 2 (other seed) are identical")
+    check(bucket == lengths["edit_bucket"], f"text bucket {bucket}, the kernel cases assumed {lengths['edit_bucket']}")
+    check(not any(r["components_built"] for r in rows[1:]),
+          f"a repeated request built components again: {[r['components_built'] for r in rows[1:]]}")
+    check(count_resident(engine.transformer) > 0, "no weight of the QwenImage DiT is resident")
+    qwenimage_vae_precision(engine.vae)
+    del engine, frames
+    release()
+    calls = {**QWENIMAGE_LINEAR_CALLS, (bucket, 3072, 3072): 240}
+    linear_rows = residency_timing(list(calls), phase="qwenimage")
+    if kernel_rows:
+        queued = {r["case"]: r["queued_ms"] for r in kernel_rows}
+        attention_s = QWENIMAGE_LAYERS * queued[f"qwenimage_edit_s{lengths['edit']}_h24"] / 1e3
+        by = {key: sum(calls[(r["rows"], r["in"], r["out"])] * r[key] for r in linear_rows) / 1e3
+              for key in ("w4_ms", "bf16_ms")}
+        emit({"phase": "qwenimage", "step_breakdown_int4": {
+            "seconds_per_step": int4_step, "attention_seconds": attention_s,
+            "w4_linear_seconds": by["w4_ms"], "bf16_linear_seconds_same_calls": by["bf16_ms"],
+            "other_seconds": int4_step - attention_s - by["w4_ms"], "attention_share": attention_s / int4_step,
+            "w4_linear_share": by["w4_ms"] / int4_step,
+            "reckoning": "queued kernel ms x 60 at the edit length; queued ms x calls of the image stream's "
+                         "Linears (8192 rows), the text stream's q/k/v/out (bucket rows) and the modulation "
+                         "rows; other = the rest, the text stream's MLPs with it"}})
+    paths["qwenimage_edit_plus"] = qwenimage_drive(
+        "qwenimage_edit_plus", QWENIMAGE_EDIT_MANIFEST, "edit_plus", "int4",
+        [dict(edit, image=[source, second], seed=0)], 2, home, QWENIMAGE_LAYERS)[0]
+    release()
+    paths["qwenimage_t2i_cfg"] = qwenimage_drive(
+        "qwenimage_t2i_cfg", QWENIMAGE_MANIFEST, "t2i", "int4",
+        [dict(prompt=PROMPT_A, negative_prompt="blurry, low quality", true_cfg_scale=4.0, seed=2)], 2, home,
+        2 * QWENIMAGE_LAYERS)[0]
+    release()
+    cn_run = dict(prompt=PROMPT_B, control_image=control, true_cfg_scale=1.0, seed=3)
+    cn_rows, cn_frames = qwenimage_drive(
+        "qwenimage_controlnet", write_qwenimage_controlnet_manifest(home), "controlnet", "int4",
+        [dict(cn_run, controlnet_conditioning_scale=1.0), dict(cn_run, controlnet_conditioning_scale=0.0)], 2,
+        home, QWENIMAGE_LAYERS + QWENIMAGE_CN_LAYERS)[:2]  # the engine is dropped here
+    paths["qwenimage_controlnet"] = cn_rows
+    steered = not np.array_equal(cn_frames[0], cn_frames[1])
+    emit({"phase": "qwenimage", "controlnet_scale_1_vs_0_frames_differ": steered})
+    check(steered, "the ControlNet at scale 1 gives the frame of scale 0")
+    del cn_frames
+    release()
+    # The 41 GB bf16 DiT fits the card, but the memory fallback's gate reads
+    # the free memory after the DiT is resident (as the JAX gate does), so at
+    # over 3/7 of the card it would make the DiT int8: a user who wants bf16
+    # turns the fallback off, and so does this request.
+    saved = os.environ.get("APEX_MEMORY_FALLBACK")
+    os.environ["APEX_MEMORY_FALLBACK"] = "off"
+    try:
+        paths["qwenimage_edit_bf16"], _frames, engine = qwenimage_drive(
+            "qwenimage_edit_bf16", QWENIMAGE_EDIT_MANIFEST, "edit", "bf16", [dict(edit, seed=0)], 2, home,
+            QWENIMAGE_LAYERS)
+    finally:
+        if saved is None:
+            del os.environ["APEX_MEMORY_FALLBACK"]
+        else:
+            os.environ["APEX_MEMORY_FALLBACK"] = saved
+    resident = count_resident(engine.transformer)
+    del engine, _frames
+    check(resident == 0, f"the bf16 request's DiT holds {resident} resident weights")
+    emit({"phase": "qwenimage", "step_int4_vs_bf16": {
+        "int4_seconds_per_step": int4_step,
+        "bf16_seconds_per_step": paths["qwenimage_edit_bf16"][0]["seconds_per_step"][-1],
+        "bf16_peak_gib": paths["qwenimage_edit_bf16"][0]["peak_gib"], "int4_peak_gib": rows[0]["peak_gib"]}})
+    release()
+    return paths, linear_rows
+
+
 # -- prompt extension ------------------------------------------------------------------------
 
 
@@ -1881,6 +2285,10 @@ def main() -> int:
             zimage_paths, _ = timed("zimage", phase_zimage, home, zimage_timing)
             paths.update(zimage_paths)
             release()
+        if "qwenimage" in phases:
+            qwenimage_paths, _ = timed("qwenimage", phase_qwenimage, home, zimage_timing)
+            paths.update(qwenimage_paths)
+            release()
         if "prompt_extension" in phases:
             paths["prompt_extension"] = timed("prompt_extension", phase_prompt_extension, home)
         if "rife" in phases:
@@ -1912,7 +2320,12 @@ def main() -> int:
                            for r in hyv15_rows],
             "zimage_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "bias", "ms", "queued_ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
-                             "max_abs_err": case_err.get(r["case"])} for r in zimage_timing],
+                             "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
+                            if not r["case"].startswith("qwenimage")],
+            "qwenimage_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "ms", "queued_ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
+                                "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
+                               if r["case"].startswith("qwenimage")],
         }]})
         print(card)
     except CheckFailed as e:

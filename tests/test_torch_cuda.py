@@ -54,6 +54,11 @@ CASES = [
     ("qwen3_decode_sq1_sk300_bias", 1, 1, 300, 32, 128, [292], False),
     ("qwen3_decode_sq1_sk437_bias_b2", 2, 1, 437, 32, 128, [400, 437], False),
     ("decode_sq1_sk1_no_bias", 1, 1, 1, 32, 128, None, False),
+    # QwenImage at 1024px, 24 heads, one unmasked joint launch a block: an edit
+    # with one condition image (4096 + 4096 + a 64-token text bucket, not a
+    # multiple of 128) and edit_plus with two (4096 + 2 x 4096 + 64)
+    ("qwenimage_edit_s8256_h24", 1, 8256, 8256, 24, 128, None, False),
+    ("qwenimage_edit_plus_s12352_h24", 1, 12352, 12352, 24, 128, None, False),
 ]
 
 
@@ -223,3 +228,33 @@ def test_zimage_dit_launches_the_kernel_per_attention(cuda):
         out = model(x, torch.tensor([0.5], device=cuda), cap, torch.arange(32, device=cuda)[None] < 20)
     assert flash_attention.launches == before + 2 + 2 + 2
     assert out.shape == x.shape and torch.isfinite(out.float()).all()
+
+
+# -- the QwenImage path ---------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_qwenimage_dit_and_controlnet_launch_the_kernel_per_block(cuda):
+    """A small QwenImage DiT and ControlNet (head dim 128) in bf16 on the
+    card: one joint launch a block, the condition grid's tokens included,
+    output finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import qwenimage
+
+    small = dict(num_attention_heads=2, joint_attention_dim=64, axes_dims_rope=(16, 56, 56))
+    model = materialize_random(lambda: qwenimage.QwenImageTransformer2DModel(
+        qwenimage.QwenImageConfig(num_layers=3, **small)), cuda, seed=0)
+    cn = materialize_random(lambda: qwenimage.QwenImageControlNetModel(
+        qwenimage.QwenImageControlNetConfig(num_layers=2, **small)), cuda, seed=1)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 2 * 9 * 11, 64, generator=g).to(cuda)  # a 9 x 11 grid and one condition grid
+    txt = torch.randn(1, 32, 64, generator=g).to(cuda)
+    t = torch.tensor([0.5], device=cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        out = model(x, txt, t, grid_hw=(9, 11), extra_segments=((9, 11),))
+        samples = cn(x[:, :99], x[:, 99:], txt, t, grid_hw=(9, 11))
+        guided = model(x[:, :99], txt, t, grid_hw=(9, 11), controlnet_block_samples=samples)
+    assert flash_attention.launches == before + 3 + 2 + 3
+    assert out.shape == (1, 198, 64) and torch.isfinite(out.float()).all()
+    assert guided.shape == (1, 99, 64) and torch.isfinite(guided.float()).all()

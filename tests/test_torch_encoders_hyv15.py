@@ -37,9 +37,11 @@ from apex_studio_tpu_torch.models.text_encoders.siglip import (
 from apex_studio_tpu_torch.models.text_encoders.t5 import T5Config, T5Encoder
 from apex_studio_tpu_torch.ops.rope import apply_rope_half, rope_freqs_1d
 from apex_studio_tpu_torch.text_encoder import TextEncoder
-from tests.torch_port_helpers import assert_close, jax_params, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, jax_params, port_from_jax
 
-F32 = dict(dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
+def f32():
+    """f32 JAX build arguments with a fresh ``Rngs`` each build."""
+    return dict(dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
 # tests/test_models_hyv15.py's tiny Qwen2: 3 layers, 4 query heads sharing 2 KV heads
 QWEN = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=3,
             num_attention_heads=4, num_key_value_heads=2)
@@ -60,7 +62,7 @@ def ids_and_mask(vocab, seq=10):
 
 @pytest.fixture(scope="module")
 def qwen_pair():
-    jm = JaxQwen(JaxQwenConfig(**QWEN), **F32)
+    jm = jax_build(lambda: JaxQwen(JaxQwenConfig(**QWEN), **f32()))
     pm = port_from_jax(lambda: Qwen2TextEncoder(Qwen2Config(**QWEN), dtype=torch.float32), jm)
     return jm, pm
 
@@ -157,7 +159,7 @@ class TestTextEncoderRouting:
 
 class TestByT5:
     def test_encoder_matches_jax(self):
-        jm = JaxT5(JaxT5Config(**BYT5), **F32)
+        jm = jax_build(lambda: JaxT5(JaxT5Config(**BYT5), **f32()))
         pm = port_from_jax(lambda: T5Encoder(T5Config(**BYT5), dtype=torch.float32), jm)
         ids, mask = ids_and_mask(BYT5["vocab_size"], seq=16)
         ref = jm(jnp.asarray(ids), attention_mask=jnp.asarray(mask))
@@ -177,7 +179,7 @@ class TestSiglip:
     def test_vision_tower_matches_jax(self):
         """44 px at patch 14 is 3×3 patches: the strided conv's 2 remainder
         rows and columns are cropped, as torch's Conv2d drops them."""
-        jm = JaxSiglip(JaxSiglipConfig(**SIGLIP), **F32)
+        jm = jax_build(lambda: JaxSiglip(JaxSiglipConfig(**SIGLIP), **f32()))
         pm = port_from_jax(lambda: SiglipVisionEncoder(SiglipVisionConfig(**SIGLIP), dtype=torch.float32), jm)
         img = np.random.default_rng(4).integers(0, 256, size=(40, 60, 3), dtype=np.uint8)
         px = np.concatenate([preprocess_siglip_image(img, 44), preprocess_siglip_image(img[::-1], 44)])
@@ -202,7 +204,7 @@ class TestSiglip:
         cfg = SiglipVisionConfig()
         assert cfg.hidden_size // cfg.num_attention_heads == 72
         pm = port_from_jax(lambda: SiglipVisionEncoder(SiglipVisionConfig(**SIGLIP), dtype=torch.float32),
-                           JaxSiglip(JaxSiglipConfig(**SIGLIP), **F32))
+                           JaxSiglip(JaxSiglipConfig(**SIGLIP), **f32()))
         with torch.no_grad():
             assert torch.isfinite(pm(torch.zeros(1, 3, 44, 44))).all()
 
@@ -218,7 +220,7 @@ class TestRopeHalfAndSwiGLU:
         assert_close(out, jax_rope_half(jnp.asarray(x), jc[:, :, None], js[:, :, None]), rel=1e-6)
 
     def test_swiglu_matches_jax(self):
-        jm = JaxSwiGLU(12, 20, **F32)
+        jm = JaxSwiGLU(12, 20, **f32())
         pm = port_from_jax(lambda: SwiGLU(12, 20, dtype=torch.float32), jm)
         x = np.random.default_rng(6).normal(size=(3, 5, 12)).astype(np.float32)
         with torch.no_grad():

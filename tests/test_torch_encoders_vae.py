@@ -18,9 +18,11 @@ from apex_studio_tpu.models.vaes.autoencoder_kl import AutoencoderKLConfig as Ja
 from apex_studio_tpu_torch.models.text_encoders.clip import CLIPTextConfig, CLIPTextEncoder
 from apex_studio_tpu_torch.models.text_encoders.t5 import T5Config, T5Encoder
 from apex_studio_tpu_torch.models.vaes.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
-from tests.torch_port_helpers import assert_close, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
 
-F32 = dict(dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
+def f32():
+    """f32 JAX build arguments with a fresh ``Rngs`` each build."""
+    return dict(dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
 CLIP = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
             num_attention_heads=2, max_position_embeddings=16)
 T5 = dict(vocab_size=64, d_model=48, d_kv=8, d_ff=64, num_layers=2, num_heads=4)
@@ -41,7 +43,7 @@ def ids_and_mask():
 
 class TestCLIP:
     def test_hidden_and_pooled_match_jax(self):
-        jm = JaxCLIP(JaxCLIPConfig(**CLIP), **F32)
+        jm = jax_build(lambda: JaxCLIP(JaxCLIPConfig(**CLIP), **f32()))
         pm = port_from_jax(lambda: CLIPTextEncoder(CLIPTextConfig(**CLIP), dtype=torch.float32), jm)
         ids, mask = ids_and_mask()
         ref_h, ref_p = jm(jnp.asarray(ids), attention_mask=jnp.asarray(mask))
@@ -55,7 +57,7 @@ class TestCLIP:
 class TestT5:
     @pytest.mark.parametrize("umt5", [False, True])
     def test_encoder_matches_jax(self, umt5):
-        jm = JaxT5(JaxT5Config(**T5, per_layer_relative_bias=umt5), **F32)
+        jm = jax_build(lambda: JaxT5(JaxT5Config(**T5, per_layer_relative_bias=umt5), **f32()))
         pm = port_from_jax(lambda: T5Encoder(T5Config(**T5, per_layer_relative_bias=umt5),
                                              dtype=torch.float32), jm)
         ids, mask = ids_and_mask()
@@ -68,7 +70,7 @@ class TestT5:
 class TestAutoencoderKL:
     @pytest.fixture(scope="class")
     def pair(self):
-        jm = JaxVAE(JaxVAEConfig(**VAE), **F32)
+        jm = jax_build(lambda: JaxVAE(JaxVAEConfig(**VAE), **f32()))
         pm = port_from_jax(lambda: AutoencoderKL(AutoencoderKLConfig(**VAE), dtype=torch.float32), jm)
         return jm, pm
 

@@ -1,8 +1,9 @@
 """The port's Flux t2i engine end to end against the JAX package's, on the CPU.
 
 The tiny Flux manifest of tests/test_engine_flux.py, set to fp32, runs through
-both ``UniversalEngine``s with the same seed; every component's weights are
-carried from the JAX engine into the port. Each engine gets its own
+both ``UniversalEngine``s with the same seed; the JAX engine builds its
+components without flax's initialisers (``fast_jax_engine``), and every
+component's weights are carried from it into the port. Each engine gets its own
 ``APEX_HOME_DIR``: text encodes are disk-cached by prompt and config, so a
 shared home would hand the port the JAX embeddings. Latents after 2 steps:
 max|Δ| ≤ 1e-4·max|ref|; frames: within 1 LSB.
@@ -50,7 +51,7 @@ from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
 from apex_studio_tpu_torch.quantize.residency import count_resident
 from tests.test_engine_flux import FLUX_TINY
 from tests.test_engine_zimage import make_tokenizer
-from tests.torch_port_helpers import assert_close, jax_params
+from tests.torch_port_helpers import assert_close, fast_jax_engine, jax_params
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "apex_studio_tpu_torch"
@@ -97,7 +98,7 @@ def engines(tmp_path_factory):
     path = write_manifest(tmp)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("APEX_HOME_DIR", str(tmp / "home_jax"))
-        jeng = JaxUniversalEngine(path)
+        jeng = fast_jax_engine(JaxUniversalEngine(path))
         inject_tokenizer(jeng)
         jax_parts = load_all(jeng)
         ref_lat = np.asarray(jeng.run(return_latents=True, **RUN))
@@ -186,7 +187,7 @@ def variant(request, tmp_path_factory):
         mp.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
         mp.setenv("APEX_COMPONENTS_PATH", str(tmp / "components"))
         mp.setenv("APEX_HOME_DIR", str(tmp / "home_jax"))
-        jeng = JaxUniversalEngine(path, **kwargs)
+        jeng = fast_jax_engine(JaxUniversalEngine(path, **kwargs))
         inject_tokenizer(jeng)
         if name == "int8_carried":
             jax_parts = load_all(jeng)

@@ -1,7 +1,8 @@
 """The port's HunyuanVideo 1.5 engines end to end against the JAX package's, on
 the CPU, from the tiny manifests of tests/test_engine_hyv15.py set to fp32.
 
-Every component's weights are carried from the JAX engine into the port
+The JAX engine builds its components with seeded numpy values
+(``fast_jax_engine``), and every component's weights are carried from it into the port
 (the SigLIP helper too, which each run loads and then releases, so it is
 carried before each run). Both engines keep their text encoders
 (``APEX_RELEASE_TEXT_ENCODERS=0``): a released encoder is rebuilt from its own
@@ -31,7 +32,7 @@ from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
 from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
 from tests.test_engine_hyv15 import HYV_TINY
 from tests.test_engine_zimage import make_tokenizer
-from tests.torch_port_helpers import assert_close, jax_params
+from tests.torch_port_helpers import assert_close, fast_jax_engine, jax_params
 
 SIGLIP = {"type": "helper", "name": "image_encoder", "base": "SiglipVisionModel", "precision": "fp32",
           "config": {"hidden_size": 16, "intermediate_size": 32, "num_hidden_layers": 1,
@@ -85,7 +86,7 @@ class Pair:
         monkeypatch.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
         self.mp, self.tmp = monkeypatch, tmp_path
         self.mp.setenv("APEX_HOME_DIR", str(tmp_path / "home_jax"))
-        self.jax = JaxUniversalEngine(path)
+        self.jax = fast_jax_engine(JaxUniversalEngine(path))
         inject_tokenizer(self.jax)
         self.mp.setenv("APEX_HOME_DIR", str(tmp_path / "home_port"))
         self.port = UniversalEngine(path, device="cpu")
@@ -254,7 +255,7 @@ class TestBigRunStaging:
         light = {"light_vae_config": LIGHT_VAE}
         monkeypatch.setenv("APEX_VAE_TILE_THRESHOLD", "8")
         monkeypatch.setenv("APEX_HOME_DIR", str(tmp_path / "home_jax"))
-        jeng = JaxUniversalEngine(manifest(tmp_path, light_vae=light, name="jax"))
+        jeng = fast_jax_engine(JaxUniversalEngine(manifest(tmp_path, light_vae=light, name="jax")))
         inject_tokenizer(jeng)
         jax_previews = []
         self.run(jeng, 10, jax_previews)

@@ -30,7 +30,7 @@ from apex_studio_tpu_torch.engine.zimage import ZImageControlEngine, ZImageT2IEn
 from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
 from apex_studio_tpu_torch.ops.attention import attention_registry
 from tests.test_engine_zimage import TINY_MANIFEST, make_tokenizer
-from tests.torch_port_helpers import assert_close, jax_params
+from tests.torch_port_helpers import assert_close, fast_jax_engine, jax_params
 
 RUN = dict(prompt="hello world", height=40, width=44, num_inference_steps=2, guidance_scale=0.0, seed=7)
 CFG_RUN = dict(RUN, negative_prompt="a cat", guidance_scale=4.0, cfg_normalization=1.0,
@@ -74,7 +74,7 @@ class Pair:
         mp.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
         self.mp, self.tmp = mp, tmp_path
         self.mp.setenv("APEX_HOME_DIR", str(tmp_path / "home_jax"))
-        self.jax = JaxUniversalEngine(path)
+        self.jax = fast_jax_engine(JaxUniversalEngine(path))
         ref = components(self.jax)
         self.mp.setenv("APEX_HOME_DIR", str(tmp_path / "home_port"))
         self.port = UniversalEngine(path, device="cpu")

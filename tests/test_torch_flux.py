@@ -24,7 +24,7 @@ from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
 from apex_studio_tpu_torch.models import layers
 from apex_studio_tpu_torch.models.transformers.flux import FluxConfig, FluxTransformer2DModel
 from apex_studio_tpu_torch.schedulers import compute_dynamic_shift_mu, create_scheduler
-from tests.torch_port_helpers import assert_close, jax_params, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, jax_params, port_from_jax
 
 # tests/test_parity_flux_dit.py TINY (patch_size dropped: both packages pack 2x2 outside the DiT)
 TINY = dict(in_channels=16, out_channels=16, num_layers=2, num_single_layers=2,
@@ -33,8 +33,8 @@ TINY = dict(in_channels=16, out_channels=16, num_layers=2, num_single_layers=2,
 
 
 def build_pair(guidance_embeds):
-    jm = JaxFlux(JaxFluxConfig(**TINY, guidance_embeds=guidance_embeds),
-                 dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
+    jm = jax_build(lambda: JaxFlux(JaxFluxConfig(**TINY, guidance_embeds=guidance_embeds),
+                                   dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0)))
     cfg = FluxConfig(**TINY, guidance_embeds=guidance_embeds)
     pm = port_from_jax(lambda: FluxTransformer2DModel(cfg, dtype=torch.float32), jm)
     return jm, pm

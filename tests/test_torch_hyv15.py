@@ -25,7 +25,7 @@ from apex_studio_tpu_torch.models.transformers.hunyuanvideo15 import (
     TokenRefiner,
 )
 from apex_studio_tpu_torch.schedulers import create_scheduler
-from tests.torch_port_helpers import assert_close, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
 
 # tests/test_models_hyv15.py's tiny DiT at 2 blocks, 2 heads of 32, rope axes 8/12/12
 TINY = dict(in_channels=9, out_channels=4, num_attention_heads=2, attention_head_dim=32, num_layers=2,
@@ -35,7 +35,7 @@ TINY = dict(in_channels=9, out_channels=4, num_attention_heads=2, attention_head
 
 def build_pair(**overrides):
     kw = {**TINY, **overrides}
-    jm = JaxDiT(JaxConfig(**kw), dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
+    jm = jax_build(lambda: JaxDiT(JaxConfig(**kw), dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0)))
     pm = port_from_jax(lambda: HunyuanVideo15Transformer3DModel(HYV15Config(**kw), dtype=torch.float32), jm)
     return jm, pm
 

@@ -39,7 +39,10 @@ from apex_studio_tpu.models.vaes.tae_vae import TAEVAE as JaxTAE
 from apex_studio_tpu.models.vaes.tae_vae import TAEConfig as JaxTAEConfig
 from apex_studio_tpu.models.text_encoders.qwen3 import Qwen3Config as JaxQwen3Config
 from apex_studio_tpu.models.text_encoders.qwen3 import Qwen3TextEncoder as JaxQwen3
+from apex_studio_tpu.models.transformers import qwenimage as jax_qwenimage
 from apex_studio_tpu.models.transformers import zimage as jax_zimage
+from apex_studio_tpu.models.vaes.wan_vae import AutoencoderKLWan as JaxWanVAE
+from apex_studio_tpu.models.vaes.wan_vae import WanVAEConfig as JaxWanVAEConfig
 from apex_studio_tpu.quantize.writers import write_gguf
 from apex_studio_tpu_torch.engine.base import materialize_random
 from apex_studio_tpu_torch.loaders import converters, safetensors_io
@@ -53,12 +56,15 @@ from apex_studio_tpu_torch.models.vaes.autoencoder_kl import AutoencoderKL, Auto
 from apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae import AutoencoderKLHunyuanVideo15, HYV15VAEConfig
 from apex_studio_tpu_torch.models.vaes.tae_vae import TAEVAE, TAEConfig
 from apex_studio_tpu_torch.models.text_encoders.qwen3 import Qwen3Config, Qwen3TextEncoder
-from apex_studio_tpu_torch.models.transformers import zimage
+from apex_studio_tpu_torch.models.transformers import qwenimage, zimage
+from apex_studio_tpu_torch.models.vaes.wan_vae import AutoencoderKLWan, WanVAEConfig
 from apex_studio_tpu_torch.quantize.gguf import load_gguf_state_dict
 from tests.torch_port_helpers import assert_close
 
 REPO = Path(__file__).resolve().parents[1]
-F32 = dict(dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
+def f32():
+    """f32 JAX build arguments with a fresh ``Rngs`` each build."""
+    return dict(dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
 FLUX = dict(in_channels=16, out_channels=16, num_layers=2, num_single_layers=2,
             attention_head_dim=32, num_attention_heads=2, joint_attention_dim=48,
             pooled_projection_dim=24, axes_dims_rope=(8, 12, 12))
@@ -76,6 +82,11 @@ TAE = dict(latent_channels=4, channels=(8, 8, 8, 8), act="leaky_relu", out_range
 ZIMAGE = dict(dim=64, n_layers=2, n_refiner_layers=1, n_heads=2, n_kv_heads=2, in_channels=4,
               cap_feat_dim=48, axes_dims=(8, 12, 12), axes_lens=(64, 32, 32))
 ZIMAGE_CONTROL = dict(ZIMAGE, control_layers_places=(0,), control_refiner_layers_places=(0,), control_in_dim=9)
+QWENIMAGE = dict(in_channels=16, out_channels=4, num_layers=2, attention_head_dim=16, num_attention_heads=2,
+                 joint_attention_dim=32, axes_dims_rope=(4, 6, 6))
+# QwenImage's VAE layout at small widths, with an attention block in the encoder
+WAN_VAE = dict(base_dim=8, z_dim=4, dim_mult=(1, 2, 2), num_res_blocks=1, temperal_downsample=(False, True),
+               attn_scales=(0.5,), latents_mean=(0.1, -0.2, 0.0, 0.3), latents_std=(1.5, 0.5, 1.0, 2.0))
 QWEN3 = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
              num_attention_heads=4, num_key_value_heads=2, head_dim=16)
 
@@ -255,6 +266,23 @@ def run_zimage(model, is_jax):
     return model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(cap), torch.from_numpy(mask), **kw)
 
 
+def run_qwenimage(model, is_jax):
+    rng = np.random.default_rng(0)
+    x, cond = (rng.normal(size=(1, 12, 16)).astype(np.float32) for _ in range(2))
+    txt = rng.normal(size=(1, 5, 32)).astype(np.float32)
+    t = np.array([0.6], np.float32)
+    wrap, stack = (jnp.asarray, jnp.stack) if is_jax else (torch.from_numpy, torch.stack)
+    if "ControlNet" in type(model).__name__:
+        return stack(model(wrap(x), wrap(cond), wrap(txt), wrap(t), grid_hw=(3, 4), conditioning_scale=0.5))
+    return model(wrap(x), wrap(txt), wrap(t), grid_hw=(3, 4))
+
+
+def run_wan_vae(model, is_jax):
+    video = np.random.default_rng(0).normal(size=(1, 3, 1, 16, 16)).astype(np.float32)
+    wrap = jnp.asarray if is_jax else torch.from_numpy
+    return model.decode(model.encode(wrap(video)))
+
+
 def zimage_single_file(sd):
     """The Comfy single-file naming under a ``model.diffusion_model.`` prefix,
     which the converter strips."""
@@ -264,21 +292,21 @@ def zimage_single_file(sd):
 # name: (converter family, port constructor, JAX constructor, exporter, forward)
 FAMILIES = {
     "flux_bfl": ("flux", lambda: FluxTransformer2DModel(FluxConfig(**FLUX), dtype=torch.float32),
-                 lambda: JaxFlux(JaxFluxConfig(**FLUX), **F32), flux_bfl_state_dict, run_flux),
+                 lambda: JaxFlux(JaxFluxConfig(**FLUX), **f32()), flux_bfl_state_dict, run_flux),
     "flux_diffusers": ("flux", lambda: FluxTransformer2DModel(FluxConfig(**FLUX), dtype=torch.float32),
-                       lambda: JaxFlux(JaxFluxConfig(**FLUX), **F32),
+                       lambda: JaxFlux(JaxFluxConfig(**FLUX), **f32()),
                        lambda sd: published_state_dict("flux", sd), run_flux),
     "t5": ("t5", lambda: T5Encoder(T5Config(**T5), dtype=torch.float32),
-           lambda: JaxT5(JaxT5Config(**T5), **F32), lambda sd: published_state_dict("t5", sd), run_encoder),
+           lambda: JaxT5(JaxT5Config(**T5), **f32()), lambda sd: published_state_dict("t5", sd), run_encoder),
     "clip": ("clip", lambda: CLIPTextEncoder(CLIPTextConfig(**CLIP), dtype=torch.float32),
-             lambda: JaxCLIP(JaxCLIPConfig(**CLIP), **F32), lambda sd: published_state_dict("clip", sd),
+             lambda: JaxCLIP(JaxCLIPConfig(**CLIP), **f32()), lambda sd: published_state_dict("clip", sd),
              run_encoder),
     "autoencoder_kl": ("autoencoder_kl", lambda: AutoencoderKL(AutoencoderKLConfig(**VAE), dtype=torch.float32),
-                       lambda: JaxVAE(JaxVAEConfig(**VAE), **F32),
+                       lambda: JaxVAE(JaxVAEConfig(**VAE), **f32()),
                        lambda sd: published_state_dict("autoencoder_kl", sd), run_vae),
     "hunyuanvideo15": ("hunyuanvideo15",
                        lambda: HunyuanVideo15Transformer3DModel(HYV15Config(**HYV15), dtype=torch.float32),
-                       lambda: JaxHYV15(JaxHYV15Config(**HYV15), **F32),
+                       lambda: JaxHYV15(JaxHYV15Config(**HYV15), **f32()),
                        lambda sd: published_state_dict("hunyuanvideo15", sd), run_hyv15),
     "hunyuanvideo15_vae": ("hunyuanvideo15_vae", lambda: AutoencoderKLHunyuanVideo15(HYV15VAEConfig(**HYV15_VAE)),
                            lambda: JaxHYV15VAE(JaxHYV15VAEConfig(**HYV15_VAE), rngs=nnx.Rngs(0)),
@@ -287,15 +315,28 @@ FAMILIES = {
                 lambda sd: published_state_dict("tae_vae", sd), run_vae3d),
     "zimage_single_file": ("zimage", lambda: zimage.ZImageTransformer2DModel(zimage.ZImageConfig(**ZIMAGE),
                                                                              dtype=torch.float32),
-                           lambda: jax_zimage.ZImageTransformer2DModel(jax_zimage.ZImageConfig(**ZIMAGE), **F32),
+                           lambda: jax_zimage.ZImageTransformer2DModel(jax_zimage.ZImageConfig(**ZIMAGE), **f32()),
                            zimage_single_file, run_zimage),
     "zimage_control": ("zimage", lambda: zimage.ZImageControlTransformer2DModel(
                            zimage.ZImageControlConfig(**ZIMAGE_CONTROL), dtype=torch.float32),
                        lambda: jax_zimage.ZImageControlTransformer2DModel(
-                           jax_zimage.ZImageControlConfig(**ZIMAGE_CONTROL), **F32),
+                           jax_zimage.ZImageControlConfig(**ZIMAGE_CONTROL), **f32()),
                        lambda sd: published_state_dict("zimage", sd), run_zimage),
+    "qwenimage": ("qwenimage", lambda: qwenimage.QwenImageTransformer2DModel(
+                      qwenimage.QwenImageConfig(**QWENIMAGE), dtype=torch.float32),
+                  lambda: jax_qwenimage.QwenImageTransformer2DModel(jax_qwenimage.QwenImageConfig(**QWENIMAGE),
+                                                                    **f32()),
+                  lambda sd: published_state_dict("qwenimage", sd), run_qwenimage),
+    "qwenimage_controlnet": ("qwenimage", lambda: qwenimage.QwenImageControlNetModel(
+                                 qwenimage.QwenImageControlNetConfig(**QWENIMAGE), dtype=torch.float32),
+                             lambda: jax_qwenimage.QwenImageControlNetModel(
+                                 jax_qwenimage.QwenImageControlNetConfig(**QWENIMAGE), **f32()),
+                             lambda sd: published_state_dict("qwenimage", sd), run_qwenimage),
+    "wan_vae": ("wan_vae", lambda: AutoencoderKLWan(WanVAEConfig(**WAN_VAE)),
+                lambda: JaxWanVAE(JaxWanVAEConfig(**WAN_VAE), rngs=nnx.Rngs(0)),
+                lambda sd: published_state_dict("wan_vae", sd), run_wan_vae),
     "qwen3": ("qwen3", lambda: Qwen3TextEncoder(Qwen3Config(**QWEN3), dtype=torch.float32),
-              lambda: JaxQwen3(JaxQwen3Config(**QWEN3), **F32), lambda sd: published_state_dict("qwen3", sd),
+              lambda: JaxQwen3(JaxQwen3Config(**QWEN3), **f32()), lambda sd: published_state_dict("qwen3", sd),
               run_encoder),
 }
 
@@ -334,7 +375,10 @@ class TestFamilies:
                   "tae_vae": "decoder.3.conv.4.weight",
                   "zimage_single_file": "model.diffusion_model.all_final_layer.2-1.adaLN_modulation.1.weight",
                   "zimage_control": "control_noise_refiner.0.adaLN_modulation.0.weight",
-                  "qwen3": "model.layers.1.mlp.gate_proj.weight"}[name]
+                  "qwen3": "model.layers.1.mlp.gate_proj.weight",
+                  "qwenimage": "transformer_blocks.1.attn.norm_added_k.weight",
+                  "qwenimage_controlnet": "controlnet_blocks.1.weight",
+                  "wan_vae": "decoder.up_blocks.0.upsamplers.0.resample.1.weight"}[name]
         assert marker in keys
 
     def test_loaded_parameters_equal_what_was_written(self, family):
@@ -348,10 +392,12 @@ class TestFamilies:
     def test_outputs_equal_the_jax_loader(self, family):
         name, source, path, loaded = family
         fam, _, build_jax, _, forward = FAMILIES[name]
-        jm = build_jax()
+        # built abstractly: the checkpoint fills every parameter, so no
+        # initialiser needs to run; the forward runs jitted
+        jm = nnx.eval_shape(build_jax)
         mapped = jax_converters.convert_keys(fam, jax_io.load_safetensors(path))
         jax_apply_state_dict(jm, mapped, strict=True)
-        ref = np.asarray(forward(jm, True))
+        ref = np.asarray(nnx.jit(lambda m: forward(m, True))(jm))
         with torch.inference_mode():
             out, direct = forward(loaded, False), forward(source, False)
         assert torch.equal(out, direct)  # the loaded module is the written module
@@ -412,6 +458,79 @@ class TestHYV15EngineLoad:
                 assert loaded[k].dtype == want[k].dtype and torch.equal(loaded[k], want[k]), (ctype, k)
 
 
+class TestQwenImageVAERouting:
+    """Departure from the JAX engine: its ``_load_vae`` maps a VAE whose base is
+    ``qwenimage`` through the DiT's ``qwenimage`` converter (there is no
+    ``qwenimage_vae``), which renames none of the Wan VAE's published keys;
+    the port routes that VAE to ``wan_vae``."""
+
+    @pytest.fixture(scope="class")
+    def written(self, tmp_path_factory):
+        import copy
+
+        import yaml
+
+        from tests.test_engine_qwenimage import QWEN_TINY
+
+        tmp = tmp_path_factory.mktemp("qwenimage_vae")
+        source = materialize_random(lambda: AutoencoderKLWan(WanVAEConfig(**WAN_VAE)), torch.device("cpu"),
+                                    seed=9, std=0.1)
+        path = tmp / "components" / "qwen-tiny" / "vae.safetensors"
+        path.parent.mkdir(parents=True)
+        safetensors_io.save_safetensors(path, published_state_dict("wan_vae", source.state_dict()))
+        doc = copy.deepcopy(QWEN_TINY)
+        vae = next(c for c in doc["spec"]["components"] if c["type"] == "vae")
+        vae.update(base="qwenimage", precision="fp32", model_path="qwen-tiny/vae.safetensors",
+                   config={k: list(v) if isinstance(v, tuple) else v for k, v in WAN_VAE.items()})
+        (tmp / "qwenimage.yml").write_text(yaml.safe_dump(doc))
+        return tmp, source, path
+
+    def test_published_file_keeps_diffusers_shapes(self, written):
+        _, source, path = written
+        sd = safetensors_io.load_safetensors(path)
+        assert tuple(sd["decoder.mid_block.attentions.0.to_qkv.weight"].shape) == (48, 16, 1, 1)
+        assert tuple(sd["decoder.mid_block.attentions.0.norm.gamma"].shape) == (16, 1, 1)
+        assert tuple(sd["encoder.norm_out.gamma"].shape) == (16, 1, 1, 1)
+
+    def test_engines_pick_their_converters(self, written, monkeypatch):
+        from apex_studio_tpu.engine.registry import UniversalEngine as JaxUniversalEngine
+        from apex_studio_tpu_torch.engine import UniversalEngine
+
+        tmp, _, _ = written
+        monkeypatch.setenv("APEX_HOME_DIR", str(tmp))
+        picked = {}
+        for name, engine in (("jax", JaxUniversalEngine(tmp / "qwenimage.yml")),
+                             ("port", UniversalEngine(tmp / "qwenimage.yml", device="cpu"))):
+            monkeypatch.setattr(engine, "_instantiate_family",
+                                lambda registry, spec, family, name=name: picked.setdefault(name, family))
+            engine._load_vae(engine._spec_for_type("vae"))
+        assert picked == {"jax": "qwenimage", "port": "wan_vae"}
+
+    def test_published_file_does_not_load_through_the_dit_converter(self, written):
+        _, _, path = written
+        with pytest.raises(KeyError, match="not in model"):
+            jax_apply_state_dict(nnx.eval_shape(lambda: JaxWanVAE(JaxWanVAEConfig(**WAN_VAE), rngs=nnx.Rngs(0))),
+                                 jax_converters.convert_keys("qwenimage", jax_io.load_safetensors(path)),
+                                 strict=True)
+        with pytest.raises(KeyError, match="not in model"):
+            apply_state_dict(meta(lambda: AutoencoderKLWan(WanVAEConfig(**WAN_VAE))),
+                             converters.convert_keys("qwenimage", safetensors_io.load_safetensors(path)),
+                             device="cpu")
+
+    def test_port_engine_loads_it_strictly(self, written, monkeypatch):
+        from apex_studio_tpu_torch.engine import UniversalEngine
+
+        tmp, source, _ = written
+        monkeypatch.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
+        monkeypatch.setenv("APEX_HOME_DIR", str(tmp))
+        loaded = UniversalEngine(tmp / "qwenimage.yml", device="cpu").load_component_by_type("vae")
+        assert isinstance(loaded, AutoencoderKLWan)
+        want, got = source.state_dict(), loaded.state_dict()
+        assert sorted(want) == sorted(got)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
 class TestStrictApply:
     def state(self):
         source = materialize_random(FAMILIES["t5"][1], torch.device("cpu"), seed=1)
@@ -464,7 +583,7 @@ class TestStrictApply:
         w = np.random.default_rng(0).normal(size=(6, 3, 2, 2)).astype(np.float32)
         lin = meta(lambda: Linear(12, 6, use_bias=False, dtype=torch.float32))
         apply_state_dict(lin, {"kernel": w}, device="cpu")
-        jl = JaxLinear(12, 6, use_bias=False, **F32)
+        jl = JaxLinear(12, 6, use_bias=False, **f32())
         jax_apply_state_dict(jl, {"kernel": w}, strict=False)
         np.testing.assert_array_equal(lin.weight.numpy(), np.asarray(jl.kernel.value).T)
 

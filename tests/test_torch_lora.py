@@ -24,7 +24,7 @@ from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
 from apex_studio_tpu_torch.lora import convert, manager
 from apex_studio_tpu_torch.lora.manager import LoraManager, LoraSpec
 from apex_studio_tpu_torch.models.transformers.flux import FluxConfig, FluxTransformer2DModel
-from tests.torch_port_helpers import assert_close, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
 
 TINY = dict(in_channels=16, out_channels=16, num_layers=2, num_single_layers=1,
             attention_head_dim=32, num_attention_heads=2, joint_attention_dim=48,
@@ -52,7 +52,8 @@ def lora_state(fmt, blocks=(0, 1), projs=("to_q", "to_k", "to_v"), extra=()):
 
 
 def build_pair(residency=None, min_numel=D * D):
-    jm = JaxFlux(JaxFluxConfig(**TINY), dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
+    jm = jax_build(lambda: JaxFlux(JaxFluxConfig(**TINY), dtype=jnp.float32, param_dtype=jnp.float32,
+                                   rngs=nnx.Rngs(0)))
     if residency == 8:
         assert jax_residency.apply_int8_residency(jm, min_numel=min_numel) > 0
     elif residency == 4:

@@ -27,7 +27,7 @@ from apex_studio_tpu_torch import text_encoder
 from apex_studio_tpu_torch.models.text_encoders.qwen3 import Qwen3Config, Qwen3TextEncoder
 from apex_studio_tpu_torch.ops.attention import attention_registry
 from apex_studio_tpu_torch.prompt_extension import PromptExtender
-from tests.torch_port_helpers import assert_close, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
 
 CFG = dict(vocab_size=320, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
            num_attention_heads=4, num_key_value_heads=2, head_dim=16)
@@ -60,7 +60,8 @@ class Recording:
 
 @pytest.fixture(scope="module")
 def pair():
-    ref = JaxQwen3(JaxQwen3Config(**CFG), dtype=jnp.float32, param_dtype=jnp.float32, rngs=nnx.Rngs(0))
+    ref = jax_build(lambda: JaxQwen3(JaxQwen3Config(**CFG), dtype=jnp.float32, param_dtype=jnp.float32,
+                                     rngs=nnx.Rngs(0)))
     port = port_from_jax(lambda: Qwen3TextEncoder(Qwen3Config(**CFG), dtype=torch.float32), ref)
     return ref, port
 

@@ -27,7 +27,7 @@ from apex_studio_tpu_torch.engine.base import materialize_random
 from apex_studio_tpu_torch.models.layers import Linear, int_mm
 from apex_studio_tpu_torch.models.transformers.flux import FluxConfig, FluxTransformer2DModel
 from apex_studio_tpu_torch.quantize import residency
-from tests.torch_port_helpers import assert_close, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
 
 
 def rel_l2(a, b):
@@ -169,8 +169,8 @@ class TestGates:
         the port, and both paths against JAX's."""
         kw = dict(num_layers=1, num_single_layers=1, attention_head_dim=32, num_attention_heads=4,
                   joint_attention_dim=64, pooled_projection_dim=32, axes_dims_rope=(8, 12, 12))
-        jm = jax_flux.FluxTransformer2DModel(jax_flux.FluxConfig(**kw), dtype=jnp.float32,
-                                             param_dtype=jnp.float32, rngs=nnx.Rngs(0))
+        jm = jax_build(lambda: jax_flux.FluxTransformer2DModel(jax_flux.FluxConfig(**kw), dtype=jnp.float32,
+                                                               param_dtype=jnp.float32, rngs=nnx.Rngs(0)))
         n = jax_residency.apply_int8_residency(jm, min_numel=1 << 10)
         pm = port_from_jax(lambda: FluxTransformer2DModel(FluxConfig(**kw), dtype=torch.float32), jm)
         assert residency.count_resident(pm) == n > 0
@@ -182,8 +182,9 @@ class TestGates:
         outs = {}
         for flag in ("0", "1"):
             monkeypatch.setenv("APEX_INT8_COMPUTE", flag)
-            ref = np.asarray(jm(*map(jnp.asarray, (x, txt, pooled, t)), guidance=jnp.asarray(g),
-                                grid_hw=(4, 4)))
+            # traced with this flag (the JAX Linear reads it when traced)
+            ref = np.asarray(nnx.jit(lambda m, *a, g: m(*a, guidance=g, grid_hw=(4, 4)))(
+                jm, *map(jnp.asarray, (x, txt, pooled, t)), g=jnp.asarray(g)))
             with torch.inference_mode():
                 outs[flag] = pm(*map(torch.from_numpy, (x, txt, pooled, t, g)), grid_hw=(4, 4)).numpy()
             # dequant: f32 sums in another order; W8A8: rounding ties through the blocks

@@ -67,7 +67,8 @@ def flownet_sd(cfg, seed=0):
 
 
 def jax_ifnet(cfg, sd):
-    model = jax_rife.IFNet(cfg, rngs=nnx.Rngs(1))
+    # built abstractly: the flownet dict fills every parameter
+    model = nnx.eval_shape(lambda: jax_rife.IFNet(cfg, rngs=nnx.Rngs(1)))
     jax_apply_state_dict(model, jax_rife.convert_rife_keys(sd), strict=True)
     return model
 
@@ -126,7 +127,7 @@ class TestIFNet:
         ref, port = nets[name]
         a = RNG.uniform(size=(1, *size, 3)).astype(np.float32)
         b = RNG.uniform(size=(1, *size, 3)).astype(np.float32)
-        want = np.asarray(ref(jnp.asarray(a), jnp.asarray(b), 0.3))
+        want = np.asarray(nnx.jit(lambda m, a, b: m(a, b, 0.3))(ref, jnp.asarray(a), jnp.asarray(b)))
         with torch.inference_mode():
             out = port(nchw(a), nchw(b), 0.3)
         assert_close(nhwc(out), want, rel=1e-4)

@@ -1,6 +1,8 @@
 """The port's HunyuanVideo 1.5 causal 3D VAE, its tiled decode and the TAEHV
 preview decoder against the JAX package's, on the CPU in f32, with weights
-carried from the JAX modules (DHWIO / HWIO kernels become OIDHW / OIHW).
+carried from the JAX modules (DHWIO / HWIO kernels become OIDHW / OIHW). The
+JAX modules are built with seeded numpy values (``jax_build``) and run
+jitted.
 Tolerance: max|Δ| ≤ 1e-4·max|ref|. The tiled decode rounds each tile to f16
 before the f32 blend on both sides; where the two f32 decodes sit on either
 side of an f16 rounding boundary they land one f16 step apart, so it is held
@@ -23,7 +25,7 @@ from apex_studio_tpu.models.vaes.tiling import decode_tiled_3d as jax_decode_til
 from apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae import AutoencoderKLHunyuanVideo15, HYV15VAEConfig
 from apex_studio_tpu_torch.models.vaes.tae_vae import TAEVAE, TAEConfig
 from apex_studio_tpu_torch.models.vaes.tiling import decode_tiled_3d
-from tests.torch_port_helpers import assert_close, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
 
 # tests/test_models_hyv15.py's tiny VAE: 4× space, 2× time
 VAE = dict(latent_channels=4, block_out_channels=(8, 16, 32), layers_per_block=1,
@@ -37,8 +39,14 @@ TAE = dict(latent_channels=4, channels=(8, 8, 8, 8), act="leaky_relu", out_range
 
 
 def vae_pair(cfg):
-    jm = JaxVAE(JaxVAEConfig(**cfg), rngs=nnx.Rngs(0))
+    jm = jax_build(lambda: JaxVAE(JaxVAEConfig(**cfg), rngs=nnx.Rngs(0)))
     return jm, port_from_jax(lambda: AutoencoderKLHunyuanVideo15(HYV15VAEConfig(**cfg)), jm)
+
+
+def jitted(method):
+    """``jm.<method>`` as one jitted program (eager JAX compiles op by op)."""
+    fn = nnx.jit(lambda m, *a, **kw: getattr(m, method)(*a, **kw))
+    return lambda jm, *a, **kw: fn(jm, *a, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -59,12 +67,12 @@ class TestHYV15VAE:
     def test_encode_decode_match_jax(self, cfg, video_shape, latent_shape):
         jm, pm = vae_pair(cfg)
         video = normal(*video_shape)
-        ref_z = jm.encode(jnp.asarray(video))
+        ref_z = jitted("encode")(jm, jnp.asarray(video))
         with torch.no_grad():
             z = pm.encode(torch.from_numpy(video))
             assert tuple(z.shape) == latent_shape
             assert_close(z, ref_z)
-            ref = jm.decode(ref_z)
+            ref = jitted("decode")(jm, ref_z)
             out = pm.decode(torch.from_numpy(np.array(ref_z)))
         assert tuple(out.shape) == video_shape
         assert_close(out, ref)
@@ -84,7 +92,7 @@ class TestHYV15VAE:
     def test_sampled_encode_matches_jax(self, tiny):
         jm, pm = tiny
         video, noise = normal(1, 3, 3, 8, 8), normal(1, 4, 2, 2, 2, seed=1)
-        ref = jm.encode(jnp.asarray(video), sample=True, noise=jnp.asarray(noise))
+        ref = nnx.jit(lambda m, v, n: m.encode(v, sample=True, noise=n))(jm, jnp.asarray(video), jnp.asarray(noise))
         with torch.no_grad():
             out = pm.encode(torch.from_numpy(video), sample=True, noise=torch.from_numpy(noise))
         assert_close(out, ref)
@@ -96,7 +104,8 @@ class TestTiledDecode:
     def test_matches_jax(self, tiny, h, w, tile):
         jm, pm = tiny
         z = normal(1, 4, 2, h, w, seed=2)
-        ref = jax_decode_tiled_3d(jm.decode, jnp.asarray(z), 4, tile=tile)
+        decode = jitted("decode")
+        ref = jax_decode_tiled_3d(lambda t: decode(jm, t), jnp.asarray(z), 4, tile=tile)
         with torch.no_grad():
             out = decode_tiled_3d(pm.decode, torch.from_numpy(z), 4, tile=tile)
         assert out.dtype == torch.float32 and tuple(out.shape) == (1, 3, 3, 4 * h, 4 * w)
@@ -129,13 +138,13 @@ class TestTiledDecode:
 class TestTAE:
     @pytest.fixture(scope="class")
     def pair(self):
-        jm = JaxTAE(JaxTAEConfig(**TAE), rngs=nnx.Rngs(0))
+        jm = jax_build(lambda: JaxTAE(JaxTAEConfig(**TAE), rngs=nnx.Rngs(0)))
         return jm, port_from_jax(lambda: TAEVAE(TAEConfig(**TAE)), jm)
 
     def test_decode_matches_jax(self, pair):
         jm, pm = pair
         z = normal(2, 4, 3, 4, 5, seed=5)
-        ref = jm.decode(jnp.asarray(z))
+        ref = jitted("decode")(jm, jnp.asarray(z))
         with torch.no_grad():
             out = pm.decode(torch.from_numpy(z))
         # 4(T−1)+1 frames, 8× space, clamped to [-1, 1] ("sym")
@@ -152,7 +161,7 @@ class TestTAE:
         """Seven frames pad at the end to eight by repeating the last."""
         jm, pm = pair
         video = np.tanh(normal(1, 3, 7, 16, 24, seed=7))
-        ref = jm.encode(jnp.asarray(video))
+        ref = jitted("encode")(jm, jnp.asarray(video))
         with torch.no_grad():
             out = pm.encode(torch.from_numpy(video))
         assert tuple(out.shape) == (1, 4, 2, 2, 3)
@@ -162,8 +171,8 @@ class TestTAE:
                              ids=["unit_range_relu", "patch_2"])
     def test_variants_match_jax(self, overrides):
         cfg = {**TAE, **overrides}
-        jm = JaxTAE(JaxTAEConfig(**cfg), rngs=nnx.Rngs(1))
+        jm = jax_build(lambda: JaxTAE(JaxTAEConfig(**cfg), rngs=nnx.Rngs(1)), seed=1)
         pm = port_from_jax(lambda: TAEVAE(TAEConfig(**cfg)), jm)
         z = normal(1, 4, 2, 3, 4, seed=8)
         with torch.no_grad():
-            assert_close(pm.decode(torch.from_numpy(z)), jm.decode(jnp.asarray(z)))
+            assert_close(pm.decode(torch.from_numpy(z)), jitted("decode")(jm, jnp.asarray(z)))

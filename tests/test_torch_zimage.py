@@ -19,7 +19,7 @@ from flax import nnx
 from apex_studio_tpu.models.transformers import zimage as jax_zimage
 from apex_studio_tpu_torch.models.transformers import zimage
 from apex_studio_tpu_torch.ops.attention import attention_registry
-from tests.torch_port_helpers import assert_close, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
 
 BASE = dict(dim=64, n_layers=2, n_refiner_layers=2, n_heads=2, n_kv_heads=2, in_channels=4,
             cap_feat_dim=48, axes_dims=(8, 12, 12), axes_lens=(64, 32, 32))
@@ -30,12 +30,13 @@ F32 = dict(dtype=jnp.float32, param_dtype=jnp.float32)
 
 def build(kind):
     if kind == "base":
-        ref = jax_zimage.ZImageTransformer2DModel(jax_zimage.ZImageConfig(**BASE), rngs=nnx.Rngs(0), **F32)
+        ref = jax_build(lambda: jax_zimage.ZImageTransformer2DModel(jax_zimage.ZImageConfig(**BASE),
+                                                                    rngs=nnx.Rngs(0), **F32))
         port = port_from_jax(lambda: zimage.ZImageTransformer2DModel(zimage.ZImageConfig(**BASE),
                                                                      dtype=torch.float32), ref)
     else:
-        ref = jax_zimage.ZImageControlTransformer2DModel(jax_zimage.ZImageControlConfig(**CONTROL),
-                                                         rngs=nnx.Rngs(0), **F32)
+        ref = jax_build(lambda: jax_zimage.ZImageControlTransformer2DModel(
+            jax_zimage.ZImageControlConfig(**CONTROL), rngs=nnx.Rngs(0), **F32))
         port = port_from_jax(lambda: zimage.ZImageControlTransformer2DModel(
             zimage.ZImageControlConfig(**CONTROL), dtype=torch.float32), ref)
     rng = np.random.default_rng(1)

@@ -1,11 +1,71 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX package."""
 
+import zlib
+
+import jax
 import numpy as np
 import torch
 from flax import nnx
 
 from apex_studio_tpu_torch.engine.base import materialize_random
 from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
+
+
+def jax_build(build, seed: int = 0):
+    """The JAX module ``build()`` makes, built abstractly (``nnx.eval_shape``:
+    no initialiser runs, and on the CPU each initialiser compiles a program
+    per parameter shape) and filled from a seeded numpy generator: kernels
+    normal(0, 1/√fan_in), biases normal(0, 0.05), other 1-D parameters (norm
+    scales) 1 + normal(0, 0.05), anything else normal(0, 0.02). A module
+    with state other than parameters is built as it is."""
+    model = nnx.eval_shape(build)
+    _, _, rest = nnx.split(model, nnx.Param, ...)
+    if jax.tree.leaves(rest):
+        return build()
+    rng = np.random.default_rng(seed)
+    state = nnx.state(model, nnx.Param)
+    for path, var in nnx.to_flat_state(state):
+        name, shape = str(path[-1]), tuple(var.get_value().shape)
+        if name == "kernel" or name.endswith("_kernel"):
+            val = rng.normal(size=shape) / np.sqrt(max(1, int(np.prod(shape[:-1]))))
+        elif name == "bias" or name.endswith("_bias"):
+            val = 0.05 * rng.normal(size=shape)
+        elif len(shape) == 1:
+            val = 1.0 + 0.05 * rng.normal(size=shape)
+        else:
+            val = 0.02 * rng.normal(size=shape)
+        var.set_value(jax.numpy.asarray(val.astype(var.get_value().dtype)))
+    nnx.update(model, state)
+    return model
+
+
+def fast_jax_engine(engine):
+    """Make a JAX engine build its components without flax's initialisers: a
+    component with a checkpoint is built abstractly and filled from it as the
+    JAX loader fills it (converter, strict apply), one without gets
+    :func:`jax_build`'s values, seeded by the component."""
+    from apex_studio_tpu.loaders.converters import convert_keys, converter_registry
+    from apex_studio_tpu.loaders.state_mapping import apply_state_dict
+    from apex_studio_tpu.models.registry import _load_builtin_families
+
+    def instantiate(registry, spec, converter_family):
+        _load_builtin_families()
+        base = spec.get("base")
+        cls = registry.get(base)
+        cfg_dict = engine._load_component_config(spec)
+        cfg = cls.config_class.from_dict(cfg_dict) if cfg_dict else cls.config_class()
+        dtype = engine._component_dtype(spec)
+        build = lambda: cls(cfg, dtype=dtype, param_dtype=dtype, rngs=nnx.Rngs(0))  # noqa: E731
+        sd = engine._load_state_dict(spec)
+        if sd is None:
+            return jax_build(build, seed=zlib.crc32(f"{base}/{converter_family}".encode()))
+        family = converter_family if converter_family in converter_registry else None
+        model = nnx.eval_shape(build)
+        apply_state_dict(model, convert_keys(family, sd) if family else sd, strict=True)
+        return model
+
+    engine._instantiate_family = instantiate
+    return engine
 
 
 def jax_params(model) -> dict:
@@ -27,3 +87,12 @@ def assert_close(out, ref, rel=1e-4):
     assert out.shape == ref.shape, (out.shape, ref.shape)
     err = float(np.abs(out - ref).max())
     assert err <= rel * max(float(np.abs(ref).max()), 1e-6), (err, float(np.abs(ref).max()))
+
+
+def assert_rel_l2(out, ref, tol):
+    """‖out − ref‖₂ ≤ tol·‖ref‖₂, in f64."""
+    out = out.detach().double().numpy() if isinstance(out, torch.Tensor) else np.asarray(out, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert out.shape == ref.shape, (out.shape, ref.shape)
+    err = float(np.linalg.norm(out - ref)) / max(float(np.linalg.norm(ref)), 1e-30)
+    assert err <= tol, err
