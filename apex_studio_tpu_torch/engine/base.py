@@ -588,6 +588,24 @@ class BaseEngine:
 
     # -- postprocessing ----------------------------------------------------------------
 
+    @torch.inference_mode()
+    def decode_video_frames(self, z: torch.Tensor, tile: int, threshold: int) -> List[np.ndarray]:
+        """Video latents [B, C, T, h, w] → B·T HWC uint8 frames through the
+        VAE; grids of more than ``threshold`` latent pixels (h·w) decode in
+        tiles of ``tile`` latent pixels (models/vaes/tiling.py).
+        ``APEX_VAE_TILE_THRESHOLD`` / ``APEX_VAE_TILE`` override both."""
+        from apex_studio_tpu_torch.models.vaes.tiling import decode_tiled_3d
+
+        threshold = int(os.environ.get("APEX_VAE_TILE_THRESHOLD", threshold))
+        z = z.float()
+        if z.ndim == 5 and z.shape[-2] * z.shape[-1] > threshold:
+            tile = int(os.environ.get("APEX_VAE_TILE", tile))
+            video = decode_tiled_3d(self.vae.decode, z, self.vae.cfg.spatial_scale, tile=tile)
+        else:
+            video = self.vae.decode(z)
+        b, c, t, h, w = video.shape
+        return self.tensor_to_frames(video.transpose(1, 2).reshape(b * t, c, h, w))
+
     @staticmethod
     def tensor_to_frames(img: torch.Tensor) -> List[np.ndarray]:
         """[B,3,H,W] in [-1,1] → list of HWC uint8 frames."""

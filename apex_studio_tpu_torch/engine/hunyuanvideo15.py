@@ -273,19 +273,9 @@ class HunyuanVideo15T2VEngine(BaseEngine):
     def decode_latents(self, z: torch.Tensor) -> List[np.ndarray]:
         """Latents [1, C, T, h, w] → 4(T−1)+1 HWC uint8 frames; grids over the
         tile threshold decode in tiles (models/vaes/tiling.py)."""
-        from apex_studio_tpu_torch.models.vaes.tiling import decode_tiled_3d
-
         if self.vae is None:  # released during a 720p-class denoise
             self.load_component_by_type("vae")
-        thresh = int(os.environ.get("APEX_VAE_TILE_THRESHOLD", self.VAE_TILE_THRESHOLD))
-        z = z.float()
-        if z.ndim == 5 and z.shape[-2] * z.shape[-1] > thresh:
-            tile = int(os.environ.get("APEX_VAE_TILE", self.VAE_TILE))
-            video = decode_tiled_3d(self.vae.decode, z, self.vae.cfg.spatial_scale, tile=tile)
-        else:
-            video = self.vae.decode(z)
-        b, c, t, h, w = video.shape
-        return self.tensor_to_frames(video.transpose(1, 2).reshape(b * t, c, h, w))
+        return self.decode_video_frames(z, self.VAE_TILE, self.VAE_TILE_THRESHOLD)
 
     def _prepare_cond(self, image, height, width, lat_t, lat_h, lat_w, cfg_t, lat_c):
         """t2v: zero cond latents and mask channel; the zeroed vision stream."""

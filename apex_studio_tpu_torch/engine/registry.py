@@ -1,7 +1,8 @@
 """Engine registry + UniversalEngine facade (port of
 ``apex_studio_tpu/engine/registry.py``). Ported: ``("flux", "t2i")``,
-``("hunyuanvideo15", "t2v" | "i2v")``, ``("zimage", "t2i" | "control")`` and
-``("qwenimage", "t2i" | "edit" | "edit_plus" | "controlnet")``."""
+``("hunyuanvideo15", "t2v" | "i2v")``, ``("zimage", "t2i" | "control")``,
+``("qwenimage", "t2i" | "edit" | "edit_plus" | "controlnet")`` and
+``("wan", "t2v" | "t2i" | "i2v")``."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Any, Dict, Optional, Tuple, Type, Union
 from apex_studio_tpu_torch.manifest.loader import load_manifest
 
 _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.engine.hunyuanvideo15",
-                  "apex_studio_tpu_torch.engine.zimage", "apex_studio_tpu_torch.engine.qwenimage")
+                  "apex_studio_tpu_torch.engine.zimage", "apex_studio_tpu_torch.engine.qwenimage",
+                  "apex_studio_tpu_torch.engine.wan")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

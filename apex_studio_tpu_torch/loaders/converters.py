@@ -5,7 +5,7 @@ paths load: Flux text-to-image's ``flux``, ``t5``, ``clip``,
 ``hunyuanvideo15_vae``, ``qwen2``, ``siglip``, ``tae_vae``, and byT5 through
 ``t5``; ZImage's ``zimage`` (base and control, the Comfy single-file names
 too) and ``qwen3``; QwenImage's ``qwenimage`` (DiT and ControlNet) and
-``wan_vae``).
+``wan_vae``; Wan's ``wan`` DiT, and UMT5 through ``t5``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -447,5 +447,34 @@ converter_registry.add(
         ],
         strip_prefixes=(),
         drop=(),
+    ),
+)
+
+converter_registry.add(
+    # the Wan DiT (diffusers WanTransformer3DModel naming); patch_embedding is a
+    # Conv3d weight [O, C, pt, ph, pw] that apply_state_dict flattens into the
+    # patch Linear
+    "wan",
+    KeyConverter(
+        renames=[
+            (r"^condition_embedder\.time_embedder\.linear_(\d)\.", r"time_embedder_linear_\1."),
+            (r"^condition_embedder\.time_proj\.", "time_proj."),
+            (r"^condition_embedder\.text_embedder\.linear_(\d)\.", r"text_embedder_linear_\1."),
+            (r"^condition_embedder\.image_embedder\.norm1\.weight$", "img_norm1"),
+            (r"^condition_embedder\.image_embedder\.norm1\.bias$", "img_norm1_bias"),
+            (r"^condition_embedder\.image_embedder\.norm2\.weight$", "img_norm2"),
+            (r"^condition_embedder\.image_embedder\.norm2\.bias$", "img_norm2_bias"),
+            (r"^condition_embedder\.image_embedder\.ff\.net\.0\.proj\.", "img_ff1."),
+            (r"^condition_embedder\.image_embedder\.ff\.net\.2\.", "img_ff2."),
+            (r"\.to_out\.0\.", ".to_out."),
+            (r"\.norm2\.weight$", ".norm2_weight"),
+            (r"\.norm2\.bias$", ".norm2_bias"),
+            (r"\.ffn\.net\.0\.proj\.", ".ffn.fc1."),
+            (r"\.ffn\.net\.2\.", ".ffn.fc2."),
+            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"(to_q|to_k|to_v|to_out|add_k_proj|add_v_proj|time_proj|fc1|fc2|img_ff1|img_ff2|proj_out|"
+             r"time_embedder_linear_\d|text_embedder_linear_\d)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope\.", r"\.freqs"),
     ),
 )

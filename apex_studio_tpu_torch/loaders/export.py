@@ -7,7 +7,8 @@ single-file names of the Comfy-Org Z-Image files, control keys included),
 ``qwen3`` (transformers' ``Qwen3ForCausalLM``), ``rife`` (Practical-RIFE's
 ``flownet`` keys), ``qwenimage`` (diffusers' QwenImage DiT and ControlNet) and
 ``wan_vae`` (diffusers' ``AutoencoderKLWan``, with its ``[C, 1, 1(, 1)]`` RMS
-gammas and 1×1-conv attention weights).
+gammas and 1×1-conv attention weights) and ``wan`` (diffusers'
+``WanTransformer3DModel``, ``patch_embedding`` as its Conv3d weight).
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -130,6 +131,20 @@ _WAN_VAE = (
     (r"\.proj_(weight|bias)$", r".proj.\1"),
 )
 
+_WAN = (
+    (r"^time_embedder_linear_(\d)\.", r"condition_embedder.time_embedder.linear_\1."),
+    (r"^time_proj\.", "condition_embedder.time_proj."),
+    (r"^text_embedder_linear_(\d)\.", r"condition_embedder.text_embedder.linear_\1."),
+    (r"^img_norm([12])$", r"condition_embedder.image_embedder.norm\1.weight"),
+    (r"^img_norm([12])_bias$", r"condition_embedder.image_embedder.norm\1.bias"),
+    (r"^img_ff1\.", "condition_embedder.image_embedder.ff.net.0.proj."),
+    (r"^img_ff2\.", "condition_embedder.image_embedder.ff.net.2."),
+    (r"\.(attn[12])\.to_out\.", r".\1.to_out.0."),
+    (r"\.norm2_(weight|bias)$", r".norm2.\1"),
+    (r"\.ffn\.fc1\.", ".ffn.net.0.proj."),
+    (r"\.ffn\.fc2\.", ".ffn.net.2."),
+)
+
 
 def _wan_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """diffusers' shapes: the attention's 1×1 conv weights ``[O, C, 1, 1]``,
@@ -143,11 +158,21 @@ def _wan_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     return value
 
 
-_LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {"wan_vae": _wan_vae_layout}
+def _wan_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """``patch_embedding.weight`` as the published Conv3d weight
+    ``[O, C, 1, 2, 2]`` (every published Wan DiT patches (1, 2, 2))."""
+    if key == "patch_embedding.weight":
+        return value.reshape(value.shape[0], -1, 1, 2, 2)
+    return value
+
+
+_LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {"wan_vae": _wan_vae_layout,
+                                                                     "wan": _wan_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
-    "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE, "qwenimage": _QWENIMAGE, "wan_vae": _WAN_VAE}
+    "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE, "qwenimage": _QWENIMAGE, "wan_vae": _WAN_VAE,
+    "wan": _WAN}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

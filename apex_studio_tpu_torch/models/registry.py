@@ -4,8 +4,9 @@ Keys match manifest ``base`` values: ``flux.base``, ``hunyuanvideo15.base``,
 ``auto`` (AutoencoderKL), ``hunyuanvideo15`` (its VAE), ``tae``,
 ``CLIPTextModel``, ``T5EncoderModel``, ``Qwen2_5_VLForConditionalGeneration``,
 ``SiglipVisionModel``, ``Qwen3ForCausalLM``, ``zimage.base``, ``zimage.control``,
-``qwenimage.base``, ``qwenimage.controlnet`` and ``wan.base`` (the Wan VAE, which
-``qwenimage`` and ``AutoencoderKLQwenImage`` name too).
+``qwenimage.base``, ``qwenimage.controlnet``, ``wan.base`` in the transformer
+registry (the Wan DiT, alias ``wan``) and ``wan.base`` in the VAE registry (the
+Wan VAE, which ``qwenimage`` and ``AutoencoderKLQwenImage`` name too).
 """
 
 import importlib
@@ -30,6 +31,7 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.transformers.zimage",
     "apex_studio_tpu_torch.models.transformers.qwenimage",
     "apex_studio_tpu_torch.models.vaes.wan_vae",
+    "apex_studio_tpu_torch.models.transformers.wan",
 )
 
 

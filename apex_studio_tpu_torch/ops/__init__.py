@@ -1,4 +1,5 @@
-"""Shared ops of the port: attention, norms, RoPE, embeddings."""
+"""Shared ops of the port: attention, norms, RoPE, embeddings (EasyCache step
+skipping in ops/easycache.py)."""
 
 from apex_studio_tpu_torch.ops.attention import attention  # noqa: F401
 from apex_studio_tpu_torch.ops.embeddings import timestep_embedding  # noqa: F401

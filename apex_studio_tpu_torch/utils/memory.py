@@ -17,12 +17,17 @@ def params_nbytes(model: nn.Module) -> int:
 
 
 def free_memory_bytes(device: Union[str, torch.device]) -> Optional[int]:
-    """Free memory of a CUDA device (``torch.cuda.mem_get_info``, so other
-    residents count against it), or None for a device that reports none."""
+    """Free memory of a CUDA device, or None for a device that reports none:
+    what CUDA reports free (``torch.cuda.mem_get_info``, so other
+    processes' residents count against it) plus the blocks PyTorch's caching
+    allocator holds but no tensor uses (reserved − allocated). The JAX gate
+    reads ``bytes_limit − bytes_in_use`` of its own allocator, where freed
+    buffers count as free too."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    return int(torch.cuda.mem_get_info(device)[0])
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return int(torch.cuda.mem_get_info(device)[0]) + int(cached)
 
 
 def should_stream(model: nn.Module, *, device: Union[str, torch.device],

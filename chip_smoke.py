@@ -59,6 +59,20 @@ Phases, each printed as one JSON line:
              step split; edit_plus with two condition images, t2i with true
              CFG (120 a step), the ControlNet at scales 1 and 0 (65 a step)
              and one bf16 edit, each of 2 steps
+  wan        Wan 2.2 A14B from its three manifests, full width and depth,
+             both 14B experts int4-resident (UMT5-XXL int8): a 2-block DiT at
+             full width on the card (bf16) against the CPU (f32); the fused
+             UniPC step against the host step over 30 steps; the bench leg's
+             t2v request at one 480x832 frame three times (30 steps, CFG 4,
+             one expert: 160 launches a step, requests 1 and 3 identical, the
+             repeated prompt a disk-cache hit); t2v at 81 frames (3 steps, the
+             expert switch at boundary 0.875) with one decode tile against
+             float64; the resident Linears at Wan's shapes and the int4 step
+             split; the t2i manifest's 1024x1024 request (30 steps, both
+             experts, the step split the boundary implies); i2v at 81 frames
+             (3 steps, 36-channel DiT, the VAE encode at T = 81); one bf16 t2i
+             request (4 steps, no Linear quantized); the point mask and its
+             tracking on eight 480x832 frames
   prompt_extension
              PromptExtender on the synthetic int8 Qwen3-4B, greedy, 32 new
              tokens (36 launches a token); each decode step's logits against
@@ -72,9 +86,10 @@ The kernels phase holds the kernel at every shape of the table in PERF.md:
 Flux's, the tile edges, biases and causal cases, ZImage's S = 4224 and 4096
 at 30 heads and its 128-token caption block, and Qwen3's one-row decode
 against Sk = 300 with a [1, Sk] bias and a ragged Sk = 437 with a [2, Sk] bias,
-and QwenImage's joint lengths at 24 heads (the edit request's, a ragged 8256,
-edit_plus's and t2i's); the timing phase times each beside its bound and the
-library call.
+QwenImage's joint lengths at 24 heads (the edit request's, a ragged 8256,
+edit_plus's and t2i's), and Wan's at 40 heads (self-attention over 1560, 4096
+and 32,760 tokens, and each one's cross-attention over 512 text rows); the
+timing phase times each beside its bound and the library call.
 Then a ``wall`` line, a ``kernels`` line, the card and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -114,7 +129,7 @@ STEPS = 4
 SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,"
-                  "qwenimage,prompt_extension,rife")
+                  "qwenimage,wan,prompt_extension,rife")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -178,6 +193,44 @@ QWENIMAGE_EDIT_PROMPT, QWENIMAGE_EDIT_STEPS = "make the sky purple", 8
 # its bucket's rows)
 QWENIMAGE_LINEAR_CALLS = {(8192, 3072, 3072): 240, (8192, 3072, 12288): 60, (8192, 12288, 3072): 60,
                           (1, 3072, 18432): 120}
+WAN_T2V_MANIFEST = REPO / "manifests" / "video" / "wan-2.2-a14b-text-to-video.yml"
+WAN_T2I_MANIFEST = REPO / "manifests" / "image" / "wan-2.2-a14b-text-to-image.yml"
+WAN_I2V_MANIFEST = REPO / "manifests" / "video" / "wan2.2-a14b-image-to-video.yml"
+# 40 heads of 128, 40 blocks an expert, 512 UMT5 rows; tokens (patch 1x2x2 over
+# 8x-downscaled latents, 4x in time): one 480x832 frame 1x30x52, a 1024² image
+# 1x64x64, 81 frames at 480x832 21x30x52
+WAN_HEADS, WAN_LAYERS, WAN_TEXT_TOKENS = 40, 40, 512
+WAN_TOKENS = {"frame": 1560, "t2i": 4096, "clip": 32760}
+# the bench leg's prompts (bench_e2e.py PROMPT, NEG)
+WAN_PROMPT = ("A cinematic photograph of a lighthouse on a rocky coast at golden "
+              "hour, crashing waves, volumetric light, highly detailed")
+WAN_NEG = "blurry, low quality, watermark"
+# rows, in, out and calls a forward of the DiT's resident Linears at the bench
+# leg's 1560 tokens: self-attention q/k/v/out and cross-attention q/out, the FFN
+# in and out; the cross-attention K/V and the text embedder's second Linear over
+# the 512 text rows, its first from 4096; time_proj on one row
+WAN_LINEAR_CALLS = {(1560, 5120, 5120): 240, (1560, 5120, 13824): 40, (1560, 13824, 5120): 40,
+                    (512, 5120, 5120): 81, (512, 4096, 5120): 1, (1, 5120, 30720): 1}
+# the same at the 81-frame clip's 32,760 tokens
+WAN_CLIP_LINEAR_CALLS = {(32760, 5120, 5120): 240, (32760, 5120, 13824): 40, (32760, 13824, 5120): 40,
+                         (512, 5120, 5120): 81, (512, 4096, 5120): 1, (1, 5120, 30720): 1}
+# the fused UniPC step against the host step, both f32 on the same velocities:
+# the same linear combination summed in another order, a few f32 ulps a step
+WAN_UNIPC_REL_L2 = 1e-5
+# the point mask's IoU with the drawn disk on every tracked frame
+WAN_MASK_IOU = 0.9
+# google/umt5-xxl config.json (the Wan manifests' text encoder)
+UMT5_XXL = {"model_type": "umt5", "d_model": 4096, "d_ff": 10240, "d_kv": 64, "num_heads": 64,
+            "num_layers": 24, "vocab_size": 256384, "relative_attention_num_buckets": 32,
+            "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6,
+            "feed_forward_proj": "gated-gelu"}
+# Wan-AI/Wan2.2-I2V-A14B-Diffusers transformer/config.json (both experts)
+WAN_I2V_TRANSFORMER = {"_class_name": "WanTransformer3DModel", "patch_size": [1, 2, 2],
+                       "num_attention_heads": 40, "attention_head_dim": 128, "in_channels": 36,
+                       "out_channels": 16, "text_dim": 4096, "freq_dim": 256, "ffn_dim": 13824,
+                       "num_layers": 40, "cross_attn_norm": True, "qk_norm": "rms_norm_across_heads",
+                       "eps": 1e-6, "image_dim": None, "added_kv_proj_dim": None, "rope_max_seq_len": 1024,
+                       "pos_embed_seq_len": None}
 # google/byt5-small config.json (the manifest's glyph encoder)
 BYT5_SMALL = {"model_type": "t5", "d_model": 1472, "d_ff": 3584, "d_kv": 64, "num_heads": 6,
               "num_layers": 12, "vocab_size": 384, "relative_attention_num_buckets": 32,
@@ -354,6 +407,11 @@ def phase_kernels():
         run_case(name, q, k, v, reference=plain_in_row_chunks)
         del q, k, v
         release()
+    # Wan (40 heads) self- and cross-attention at its three lengths
+    for name, q, k, v, _ in wan_kernel_inputs():
+        run_case(name, q, k, v, reference=lambda *a: plain_in_row_chunks(*a, rows=1024))
+        del q, k, v
+        release()
     emit({"phase": "kernels", "cases": cases})
     bad = [c["case"] for c in cases if not c["ok"]]
     check(not bad, f"flash kernel disagrees with its plain version: {bad}")
@@ -477,7 +535,7 @@ def phase_timing():
         queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
     del q, k, v, qt, kt, vt
     release()
-    return flux_row, zimage_timing_rows() + qwenimage_timing_rows()
+    return flux_row, zimage_timing_rows() + qwenimage_timing_rows() + wan_timing_rows()
 
 
 # -- tiny reference ----------------------------------------------------------------------
@@ -1744,17 +1802,14 @@ def qwenimage_reference():
     release()
 
 
-def qwenimage_vae_precision(vae) -> dict:
-    """One decode of a seeded 32 x 32 latent through the engine's Wan VAE on
-    the card (bf16 compute, f32 parameters, as the manifest resolves it),
-    timed, against the same VAE in float64 (its norms and attention upcast to
-    f32 by design), within 2e-2 relative L2."""
+def vae_decode_vs_float64(vae, z) -> dict:
+    """One decode of ``z`` through a Wan VAE on the card as the engine builds
+    it (bf16 compute, f32 parameters), timed, against the same VAE in float64
+    (its norms and attention upcast to f32 by design): relative L2."""
     import copy
 
     import torch
 
-    g = torch.Generator("cuda").manual_seed(7)
-    z = torch.randn(1, vae.cfg.z_dim, 1, 32, 32, generator=g, device="cuda")
     with torch.inference_mode():
         out = vae.decode(z)
         ms = time_ms(lambda: vae.decode(z), reps=3, warmup=1)
@@ -1763,12 +1818,23 @@ def qwenimage_vae_precision(vae) -> dict:
             if isinstance(getattr(m, "dtype", None), torch.dtype):
                 m.dtype = torch.float64
         rel = rel_l2(out.double(), vae64.decode(z.double()))
-    row = {"phase": "qwenimage", "check": "vae_decode_vs_float64", "latent": list(z.shape),
-           "pixels": list(out.shape), "compute_dtype": str(out.dtype), "decode_ms": ms,
-           "rel_l2_vs_float64": rel, "tol": 2e-2}
+    row = {"latent": list(z.shape), "pixels": list(out.shape), "compute_dtype": str(out.dtype), "decode_ms": ms,
+           "rel_l2_vs_float64": rel}
     del vae64, out
     release()
+    return row
+
+
+def qwenimage_vae_precision(vae) -> dict:
+    """One decode of a seeded 32 x 32 latent through the engine's Wan VAE on
+    the card against float64, within 2e-2 relative L2."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(7)
+    z = torch.randn(1, vae.cfg.z_dim, 1, 32, 32, generator=g, device="cuda")
+    row = {"phase": "qwenimage", "check": "vae_decode_vs_float64", **vae_decode_vs_float64(vae, z), "tol": 2e-2}
     emit(row)
+    rel = row["rel_l2_vs_float64"]
     check(rel <= 2e-2, f"the Wan VAE's decode is {rel} from float64")
     return row
 
@@ -1987,6 +2053,418 @@ def phase_qwenimage(home: Path, kernel_rows=()):
         "bf16_peak_gib": paths["qwenimage_edit_bf16"][0]["peak_gib"], "int4_peak_gib": rows[0]["peak_gib"]}})
     release()
     return paths, linear_rows
+
+
+# -- Wan 2.2 A14B ------------------------------------------------------------------------------
+
+
+def wan_kernel_inputs():
+    """(case, q, k, v, bias) at the shapes the Wan path gives the kernel (40
+    heads of 128, unmasked): self-attention over a 480x832 frame (1560
+    tokens), a 1024² image (4096) and an 81-frame 480x832 clip (32,760), and
+    each one's cross-attention over the 512 UMT5 rows."""
+    for i, (kind, s) in enumerate(WAN_TOKENS.items()):
+        yield (f"wan_self_{kind}_s{s}_h40", *qkv(1, s, s, WAN_HEADS, 128, 60 + 2 * i), None)
+        yield (f"wan_cross_{kind}_sq{s}_sk{WAN_TEXT_TOKENS}_h40",
+               *qkv(1, s, WAN_TEXT_TOKENS, WAN_HEADS, 128, 61 + 2 * i), None)
+
+
+def wan_timing_rows():
+    """The kernel at the Wan shapes beside its plain version (in 1024-row
+    chunks), the library call and its bound."""
+    import torch.nn.functional as F
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    rows = []
+    for name, q, k, v, _ in wan_kernel_inputs():
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        reps = 10 if q.shape[1] * k.shape[1] > 1 << 22 else 25
+        rows.append(timing_row(
+            q, k, v, None, time_ms(lambda: flash_attention(q, k, v), reps=reps),
+            time_ms(lambda: plain_in_row_chunks(q, k, v, rows=1024), reps=3, warmup=1),
+            time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=reps),
+            queued_ms(lambda: flash_attention(q, k, v)),
+            queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)), case=name))
+        del q, k, v, qt, kt, vt
+        release()
+    return rows
+
+
+def wan_reference():
+    """A Wan DiT at full width (dim 5120, 40 heads of 128, FFN 13824, text
+    4096) with 2 blocks, on the card in bf16 (flash kernel) against the same
+    weights on the CPU in f32 (plain version), within BF16_REL_L2: one
+    480x832 frame (1560 tokens) over 512 text rows of which 40 are real."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers.wan import WanConfig, WanTransformer3DModel
+
+    cfg = WanConfig(num_layers=2)
+    f32 = materialize_random(lambda: WanTransformer3DModel(cfg, dtype=torch.float32), torch.device("cuda"),
+                             seed=24)
+    with torch.no_grad():
+        for prm in f32.parameters():  # both sides hold the same (bf16-representable) weights
+            prm.copy_(prm.to(torch.bfloat16).float())
+    card = materialize_random(lambda: WanTransformer3DModel(cfg, dtype=torch.bfloat16), torch.device("cuda"),
+                              seed=0)
+    card.load_state_dict(f32.state_dict())
+    cpu = f32.to("cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, 16, 1, 60, 104)).astype(np.float32))
+    ctx = torch.from_numpy(rng.normal(size=(1, WAN_TEXT_TOKENS, 4096)).astype(np.float32))
+    ctx[:, 40:] = 0.0  # zeroed padding, as encode_prompt hands it over
+    t = torch.tensor([731.0])
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu(x, t, ctx)
+        cpu_s = time.perf_counter() - t0
+        out = card(x.cuda(), t.cuda(), ctx.cuda()).float().cpu()
+    row = {"phase": "wan", "check": "card_bf16_vs_cpu_f32", "model": "wan dim 5120, 40 heads, FFN 13824, 2 blocks",
+           "parameters": sum(p.numel() for p in cpu.parameters()), "tokens": WAN_TOKENS["frame"],
+           "text_rows": WAN_TEXT_TOKENS, "rel_l2": rel_l2(out, ref), "max_abs_err": (out - ref).abs().max().item(),
+           "max_abs_ref": ref.abs().max().item(), "finite": bool(torch.isfinite(out).all()),
+           "tol_rel_l2": BF16_REL_L2, "cpu_seconds": cpu_s}
+    emit(row)
+    check(row["finite"] and row["rel_l2"] <= BF16_REL_L2,
+          f"the Wan forward on the card is {row['rel_l2']} from the CPU (limit {BF16_REL_L2})")
+    del cpu, card, f32
+    release()
+
+
+def wan_unipc_check():
+    """The fused UniPC step (engine/fused.py) against the host
+    ``scheduler.step`` over the t2i manifest's 30-step schedule (shift 5) on
+    the card, on the same seeded velocities at the 1024² latent shape: every
+    step's latents within WAN_UNIPC_REL_L2 of the host step's, both in f32."""
+    import torch
+
+    from apex_studio_tpu_torch.engine.fused import build_unipc_step, init_unipc_carry
+    from apex_studio_tpu_torch.schedulers.unipc import FlowUniPCMultistepScheduler
+
+    host, fused = (FlowUniPCMultistepScheduler(shift=5.0) for _ in range(2))
+    for s in (host, fused):
+        s.set_timesteps(30)
+    g = torch.Generator("cuda").manual_seed(8)
+    shape = (1, 16, 1, 128, 128)
+    x_host = torch.randn(shape, generator=g, device="cuda")
+    x_fused = x_host.clone()
+    hist, last = init_unipc_carry(x_fused, fused.solver_order)
+    step = build_unipc_step(lambda x, v: v, fused.solver_order)
+    worst = 0.0
+    with torch.inference_mode():
+        for t, p in zip(host.timesteps, fused.fused_plan()):
+            v = torch.randn(shape, generator=g, device="cuda")
+            (x_host,) = host.step(v, float(t), x_host)
+            x_fused = step(x_fused, hist, last, p["sigma"], p["use_corrector"], p["corr_w"], p["pred_w"], v)
+            worst = max(worst, rel_l2(x_fused, x_host))
+    row = {"phase": "wan", "check": "fused_unipc_vs_host_step", "steps": 30, "shift": 5.0, "latent": list(shape),
+           "max_rel_l2": worst, "tol_rel_l2": WAN_UNIPC_REL_L2, "finite": bool(torch.isfinite(x_fused).all())}
+    emit(row)
+    check(row["finite"] and worst <= WAN_UNIPC_REL_L2,
+          f"the fused UniPC step is {worst} from the host step (limit {WAN_UNIPC_REL_L2})")
+
+
+def write_wan_configs(home: Path, i2v: bool = False) -> None:
+    """UMT5-XXL's published ``config.json`` where the Wan manifests name it
+    (without it T5Config's defaults build T5-XXL: a shared relative bias and
+    a 32,128-token vocabulary); with ``i2v``, the A14B I2V transformer's (36
+    input channels) where the i2v manifest names both experts' configs."""
+    root = home / "components" / "Wan-AI" / "Wan2.2-T2V-A14B-Diffusers"
+    files = {"text_encoder": UMT5_XXL}
+    if i2v:
+        files.update({"transformer": WAN_I2V_TRANSFORMER, "transformer_2": WAN_I2V_TRANSFORMER})
+    for sub, cfg in files.items():
+        (root / sub).mkdir(parents=True, exist_ok=True)
+        (root / sub / "config.json").write_text(json.dumps(cfg))
+
+
+def wan_engine(label, manifest, model_type, home):
+    """A Wan engine on the card with the byte-level tokenizer, its own
+    ``APEX_HOME_DIR`` and the configs above, observed: the components each
+    request builds, each expert's forwards and the latents each decode gets
+    (``engine.wan_smoke``)."""
+    import torch
+
+    from apex_studio_tpu_torch.engine import UniversalEngine
+
+    os.environ["APEX_HOME_DIR"] = str(home / label)
+    write_wan_configs(home / label, i2v=model_type == "i2v")
+    engine = UniversalEngine(manifest, model_type=model_type, device="cuda")
+    engine._spec_for_type("text_encoder")["tokenizer"] = make_tokenizer()
+    seen = engine.wan_smoke = {"built": [], "forwards": {}, "decoded": []}
+    instantiate, load_transformer, decode = engine._instantiate_family, engine._load_transformer, engine.decode_latents
+
+    def counted_instantiate(registry, spec, family):
+        seen["built"].append(spec.get("name") or spec.get("type"))
+        return instantiate(registry, spec, family)
+
+    def counted_load_transformer(spec):
+        model = load_transformer(spec)
+        name = spec.get("name") or "transformer"
+        model.register_forward_pre_hook(
+            lambda *_: seen["forwards"].__setitem__(name, seen["forwards"].get(name, 0) + 1))
+        return model
+
+    def observed_decode(z):
+        seen["decoded"].append(z.detach().clone())
+        return decode(z)
+
+    engine._instantiate_family, engine._load_transformer = counted_instantiate, counted_load_transformer
+    engine.decode_latents = observed_decode
+    torch.cuda.synchronize()
+    return engine
+
+
+def wan_expected_forwards(engine, kw) -> dict:
+    """Each expert's forwards the request implies: the primary expert while
+    t ≥ boundary_ratio·1000 (all steps without a boundary), ``transformer_2``
+    after; two a step under CFG (the expert's guidance above 1; the engines
+    encode an empty negative prompt when none is given, as in JAX)."""
+    steps, boundary = kw["num_inference_steps"], kw.get("boundary_ratio")
+    low = sum(1 for t in engine.scheduler.timesteps if boundary is not None and float(t) < boundary * 1000)
+    g = kw.get("guidance_scale", 5.0)
+    g2 = kw.get("guidance_scale_2") if kw.get("guidance_scale_2") is not None else g
+    want = {"transformer": (steps - low) * (1 + (g > 1.0))}
+    if low:
+        want["transformer_2"] = low * (1 + (g > 1.0 and g2 > 1.0))
+    return want
+
+
+def wan_drive(label, engine, model_type, weights, requests):
+    """Requests (run keyword dicts) through a ``wan_engine`` with synthetic
+    ``weights``, each with the kernel's launch count set to 0 before and read
+    after; stages timed from the engine's progress messages (synchronised),
+    peaks by stage, each expert's forwards counted against what the
+    scheduler's timesteps and the boundary imply. Returns rows and frames."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    os.environ["APEX_SYNTHETIC_WEIGHTS"] = weights
+    os.environ["APEX_HOME_DIR"] = str(Path(engine.components_root).parent)
+    seen = engine.wan_smoke
+    start_msg = "Starting i2v pipeline" if model_type == "i2v" else "Starting pipeline"
+    rows, frames_out = [], []
+    for i, kw in enumerate(requests):
+        steps = kw["num_inference_steps"]
+        stamps, peaks, last = {}, {}, [None]
+
+        def progress(p, message, *_a, **_k):
+            torch.cuda.synchronize()
+            stamps.setdefault(message, time.perf_counter())
+            if last[0] is not None:  # the peak of the stage that ends here
+                peaks[last[0]] = max(peaks.get(last[0], 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+            last[0] = message
+
+        for v in seen.values():
+            v.clear()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        frames = engine.run(progress_callback=progress, **kw)
+        torch.cuda.synchronize()
+        total, launches = time.perf_counter() - t0, flash_attention.launches
+        want_forwards = wan_expected_forwards(engine, kw)
+        want_launches = 2 * WAN_LAYERS * sum(want_forwards.values())
+        step_t = [stamps[f"Denoising step {j}/{steps}"] for j in range(1, steps + 1)]
+        start = stamps.get("Timesteps computed; starting denoise", stamps.get("Initialized latent noise"))
+        per_step = [b - a for a, b in zip([start] + step_t[:-1], step_t)]
+        z = seen["decoded"][-1]
+        row = {
+            "phase": label, "model_type": model_type, "weights": weights, "request": i + 1,
+            "prompt": kw.get("prompt", "")[:40], "seed": kw.get("seed"), "steps": steps,
+            "frames_requested": kw.get("num_frames", 1), "size": [kw["height"], kw["width"]],
+            "latent_grid": list(z.shape[2:]), "tokens": math.prod(z.shape[2:]) // 4,
+            "timesteps": [float(t) for t in engine.scheduler.timesteps], "boundary_ratio": kw.get("boundary_ratio"),
+            "forwards_by_expert": dict(seen["forwards"]), "forwards_expected": want_forwards,
+            "seconds_total": total, "seconds_per_step": per_step,
+            "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
+            "seconds_decode": stamps["Completed pipeline"] - stamps["Denoising complete"],
+            "peak_gib_by_stage": peaks, "peak_gib": max(peaks.values()),
+            "flash_launches": launches, "flash_launches_per_step": launches / steps,
+            "flash_launches_expected": want_launches, "components_built": list(seen["built"]),
+            "frames": len(frames), "frame_shape": list(frames[0].shape),
+            "latents_finite": bool(torch.isfinite(z).all()),
+        }
+        if "Prompts ready" in stamps:
+            row["seconds_encode"] = stamps["Prompts ready"] - stamps[start_msg]
+            row["seconds_load"] = stamps["Components ready"] - stamps["Prompts ready"]
+        if "Image conditioning ready" in stamps:
+            row["seconds_load_encode_and_condition"] = stamps["Image conditioning ready"] - stamps[start_msg]
+        emit(row)
+        n_frames = kw.get("num_frames", 1)
+        check(len(frames) == n_frames and all(f.shape == (kw["height"], kw["width"], 3) and f.dtype == np.uint8
+                                              for f in frames),
+              f"{label} request {i + 1}: {len(frames)} frames of {frames[0].shape}, expected {n_frames}")
+        check(row["latents_finite"], f"{label} request {i + 1}: latents not finite")
+        check(row["forwards_by_expert"] == want_forwards,
+              f"{label} request {i + 1}: expert forwards {row['forwards_by_expert']}, expected {want_forwards}")
+        check(launches == want_launches,
+              f"{label} request {i + 1}: flash launched {launches} times, expected {want_launches}")
+        rows.append(row)
+        frames_out.append(frames)
+    return rows, frames_out
+
+
+def wan_step_breakdown(kind, step_s, calls, linear_rows, kernel_rows) -> dict:
+    """A CFG step of ``step_s`` seconds at the ``kind`` token count split
+    into attention (queued kernel ms x 80 self + 80 cross launches), the
+    ``_w4`` Linears (queued ms x two forwards' ``calls`` by shape) and the
+    rest (by difference)."""
+    s = WAN_TOKENS[kind]
+    queued = {r["case"]: r["queued_ms"] for r in kernel_rows}
+    attention_s = 2 * WAN_LAYERS * (queued[f"wan_self_{kind}_s{s}_h40"]
+                                    + queued[f"wan_cross_{kind}_sq{s}_sk{WAN_TEXT_TOKENS}_h40"]) / 1e3
+    by = {key: 2 * sum(calls.get((r["rows"], r["in"], r["out"]), 0) * r[key] for r in linear_rows) / 1e3
+          for key in ("w4_ms", "bf16_ms")}
+    return {"tokens": s, "seconds_per_step": step_s, "attention_seconds": attention_s,
+            "w4_linear_seconds": by["w4_ms"], "bf16_linear_seconds_same_calls": by["bf16_ms"],
+            "other_seconds": step_s - attention_s - by["w4_ms"], "attention_share": attention_s / step_s,
+            "w4_linear_share": by["w4_ms"] / step_s,
+            "reckoning": f"a CFG step at {s} tokens: queued kernel ms x 80 self + 80 cross launches; queued "
+                         f"ms x calls of the blocks' Linears ({s} rows), the cross-attention K/V and the text "
+                         "embedder (512 rows) and time_proj (1 row); other = the rest"}
+
+
+def wan_point_mask() -> dict:
+    """The bench leg's preprocessing: ``mask_from_points`` on the first of
+    eight seeded 480x832 frames (a disk moving 12 px a frame over dark noise),
+    then ``track_mask`` forward; host work (numpy and OpenCV), as in the JAX
+    package. Every mask's IoU with its drawn disk at least WAN_MASK_IOU."""
+    import numpy as np
+
+    from apex_studio_tpu_torch.mask import mask_from_points, track_mask
+
+    rng = np.random.default_rng(0)
+    frames, disks = [], []
+    yy, xx = np.mgrid[:480, :832]
+    for i in range(8):
+        img = rng.integers(0, 30, (480, 832, 3)).astype(np.uint8)
+        disk = (yy - 240) ** 2 + (xx - 200 - 12 * i) ** 2 <= 60 ** 2
+        img[disk] = [200, 80, 80]
+        frames.append(img)
+        disks.append(disk)
+    t0 = time.perf_counter()
+    m0 = mask_from_points(frames[0], [{"x": 200, "y": 240}])
+    masks = track_mask(frames, m0, 0, "forward")
+    seconds = time.perf_counter() - t0
+    ious = [float((masks[i].astype(bool) & disks[i]).sum() / (masks[i].astype(bool) | disks[i]).sum())
+            for i in range(8)]
+    row = {"phase": "wan", "check": "point_mask", "frames": len(masks), "size": [480, 832],
+           "seconds_mask_and_track": seconds, "iou": ious, "tol_iou": WAN_MASK_IOU}
+    emit(row)
+    check(len(masks) == 8 and min(ious) >= WAN_MASK_IOU, f"point mask IoU {ious} (limit {WAN_MASK_IOU})")
+    return row
+
+
+def phase_wan(home: Path, kernel_rows=()):
+    """Wan 2.2 A14B from its three manifests, full width and depth, both 14B
+    experts int4-resident unless a request says otherwise (UMT5-XXL int8, the
+    Wan VAE bf16): the 2-block card-vs-CPU check and the fused UniPC step; the
+    bench leg's request three times (t2v at one 480x832 frame, 30 steps, one
+    expert); t2v at 81 frames (3 steps, the expert switch) with one decode
+    tile against float64; the resident Linears at Wan's shapes and the int4
+    step split; the t2i manifest's 1024² request (30 steps, the expert
+    switch); i2v at 81 frames (3 steps); one bf16 t2i request (4 steps); the
+    point mask."""
+    import numpy as np
+
+    from apex_studio_tpu_torch.quantize.residency import count_resident
+
+    wan_reference()
+    wan_unipc_check()
+    paths = {}
+    leg = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEG, height=480, width=832, num_frames=1,
+               num_inference_steps=30, guidance_scale=4.0, boundary_ratio=None)
+    engine = wan_engine("wan_t2v", WAN_T2V_MANIFEST, "t2v", home)
+    rows, frames = wan_drive("wan_t2v", engine, "t2v", "int4",
+                             [dict(leg, seed=0), dict(leg, seed=1), dict(leg, seed=0)])
+    paths["wan_t2v_frame"] = rows
+    same = bool(np.array_equal(frames[0][0], frames[2][0]))
+    differ = not np.array_equal(frames[0][0], frames[1][0])
+    int4_step = statistics.median(t for r in rows for t in r["seconds_per_step"][1:])
+    emit({"phase": "wan", "requests_1_3_identical": same, "requests_1_2_differ": differ,
+          "second_encode_cache_hit": "text_encoder" not in rows[1]["components_built"],
+          "resident_weights": count_resident(engine.transformer), "tokens": rows[0]["tokens"],
+          "median_seconds_per_step_after_the_first": int4_step,
+          "seconds_per_request": [r["seconds_total"] for r in rows]})
+    check(same, "wan requests 1 and 3 (same prompt and seed) differ")
+    check(differ, "wan requests 1 and 2 (other seed) are identical")
+    check(not any(r["components_built"] for r in rows[1:]),
+          f"a repeated request built components again: {[r['components_built'] for r in rows[1:]]}")
+    check(rows[0]["flash_launches_per_step"] == 4 * WAN_LAYERS, "a CFG step did not make 160 launches")
+    check(rows[0]["tokens"] == WAN_TOKENS["frame"], f"the bench leg's frame gave {rows[0]['tokens']} tokens")
+    check(count_resident(engine.transformer) > 0, "no weight of the Wan DiT is resident")
+    # t2v at 81 frames on the same engine, with the manifest's expert switch
+    clip_kw = dict(leg, num_frames=81, num_inference_steps=3, boundary_ratio=0.875, guidance_scale_2=3.0, seed=0)
+    paths["wan_t2v_81_frames"], _ = wan_drive("wan_t2v", engine, "t2v", "int4", [clip_kw])
+    z = engine.wan_smoke["decoded"][-1]
+    check(paths["wan_t2v_81_frames"][0]["tokens"] == WAN_TOKENS["clip"], "the 81-frame clip's tokens")
+    tile = {"phase": "wan", "check": "vae_tile_vs_float64", "tol": 2e-2,
+            "seeded_normal": vae_decode_vs_float64(engine.vae, torch_randn_like(z[..., :32, :32], 9)),
+            "denoised": vae_decode_vs_float64(engine.vae, z[..., :32, :32].contiguous())}
+    emit(tile)
+    check(tile["seeded_normal"]["rel_l2_vs_float64"] <= 2e-2,
+          f"the Wan VAE's tile decode is {tile['seeded_normal']['rel_l2_vs_float64']} from float64")
+    del engine, frames, _, z
+    release()
+    linear_rows = residency_timing(sorted(set(WAN_LINEAR_CALLS) | set(WAN_CLIP_LINEAR_CALLS)), phase="wan")
+    if kernel_rows:
+        clip_step = paths["wan_t2v_81_frames"][0]["median_seconds_per_step_after_the_first"]
+        for name, kind, calls, step_s in (("step_breakdown_int4", "frame", WAN_LINEAR_CALLS, int4_step),
+                                          ("step_breakdown_int4_81_frames", "clip", WAN_CLIP_LINEAR_CALLS, clip_step)):
+            emit({"phase": "wan", name: wan_step_breakdown(kind, step_s, calls, linear_rows, kernel_rows)})
+    t2i_kw = dict(prompt=PROMPT_A, negative_prompt=WAN_NEG, height=1024, width=1024, num_inference_steps=30,
+                  guidance_scale=4.0, guidance_scale_2=3.0, boundary_ratio=0.875, seed=0)
+    engine = wan_engine("wan_t2i", WAN_T2I_MANIFEST, "t2i", home)
+    paths["wan_t2i"], _ = wan_drive("wan_t2i", engine, "t2i", "int4", [t2i_kw])
+    check(paths["wan_t2i"][0]["tokens"] == WAN_TOKENS["t2i"], "the t2i request's tokens")
+    del engine, _
+    release()
+    i2v_kw = dict(clip_kw, image=cv2_smooth(np.random.default_rng(6), (480, 832)), prompt=PROMPT_B)
+    engine = wan_engine("wan_i2v", WAN_I2V_MANIFEST, "i2v", home)
+    paths["wan_i2v_81_frames"], _ = wan_drive("wan_i2v", engine, "i2v", "int4", [i2v_kw])
+    check(engine.transformer.cfg.in_channels == 36,
+          f"the i2v DiT takes {engine.transformer.cfg.in_channels} channels, expected 36")
+    del engine, _
+    release()
+    # Both experts in bf16 (57 GB) fit the card, but the memory fallback's gate
+    # reads the free memory after each expert is resident (as the JAX gate
+    # does) and would make the second one int8: this request turns it off.
+    saved = os.environ.get("APEX_MEMORY_FALLBACK")
+    os.environ["APEX_MEMORY_FALLBACK"] = "off"
+    try:
+        engine = wan_engine("wan_t2i_bf16", WAN_T2I_MANIFEST, "t2i", home)
+        paths["wan_t2i_bf16"], _ = wan_drive("wan_t2i_bf16", engine, "t2i", "bf16",
+                                             [dict(t2i_kw, num_inference_steps=4)])
+    finally:
+        if saved is None:
+            del os.environ["APEX_MEMORY_FALLBACK"]
+        else:
+            os.environ["APEX_MEMORY_FALLBACK"] = saved
+    resident = count_resident(engine.transformer) + count_resident(engine.transformer_2)
+    emit({"phase": "wan", "t2i_int4_vs_bf16": {
+        "int4_seconds_per_step": paths["wan_t2i"][0]["median_seconds_per_step_after_the_first"],
+        "bf16_seconds_per_step": paths["wan_t2i_bf16"][0]["median_seconds_per_step_after_the_first"],
+        "int4_peak_gib": paths["wan_t2i"][0]["peak_gib"], "bf16_peak_gib": paths["wan_t2i_bf16"][0]["peak_gib"],
+        "bf16_resident_weights": resident}})
+    check(resident == 0, f"the bf16 request's experts hold {resident} resident weights")
+    del engine, _
+    release()
+    wan_point_mask()
+    return paths, linear_rows
+
+
+def torch_randn_like(z, seed: int):
+    """Seeded normal values of ``z``'s shape on the card."""
+    import torch
+
+    return torch.randn(z.shape, generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
 
 
 # -- prompt extension ------------------------------------------------------------------------
@@ -2289,6 +2767,10 @@ def main() -> int:
             qwenimage_paths, _ = timed("qwenimage", phase_qwenimage, home, zimage_timing)
             paths.update(qwenimage_paths)
             release()
+        if "wan" in phases:
+            wan_paths, _ = timed("wan", phase_wan, home, zimage_timing)
+            paths.update(wan_paths)
+            release()
         if "prompt_extension" in phases:
             paths["prompt_extension"] = timed("prompt_extension", phase_prompt_extension, home)
         if "rife" in phases:
@@ -2321,11 +2803,15 @@ def main() -> int:
             "zimage_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "bias", "ms", "queued_ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
                              "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
-                            if not r["case"].startswith("qwenimage")],
+                            if not r["case"].startswith(("qwenimage", "wan"))],
             "qwenimage_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "ms", "queued_ms", "plain_ms",
                                                      "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
                                 "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
                                if r["case"].startswith("qwenimage")],
+            "wan_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "ms", "queued_ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "library_queued_ms")},
+                          "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
+                         if r["case"].startswith("wan")],
         }]})
         print(card)
     except CheckFailed as e:

@@ -59,6 +59,14 @@ CASES = [
     # multiple of 128) and edit_plus with two (4096 + 2 x 4096 + 64)
     ("qwenimage_edit_s8256_h24", 1, 8256, 8256, 24, 128, None, False),
     ("qwenimage_edit_plus_s12352_h24", 1, 12352, 12352, 24, 128, None, False),
+    # Wan 2.2 A14B, 40 heads, unmasked: self-attention over a 480x832 frame
+    # (1560 tokens) and a 1024² image (4096), cross-attention of those and of
+    # an 81-frame clip (32,760 tokens) over the 512 UMT5 rows
+    ("wan_self_s1560_h40", 1, 1560, 1560, 40, 128, None, False),
+    ("wan_cross_sq1560_sk512_h40", 1, 1560, 512, 40, 128, None, False),
+    ("wan_self_s4096_h40", 1, 4096, 4096, 40, 128, None, False),
+    ("wan_cross_sq4096_sk512_h40", 1, 4096, 512, 40, 128, None, False),
+    ("wan_cross_sq32760_sk512_h40", 1, 32760, 512, 40, 128, None, False),
 ]
 
 
@@ -129,6 +137,23 @@ def test_flash_kernel_hyv15_joint_attention_row_subsets(s, cuda):
     tail = s % 128 or 128
     edge = s // 256 * 128
     for rows in (slice(0, 128), slice(s - tail, s), slice(edge - 64, edge + 64)):
+        ref = flash_attention_reference(q[:, rows], k, v)
+        assert torch.isfinite(out[:, rows].float()).all()
+        assert_agrees(out[:, rows], ref)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_wan_81_frame_self_attention_row_subsets(cuda):
+    """Wan's self-attention over an 81-frame 480x832 clip (32,760 tokens, 40
+    heads of 128): the plain version's f32 scores would take 172 GB, so it is
+    computed over all keys for the first, the last (ragged, 120 rows) and one
+    interior-edge 128-row subset of the kernel's output."""
+    s = 32760
+    g = torch.Generator(cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, s, 40, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    for rows in (slice(0, 128), slice(s - s % 128, s), slice(s // 256 * 128 - 64, s // 256 * 128 + 64)):
         ref = flash_attention_reference(q[:, rows], k, v)
         assert torch.isfinite(out[:, rows].float()).all()
         assert_agrees(out[:, rows], ref)
@@ -258,3 +283,22 @@ def test_qwenimage_dit_and_controlnet_launch_the_kernel_per_block(cuda):
     assert flash_attention.launches == before + 3 + 2 + 3
     assert out.shape == (1, 198, 64) and torch.isfinite(out.float()).all()
     assert guided.shape == (1, 99, 64) and torch.isfinite(guided.float()).all()
+
+
+@pytest.mark.cuda
+def test_wan_dit_launches_the_kernel_twice_a_block(cuda):
+    """A small Wan DiT (head dim 128) in bf16 on the card: a self- and a
+    cross-attention launch a block, output finite and of the latents' shape."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers.wan import WanConfig, WanTransformer3DModel
+
+    cfg = WanConfig(num_attention_heads=2, text_dim=64, ffn_dim=512, num_layers=3)
+    model = materialize_random(lambda: WanTransformer3DModel(cfg), cuda, seed=0)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 16, 3, 18, 22, generator=g).to(cuda)  # 3 x 9 x 11 = 297 tokens
+    ctx = torch.randn(1, 512, 64, generator=g).to(cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        out = model(x, torch.tensor([500.0], device=cuda), ctx)
+    assert flash_attention.launches == before + 2 * 3
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()

@@ -41,6 +41,7 @@ from apex_studio_tpu.models.text_encoders.qwen3 import Qwen3Config as JaxQwen3Co
 from apex_studio_tpu.models.text_encoders.qwen3 import Qwen3TextEncoder as JaxQwen3
 from apex_studio_tpu.models.transformers import qwenimage as jax_qwenimage
 from apex_studio_tpu.models.transformers import zimage as jax_zimage
+from apex_studio_tpu.models.transformers import wan as jax_wan
 from apex_studio_tpu.models.vaes.wan_vae import AutoencoderKLWan as JaxWanVAE
 from apex_studio_tpu.models.vaes.wan_vae import WanVAEConfig as JaxWanVAEConfig
 from apex_studio_tpu.quantize.writers import write_gguf
@@ -56,7 +57,7 @@ from apex_studio_tpu_torch.models.vaes.autoencoder_kl import AutoencoderKL, Auto
 from apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae import AutoencoderKLHunyuanVideo15, HYV15VAEConfig
 from apex_studio_tpu_torch.models.vaes.tae_vae import TAEVAE, TAEConfig
 from apex_studio_tpu_torch.models.text_encoders.qwen3 import Qwen3Config, Qwen3TextEncoder
-from apex_studio_tpu_torch.models.transformers import qwenimage, zimage
+from apex_studio_tpu_torch.models.transformers import qwenimage, wan, zimage
 from apex_studio_tpu_torch.models.vaes.wan_vae import AutoencoderKLWan, WanVAEConfig
 from apex_studio_tpu_torch.quantize.gguf import load_gguf_state_dict
 from tests.torch_port_helpers import assert_close
@@ -71,6 +72,7 @@ FLUX = dict(in_channels=16, out_channels=16, num_layers=2, num_single_layers=2,
 CLIP = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
             num_attention_heads=2, max_position_embeddings=16)
 T5 = dict(vocab_size=64, d_model=48, d_kv=8, d_ff=64, num_layers=2, num_heads=4)
+UMT5 = dict(T5, per_layer_relative_bias=True)  # a relative-position table in every layer
 VAE = dict(latent_channels=4, block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4,
            scaling_factor=0.5, shift_factor=0.1)
 HYV15 = dict(in_channels=9, out_channels=4, num_attention_heads=2, attention_head_dim=32, num_layers=2,
@@ -87,6 +89,8 @@ QWENIMAGE = dict(in_channels=16, out_channels=4, num_layers=2, attention_head_di
 # QwenImage's VAE layout at small widths, with an attention block in the encoder
 WAN_VAE = dict(base_dim=8, z_dim=4, dim_mult=(1, 2, 2), num_res_blocks=1, temperal_downsample=(False, True),
                attn_scales=(0.5,), latents_mean=(0.1, -0.2, 0.0, 0.3), latents_std=(1.5, 0.5, 1.0, 2.0))
+WAN = dict(num_attention_heads=2, attention_head_dim=16, in_channels=4, out_channels=4, text_dim=24,
+           freq_dim=16, ffn_dim=48, num_layers=2)
 QWEN3 = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
              num_attention_heads=4, num_key_value_heads=2, head_dim=16)
 
@@ -283,6 +287,13 @@ def run_wan_vae(model, is_jax):
     return model.decode(model.encode(wrap(video)))
 
 
+def run_wan(model, is_jax):
+    rng = np.random.default_rng(0)
+    args = [rng.normal(size=(1, 4, 2, 4, 6)), np.array([420.0]), rng.normal(size=(1, 5, 24))]
+    return model(*(jnp.asarray(a, jnp.float32) if is_jax else torch.from_numpy(a.astype(np.float32))
+                   for a in args))
+
+
 def zimage_single_file(sd):
     """The Comfy single-file naming under a ``model.diffusion_model.`` prefix,
     which the converter strips."""
@@ -335,6 +346,11 @@ FAMILIES = {
     "wan_vae": ("wan_vae", lambda: AutoencoderKLWan(WanVAEConfig(**WAN_VAE)),
                 lambda: JaxWanVAE(JaxWanVAEConfig(**WAN_VAE), rngs=nnx.Rngs(0)),
                 lambda sd: published_state_dict("wan_vae", sd), run_wan_vae),
+    "umt5": ("t5", lambda: T5Encoder(T5Config(**UMT5), dtype=torch.float32),
+             lambda: JaxT5(JaxT5Config(**UMT5), **f32()), lambda sd: published_state_dict("t5", sd), run_encoder),
+    "wan": ("wan", lambda: wan.WanTransformer3DModel(wan.WanConfig(**WAN), dtype=torch.float32),
+            lambda: jax_wan.WanTransformer3DModel(jax_wan.WanConfig(**WAN), **f32()),
+            lambda sd: published_state_dict("wan", sd), run_wan),
     "qwen3": ("qwen3", lambda: Qwen3TextEncoder(Qwen3Config(**QWEN3), dtype=torch.float32),
               lambda: JaxQwen3(JaxQwen3Config(**QWEN3), **f32()), lambda sd: published_state_dict("qwen3", sd),
               run_encoder),
@@ -378,8 +394,14 @@ class TestFamilies:
                   "qwen3": "model.layers.1.mlp.gate_proj.weight",
                   "qwenimage": "transformer_blocks.1.attn.norm_added_k.weight",
                   "qwenimage_controlnet": "controlnet_blocks.1.weight",
-                  "wan_vae": "decoder.up_blocks.0.upsamplers.0.resample.1.weight"}[name]
+                  "wan_vae": "decoder.up_blocks.0.upsamplers.0.resample.1.weight",
+                  "umt5": "encoder.block.1.layer.0.SelfAttention.relative_attention_bias.weight",
+                  "wan": "condition_embedder.time_embedder.linear_2.weight"}[name]
         assert marker in keys
+        if name == "wan":  # the published Conv3d weight [O, C, 1, 2, 2] and diffusers' block names
+            assert safetensors_io.load_safetensors(path)["patch_embedding.weight"].shape == (32, 4, 1, 2, 2)
+            assert {"blocks.1.attn2.to_out.0.weight", "blocks.1.norm2.bias", "blocks.1.ffn.net.2.weight",
+                    "blocks.0.scale_shift_table", "condition_embedder.time_proj.weight"} <= set(keys)
 
     def test_loaded_parameters_equal_what_was_written(self, family):
         _, source, _, loaded = family

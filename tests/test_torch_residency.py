@@ -279,3 +279,31 @@ class TestApplyResidency:
                                    torch.device("cpu"), seed=0)
         assert residency.apply_int8_residency(model) == 0  # nothing reaches 2**20 elements
         assert residency.DEFAULT_MIN_NUMEL == jax_residency.DEFAULT_MIN_NUMEL == 1 << 20
+
+
+class TestMemoryGate:
+    """``utils/memory.py``: the gate of the memory fallback counts the caching
+    allocator's unused blocks as free, as the JAX gate counts freed buffers
+    (``bytes_limit − bytes_in_use``). A 50 GB encode leaves its blocks
+    cached; the gate must not then read a 14 GB model as crowding the card."""
+
+    @pytest.fixture
+    def card(self, monkeypatch):
+        gib = 1 << 30
+        monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (10 * gib, 80 * gib))
+        monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 60 * gib)
+        monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 15 * gib)
+        return gib
+
+    def test_cached_blocks_count_as_free(self, card):
+        from apex_studio_tpu_torch.utils.memory import free_memory_bytes
+
+        assert free_memory_bytes("cuda") == 55 * card
+        assert free_memory_bytes("cpu") is None
+
+    def test_gate_reads_the_model_against_that(self, card, monkeypatch):
+        from apex_studio_tpu_torch.utils import memory
+
+        for size, crowds in ((14 * card, False), (42 * card, True)):
+            monkeypatch.setattr(memory, "params_nbytes", lambda model, _s=size: _s)
+            assert memory.should_stream(torch.nn.Linear(1, 1), device="cuda") is crowds
