@@ -141,6 +141,16 @@ def sam2_checkpoint_configured() -> Optional[str]:
     return str(found[0]) if found else None
 
 
+def mask_backend_status() -> Dict[str, object]:
+    """Which segmenter /mask requests use, under the keys of the JAX
+    ``mask/predictor.py mask_backend_status`` (GET /system/memory
+    ``mask_backend``): always the classical one here; ``error`` says why a
+    point or box prompt raises when a SAM2 checkpoint is configured."""
+    checkpoint = sam2_checkpoint_configured()
+    return {"backend": "classical", "model_type": None, "checkpoint": checkpoint,
+            "error": "the SAM2 predictor is not ported" if checkpoint else None}
+
+
 def mask_from_box(image: np.ndarray, box: Dict[str, float]) -> np.ndarray:
     return mask_from_points(image, [], box=box, tool="shape")
 

@@ -15,6 +15,11 @@ NHWC; this one in NCHW, in f32, with the same arithmetic:
 - ``Deconv2x`` is ``ConvTranspose2d(k=4, s=2, p=1)`` with its weight in
   torch's layout ``[in, out, 4, 4]``; the JAX module stores the same kernel
   spatially flipped in HWIO (loaders/from_jax.py undoes that).
+  On the card it runs with ``cudnn.deterministic``: cuDNN computes a
+  transposed convolution as a convolution's backward-data pass, whose default
+  algorithm sums with atomics, so two identical calls could differ by a uint8
+  level (62 of the 2.2e7 values of eight interpolated 720×1280 frames on an
+  H100); with it a served interpolation is reproducible.
 
 Checkpoints are Practical-RIFE's ``flownet`` state dicts, read from the
 preprocessor models directory as ``rife_v4.{safetensors,pth,pt,bin,pkl}``;
@@ -94,7 +99,14 @@ class Deconv2x(nn.Module):
         nn.init.normal_(self.weight, std=(1.0 / (cin * 16)) ** 0.5)
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, self.bias, stride=2, padding=1)
+        if not x.is_cuda:
+            return F.conv_transpose2d(x, self.weight, self.bias, stride=2, padding=1)
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return F.conv_transpose2d(x, self.weight, self.bias, stride=2, padding=1)
+        finally:
+            torch.backends.cudnn.deterministic = saved
 
 
 def pixel_shuffle2(x: torch.Tensor) -> torch.Tensor:

@@ -3,12 +3,12 @@
 Everything pluggable in the port — attention backends, transformer, VAE and
 text-encoder families, schedulers — hangs off a :class:`Registry`: the part
 of ``apex_studio_tpu/registry.py`` that this slice uses (named and aliased
-registration with a settable default, and lookup).
+registration with a settable default, lookup, and the names registered).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 
 class Registry:
@@ -45,6 +45,16 @@ class Registry:
 
     def __contains__(self, name: str) -> bool:
         return name in self._entries
+
+    def names(self) -> List[str]:
+        """Registered names, each entry once (an alias of a listed entry is
+        left out)."""
+        seen, out = set(), []
+        for k, obj in self._entries.items():
+            if id(obj) not in seen:
+                seen.add(id(obj))
+                out.append(k)
+        return out
 
     def get(self, name: Optional[str] = None) -> Any:
         key = name or self._default

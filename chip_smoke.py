@@ -73,6 +73,15 @@ Phases, each printed as one JSON line:
              (3 steps, 36-channel DiT, the VAE encode at T = 81); one bf16 t2i
              request (4 steps, no Linear quantized); the point mask and its
              tracking on eight 480x832 frames
+  server     the port's engine server (create_app on the card, 127.0.0.1, an
+             ephemeral port) over HTTP and WS: ZImage Turbo requests at the
+             manifest's defaults (1024², 9 steps, int8) through /engine/run,
+             read to complete with 2 previews and fetched over /files (1 and
+             3 identical and equal to the zimage phase's frame, 3 served by
+             the pooled engine, 306 launches each), one cancelled at its
+             first step message, then /mask/create, RIFE through
+             /postprocessor/frame-interpolate, /system/* and the CLI
+             (start / status / stop) in a subprocess
   prompt_extension
              PromptExtender on the synthetic int8 Qwen3-4B, greedy, 32 new
              tokens (36 launches a token); each decode step's logits against
@@ -128,7 +137,7 @@ FLUX_SHAPE = dict(b=1, s=4096 + 512, h=24, d=128)
 STEPS = 4
 SIZE = 1024
 BLOCKS = 19 + 38
-DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,"
+DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,prompt_extension,rife")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
@@ -1600,7 +1609,7 @@ def phase_zimage(home: Path, kernel_rows=()):
     """ZImage Turbo text-to-image at 1024x1024 from its manifest, full width
     and depth: the 2 + 2-block card-vs-CPU check; three requests of the
     manifest's 9 steps with synthetic int8 weights (requests 1 and 3 the same
-    prompt and seed); the resident Linears at ZImage's shapes; then one bf16
+    prompt and seed; request 1's frame is returned for the server phase); the resident Linears at ZImage's shapes; then one bf16
     request, one CFG request (zimage.yml: guidance 4, norm clamp, truncation)
     and one control request, each of 2 steps. With the timing phase's
     ``kernel_rows`` it also splits the int8 step into attention, the main
@@ -1627,6 +1636,7 @@ def phase_zimage(home: Path, kernel_rows=()):
     check(same, "zimage requests 1 and 3 (same prompt and seed) differ")
     check(differ, "zimage requests 1 and 2 (other prompt and seed) are identical")
     check(count_resident(engine.transformer) > 0, "no weight of the ZImage DiT is int8-resident")
+    first_frame = frames[0]
     del engine, frames
     release()
     linear_rows = residency_timing(list(ZIMAGE_LINEAR_CALLS), phase="zimage")
@@ -1663,7 +1673,7 @@ def phase_zimage(home: Path, kernel_rows=()):
         "zimage_control", ZIMAGE_CONTROL_MANIFEST, "int8", [(PROMPT_A, 4)], 2, home, ZIMAGE_CONTROL_LAUNCHES,
         guidance_scale=0.0, control_image=control, image=inpaint, mask_image=mask, control_context_scale=0.75)[0]
     release()
-    return paths, linear_rows
+    return paths, linear_rows, first_frame
 
 
 def cv2_smooth(rng, size):
@@ -2596,6 +2606,23 @@ def phase_prompt_extension(home: Path):
 # -- RIFE ------------------------------------------------------------------------------------
 
 
+def write_rife_weights(models: Path):
+    """The seeded ``rife_v4`` checkpoint (default RIFEConfig, f32, ``torch``'s
+    global generator at seed 0) in Practical-RIFE's naming, where the
+    postprocessor looks for it under ``models``; returns its path and the net."""
+    import torch
+
+    from apex_studio_tpu_torch.loaders.export import published_state_dict
+    from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
+    from apex_studio_tpu_torch.postprocess.rife import IFNet, RIFEConfig
+
+    torch.manual_seed(0)
+    net = IFNet(RIFEConfig())
+    path = models / "rife_v4.safetensors"
+    save_safetensors(path, published_state_dict("rife", net.state_dict()))
+    return path, net
+
+
 def phase_rife(home: Path, frames=None):
     """``rife_v4`` through ``run_postprocessor`` with the default RIFEConfig and
     seeded f32 weights, written in Practical-RIFE's naming where the
@@ -2607,10 +2634,8 @@ def phase_rife(home: Path, frames=None):
     import numpy as np
     import torch
 
-    from apex_studio_tpu_torch.loaders.export import published_state_dict
-    from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
     from apex_studio_tpu_torch.postprocess import run_postprocessor
-    from apex_studio_tpu_torch.postprocess.rife import IFNet, RIFEConfig, RIFEPostprocessor, load_rife
+    from apex_studio_tpu_torch.postprocess.rife import RIFEPostprocessor, load_rife
 
     models = home / "rife_models"
     models.mkdir()
@@ -2628,10 +2653,7 @@ def phase_rife(home: Path, frames=None):
     check(len(flow) == 5 and all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in flow),
           "frame_interpolation: bad frames")
 
-    torch.manual_seed(0)
-    net = IFNet(RIFEConfig())
-    path = models / "rife_v4.safetensors"
-    save_safetensors(path, published_state_dict("rife", net.state_dict()))
+    path, net = write_rife_weights(models)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_postprocessor("rife_v4", frames, {"multiplier": 2})
@@ -2664,6 +2686,351 @@ def phase_rife(home: Path, frames=None):
     del card, cpu, out
     release()
     return row
+
+
+# -- the engine server -----------------------------------------------------------------------
+
+
+def start_server(app):
+    """Serve ``app`` on 127.0.0.1 at an ephemeral port from a thread with its
+    own event loop; returns the base URL and a function that stops it (the
+    app's cleanup shuts its job executor down)."""
+    import asyncio
+    import threading
+
+    from aiohttp import web
+
+    loop, started, box = asyncio.new_event_loop(), threading.Event(), {}
+
+    def run():
+        asyncio.set_event_loop(loop)
+
+        async def up():
+            runner = web.AppRunner(app)
+            await runner.setup()
+            await web.TCPSite(runner, "127.0.0.1", 0).start()
+            box["runner"], box["port"] = runner, runner.addresses[0][1]
+
+        try:
+            loop.run_until_complete(up())
+        finally:
+            started.set()
+        loop.run_forever()
+        loop.run_until_complete(box["runner"].cleanup())
+        loop.close()
+
+    thread = threading.Thread(target=run, daemon=True, name="smoke-server")
+    thread.start()
+    check(started.wait(60) and "port" in box, "the server did not start")
+
+    def stop():
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        check(not thread.is_alive(), "the server's thread did not stop")
+
+    return f"http://127.0.0.1:{box['port']}", stop
+
+
+def http(base: str, method: str, path: str, body=None, timeout: float = 120):
+    """(status, JSON body or raw bytes) of one request over HTTP."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, ctype, raw = r.status, r.headers.get_content_type(), r.read()
+    except urllib.error.HTTPError as e:
+        status, ctype, raw = e.code, e.headers.get_content_type(), e.read()
+    return status, (json.loads(raw) if ctype == "application/json" else raw)
+
+
+def served_request(base: str, job_id: str, inputs: dict, cancel_at_first_step: bool = False) -> dict:
+    """Subscribe to ``/ws/job/{job_id}``, then ``POST /engine/run`` with that
+    id, and read the stream to its terminal message; with
+    ``cancel_at_first_step``, ``POST /engine/cancel`` once the first step
+    message arrives. Returns the messages with their host times (seconds from
+    the POST) and the cancel's time."""
+    import asyncio
+
+    import aiohttp
+
+    async def go():
+        out = {"messages": [], "cancel_s": None}
+        async with aiohttp.ClientSession() as session:
+            async with session.ws_connect(f"{base}/ws/job/{job_id}", heartbeat=30) as ws:
+                t0 = time.perf_counter()
+                async with session.post(f"{base}/engine/run", json={
+                        "manifest_id": "zimage-turbo", "job_id": job_id, "inputs": inputs}) as r:
+                    check(r.status == 200, f"POST /engine/run answered {r.status}: {await r.text()}")
+                while True:
+                    msg = await ws.receive_json(timeout=600)
+                    out["messages"].append((time.perf_counter() - t0, msg))
+                    if (cancel_at_first_step and out["cancel_s"] is None
+                            and msg["message"].startswith("Denoising step")):
+                        out["cancel_s"] = time.perf_counter() - t0
+                        async with session.post(f"{base}/engine/cancel/{job_id}") as r:
+                            check(r.status == 200 and (await r.json())["canceled"], "the cancel was refused")
+                    if msg["status"] in ("complete", "error", "canceled"):
+                        return out
+
+    return asyncio.run(go())
+
+
+def first_at(messages, pred):
+    return next((t for t, m in messages if pred(m)), None)
+
+
+def process_gone(pid: int) -> bool:
+    """The process has exited (a zombie left unreaped counts as exited)."""
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] == "Z"
+    except (FileNotFoundError, IndexError):
+        return True
+
+
+def server_cli(home: Path) -> dict:
+    """``python3 -m apex_studio_tpu_torch.cli start`` on a free port as a
+    subprocess (its own home); ``status``, ``/ready`` and ``/system/memory``
+    (in that process, on the card) answer; ``stop`` ends it. No engine runs."""
+    import socket
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    env = {**os.environ, "APEX_HOME_DIR": str(home / "cli")}
+
+    def cli(*args, timeout=180):
+        out = subprocess.run([sys.executable, "-m", "apex_studio_tpu_torch.cli", *args, "--port", port],
+                             cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
+        check(out.returncode == 0, f"cli {args[0]} exited {out.returncode}: {out.stderr[-2000:]}")
+        return out.stdout.strip()
+
+    t0 = time.perf_counter()
+    started = cli("start", "--timeout", "150")
+    start_s = time.perf_counter() - t0
+    pid = int((home / "cli" / "apex-engine.pid").read_text())
+    try:
+        status = json.loads(cli("status"))
+        base = f"http://127.0.0.1:{port}"
+        ready = http(base, "GET", "/ready")
+        memory = http(base, "GET", "/system/memory")
+        stopped = cli("stop")
+        deadline = time.time() + 60
+        while not process_gone(pid) and time.time() < deadline:
+            time.sleep(0.2)
+        gone = process_gone(pid)
+    finally:
+        if not process_gone(pid):
+            os.kill(pid, 9)
+    devices = memory[1].get("devices", []) if memory[0] == 200 else []
+    row = {"cli_start": started, "cli_start_seconds": start_s, "cli_status": status, "cli_ready": ready,
+           "cli_memory_devices": devices, "cli_stop": stopped, "cli_exited": gone}
+    check(started.startswith(f"ready at {base}"), f"cli start: {started}")
+    check(status == {"ready": True} and ready == (200, {"ready": True}), f"cli status {status}, /ready {ready}")
+    check([d["kind"] for d in devices] == [torch.cuda.get_device_name(0)] * torch.cuda.device_count(),
+          f"the CLI server's /system/memory lists {devices}")
+    check(stopped == "shutdown requested" and gone, f"cli stop: {stopped}; exited {gone}")
+    return row
+
+
+def phase_server(home: Path, zimage_frame=None) -> list:
+    """The port's engine server on the card: ``create_app()`` (device: the
+    card) on 127.0.0.1 at an ephemeral port, in a thread with its own loop,
+    over the repository's manifests, with synthetic int8 weights and the
+    byte-level tokenizer saved where zimage-turbo.yml names its tokenizer.
+    Over real HTTP and WS: three ZImage Turbo requests at the manifest's
+    defaults (1024², 9 steps; (A, 0), (B, 1), (A, 0)), each read to
+    ``complete`` with 2 previews and its PNG fetched over
+    ``/files/engine_results``: requests 1 and 3 bit-identical, 2 different, 1
+    equal to the zimage phase's frame, 3 served by the pooled engine with no
+    component loaded again, 306 flash launches each; a fourth request
+    cancelled at its first step message and a fifth that completes;
+    ``/mask/create`` against ``mask_from_points``;
+    ``/postprocessor/frame-interpolate`` with ``rife_v4`` on 9 seeded
+    720x1280 frames against ``run_postprocessor``; ``/system/memory``,
+    ``/system/step-trace`` and ``/system/free-memory``; then the CLI in a
+    subprocess. Returns the completed requests' rows."""
+    import io
+
+    import cv2
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+
+    from apex_studio_tpu_torch.manifest.resolver import ManifestResolver
+    from apex_studio_tpu_torch.mask import mask_from_points, mask_to_contours
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+    from apex_studio_tpu_torch.postprocess import run_postprocessor
+    from apex_studio_tpu_torch.preprocess.base import load_frames
+    from apex_studio_tpu_torch.server.app import create_app
+    from apex_studio_tpu_torch.server.warm_pool import warm_pool
+    from apex_studio_tpu_torch.utils.media import save_video
+
+    phase_t0 = time.perf_counter()
+    release()
+    base_allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sh = home / "server"
+    os.environ.update({"APEX_HOME_DIR": str(sh), "APEX_SYNTHETIC_WEIGHTS": "int8", "APEX_STEP_TRACE": "1",
+                       "APEX_PREPROCESSOR_MODELS_PATH": str(sh / "rife_models")})
+    tok = sh / "components" / "Tongyi-MAI" / "Z-Image-Turbo" / "tokenizer" / "tokenizer.json"
+    tok.parent.mkdir(parents=True)
+    make_tokenizer().save(str(tok))
+    (sh / "rife_models").mkdir()
+    write_rife_weights(sh / "rife_models")
+    run = yaml.safe_load(ZIMAGE_MANIFEST.read_text())["spec"]["defaults"]["run"]
+    check(run["num_inference_steps"] == ZIMAGE_STEPS and run["guidance_scale"] == 0.0
+          and run["height"] == run["width"] == SIZE, f"the manifest's defaults changed: {run}")
+    expected = ZIMAGE_LAUNCHES * ZIMAGE_STEPS
+    base, stop = start_server(create_app(resolver=ManifestResolver(search_paths=[REPO / "manifests"])))
+    rows, frames, loads = [], [], []
+    try:
+        check(http(base, "GET", "/system/step-trace?clear=1")[0] == 200, "/system/step-trace failed")
+        for i, (prompt, seed) in enumerate([(PROMPT_A, 0), (PROMPT_B, 1), (PROMPT_A, 0), (PROMPT_B, 3),
+                                            (PROMPT_B, 2)]):
+            job_id, cancel = f"served-{i + 1}", i == 3
+            flash_attention.launches = 0
+            got = served_request(base, job_id, {"prompt": prompt, "seed": seed}, cancel_at_first_step=cancel)
+            launches, msgs = flash_attention.launches, got["messages"]
+            final_s, final = msgs[-1]
+            status = http(base, "GET", f"/jobs/status/{job_id}")[1]["status"]
+            step = next(((t, m["message"]) for t, m in msgs if m["message"].startswith("Denoising step")),
+                        (None, None))
+            row = {"phase": "server", "request": i + 1, "job_id": job_id, "prompt": prompt[:40], "seed": seed,
+                   "status": final["status"], "job_status": status, "seconds_post_to_terminal": final_s,
+                   "seconds_to_first_step_message": step[0], "first_step_message": step[1],
+                   "seconds_to_first_preview": next((t for t, m in msgs if m["status"] == "preview"), None),
+                   "previews": sum(m["status"] == "preview" for _, m in msgs), "ws_messages": len(msgs),
+                   "flash_launches": launches, "flash_launches_expected": expected, "steps": ZIMAGE_STEPS}
+            if cancel:
+                row.update(flash_launches_expected=None, seconds_cancel_to_canceled=final_s - got["cancel_s"])
+                emit(row)
+                check(final["status"] == status == "canceled", f"the cancelled request ended {final['status']}")
+                cancel_row = row
+                continue
+            code, png = http(base, "GET", final["metadata"]["preview_url"])
+            frame = np.asarray(Image.open(io.BytesIO(png)).convert("RGB")) if code == 200 else None
+            row["frame"] = None if frame is None else list(frame.shape)
+            emit(row)
+            check(final["status"] == status == "complete", f"served request {i + 1} ended {final['status']}")
+            check(row["previews"] == 2, f"served request {i + 1}: {row['previews']} previews, expected 2")
+            check(launches == expected, f"served request {i + 1}: flash launched {launches} times, "
+                                        f"expected {expected}")
+            check(row["frame"] == [SIZE, SIZE, 3], f"served request {i + 1}: GET output.png {code}, {row['frame']}")
+            frames.append(frame)
+            if i == 0:  # the pooled engine: its components, and every component load from here on
+                (engine, _), = warm_pool._entries.values()
+                parts = {c: getattr(engine, c) for c in ("transformer", "vae", "text_encoder", "scheduler")}
+                load = engine.load_component_by_type
+                engine.load_component_by_type = lambda *a, **k: (loads.append(a[0]), load(*a, **k))[1]
+            if i == 2:
+                (pooled, _), = warm_pool._entries.values()
+                same_engine = pooled is engine and all(getattr(pooled, c) is m for c, m in parts.items())
+                del pooled
+            rows.append(row)
+        del engine, parts, load
+        records = http(base, "GET", "/system/step-trace")[1]["records"]
+        trace = {r["job_id"]: r["wall_s"] for r in records if r["name"] == "engine.run"}
+        acquire = {r["job_id"]: r["wall_s"] for r in records if r["name"] == "engine.acquire"}
+        memory = http(base, "GET", "/system/memory")[1]
+
+        # the point mask on a seeded 1024² image, over HTTP and directly
+        rng = np.random.default_rng(11)
+        image = rng.integers(0, 30, (SIZE, SIZE, 3)).astype(np.uint8)
+        yy, xx = np.mgrid[:SIZE, :SIZE]
+        image[(yy - 400) ** 2 + (xx - 600) ** 2 <= 150 ** 2] = [200, 80, 80]
+        Image.fromarray(image).save(sh / "mask_input.png")
+        points = [{"x": 600, "y": 400}]
+        t0 = time.perf_counter()
+        code, mask_out = http(base, "POST", "/mask/create", {"input_path": str(sh / "mask_input.png"),
+                                                             "points": points})
+        mask_s = time.perf_counter() - t0
+        check(code == 200 and mask_out["status"] == "success", f"/mask/create answered {code}: {mask_out}")
+        direct = mask_to_contours(mask_from_points(image, points))
+
+        def fill(contours):
+            m = np.zeros((SIZE, SIZE), np.uint8)
+            for c in contours:
+                cv2.fillPoly(m, [np.asarray(c, np.float64).reshape(-1, 2).round().astype(np.int32)], 1)
+            return m.astype(bool)
+
+        a, b = fill(mask_out["contours"]), fill(direct)
+        mask_iou = float((a & b).sum() / max((a | b).sum(), 1))
+
+        # RIFE 2x on 9 seeded 720x1280 frames, over HTTP and directly
+        rng = np.random.default_rng(12)
+        clip = save_video([cv2_smooth(rng, RIFE_SIZE) for _ in range(9)], sh / "clip.mp4", fps=16)
+        t0 = time.perf_counter()
+        code, job = http(base, "POST", "/postprocessor/frame-interpolate",
+                         {"input_path": str(clip), "name": "rife_v4", "multiplier": 2, "fps": 16})
+        check(code == 200, f"/postprocessor/frame-interpolate answered {code}: {job}")
+        deadline = time.time() + 300
+        while True:
+            st = http(base, "GET", f"/jobs/status/{job['job_id']}")[1]
+            if st["status"] in ("complete", "error", "canceled") or time.time() > deadline:
+                break
+            time.sleep(0.05)
+        interp_s = time.perf_counter() - t0
+        check(st["status"] == "complete", f"the interpolation job ended {st['status']}: {st.get('error')}")
+        served_frames = load_frames(st["result_path"])
+        direct_frames = load_frames(save_video(
+            run_postprocessor("rife_v4", load_frames(clip), {"multiplier": 2}, device="cuda"),
+            sh / "direct.mp4", fps=32))
+        interp_equal = len(served_frames) == len(direct_frames) == 17 and all(
+            np.array_equal(x, y) for x, y in zip(served_frames, direct_frames))
+
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        freed = http(base, "POST", "/system/free-memory")
+        after_free = torch.cuda.memory_allocated()
+    finally:
+        stop()
+    cli_row = server_cli(home)
+    served_s = [r["seconds_post_to_terminal"] for r in rows]
+    engine_s = [trace.get(r["job_id"]) for r in rows]
+    zimage_equal = None if zimage_frame is None else bool(np.array_equal(frames[0], zimage_frame))
+    summary = {
+        "phase": "server", "manifest": ZIMAGE_MANIFEST.name, "weights": "int8", "size": SIZE,
+        "steps": ZIMAGE_STEPS, "requests": [r["request"] for r in rows],
+        "seconds_per_served_request": served_s, "engine_run_seconds": engine_s,
+        "engine_acquire_seconds": [acquire.get(r["job_id"]) for r in rows],
+        "seconds_server_adds": [a - b for a, b in zip(served_s, engine_s) if b is not None],
+        "seconds_to_first_preview": {"cold": rows[0]["seconds_to_first_preview"],
+                                     "warm": rows[2]["seconds_to_first_preview"]},
+        "seconds_to_first_step_message": {"cold": rows[0]["seconds_to_first_step_message"],
+                                          "warm": rows[2]["seconds_to_first_step_message"]},
+        "seconds_cancel_latency": cancel_row["seconds_cancel_to_canceled"],
+        "cancel_flash_launches": cancel_row["flash_launches"], "peak_gib": peak_gib,
+        "requests_1_3_identical": bool(np.array_equal(frames[0], frames[2])),
+        "requests_1_2_differ": not np.array_equal(frames[0], frames[1]),
+        "request_1_equals_zimage_phase_frame": "zimage phase not run" if zimage_equal is None else zimage_equal,
+        "request_3_pooled_engine": same_engine, "component_loads_after_request_1": loads,
+        "flash_launches_per_request": [r["flash_launches"] for r in rows],
+        "memory_devices": memory["devices"], "mask_iou": mask_iou,
+        "mask_contours_equal": mask_out["contours"] == direct, "mask_seconds": mask_s,
+        "interpolation_frames": len(served_frames), "interpolation_equal_to_run_postprocessor": interp_equal,
+        "interpolation_seconds": interp_s, "free_memory": list(freed),
+        "allocated_gib_before_phase": base_allocated / 2**30, "allocated_gib_after_free": after_free / 2**30,
+        **cli_row, "phase_seconds": time.perf_counter() - phase_t0,
+    }
+    emit(summary)
+    check(summary["requests_1_3_identical"], "served requests 1 and 3 (same prompt and seed) differ")
+    check(summary["requests_1_2_differ"], "served requests 1 and 2 (other prompt and seed) are identical")
+    check(zimage_equal is not False, "served request 1 differs from the zimage phase's first frame")
+    check(same_engine and not loads, f"request 3 did not reuse the pooled engine as it was (loads {loads})")
+    check([d["kind"] for d in memory["devices"]] == [torch.cuda.get_device_name(0)],
+          f"/system/memory lists {memory['devices']}")
+    check(None not in engine_s, f"/system/step-trace lacks engine.run records: {trace}")
+    check(mask_iou == 1.0 and summary["mask_contours_equal"], f"/mask/create against mask_from_points: IoU {mask_iou}")
+    check(interp_equal, f"the served interpolation ({len(served_frames)} frames) differs from run_postprocessor's")
+    check(freed[0] == 200 and abs(after_free - base_allocated) <= 2**30,
+          f"/system/free-memory left {after_free / 2**30} GiB allocated ({base_allocated / 2**30} before the phase)")
+    return rows
 
 
 def ptxas_report(log: str) -> dict:
@@ -2759,9 +3126,15 @@ def main() -> int:
         if "hyv15" in phases:
             paths["hyv15"], hyv15_rows, hyv15_err, hyv15_frames = timed("hyv15", phase_hyv15, home)
             release()
+        zimage_frame = None
         if "zimage" in phases:
-            zimage_paths, _ = timed("zimage", phase_zimage, home, zimage_timing)
+            zimage_paths, _, zimage_frame = timed("zimage", phase_zimage, home, zimage_timing)
             paths.update(zimage_paths)
+            release()
+        server_rows = []
+        if "server" in phases:
+            server_rows = timed("server", phase_server, home, zimage_frame)
+            del zimage_frame
             release()
         if "qwenimage" in phases:
             qwenimage_paths, _ = timed("qwenimage", phase_qwenimage, home, zimage_timing)
@@ -2784,6 +3157,9 @@ def main() -> int:
         by_path = {name: sum(r["flash_launches"] for r in rows) for name, rows in paths.items()}
         per_step = {name: by_path[name] // sum(len(r["seconds_per_step"]) for r in rows)
                     for name, rows in paths.items()}
+        if server_rows:  # served requests: counted from POST to complete, steps as the manifest sets
+            by_path["server"] = sum(r["flash_launches"] for r in server_rows)
+            per_step["server"] = by_path["server"] // sum(r["steps"] for r in server_rows)
         launches = sum(by_path.values())
         emit({"phase": "wall", "seconds": time.perf_counter() - wall_start, "limit_seconds": 1200,
               "seconds_by_phase": wall})

@@ -2,7 +2,8 @@
 the CPU, from the tiny manifests of tests/test_engine_hyv15.py set to fp32.
 
 The JAX engine builds its components with seeded numpy values
-(``fast_jax_engine``), and every component's weights are carried from it into the port
+(``fast_jax_engine``), once per model type for the module where a test only
+runs it, and every component's weights are carried from it into the port
 (the SigLIP helper too, which each run loads and then releases, so it is
 carried before each run). Both engines keep their text encoders
 (``APEX_RELEASE_TEXT_ENCODERS=0``): a released encoder is rebuilt from its own
@@ -18,6 +19,7 @@ deliberately differs: a ``light_vae_config`` without a ``light_vae_path``
 raises instead of previewing through a random TAE.
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -79,46 +81,66 @@ def components(engine):
 
 class Pair:
     """A JAX engine and a port engine on one manifest, the port carrying the
-    JAX engine's weights before every run."""
+    JAX engine's weights before every run. Each side builds and runs inside
+    its own environment (``env``): its home, the encoders kept, no synthetic
+    weights."""
 
-    def __init__(self, path, tmp_path, monkeypatch):
-        monkeypatch.setenv("APEX_RELEASE_TEXT_ENCODERS", "0")
-        monkeypatch.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
-        self.mp, self.tmp = monkeypatch, tmp_path
-        self.mp.setenv("APEX_HOME_DIR", str(tmp_path / "home_jax"))
-        self.jax = fast_jax_engine(JaxUniversalEngine(path))
+    def __init__(self, path, tmp_path):
+        self.tmp = tmp_path
+        with self.env("jax"):
+            self.jax = fast_jax_engine(JaxUniversalEngine(path))
         inject_tokenizer(self.jax)
-        self.mp.setenv("APEX_HOME_DIR", str(tmp_path / "home_port"))
-        self.port = UniversalEngine(path, device="cpu")
+        with self.env("port"):
+            self.port = UniversalEngine(path, device="cpu")
         inject_tokenizer(self.port)
 
+    @contextlib.contextmanager
+    def env(self, side):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("APEX_RELEASE_TEXT_ENCODERS", "0")
+            mp.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
+            mp.setenv("APEX_HOME_DIR", str(self.tmp / f"home_{side}"))
+            yield
+
     def run_jax(self, **kw):
-        self.mp.setenv("APEX_HOME_DIR", str(self.tmp / "home_jax"))
-        components(self.jax)
-        return self.jax.run(**kw)
+        with self.env("jax"):
+            components(self.jax)
+            return self.jax.run(**kw)
 
     def run_port(self, **kw):
-        self.mp.setenv("APEX_HOME_DIR", str(self.tmp / "home_port"))
-        ref = components(self.jax)
-        for name, module in components(self.port).items():
-            load_from_jax(module, jax_params(ref[name]))
-        return self.port.run(**kw)
+        with self.env("port"):
+            ref = components(self.jax)
+            for name, module in components(self.port).items():
+                load_from_jax(module, jax_params(ref[name]))
+            return self.port.run(**kw)
 
 
 @pytest.fixture(scope="module")
-def parity(tmp_path_factory):
+def pairs(tmp_path_factory):
+    """The module's engine pair of a model type, built on first use."""
+    made = {}
+
+    def get(model_type):
+        if model_type not in made:
+            tmp = tmp_path_factory.mktemp(f"hyv15_{model_type}")
+            made[model_type] = Pair(manifest(tmp, model_type), tmp)
+        return made[model_type]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def parity(pairs):
     """(case → (JAX latents, port latents)) for the t2v and i2v engines."""
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        for case, model_type, kw in (("t2v_cfg_glyph", "t2v", {}),
-                                     ("i2v_cfg_glyph", "i2v", {"image": IMAGE}),
-                                     ("i2v_rescaled_no_glyph", "i2v", {"image": IMAGE, "prompt": "a harbour",
-                                                                       "guidance_rescale": 0.7}),
-                                     ("t2v_no_cfg", "t2v", {"guidance_scale": 1.0})):
-            tmp = tmp_path_factory.mktemp(case)
-            pair = Pair(manifest(tmp, model_type), tmp, mp)
-            run = {**RUN, **kw, "return_latents": True}
-            out[case] = (np.asarray(pair.run_jax(**run)), pair.run_port(**run))
+    for case, model_type, kw in (("t2v_cfg_glyph", "t2v", {}),
+                                 ("i2v_cfg_glyph", "i2v", {"image": IMAGE}),
+                                 ("i2v_rescaled_no_glyph", "i2v", {"image": IMAGE, "prompt": "a harbour",
+                                                                   "guidance_rescale": 0.7}),
+                                 ("t2v_no_cfg", "t2v", {"guidance_scale": 1.0})):
+        pair = pairs(model_type)
+        run = {**RUN, **kw, "return_latents": True}
+        out[case] = (np.asarray(pair.run_jax(**run)), pair.run_port(**run))
     return out
 
 
@@ -134,8 +156,8 @@ class TestLatentsMatchJax:
 
 
 class TestEngine:
-    def test_frames_match_jax(self, tmp_path, monkeypatch):
-        pair = Pair(manifest(tmp_path, "i2v"), tmp_path, monkeypatch)
+    def test_frames_match_jax(self, pairs):
+        pair = pairs("i2v")
         run = {**RUN, "image": IMAGE}
         ref, frames = pair.run_jax(**run), pair.run_port(**run)
         assert len(frames) == len(ref) == 5
@@ -143,38 +165,41 @@ class TestEngine:
         diff = max(np.abs(a.astype(np.int16) - b.astype(np.int16)).max() for a, b in zip(frames, ref))
         assert diff <= 1
 
-    def test_mllm_encode_matches_jax(self, tmp_path, monkeypatch):
-        """Chat template, max length 1000 + 108, the crop and skip 2."""
-        pair = Pair(manifest(tmp_path), tmp_path, monkeypatch)
+    def test_mllm_encode_matches_jax(self, tmp_path):
+        """Chat template, max length 1000 + 108, the crop and skip 2; the
+        pair is the test's own, so the first encodes are computed."""
+        pair = Pair(manifest(tmp_path), tmp_path)
         pair.run_port(**{**RUN, "num_inference_steps": 1, "return_latents": True})
-        ref_h, ref_m = pair.jax._encode_mllm(RUN["prompt"])
-        monkeypatch.setenv("APEX_HOME_DIR", str(tmp_path / "home_port"))
-        h, m = pair.port._encode_mllm(RUN["prompt"])
+        with pair.env("jax"):
+            ref_h, ref_m = pair.jax._encode_mllm(RUN["prompt"])
+        with pair.env("port"):
+            h, m = pair.port._encode_mllm(RUN["prompt"])
+            cached_h, _ = pair.port._encode_mllm(RUN["prompt"])  # from the disk cache
         assert tuple(h.shape) == (1, 1000, 32) and tuple(m.shape) == (1, 1000)
         np.testing.assert_array_equal(m.numpy(), np.asarray(ref_m))
         assert_close(h, ref_h)
-        cached_h, _ = pair.port._encode_mllm(RUN["prompt"])  # from the disk cache
         assert torch.equal(cached_h, h.float())
 
-    def test_seed_determinism_and_glyph_zeros(self, tmp_path, monkeypatch):
-        pair = Pair(manifest(tmp_path), tmp_path, monkeypatch)
+    def test_seed_determinism_and_glyph_zeros(self, pairs):
+        pair = pairs("t2v")
         run = {**RUN, "return_latents": True}
         a, b = pair.run_port(**run), pair.run_port(**run)
         assert torch.equal(a, b)
         assert not torch.equal(a, pair.run_port(**{**run, "seed": 4}))
-        pair.port.load_component_by_type("transformer")
-        zeros, mask = pair.port._encode_byt5("no quotes here")
+        with pair.env("port"):
+            pair.port.load_component_by_type("transformer")
+            zeros, mask = pair.port._encode_byt5("no quotes here")
+            glyph, glyph_mask = pair.port._encode_byt5(RUN["prompt"])
         assert tuple(zeros.shape) == (1, 128, 16) and not zeros.any() and not mask.any()
-        glyph, glyph_mask = pair.port._encode_byt5(RUN["prompt"])
         assert glyph.abs().max() > 0 and int(glyph_mask.sum()) >= 1
 
-    def test_i2v_requires_an_image(self, tmp_path, monkeypatch):
-        pair = Pair(manifest(tmp_path, "i2v"), tmp_path, monkeypatch)
-        with pytest.raises(ValueError, match="requires an input image"):
+    def test_i2v_requires_an_image(self, pairs):
+        pair = pairs("i2v")
+        with pair.env("port"), pytest.raises(ValueError, match="requires an input image"):
             pair.port.run(**RUN)
 
-    def test_i2v_without_helper_zeroes_the_vision_stream_as_jax(self, tmp_path, monkeypatch):
-        pair = Pair(manifest(tmp_path, "i2v", helper=False), tmp_path, monkeypatch)
+    def test_i2v_without_helper_zeroes_the_vision_stream_as_jax(self, tmp_path):
+        pair = Pair(manifest(tmp_path, "i2v", helper=False), tmp_path)
         run = {**RUN, "image": IMAGE, "return_latents": True}
         assert_close(pair.run_port(**run), pair.run_jax(**run), rel=1e-3)
 

@@ -1,5 +1,14 @@
-"""Helpers shared by the tests that hold the PyTorch port against the JAX package."""
+"""Helpers shared by the tests that hold the PyTorch port against the JAX package.
 
+Under pytest-xdist every worker is a process of its own, and torch's default
+of one intra-op thread per core would then oversubscribe the cores as many
+times over as there are workers; each worker takes its share of the cores
+instead. Every worker imports this module while it collects the port's test
+files, so the share holds for the whole run of each worker. A run in one
+process keeps torch's default.
+"""
+
+import os
 import zlib
 
 import jax
@@ -9,6 +18,10 @@ from flax import nnx
 
 from apex_studio_tpu_torch.engine.base import materialize_random
 from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
+
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def jax_build(build, seed: int = 0):
