@@ -414,7 +414,12 @@ class BaseEngine:
         if spec is None:
             raise KeyError(f"manifest has no helper component named {name!r}")
         base = spec.get("base") or ""
-        family = "siglip" if "siglip" in base.lower() else base.split(".")[0].lower()
+        if "CLIPVision" in base:
+            family = "clip_vision"
+        elif "siglip" in base.lower():
+            family = "siglip"
+        else:
+            family = base.split(".")[0].lower()
         model = self._instantiate_family(_registry("text_encoder"), spec, family)
         self.helpers[name] = model
         return model

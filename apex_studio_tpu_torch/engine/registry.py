@@ -2,7 +2,8 @@
 ``apex_studio_tpu/engine/registry.py``). Ported: ``("flux", "t2i")``,
 ``("hunyuanvideo15", "t2v" | "i2v")``, ``("zimage", "t2i" | "control")``,
 ``("qwenimage", "t2i" | "edit" | "edit_plus" | "controlnet")`` and
-``("wan", "t2v" | "t2i" | "i2v")``."""
+``("wan", "t2v" | "t2i" | "i2v" | "fflf" | "inp" | "v2v" | "svi" | "vace" |
+"fun_vace" | "phantom" | "fun_control" | "fun" | "causal")``."""
 
 from __future__ import annotations
 

@@ -1,7 +1,10 @@
 """Wan engines (port of ``apex_studio_tpu/engine/wan.py``): text-to-video,
-text-to-image and image-to-video, Wan 2.1 and the Wan 2.2 A14B dual-expert
-pair. The other Wan model types (v2v, causal, VACE, Fun, Recam, Holocine, …)
-are not ported.
+text-to-image and image-to-video (Wan 2.1 with its CLIP-vision branch and
+the Wan 2.2 A14B dual-expert pair), and the editing and long-video engines:
+first–last frame, inpaint, video-to-video, VACE and Fun-VACE, Phantom,
+Fun-Control, Fun, Stable Video Infinity and the block-causal Self-Forcing
+engine. The other Wan model types (Recam, Holocine, ATI, S2V, …) are not
+ported.
 
 - UMT5 features of 512 tokens with the padding zeroed, no cross-attention
   mask (Wan's conditioning convention); encoded before the DiT loads and the
@@ -19,9 +22,16 @@ are not ported.
   of 32 (models/vaes/tiling.py); previews only above 8 steps
 - i2v: the condition channels are a 4-channel temporal mask of the first
   frame and a VAE encode of (image ‖ zero frames), 20 channels beside the 16
-  of noise; the scheduler steps on the host, as in the JAX engine. The
-  CLIP-vision branch of Wan 2.1 I2V is not ported (the A14B manifest has no
-  image encoder)
+  of noise, and, where the DiT has ``image_dim`` (Wan 2.1), the CLIP-vision
+  encoder's penultimate states as the image cross-attention's keys; the
+  scheduler steps on the host, as in the JAX engine. fflf, inp and svi are
+  i2v with other conditions
+- VACE, Phantom, Fun, Fun-Control: one DiT (no expert switch, as in JAX),
+  CFG in the DiT's dtype and the scheduler stepped on the host
+- causal: blocks of latent frames denoised in turn against the DiT's K/V
+  cache (models/transformers/wan.py ``WanCausalTransformer3DModel``), each
+  block a few x0-renoise steps, then committed to the cache once more at
+  ``context_noise``
 """
 
 from __future__ import annotations
@@ -53,6 +63,41 @@ class _EasyCache:
     pos: EasyCacheState
     neg: EasyCacheState
     force: bool = False
+
+
+# -- conditioning helpers ------------------------------------------------------------------
+
+
+def _pixels(frames: List[np.ndarray]) -> torch.Tensor:
+    """HWC uint8 frames → [1, 3, T, H, W] f32 in [-1, 1]."""
+    video = np.stack(frames).astype(np.float32) / 127.5 - 1.0  # [T, H, W, 3]
+    return torch.from_numpy(np.ascontiguousarray(video.transpose(3, 0, 1, 2)))[None]
+
+
+def _resized(frames, width: int, height: int, interpolation) -> List[np.ndarray]:
+    import cv2
+
+    return [cv2.resize(np.asarray(f), (width, height), interpolation=interpolation) for f in frames]
+
+
+def _as_list(items) -> List[Any]:
+    if items is None:
+        return []
+    return list(items) if isinstance(items, (list, tuple)) else [items]
+
+
+def _is_path(x: Any) -> bool:
+    return isinstance(x, (str, bytes)) or hasattr(x, "__fspath__")
+
+
+def _packed_frame_mask(valid: np.ndarray, t_scale: int) -> np.ndarray:
+    """Per-pixel-frame validity [1, 1, F, h, w] → [1, t_scale, T_lat, h, w]:
+    the first frame repeated ``t_scale`` times, then ``t_scale`` frames a
+    latent frame, packed into channels (the Wan I2V condition mask)."""
+    _, _, _, h, w = valid.shape
+    packed = np.concatenate([np.repeat(valid[:, :, :1], t_scale, axis=2), valid[:, :, 1:]], axis=2)
+    lat_t = packed.shape[2] // t_scale
+    return np.ascontiguousarray(packed.reshape(1, lat_t, t_scale, h, w).transpose(0, 2, 1, 3, 4))
 
 
 class WanShared(BaseEngine):
@@ -109,20 +154,24 @@ class WanShared(BaseEngine):
         return self.transformer, guidance_scale
 
     @staticmethod
-    def _apply(x, transformer, t_vec, ctx, neg_ctx, g, use_cfg, ec: Optional[_EasyCache]):
+    def _apply(x, transformer, t_vec, ctx, neg_ctx, g, use_cfg, ec: Optional[_EasyCache], ctx_img=None):
         """The post-CFG f32 velocity at ``x``; with EasyCache (``ec``), each
-        stream's forward may be skipped and its state is updated."""
+        stream's forward may be skipped and its state is updated. ``ctx_img``:
+        CLIP-vision features for a DiT with an image branch."""
         x_in = x.to(transformer.dtype)
+
+        def fwd(xi, c):
+            return transformer(xi, t_vec, c, context_image=ctx_img)
+
         if ec is not None:
-            v, ec.pos = cached_step(lambda xi: transformer(xi, t_vec, ctx), x_in, ec.pos, ec.thresh, ec.force)
+            v, ec.pos = cached_step(lambda xi: fwd(xi, ctx), x_in, ec.pos, ec.thresh, ec.force)
             if use_cfg:
-                v_neg, ec.neg = cached_step(lambda xi: transformer(xi, t_vec, neg_ctx), x_in, ec.neg, ec.thresh,
-                                            ec.force)
+                v_neg, ec.neg = cached_step(lambda xi: fwd(xi, neg_ctx), x_in, ec.neg, ec.thresh, ec.force)
                 v = cfg_combine(v, v_neg, g)
             return v
-        v = transformer(x_in, t_vec, ctx).float()
+        v = fwd(x_in, ctx).float()
         if use_cfg:
-            v = cfg_combine(v, transformer(x_in, t_vec, neg_ctx), g)
+            v = cfg_combine(v, fwd(x_in, neg_ctx), g)
         return v
 
     @torch.inference_mode()
@@ -345,28 +394,32 @@ class WanT2IEngine(WanShared):
 class WanI2VEngine(WanShared):
     """Image-to-video: the first frame's latent and a frame mask as condition
     channels beside the noise (the published Wan I2V packing: condition =
-    [4-channel temporal first-frame mask | VAE encode of (image ‖ zero frames)])."""
+    [4-channel temporal first-frame mask | VAE encode of (image ‖ zero frames)]),
+    and for a DiT with ``image_dim`` (Wan 2.1) the CLIP-vision features of
+    the image (the manifest's ``image_encoder`` helper)."""
+
+    @torch.inference_mode()
+    def encode_image_clip(self, image: np.ndarray) -> torch.Tensor:
+        """[1, 257, 1280]: the CLIP-vision encoder's penultimate hidden states."""
+        from apex_studio_tpu_torch.models.text_encoders.clip_vision import preprocess_clip_image
+
+        encoder = self.load_helper("image_encoder")
+        pixels = torch.from_numpy(preprocess_clip_image(image, size=encoder.cfg.image_size)).to(self.device)
+        return encoder(pixels, penultimate=True)
 
     @torch.inference_mode()
     def build_condition(self, image: np.ndarray, num_frames: int, height: int, width: int) -> torch.Tensor:
         """→ [1, 4 + z, T_lat, h, w] f32 condition channels."""
         import cv2
 
-        t_scale = self.vae.cfg.temporal_scale
-        lat_t = (num_frames - 1) // t_scale + 1
-        resized = cv2.resize(image, (width, height), interpolation=cv2.INTER_LANCZOS4)
-        first = torch.from_numpy((resized.astype(np.float32) / 127.5 - 1.0).transpose(2, 0, 1).copy())
-        video = torch.cat([first[None, :, None], torch.zeros(1, 3, num_frames - 1, height, width)], dim=2)
+        first = _pixels(_resized([image], width, height, cv2.INTER_LANCZOS4))
+        video = torch.cat([first, torch.zeros(1, 3, num_frames - 1, height, width)], dim=2)
         latent_condition = self.vae.encode(video.to(self.device)).float()
-
         lat_h, lat_w = latent_condition.shape[-2:]
-        # the pixel frames' validity, packed t_scale to one into channels
-        mask = np.zeros((1, 1, num_frames, lat_h, lat_w), np.float32)
-        mask[:, :, 0] = 1.0
-        first_rep = np.repeat(mask[:, :, :1], t_scale, axis=2)
-        mask = np.concatenate([first_rep, mask[:, :, 1:]], axis=2)
-        mask = mask.reshape(1, lat_t, t_scale, lat_h, lat_w).transpose(0, 2, 1, 3, 4)
-        return torch.cat([torch.from_numpy(mask.copy()).to(self.device), latent_condition], dim=1)
+        valid = np.zeros((1, 1, num_frames, lat_h, lat_w), np.float32)
+        valid[:, :, 0] = 1.0
+        mask = torch.from_numpy(_packed_frame_mask(valid, self.vae.cfg.temporal_scale)).to(self.device)
+        return torch.cat([mask, latent_condition], dim=1)
 
     @torch.inference_mode()
     def run(
@@ -396,9 +449,6 @@ class WanI2VEngine(WanShared):
         self.load_components(return_latents=False)  # i2v always needs the VAE
         if image is None:
             raise ValueError("i2v requires an input image")
-        if self.transformer.cfg.image_dim is not None:
-            raise NotImplementedError("this transformer takes CLIP-vision image features (Wan 2.1 I2V); "
-                                      "the CLIP-vision image encoder is not ported")
         if num_frames is None:
             num_frames = int(round((duration or 5.0) * fps)) + 1
         height, width, num_frames, lat_t, lat_h, lat_w = self._geometry(height, width, num_frames)
@@ -407,7 +457,9 @@ class WanI2VEngine(WanShared):
         use_cfg = guidance_scale > 1.0
         neg_context = self.encode_prompt(negative_prompt or "") if use_cfg else None
 
-        condition = self.build_condition(self.load_image_input(image), num_frames, height, width)
+        image = self.load_image_input(image)
+        clip_feats = self.encode_image_clip(image) if self.transformer.cfg.image_dim is not None else None
+        condition = self.build_condition(image, num_frames, height, width)
         safe_emit_progress(progress_callback, 0.25, "Image conditioning ready")
 
         noise_c = self.transformer.cfg.in_channels - condition.shape[1]
@@ -428,7 +480,7 @@ class WanI2VEngine(WanShared):
             t_vec = torch.full((1,), float(t), dtype=torch.float32, device=self.device)
             x_in = torch.cat([x, condition], dim=1)
             v = self._apply(x_in, transformer, t_vec, context, neg_context, float(np.float32(g)),
-                            use_cfg and g > 1.0, None)
+                            use_cfg and g > 1.0, None, clip_feats)
             (x,) = self.scheduler.step(v, float(t), x)
             self._after_step(x, i, len(ts), render_on_step, render_on_step_callback, render_on_step_interval,
                              denoise_cb)
@@ -439,4 +491,722 @@ class WanI2VEngine(WanShared):
             return x
         frames = self.decode_latents(x)
         safe_emit_progress(progress_callback, 1.0, "Completed pipeline")
+        return frames
+
+
+@register_engine("wan", "v2v")
+class WanV2VEngine(WanShared):
+    """Video-to-video: the input video's latents corrupted to ``strength`` on
+    the rectified-flow path (``scheduler.add_noise`` at the tail's first
+    timestep), then the schedule's tail denoised through ``denoise``; as in
+    JAX, the fused step's plan (and Euler's sigmas) are read from index 0 over
+    that tail (ROADMAP Queue 3)."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        video: Any = None,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        height: int = 480,
+        width: int = 832,
+        num_frames: Optional[int] = None,
+        strength: float = 0.7,
+        num_inference_steps: int = 30,
+        guidance_scale: float = 5.0,
+        guidance_scale_2: Optional[float] = None,
+        boundary_ratio: Optional[float] = None,
+        seed: Optional[int] = None,
+        shift: Optional[float] = None,
+        return_latents: bool = False,
+        render_on_step: bool = False,
+        render_on_step_callback: Optional[Callable] = None,
+        render_on_step_interval: int = 3,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        import cv2
+
+        safe_emit_progress(progress_callback, 0.0, "Starting v2v pipeline")
+        self.load_components(return_latents=False)
+        if video is None:
+            raise ValueError("v2v requires an input video")
+        if _is_path(video):
+            from apex_studio_tpu_torch.preprocess.base import load_frames
+
+            video = load_frames(video, max_frames=num_frames)
+        frames_in = [np.asarray(f) for f in video]
+        height, width, _, _, _, _ = self._geometry(height, width, 1)
+        t_scale = self.vae.cfg.temporal_scale
+        n = len(frames_in)
+        frames_in = frames_in[:max(1, n - (n - 1) % t_scale)]
+        source = self.encode_video_latents(_pixels(_resized(frames_in, width, height, cv2.INTER_LANCZOS4)))
+        safe_emit_progress(progress_callback, 0.2, "Encoded source video")
+
+        context = self.encode_prompt(prompt or "")
+        use_cfg = guidance_scale > 1.0
+        neg_context = self.encode_prompt(negative_prompt or "") if use_cfg else None
+
+        ts_full, _ = self.get_timesteps(self.scheduler, num_inference_steps,
+                                        **({"shift": shift} if shift is not None else {}))
+        # the schedule's tail: start denoising from sigma ≈ strength
+        start = min(int(round(num_inference_steps * (1.0 - strength))), len(ts_full) - 1)
+        ts = ts_full[start:]
+        self.scheduler.set_begin_index(start)
+        noise = self.get_latents(tuple(source.shape), seed=seed)
+        x = self.scheduler.add_noise(source.float(), noise, ts[0])
+        safe_emit_progress(progress_callback, 0.35, "Corrupted source; starting denoise")
+
+        x = self.denoise(x, ts, context, neg_context, guidance_scale, guidance_scale_2,
+                         self._boundary(boundary_ratio), render_on_step_callback, render_on_step_interval,
+                         render_on_step, make_mapped_progress(progress_callback, 0.35, 0.9))
+        safe_emit_progress(progress_callback, 0.9, "Denoising complete")
+        if return_latents:
+            safe_emit_progress(progress_callback, 1.0, "Returning latents")
+            return x
+        frames = self.decode_latents(x)
+        safe_emit_progress(progress_callback, 1.0, "Completed pipeline")
+        return frames
+
+
+@register_engine("wan", "fflf")
+class WanFFLFEngine(WanI2VEngine):
+    """First–last-frame interpolation: i2v conditioning where both endpoint
+    frames are valid (condition = [temporal mask with the first and last
+    frames set | VAE of (first, zeros, last)]) and the CLIP branch, where the
+    DiT has one, sees both endpoints' features concatenated (Sk 514)."""
+
+    _fflf_last: Optional[np.ndarray] = None
+
+    def run(self, image: Any = None, last_image: Any = None, **kwargs: Any):
+        if image is None or last_image is None:
+            raise ValueError("fflf requires both `image` (first frame) and `last_image`")
+        self._fflf_last = self.load_image_input(last_image if _is_path(last_image) else np.asarray(last_image))
+        try:
+            return super().run(image=image, **kwargs)
+        finally:
+            self._fflf_last = None
+
+    @torch.inference_mode()
+    def build_condition(self, image: np.ndarray, num_frames: int, height: int, width: int) -> torch.Tensor:
+        import cv2
+
+        t_scale = self.vae.cfg.temporal_scale
+        first, last = _pixels(_resized([image, self._fflf_last], width, height, cv2.INTER_LANCZOS4)).unbind(2)
+        video = torch.cat([first[:, :, None], torch.zeros(1, 3, num_frames - 2, height, width),
+                           last[:, :, None]], dim=2)
+        latent_condition = self.encode_video_latents(video)
+        lat_h, lat_w = latent_condition.shape[-2:]
+        valid = np.zeros((1, 1, num_frames, lat_h, lat_w), np.float32)
+        valid[:, :, 0] = valid[:, :, -1] = 1.0
+        mask = torch.from_numpy(_packed_frame_mask(valid, t_scale)).to(self.device)
+        return torch.cat([mask, latent_condition], dim=1)
+
+    def encode_image_clip(self, image: np.ndarray) -> torch.Tensor:
+        return torch.cat([super().encode_image_clip(image), super().encode_image_clip(self._fflf_last)], dim=1)
+
+
+@register_engine("wan", "inp")
+class WanInpaintEngine(WanI2VEngine):
+    """Video inpainting: condition = [the known region's validity (1 − mask),
+    area-resized to the latent grid and packed as the i2v temporal mask | VAE
+    of the video with the region to regenerate zeroed]. Mask: 1 = regenerate,
+    0 = keep; one mask serves every frame. The i2v denoise loop (the CLIP
+    branch of the first frame where the DiT has one)."""
+
+    _inp_frames: Optional[List[np.ndarray]] = None
+    _inp_masks: Optional[List[np.ndarray]] = None
+
+    def run(self, video: Any = None, mask: Any = None, image: Any = None, **kwargs: Any):
+        from apex_studio_tpu_torch.preprocess.base import load_frames
+
+        if video is None:
+            raise ValueError("inp requires an input video")
+        if mask is None:
+            raise ValueError("inp requires a mask (image or video)")
+        if _is_path(video):
+            video = load_frames(video)
+        self._inp_frames = [self.load_image_input(np.asarray(f)) for f in video]
+        if _is_path(mask):
+            mask = load_frames(mask)
+        if isinstance(mask, np.ndarray) and mask.ndim in (2, 3):
+            mask = [mask]
+        self._inp_masks = [np.asarray(m) for m in mask]
+        kwargs.setdefault("num_frames", len(self._inp_frames))
+        try:
+            return super().run(image=self._inp_frames[0], **kwargs)
+        finally:
+            self._inp_frames = self._inp_masks = None
+
+    def encode_image_clip(self, image: np.ndarray) -> torch.Tensor:
+        return super().encode_image_clip(self._inp_frames[0])
+
+    def _mask_at(self, i: int, height: int, width: int) -> np.ndarray:
+        """[H, W] f32 in {0, 1}, 1 = inpaint."""
+        import cv2
+
+        m = self._inp_masks[min(i, len(self._inp_masks) - 1)]
+        if m.ndim == 3:
+            m = m[..., 0]
+        m = cv2.resize(m.astype(np.float32), (width, height), interpolation=cv2.INTER_NEAREST)
+        return (m > 127).astype(np.float32) if m.max() > 1.0 else (m > 0.5).astype(np.float32)
+
+    @torch.inference_mode()
+    def build_condition(self, image: np.ndarray, num_frames: int, height: int, width: int) -> torch.Tensor:
+        import cv2
+
+        t_scale = self.vae.cfg.temporal_scale
+        frames = self._inp_frames[:num_frames]
+        frames += [frames[-1]] * (num_frames - len(frames))
+        masks = np.stack([self._mask_at(i, height, width) for i in range(num_frames)])
+        # the region to regenerate zeroed
+        video = _pixels(_resized(frames, width, height, cv2.INTER_LANCZOS4)) * torch.from_numpy(1.0 - masks)[None, None]
+        latent_condition = self.encode_video_latents(video)
+        lat_h, lat_w = latent_condition.shape[-2:]
+        valid = np.stack([cv2.resize(v, (lat_w, lat_h), interpolation=cv2.INTER_AREA) for v in 1.0 - masks])
+        packed = _packed_frame_mask(valid[None, None].astype(np.float32), t_scale)
+        return torch.cat([torch.from_numpy(packed).to(self.device), latent_condition], dim=1)
+
+
+@register_engine("wan", "svi")
+class WanSVIEngine(WanI2VEngine):
+    """Stable Video Infinity: a long video as chained i2v segments, each
+    anchored on the frame ``num_motion_frame`` from the end of the previous
+    one, consecutive segments cross-faded linearly over
+    ``num_overlap_frames`` frames, each with its own prompt (``prompts``)
+    and seed ``seed + segment``."""
+
+    def run(
+        self,
+        image: Any = None,
+        prompt: Optional[Any] = None,
+        prompts: Optional[List[str]] = None,
+        negative_prompt: Optional[str] = None,
+        height: int = 480,
+        width: int = 832,
+        duration: Any = 10.0,
+        fps: int = 16,
+        num_frames: Optional[int] = None,
+        num_frames_per_segment: int = 81,
+        num_inference_steps: int = 30,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        num_overlap_frames: int = 4,
+        num_motion_frame: int = 4,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **kwargs: Any,
+    ):
+        safe_emit_progress(progress_callback, 0.0, "Starting SVI pipeline")
+        if num_frames is None:
+            num_frames = int(round(float(duration) * fps)) + 1
+        seg_prompts = list(prompts) if prompts else [prompt or ""]
+        # frames gained a segment after the first shrink by the blended overlap
+        step = max(1, num_frames_per_segment - num_overlap_frames)
+        n_segments = max(len(seg_prompts), 1 + max(0, int(np.ceil((num_frames - num_frames_per_segment) / step))))
+        seg_prompts += [seg_prompts[-1]] * (n_segments - len(seg_prompts))
+
+        all_frames: List[np.ndarray] = []
+        anchor = image
+        for si in range(n_segments):
+            cb = make_mapped_progress(progress_callback, 0.05 + 0.9 * si / n_segments,
+                                      0.05 + 0.9 * (si + 1) / n_segments)
+            seg = super().run(image=anchor, prompt=seg_prompts[si], negative_prompt=negative_prompt,
+                              height=height, width=width, num_frames=num_frames_per_segment,
+                              num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                              seed=None if seed is None else seed + si, progress_callback=cb, **kwargs)
+            if si == 0:
+                all_frames.extend(seg)
+            else:
+                k = min(num_overlap_frames, len(all_frames), len(seg))
+                for j in range(k):
+                    w_new = (j + 1) / (k + 1)
+                    mixed = (1 - w_new) * all_frames[-k + j].astype(np.float32) + w_new * seg[j].astype(np.float32)
+                    all_frames[-k + j] = np.clip(mixed + 0.5, 0, 255).astype(np.uint8)
+                all_frames.extend(seg[k:])
+            anchor = seg[-max(1, num_motion_frame)]
+        safe_emit_progress(progress_callback, 1.0, "SVI pipeline complete")
+        return all_frames[:num_frames]
+
+
+class _HostLoop(WanShared):
+    """The engines that step one DiT on the host (VACE, Phantom, Fun):
+    geometry, prompts and the loop, CFG in the DiT's dtype as in JAX."""
+
+    def _lat_geometry(self, height: int, width: int, num_frames: Optional[int], duration: Optional[float],
+                      fps: int):
+        if num_frames is None:
+            num_frames = int(round((duration or 5.0) * fps)) + 1
+        t_scale, s_scale = self.vae.cfg.temporal_scale, self.vae.cfg.spatial_scale
+        num_frames = max(1, num_frames - (num_frames - 1) % t_scale)
+        return num_frames, (num_frames - 1) // t_scale + 1, height // s_scale, width // s_scale
+
+    def _encode_images(self, images, height: int, width: int) -> List[torch.Tensor]:
+        """Each image area-resized to the request's size and VAE-encoded:
+        [1, z, 1, h, w] each."""
+        import cv2
+
+        arrs = [cv2.resize(self.load_image_input(im), (width, height), interpolation=cv2.INTER_AREA)
+                for im in images]
+        return [self.encode_video_latents(_pixels([a])) for a in arrs]
+
+    def _control_video(self, media, num_frames: int, height: int, width: int) -> List[np.ndarray]:
+        """Frames area-resized, the last repeated up to ``num_frames``."""
+        import cv2
+
+        from apex_studio_tpu_torch.preprocess.base import load_frames
+
+        frames = _resized(load_frames(media) if isinstance(media, str) else list(media), width, height,
+                          cv2.INTER_AREA)
+        frames += [frames[-1]] * (num_frames - len(frames))
+        return frames[:num_frames]
+
+    def _host_loop(self, x, ts, forward, guidance_scale: float, context, neg_context, progress_callback):
+        """``forward(x, t, ctx) -> v`` in the DiT's dtype; CFG in that dtype,
+        ``scheduler.step`` on the f32 latents."""
+        dt = self.transformer.dtype
+        ctx, nctx = context.to(dt), neg_context.to(dt)
+        cb = make_mapped_progress(progress_callback, 0.4, 0.9)
+        for i, t in enumerate(np.asarray(ts, np.float64)):
+            t_b = torch.full((1,), float(t), dtype=torch.float32, device=self.device)
+            x_in = x.to(dt)
+            v = forward(x_in, t_b, ctx)
+            if guidance_scale > 1.0:
+                neg = forward(x_in, t_b, nctx)
+                v = neg + guidance_scale * (v - neg)
+            (x,) = self.scheduler.step(v.float(), float(t), x)
+            safe_emit_progress(cb, (i + 1) / len(ts), f"Denoising step {i + 1}/{len(ts)}")
+        return x
+
+    def _finish(self, x, progress_callback, return_latents: bool):
+        safe_emit_progress(progress_callback, 0.9, "Denoising complete")
+        if return_latents:
+            safe_emit_progress(progress_callback, 1.0, "Returning latents")
+            return x
+        frames = self.decode_latents(x)
+        safe_emit_progress(progress_callback, 1.0, "Completed pipeline")
+        return frames
+
+
+@register_engine("wan", "vace")
+class WanVaceEngine(_HostLoop):
+    """VACE all-in-one video editing: a control video (optionally masked)
+    and reference images condition the DiT's VACE branch.
+
+    The control is [inactive | reactive] VAE latents of the video outside and
+    inside the mask plus the mask's 8 × 8 space-to-depth (64 channels) at the
+    latent frame rate: 96 channels. Each reference image's latents, zero-padded
+    to 32 channels, are prepended in time (the mask gets zero frames there); the
+    noise has those frames too, and they are dropped before the decode."""
+
+    def _space_to_depth_mask(self, mask_f: np.ndarray, lat_f: int, lat_h: int, lat_w: int) -> torch.Tensor:
+        """Mask frames (F, H, W) in {0, 1} → (s², lat_f, lat_h, lat_w), frames
+        taken by the index rule of ``jax.image.resize(..., "nearest")``:
+        ⌊f32((i + 0.5)·F) / f32(lat_f)⌋."""
+        f = mask_f.shape[0]
+        s = self.vae.cfg.spatial_scale
+        m = mask_f.reshape(f, lat_h, s, lat_w, s).transpose(2, 4, 0, 1, 3).reshape(s * s, f, lat_h, lat_w)
+        if f != lat_f:
+            idx = np.floor((np.arange(lat_f, dtype=np.float32) + np.float32(0.5)) * np.float32(f)
+                           / np.float32(lat_f)).astype(np.int64)
+            m = m[:, idx]
+        return torch.from_numpy(np.ascontiguousarray(m, dtype=np.float32))
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        video: Optional[Any] = None,
+        mask: Optional[Any] = None,
+        reference_images: Optional[Any] = None,
+        conditioning_scale: Any = 1.0,
+        height: int = 480,
+        width: int = 832,
+        duration: Optional[float] = None,
+        num_frames: Optional[int] = None,
+        fps: int = 16,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        timesteps: Optional[List[float]] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        safe_emit_progress(progress_callback, 0.0, "Starting VACE pipeline")
+        self.load_components(return_latents)
+        num_frames, lat_f, lat_h, lat_w = self._lat_geometry(height, width, num_frames, duration, fps)
+        context = self.encode_prompt(prompt or "")
+        neg_context = self.encode_prompt(negative_prompt or "")
+        safe_emit_progress(progress_callback, 0.15, "Prompts encoded")
+
+        # -- the control video and its mask
+        if video is not None:
+            vid = _pixels(self._control_video(video, num_frames, height, width))
+        else:
+            vid = torch.zeros(1, 3, num_frames, height, width)
+        if mask is not None:
+            m = np.stack([np.asarray(fr).mean(axis=-1) for fr in self._control_video(mask, num_frames, height, width)])
+            mask_f = (m > 127.5).astype(np.float32)  # (F, H, W)
+        else:
+            mask_f = np.ones((num_frames, height, width), np.float32)
+        mgrid = torch.from_numpy(mask_f)[None, None]
+        if video is not None and mask is not None:
+            vid = vid * (1 - mgrid)  # the masked pixels to mid-grey (0 in [-1, 1])
+        inactive = self.encode_video_latents(vid * (1 - mgrid))
+        reactive = self.encode_video_latents(vid * mgrid)
+        control = torch.cat([inactive, reactive], dim=1)  # [1, 2z, f, h, w]
+        safe_emit_progress(progress_callback, 0.3, "Control video encoded")
+
+        # -- reference images, prepended in time
+        refs = _as_list(reference_images)
+        for rz in reversed(self._encode_images(refs, height, width)):
+            control = torch.cat([torch.cat([rz, torch.zeros_like(rz)], dim=1), control], dim=2)
+        m64 = self._space_to_depth_mask(mask_f, lat_f, lat_h, lat_w)[None].to(self.device)
+        m64 = torch.cat([m64.new_zeros(1, m64.shape[1], len(refs), lat_h, lat_w), m64], dim=2)
+        control = torch.cat([control, m64], dim=1)  # [1, 96, f + refs, h, w]
+
+        n_vace = len(self.transformer.cfg.vace_layers)
+        if isinstance(conditioning_scale, (int, float)):
+            scales = torch.full((n_vace,), float(conditioning_scale), dtype=torch.float32, device=self.device)
+        else:
+            scales = torch.as_tensor(np.asarray(conditioning_scale, np.float32), device=self.device)
+
+        x = self.get_latents((1, self.transformer.cfg.in_channels, lat_f + len(refs), lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps)
+        safe_emit_progress(progress_callback, 0.4, "Latents ready; denoising")
+        ctl = control.to(self.transformer.dtype)
+        x = self._host_loop(x, ts, lambda xi, t, c: self.transformer(xi, t, c, control=ctl, control_scale=scales),
+                            guidance_scale, context, neg_context, progress_callback)
+        if return_latents:
+            return self._finish(x, progress_callback, True)
+        return self._finish(x[:, :, len(refs):], progress_callback, False)
+
+
+@register_engine("wan", "fun_vace")
+class WanFunVaceEngine(WanVaceEngine):
+    """Fun-VACE: VACE driven by Fun-style inputs. Start / end images become a
+    sparse control video whose mask keeps those frames; a control video
+    rides the VACE channels unmasked; subject references are VACE's
+    reference images. ``high_noise_guidance_scale`` replaces the guidance; as
+    in JAX, ``boundary_ratio`` is accepted and one DiT runs every step."""
+
+    def run(
+        self,
+        start_image: Any = None,
+        end_image: Any = None,
+        control_video: Any = None,
+        subject_ref_images: Any = None,
+        video: Any = None,
+        mask_video: Any = None,
+        num_frames: Optional[int] = None,
+        duration: Optional[float] = None,
+        fps: int = 16,
+        height: int = 480,
+        width: int = 832,
+        boundary_ratio: Optional[float] = None,
+        high_noise_guidance_scale: Optional[float] = None,
+        low_noise_guidance_scale: Optional[float] = None,
+        guidance_scale: float = 6.0,
+        **kwargs: Any,
+    ):
+        import cv2
+
+        if num_frames is None:
+            num_frames = int(round((duration or 5.0) * fps)) + 1
+        t_scale = 4 if self.vae is None else self.vae.cfg.temporal_scale
+        num_frames = max(1, num_frames - (num_frames - 1) % t_scale)
+        if video is None and control_video is not None:
+            video, mask_video = control_video, None
+        elif video is None and (start_image is not None or end_image is not None):
+            # a sparse keyframe video; the mask keeps the known frames
+            frames = [np.zeros((height, width, 3), np.uint8) for _ in range(num_frames)]
+            mframes = [np.full((height, width, 3), 255, np.uint8) for _ in range(num_frames)]
+            for i, im in ((0, start_image), (-1, end_image)):
+                if im is not None:
+                    frames[i] = cv2.resize(self.load_image_input(im), (width, height), interpolation=cv2.INTER_AREA)
+                    mframes[i][:] = 0
+            video, mask_video = frames, mframes
+        g = high_noise_guidance_scale if high_noise_guidance_scale is not None else guidance_scale
+        kwargs.setdefault("reference_images", subject_ref_images)
+        return super().run(video=video, mask=mask_video, num_frames=num_frames, fps=fps, height=height,
+                           width=width, guidance_scale=g, **kwargs)
+
+
+@register_engine("wan", "phantom")
+class WanPhantomEngine(_HostLoop):
+    """Subject-consistent generation: the subject reference images' latents
+    ride along as tokens appended in time (``WanFunTransformer3DModel``)."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        subject_reference_images: Optional[Any] = None,
+        height: int = 480,
+        width: int = 832,
+        duration: Optional[float] = None,
+        num_frames: Optional[int] = None,
+        fps: int = 16,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        timesteps: Optional[List[float]] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        safe_emit_progress(progress_callback, 0.0, "Starting Phantom pipeline")
+        self.load_components(return_latents)
+        num_frames, lat_f, lat_h, lat_w = self._lat_geometry(height, width, num_frames, duration, fps)
+        context = self.encode_prompt(prompt or "")
+        neg_context = self.encode_prompt(negative_prompt or "")
+        refs = _as_list(subject_reference_images)
+        subject_ref = torch.cat(self._encode_images(refs, height, width), dim=2) if refs else None
+        safe_emit_progress(progress_callback, 0.25, "Conditioning ready")
+        x = self.get_latents((1, self.transformer.cfg.in_channels, lat_f, lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps)
+        ref = None if subject_ref is None else subject_ref.to(self.transformer.dtype)
+        x = self._host_loop(x, ts, lambda xi, t, c: self.transformer(xi, t, c, subject_ref=ref),
+                            guidance_scale, context, neg_context, progress_callback)
+        return self._finish(x, progress_callback, return_latents)
+
+
+@register_engine("wan", "fun_control")
+class WanFunControlEngine(_HostLoop):
+    """Fun-Control: a control video (a pose or depth render) VAE-encoded and
+    concatenated in channels after the noise every step (the noise takes the
+    DiT's ``in_channels`` less the control's); an optional reference image
+    rides as subject tokens."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        control_video: Optional[Any] = None,
+        video: Optional[Any] = None,
+        ref_image: Optional[Any] = None,
+        height: int = 480,
+        width: int = 832,
+        duration: Optional[float] = None,
+        num_frames: Optional[int] = None,
+        fps: int = 16,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        timesteps: Optional[List[float]] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        safe_emit_progress(progress_callback, 0.0, "Starting Fun-Control pipeline")
+        self.load_components(return_latents)
+        control_video = control_video if control_video is not None else video
+        num_frames, lat_f, lat_h, lat_w = self._lat_geometry(height, width, num_frames, duration, fps)
+        context = self.encode_prompt(prompt or "")
+        neg_context = self.encode_prompt(negative_prompt or "")
+        if control_video is not None:
+            control = self.encode_video_latents(_pixels(self._control_video(control_video, num_frames, height,
+                                                                            width)))
+        else:
+            control = torch.zeros(1, self.vae.cfg.z_dim, lat_f, lat_h, lat_w, device=self.device)
+        subject_ref = self._encode_images([ref_image], height, width)[0] if ref_image is not None else None
+        safe_emit_progress(progress_callback, 0.25, "Control encoded")
+        x = self.get_latents((1, self.transformer.cfg.in_channels - control.shape[1], lat_f, lat_h, lat_w),
+                             seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps)
+        return self._finish(self._fun_loop(x, control, subject_ref, ts, guidance_scale, context, neg_context,
+                                           progress_callback), progress_callback, return_latents)
+
+    def _fun_loop(self, x, control, subject_ref, ts, guidance_scale, context, neg_context, progress_callback):
+        dt = self.transformer.dtype
+        ctl = control.to(dt)
+        ref = None if subject_ref is None else subject_ref.to(dt)
+        return self._host_loop(
+            x, ts, lambda xi, t, c: self.transformer(torch.cat([xi, ctl], dim=1), t, c, subject_ref=ref),
+            guidance_scale, context, neg_context, progress_callback)
+
+
+@register_engine("wan", "fun")
+class WanFunEngine(WanFunControlEngine):
+    """Wan Fun: the channels after the noise are [control video latents or
+    zeros | a start-image block: zeros with the start image's latents at the
+    first frame and the end image's at the last], cut to the DiT's
+    ``in_channels`` less the noise's; subject references append as tokens."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        start_image: Optional[Any] = None,
+        image: Optional[Any] = None,
+        end_image: Optional[Any] = None,
+        subject_reference_images: Optional[Any] = None,
+        control_video: Optional[Any] = None,
+        reference_image: Optional[Any] = None,
+        height: int = 480,
+        width: int = 832,
+        duration: Optional[float] = None,
+        num_frames: Optional[int] = None,
+        fps: int = 16,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        timesteps: Optional[List[float]] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        safe_emit_progress(progress_callback, 0.0, "Starting Fun pipeline")
+        self.load_components(return_latents)
+        start_image = start_image if start_image is not None else image
+        num_frames, lat_f, lat_h, lat_w = self._lat_geometry(height, width, num_frames, duration, fps)
+        z_ch = self.vae.cfg.z_dim
+        context = self.encode_prompt(prompt or "")
+        neg_context = self.encode_prompt(negative_prompt or "")
+        if control_video is not None:
+            control = self.encode_video_latents(_pixels(self._control_video(control_video, num_frames, height,
+                                                                            width)))
+        else:
+            control = torch.zeros(1, z_ch, lat_f, lat_h, lat_w, device=self.device)
+        start_block = torch.zeros(1, z_ch, lat_f, lat_h, lat_w, device=self.device)
+        if start_image is not None:
+            start_block[:, :, :1] = self._encode_images([start_image], height, width)[0]
+        if end_image is not None:
+            start_block[:, :, -1:] = self._encode_images([end_image], height, width)[0]
+        cond = torch.cat([control, start_block], dim=1)[:, :self.transformer.cfg.in_channels - z_ch]
+        refs = _as_list(subject_reference_images or reference_image)
+        subject_ref = torch.cat(self._encode_images(refs, height, width), dim=2) if refs else None
+        x = self.get_latents((1, z_ch, lat_f, lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps)
+        return self._finish(self._fun_loop(x, cond, subject_ref, ts, guidance_scale, context, neg_context,
+                                           progress_callback), progress_callback, return_latents)
+
+
+@register_engine("wan", "causal")
+class WanCausalEngine(WanShared):
+    """Autoregressive block-causal generation (Self-Forcing / CausVid class).
+
+    Latent frames are generated ``num_frame_per_block`` at a time. Each
+    block runs a few-step x0-renoise loop (x0 = x − σ·flow at t, re-noised to
+    the next t with fresh noise from a numpy generator seeded by ``seed``)
+    against the K/V cache of the committed blocks, then is committed: one
+    more forward at ``context_noise`` writes its K/V into the cache. An image
+    (one latent frame) or a video pre-fills the cache at t = 0.
+    ``local_attn_size`` / ``sink_size`` (latent frames) bound the keys a
+    block attends to. The cache holds every frame of the request, ``S_max``
+    tokens; each forward attends over all of them with a validity mask, as in
+    JAX."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        image: Any = None,
+        video: Any = None,
+        height: int = 480,
+        width: int = 832,
+        duration: Optional[float] = None,
+        fps: int = 16,
+        num_frames: Optional[int] = None,
+        num_inference_steps: int = 4,
+        num_frame_per_block: int = 3,
+        context_noise: float = 0.0,
+        local_attn_size: int = -1,
+        sink_size: int = 0,
+        seed: Optional[int] = None,
+        timesteps: Optional[List[float]] = None,
+        return_latents: bool = False,
+        render_on_step: bool = False,
+        render_on_step_callback: Optional[Callable] = None,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        import cv2
+
+        safe_emit_progress(progress_callback, 0.0, "Starting causal pipeline")
+        self.load_components(return_latents)
+        if num_frames is None:
+            num_frames = int(round((duration or 5.0) * fps)) + 1
+        height, width, num_frames, lat_t, lat_h, lat_w = self._geometry(height, width, num_frames)
+        context = self.encode_prompt(prompt or "")
+        safe_emit_progress(progress_callback, 0.1, "Prompt encoded")
+
+        tf = self.transformer
+        _, ph, pw = tf.cfg.patch_size
+        h_tok, w_tok = lat_h // ph, lat_w // pw
+        frame_seq = h_tok * w_tok
+        initial = None
+        if image is not None:
+            arr = cv2.resize(self.load_image_input(image), (width, height), interpolation=cv2.INTER_LANCZOS4)
+            initial = self.encode_video_latents(_pixels([arr]))
+        elif video is not None:
+            initial = self.encode_video_latents(_pixels([self.load_image_input(np.asarray(f)) for f in video]))
+        n_input = 0 if initial is None else initial.shape[2]
+
+        num_blocks = lat_t // num_frame_per_block
+        gen_frames = num_blocks * num_frame_per_block
+        total_frames = n_input + gen_frames
+        s_max = total_frames * frame_seq
+        noise = self.get_latents((1, tf.cfg.in_channels, gen_frames, lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps)
+        rng = np.random.default_rng(0 if seed is None else seed)  # the re-noise draws
+        k_cache, v_cache = tf.init_cache(1, s_max, device=self.device)
+        self.kv_cache = (k_cache, v_cache)
+        local_tokens = local_attn_size * frame_seq if local_attn_size > 0 else -1
+        sink_tokens = sink_size * frame_seq
+        blk_shape = (1, tf.cfg.in_channels, num_frame_per_block, lat_h, lat_w)
+
+        def forward(x, t_value, n_frames, start_frame):
+            t_frames = torch.full((1, n_frames), float(t_value), dtype=torch.float32, device=self.device)
+            rope = tf.causal_rope_tables(start_frame, n_frames, h_tok, w_tok, device=self.device)
+            flow, _ = tf.forward_causal(x.to(tf.dtype), t_frames, context, k_cache, v_cache,
+                                        start_frame * frame_seq, *rope, local_tokens=local_tokens,
+                                        sink_tokens=sink_tokens)
+            return flow
+
+        output = torch.zeros(1, tf.cfg.in_channels, total_frames, lat_h, lat_w, device=self.device)
+        if initial is not None:
+            output[:, :, :n_input] = initial
+            forward(initial.float(), 0.0, n_input, 0)  # the pre-fill: its K/V at t = 0
+        safe_emit_progress(progress_callback, 0.2, "Cache pre-filled; generating")
+
+        denoise_cb = make_mapped_progress(progress_callback, 0.2, 0.9)
+        total_steps, done = num_blocks * len(ts), 0
+        for b_idx in range(num_blocks):
+            lo = b_idx * num_frame_per_block
+            start_frame = n_input + lo
+            x = noise[:, :, lo:lo + num_frame_per_block].float()
+            for i, t in enumerate(ts):
+                sigma = float(np.float32(float(t) / 1000.0))
+                sigma_next = float(np.float32(float(ts[i + 1]) / 1000.0)) if i + 1 < len(ts) else 0.0
+                if i + 1 < len(ts):
+                    fresh = torch.from_numpy(rng.standard_normal(blk_shape).astype(np.float32)).to(self.device)
+                else:
+                    fresh = torch.zeros(blk_shape, device=self.device)
+                flow = forward(x, t, num_frame_per_block, start_frame).float()
+                x = (1.0 - sigma_next) * (x - sigma * flow) + sigma_next * fresh
+                done += 1
+                if denoise_cb is not None:
+                    denoise_cb(done / total_steps, f"Causal step {done}/{total_steps}")
+            output[:, :, start_frame:start_frame + num_frame_per_block] = x
+            # commit: the finished block's K/V at context_noise
+            forward(x, context_noise, num_frame_per_block, start_frame)
+            if render_on_step and render_on_step_callback is not None:
+                try:
+                    render_on_step_callback(self.decode_latents(output[:, :, :start_frame + num_frame_per_block]),
+                                            b_idx)
+                except Exception:
+                    logger.exception("preview callback failed")
+
+        safe_emit_progress(progress_callback, 0.9, "Causal generation complete")
+        if return_latents:
+            safe_emit_progress(progress_callback, 1.0, "Returning latents")
+            return output
+        frames = self.decode_latents(output)
+        safe_emit_progress(progress_callback, 1.0, "Completed causal pipeline")
         return frames

@@ -5,7 +5,8 @@ paths load: Flux text-to-image's ``flux``, ``t5``, ``clip``,
 ``hunyuanvideo15_vae``, ``qwen2``, ``siglip``, ``tae_vae``, and byT5 through
 ``t5``; ZImage's ``zimage`` (base and control, the Comfy single-file names
 too) and ``qwen3``; QwenImage's ``qwenimage`` (DiT and ControlNet) and
-``wan_vae``; Wan's ``wan`` DiT, and UMT5 through ``t5``).
+``wan_vae``; Wan's ``wan`` DiT (its VACE keys too), UMT5 through ``t5``, and
+the Wan 2.1 i2v image encoder's ``clip_vision``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -471,10 +472,32 @@ converter_registry.add(
             (r"\.norm2\.bias$", ".norm2_bias"),
             (r"\.ffn\.net\.0\.proj\.", ".ffn.fc1."),
             (r"\.ffn\.net\.2\.", ".ffn.fc2."),
-            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
-            (r"(to_q|to_k|to_v|to_out|add_k_proj|add_v_proj|time_proj|fc1|fc2|img_ff1|img_ff2|proj_out|"
+            (r"^(vace_)?patch_embedding\.weight$", r"\1patch_embedding.kernel"),
+            (r"(to_q|to_k|to_v|to_out|add_k_proj|add_v_proj|time_proj|fc1|fc2|img_ff1|img_ff2|proj_in|proj_out|"
              r"time_embedder_linear_\d|text_embedder_linear_\d)\.weight$", r"\1.kernel"),
         ],
         drop=(r"^rope\.", r"\.freqs"),
+    ),
+)
+
+converter_registry.add(
+    # transformers' CLIPVisionModel(WithProjection): the Wan 2.1 i2v image
+    # encoder. Published files name the MLP ``layers.N.mlp.fc1``; the JAX
+    # converter keeps ``.mlp.`` and so cannot load them (ROADMAP Queue 3):
+    # here it is dropped, and keys without it load as well.
+    "clip_vision",
+    KeyConverter(
+        renames=[
+            (r"^vision_model\.embeddings\.class_embedding$", "class_embedding"),
+            (r"^vision_model\.embeddings\.patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"^vision_model\.embeddings\.position_embedding\.weight$", "position_embedding"),
+            (r"^vision_model\.pre_layrnorm\.", "pre_layrnorm."),
+            (r"^vision_model\.post_layernorm\.", "post_layernorm."),
+            (r"^vision_model\.encoder\.layers\.", "layers."),
+            (r"\.mlp\.(fc[12])\.", r".\1."),
+            (r"(q_proj|k_proj|v_proj|out_proj|fc1|fc2)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"^visual_projection", r"^text_model", r"position_ids", r"logit_scale"),
     ),
 )

@@ -7,8 +7,10 @@ single-file names of the Comfy-Org Z-Image files, control keys included),
 ``qwen3`` (transformers' ``Qwen3ForCausalLM``), ``rife`` (Practical-RIFE's
 ``flownet`` keys), ``qwenimage`` (diffusers' QwenImage DiT and ControlNet) and
 ``wan_vae`` (diffusers' ``AutoencoderKLWan``, with its ``[C, 1, 1(, 1)]`` RMS
-gammas and 1×1-conv attention weights) and ``wan`` (diffusers'
-``WanTransformer3DModel``, ``patch_embedding`` as its Conv3d weight).
+gammas and 1×1-conv attention weights), ``wan`` (diffusers'
+``WanTransformer3DModel`` and its VACE keys, ``patch_embedding`` and
+``vace_patch_embedding`` as their Conv3d weights) and ``clip_vision``
+(transformers' ``CLIPVisionModel``, the patch embedding as its Conv2d weight).
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -144,6 +146,14 @@ _WAN = (
     (r"\.ffn\.fc1\.", ".ffn.net.0.proj."),
     (r"\.ffn\.fc2\.", ".ffn.net.2."),
 )
+_CLIP_VISION = (
+    (r"^class_embedding$", "vision_model.embeddings.class_embedding"),
+    (r"^patch_embedding\.", "vision_model.embeddings.patch_embedding."),
+    (r"^position_embedding$", "vision_model.embeddings.position_embedding.weight"),
+    (r"^(pre_layrnorm|post_layernorm)\.", r"vision_model.\1."),
+    (r"^layers\.(\d+)\.(fc[12])\.", r"vision_model.encoder.layers.\1.mlp.\2."),
+    (r"^layers\.", "vision_model.encoder.layers."),
+)
 
 
 def _wan_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
@@ -159,20 +169,29 @@ def _wan_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
 
 
 def _wan_layout(key: str, value: torch.Tensor) -> torch.Tensor:
-    """``patch_embedding.weight`` as the published Conv3d weight
-    ``[O, C, 1, 2, 2]`` (every published Wan DiT patches (1, 2, 2))."""
-    if key == "patch_embedding.weight":
+    """``patch_embedding.weight`` (and VACE's ``vace_patch_embedding.weight``)
+    as the published Conv3d weight ``[O, C, 1, 2, 2]`` (every published Wan
+    DiT patches (1, 2, 2))."""
+    if key in ("patch_embedding.weight", "vace_patch_embedding.weight"):
         return value.reshape(value.shape[0], -1, 1, 2, 2)
     return value
 
 
-_LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {"wan_vae": _wan_vae_layout,
-                                                                     "wan": _wan_layout}
+def _clip_vision_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """The patch embedding as the published Conv2d weight ``[O, 3, p, p]``."""
+    if key == "vision_model.embeddings.patch_embedding.weight":
+        p = int(round((value.shape[1] // 3) ** 0.5))
+        return value.reshape(value.shape[0], 3, p, p)
+    return value
+
+
+_LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
+    "wan_vae": _wan_vae_layout, "wan": _wan_layout, "clip_vision": _clip_vision_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
     "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE, "qwenimage": _QWENIMAGE, "wan_vae": _WAN_VAE,
-    "wan": _WAN}
+    "wan": _WAN, "clip_vision": _CLIP_VISION}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

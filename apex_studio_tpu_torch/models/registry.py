@@ -3,9 +3,10 @@
 Keys match manifest ``base`` values: ``flux.base``, ``hunyuanvideo15.base``,
 ``auto`` (AutoencoderKL), ``hunyuanvideo15`` (its VAE), ``tae``,
 ``CLIPTextModel``, ``T5EncoderModel``, ``Qwen2_5_VLForConditionalGeneration``,
-``SiglipVisionModel``, ``Qwen3ForCausalLM``, ``zimage.base``, ``zimage.control``,
+``SiglipVisionModel``, ``CLIPVisionModel``, ``Qwen3ForCausalLM``, ``zimage.base``, ``zimage.control``,
 ``qwenimage.base``, ``qwenimage.controlnet``, ``wan.base`` in the transformer
-registry (the Wan DiT, alias ``wan``) and ``wan.base`` in the VAE registry (the
+registry (the Wan DiT, alias ``wan``; its variants ``wan.causal``, ``wan.vace``
+and ``wan.fun``) and ``wan.base`` in the VAE registry (the
 Wan VAE, which ``qwenimage`` and ``AutoencoderKLQwenImage`` name too).
 """
 
@@ -22,6 +23,7 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.vaes.autoencoder_kl",
     "apex_studio_tpu_torch.models.text_encoders.t5",
     "apex_studio_tpu_torch.models.text_encoders.clip",
+    "apex_studio_tpu_torch.models.text_encoders.clip_vision",
     "apex_studio_tpu_torch.models.transformers.hunyuanvideo15",
     "apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae",
     "apex_studio_tpu_torch.models.vaes.tae_vae",

@@ -1,6 +1,6 @@
-"""Wan 2.1 / 2.2 video DiT, port of ``apex_studio_tpu/models/transformers/wan.py``
-(the base ``WanTransformer3DModel``; the causal, VACE, Fun, Recam and Holocine
-variants are not ported).
+"""Wan 2.1 / 2.2 video DiT, port of ``apex_studio_tpu/models/transformers/wan.py``:
+the base ``WanTransformer3DModel`` and its block-causal (Self-Forcing), VACE
+and Fun / Phantom variants (the Recam and Holocine variants are not ported).
 
 - blocks: an f32 layer norm without affine, modulated by a learned
   ``scale_shift_table`` plus the per-sample time projection [B, 6, dim];
@@ -16,6 +16,14 @@ variants are not ported).
   fastest, as published checkpoints lay them out
 - RoPE tables are built from integer (t, h, w) ids in float64 numpy, cast to
   f32, and kept per grid
+- causal: a preallocated ``[L, B, S_max, H, D]`` K/V cache written in place
+  at ``cache_pos`` (JAX writes a copy with ``dynamic_update_slice`` and
+  donates it; the contents are the same); each block's queries attend over
+  all ``S_max`` keys with a ``[B, S_max]`` validity mask, as JAX launches it
+- VACE: a stack of control blocks over the 96-channel conditioning video
+  whose per-block hints are added into the main stream at ``vace_layers``
+- Fun / Phantom: subject-reference latents appended in time (RoPE over
+  T + T_ref frames) and sliced off before the output projection
 """
 
 from __future__ import annotations
@@ -54,6 +62,9 @@ class WanConfig:
     added_kv_proj_dim: Optional[int] = None  # set for the i2v cross-attn image K/V
     rope_max_seq_len: int = 1024
     pos_embed_seq_len: Optional[int] = None
+    # VACE (the control branch's block indices and input channels)
+    vace_layers: Tuple[int, ...] = ()
+    vace_in_channels: int = 96
 
     @property
     def dim(self) -> int:
@@ -69,9 +80,17 @@ class WanConfig:
     def from_dict(cls, cfg: dict) -> "WanConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in cfg.items() if k in known}
-        if "patch_size" in kw:
-            kw["patch_size"] = tuple(kw["patch_size"])
+        for key in ("patch_size", "vace_layers"):
+            if key in kw:
+                kw[key] = tuple(kw[key])
         return cls(**kw)
+
+
+def _patchify(x: torch.Tensor, patch_size) -> torch.Tensor:
+    pt, ph, pw = patch_size
+    b, c, t, h, w = x.shape
+    x = x.reshape(b, c, t // pt, pt, h // ph, ph, w // pw, pw).permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(b, (t // pt) * (h // ph) * (w // pw), c * pt * ph * pw)
 
 
 class WanAttention(nn.Module):
@@ -185,11 +204,7 @@ class WanTransformer3DModel(nn.Module):
     def patchify(self, x: torch.Tensor) -> torch.Tensor:
         """[B, C, T, H, W] → [B, N, C·pt·ph·pw], token order (t, h, w), features
         [C, pt, ph, pw] as Conv3d(kernel = stride = patch) reads them."""
-        pt, ph, pw = self.cfg.patch_size
-        b, c, t, h, w = x.shape
-        x = x.reshape(b, c, t // pt, pt, h // ph, ph, w // pw, pw)
-        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
-        return x.reshape(b, (t // pt) * (h // ph) * (w // pw), c * pt * ph * pw)
+        return _patchify(x, self.cfg.patch_size)
 
     def unpatchify(self, tokens: torch.Tensor, t: int, h: int, w: int) -> torch.Tensor:
         """``proj_out`` features [pt, ph, pw, C], channel fastest, → [B, C, T, H, W]."""
@@ -255,4 +270,198 @@ class WanTransformer3DModel(nn.Module):
         tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin = self._prepare_cond(x, t, context, context_image)
         for blk in self.blocks:
             tokens = blk(tokens, ctx, temb6, rope_cos, rope_sin, context_image=ctx_img)
+        return self._finalize(tokens, temb, tt, hh, ww)
+
+
+# -- causal / autoregressive variant ---------------------------------------------------
+
+
+@transformer_registry.register("wan.causal", aliases=("wan_causal", "WanCausalTransformer3DModel"))
+class WanCausalTransformer3DModel(WanTransformer3DModel):
+    """Block-causal Wan DiT for autoregressive long video (Self-Forcing /
+    CausVid class): each block of latent frames attends to a K/V cache of the
+    blocks committed before it plus itself, optionally within a local window
+    of recent tokens plus sink tokens.
+
+    The cache is a preallocated ``[L, B, S_max, H, D]`` tensor pair that
+    ``forward_causal`` writes in place at ``cache_pos``; the attention reads
+    every ``S_max`` row and masks the rows past ``cache_pos + n_new`` (and
+    outside the window), so one call shape serves every block position.
+    Cross-attention K/V are recomputed each call, as in JAX."""
+
+    def init_cache(self, batch: int, max_tokens: int, device=None):
+        shape = (len(self.blocks), batch, max_tokens, self.cfg.num_attention_heads, self.cfg.attention_head_dim)
+        device = device if device is not None else self.patch_embedding.weight.device
+        return (torch.zeros(shape, dtype=self.dtype, device=device),
+                torch.zeros(shape, dtype=self.dtype, device=device))
+
+    @staticmethod
+    def causal_mask(batch: int, s_max: int, cache_pos: int, n_new: int, local_tokens: int = -1,
+                    sink_tokens: int = 0, device=None) -> torch.Tensor:
+        """``[B, S_max]`` bool: the keys a block at ``cache_pos`` of ``n_new``
+        tokens attends to (JAX's ``valid`` at ``wan.py`` ``forward_causal``)."""
+        pos = torch.arange(s_max, device=device)
+        end = cache_pos + n_new
+        valid = pos < end
+        if local_tokens > 0:
+            window = valid & (pos >= end - local_tokens)
+            if sink_tokens > 0:
+                window = window | (valid & (pos < sink_tokens))
+            valid = window
+        return valid[None].expand(batch, s_max)
+
+    def forward_causal(
+        self,
+        x: torch.Tensor,               # [B, C, T_blk, H, W] the block's latents
+        t: torch.Tensor,               # [B, T_blk] per-frame timesteps (0..1000)
+        context: torch.Tensor,         # [B, L, text_dim]
+        k_cache: torch.Tensor,         # [L, B, S_max, H, D], written in place
+        v_cache: torch.Tensor,
+        cache_pos: int,                # tokens committed before this block
+        rope_cos: torch.Tensor,        # tables for this block's absolute positions
+        rope_sin: torch.Tensor,
+        local_tokens: int = -1,        # attend to at most this many recent tokens
+        sink_tokens: int = 0,          # plus always the first ``sink_tokens``
+    ):
+        """→ (flow [B, C, T_blk, H, W], (k_cache, v_cache)) with this block's
+        K/V written at ``cache_pos``."""
+        cfg = self.cfg
+        b, _, tt, hh, ww = x.shape
+        _, ph, pw = cfg.patch_size
+        t_freq = timestep_embedding(t.reshape(-1).float(), cfg.freq_dim, flip_sin_to_cos=True)
+        temb = self.time_embedder_linear_2(F.silu(self.time_embedder_linear_1(t_freq.to(self.dtype))))
+        temb6 = self.time_proj(F.silu(temb)).float().reshape(-1, 6, cfg.dim)
+        f_lat, hw = t.shape[1], (hh // ph) * (ww // pw)
+        # each frame's conditioning over its h·w tokens: [B, N, dim], [B, N, 6, dim]
+        temb = temb.reshape(b, f_lat, 1, cfg.dim).expand(b, f_lat, hw, cfg.dim).reshape(b, -1, cfg.dim)
+        temb6 = temb6.reshape(b, f_lat, 1, 6, cfg.dim).expand(b, f_lat, hw, 6, cfg.dim).reshape(b, -1, 6, cfg.dim)
+        ctx = self.text_embedder_linear_2(
+            F.gelu(self.text_embedder_linear_1(context.to(self.dtype)), approximate="tanh"))
+        tokens = self.patch_embedding(self.patchify(x).to(self.dtype))
+
+        n_new, s_max = tokens.shape[1], k_cache.shape[2]
+        mask = self.causal_mask(b, s_max, int(cache_pos), n_new, local_tokens, sink_tokens, tokens.device)
+        rows = slice(int(cache_pos), int(cache_pos) + n_new)
+        temb6_t = temb6.transpose(1, 2)  # [B, 6, N, dim]
+        for i, blk in enumerate(self.blocks):
+            mods = (blk.scale_shift_table[:, :, None] + temb6_t).to(tokens.dtype)
+            shift_msa, scale_msa, gate_msa = mods[:, 0], mods[:, 1], mods[:, 2]
+            c_shift, c_scale, c_gate = mods[:, 3], mods[:, 4], mods[:, 5]
+
+            norm_x = layer_norm(tokens, eps=blk.eps) * (1 + scale_msa) + shift_msa
+            attn = blk.attn1
+            q = apply_rope(attn._heads(attn.norm_q(attn.to_q(norm_x))), rope_cos, rope_sin)
+            k_new = apply_rope(attn._heads(attn.norm_k(attn.to_k(norm_x))), rope_cos, rope_sin)
+            v_new = attn._heads(attn.to_v(norm_x))
+            k_cache[i, :, rows] = k_new.to(k_cache.dtype)
+            v_cache[i, :, rows] = v_new.to(v_cache.dtype)
+            out = attention_op(q, k_cache[i], v_cache[i], mask=mask).reshape(b, n_new, -1)
+            tokens = tokens + attn.to_out(out) * gate_msa
+
+            norm_x = (layer_norm(tokens, blk.norm2_weight, blk.norm2_bias, blk.eps)
+                      if blk.norm2_weight is not None else tokens)
+            tokens = tokens + blk.attn2(norm_x, context=ctx)
+            norm_x = layer_norm(tokens, eps=blk.eps) * (1 + c_scale) + c_shift
+            tokens = tokens + blk.ffn(norm_x) * c_gate
+
+        table = self.scale_shift_table[:, :, None] + temb.float()[:, None]
+        shift, scale = table[:, 0].to(tokens.dtype), table[:, 1].to(tokens.dtype)
+        tokens = layer_norm(tokens, eps=cfg.eps) * (1 + scale) + shift
+        return self.unpatchify(self.proj_out(tokens), tt, hh, ww), (k_cache, v_cache)
+
+    def causal_rope_tables(self, start_frame: int, n_frames: int, h_tok: int, w_tok: int, device=None):
+        """RoPE tables for a block starting at absolute latent frame ``start_frame``."""
+        key = ("causal", start_frame, n_frames, h_tok, w_tok, str(device))
+        if key not in self._tables:
+            ids = np.stack(np.meshgrid(np.arange(start_frame, start_frame + n_frames), np.arange(h_tok),
+                                       np.arange(w_tok), indexing="ij"), axis=-1).reshape(1, -1, 3)
+            cos, sin = precompute_axial_freqs(ids, self.cfg.rope_axes_dims, theta=10000.0)
+            self._tables[key] = tuple(torch.from_numpy(a[:, :, None, :]).to(device) for a in (cos, sin))
+        return self._tables[key]
+
+
+# -- VACE variant -----------------------------------------------------------------------
+
+
+class WanVACEBlock(WanTransformerBlock):
+    """A Wan block on the control stream: an input projection on the first
+    block (adding the video tokens) and a per-block output projection that
+    makes the hint."""
+
+    def __init__(self, cfg: WanConfig, first: bool, *, dtype):
+        super().__init__(cfg, dtype=dtype)
+        self.proj_in = Linear(cfg.dim, cfg.dim, dtype=dtype) if first else None
+        self.proj_out = Linear(cfg.dim, cfg.dim, dtype=dtype)
+
+    def run_control(self, hidden, context, control, temb6, rope_cos, rope_sin):
+        if self.proj_in is not None:
+            control = self.proj_in(control) + hidden
+        control = super().forward(control, context, temb6, rope_cos, rope_sin)
+        return self.proj_out(control), control
+
+
+@transformer_registry.register("wan.vace", aliases=("wan_vace", "WanVACETransformer3DModel"))
+class WanVACETransformer3DModel(WanTransformer3DModel):
+    """Wan with the VACE control branch: the 96-channel conditioning video
+    (inactive / reactive latents and the space-to-depth mask) runs through
+    the control blocks, whose hints are added into the main stream after the
+    blocks named by ``vace_layers`` (every ``num_layers // 8``-th by default)."""
+
+    def __init__(self, cfg: WanConfig, *, dtype=torch.bfloat16):
+        if not cfg.vace_layers:
+            cfg = dataclasses.replace(cfg, vace_layers=tuple(range(0, cfg.num_layers, max(1, cfg.num_layers // 8))))
+        super().__init__(cfg, dtype=dtype)
+        self.vace_patch_embedding = Linear(cfg.vace_in_channels * int(np.prod(cfg.patch_size)), cfg.dim, dtype=dtype)
+        self.vace_blocks = nn.ModuleList([WanVACEBlock(cfg, first=(i == 0), dtype=dtype)
+                                          for i in range(len(cfg.vace_layers))])
+
+    def patchify_control(self, control: torch.Tensor) -> torch.Tensor:
+        return _patchify(control, self.cfg.patch_size)
+
+    def forward(self, x, t, context, control=None, control_scale=None, context_image=None):
+        _, _, tt, hh, ww = x.shape
+        tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin = self._prepare_cond(x, t, context, context_image)
+        hint_by_layer = {}
+        if control is not None:
+            ctl = self.vace_patch_embedding(self.patchify_control(control).to(self.dtype))
+            if ctl.shape[1] < tokens.shape[1]:  # zero-padded to the main sequence
+                ctl = F.pad(ctl, (0, 0, 0, tokens.shape[1] - ctl.shape[1]))
+            if control_scale is None:
+                control_scale = torch.ones(len(self.vace_blocks), dtype=torch.float32, device=tokens.device)
+            hints = []
+            for vb in self.vace_blocks:
+                hint, ctl = vb.run_control(tokens, ctx, ctl, temb6, rope_cos, rope_sin)
+                hints.append(hint)
+            hint_by_layer = {layer: j for j, layer in enumerate(self.cfg.vace_layers)}
+        for i, blk in enumerate(self.blocks):
+            tokens = blk(tokens, ctx, temb6, rope_cos, rope_sin, context_image=ctx_img)
+            if i in hint_by_layer:
+                j = hint_by_layer[i]
+                tokens = tokens + hints[j] * control_scale[j].to(tokens.dtype)
+        return self._finalize(tokens, temb, tt, hh, ww)
+
+
+# -- Fun / Phantom variant --------------------------------------------------------------
+
+
+@transformer_registry.register(
+    "wan.fun", aliases=("wan_fun", "wan.phantom", "WanFunTransformer3DModel", "Wan2_2FunTransformerModel"))
+class WanFunTransformer3DModel(WanTransformer3DModel):
+    """Wan with subject-reference tokens (the fun / fun_control / phantom
+    engines): the references' latents, zero-padded to the input's channels,
+    are appended in time, patch-embedded with the shared embedding (RoPE over
+    T + T_ref frames) and sliced off before the output projection."""
+
+    def forward(self, x, t, context, subject_ref=None, context_image=None):
+        if subject_ref is None:
+            return super().forward(x, t, context, context_image)
+        b, c, tt, hh, ww = x.shape
+        if subject_ref.shape[1] < c:
+            subject_ref = F.pad(subject_ref, (0, 0, 0, 0, 0, 0, 0, c - subject_ref.shape[1]))
+        xr = torch.cat([x, subject_ref.to(x.dtype)], dim=2)
+        tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin = self._prepare_cond(xr, t, context, context_image)
+        for blk in self.blocks:
+            tokens = blk(tokens, ctx, temb6, rope_cos, rope_sin, context_image=ctx_img)
+        pt, ph, pw = self.cfg.patch_size
+        tokens = tokens[:, :(tt // pt) * (hh // ph) * (ww // pw)]
         return self._finalize(tokens, temb, tt, hh, ww)

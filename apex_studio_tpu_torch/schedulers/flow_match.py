@@ -3,13 +3,18 @@
 - ``FlowMatchEulerDiscreteScheduler``: diffusers-config-compatible, with static
   or dynamic (resolution-dependent) time shifting (Flux);
 - ``FlowMatchDiscreteScheduler``: HunyuanVideo's, linspace(1→0, n+1) then the
-  SD3 shift.
+  SD3 shift;
+- ``FlowMatchScheduler``: Wan's, with a ``sigma_min`` floor and the
+  ``extra_one_step`` grid (the causal Self-Forcing manifest's scheduler), and
+  ``FlowMatchPairScheduler``, the same with an exponential shift and a
+  (visual, audio) pairing interface.
 
-Both integrate dx/dsigma = v with Euler steps: x ← x + (σ_next − σ)·v.
+All of them integrate dx/dsigma = v with Euler steps: x ← x + (σ_next − σ)·v.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -183,3 +188,138 @@ class FlowMatchDiscreteScheduler(SchedulerBase):
         return _euler_step(
             sample, model_output, float(self.sigmas[step_index]), float(self.sigmas[step_index + 1])
         )
+
+
+@scheduler_registry.register("FlowMatchScheduler")
+class FlowMatchScheduler(SchedulerBase):
+    """Wan's flow sampler with a ``sigma_min`` floor and ``extra_one_step`` grids."""
+
+    def __init__(
+        self,
+        num_inference_steps: int = 100,
+        num_train_timesteps: int = 1000,
+        shift: float = 3.0,
+        sigma_max: float = 1.0,
+        sigma_min: float = 0.003 / 1.002,
+        inverse_timesteps: bool = False,
+        extra_one_step: bool = False,
+        reverse_sigmas: bool = False,
+        **_: object,
+    ):
+        super().__init__(num_train_timesteps=num_train_timesteps, shift=shift, sigma_max=sigma_max,
+                         sigma_min=sigma_min, inverse_timesteps=inverse_timesteps,
+                         extra_one_step=extra_one_step, reverse_sigmas=reverse_sigmas)
+        self.num_train_timesteps = num_train_timesteps
+        self.shift = shift
+        self.sigma_max = sigma_max
+        self.sigma_min = sigma_min
+        self.inverse_timesteps = inverse_timesteps
+        self.extra_one_step = extra_one_step
+        self.reverse_sigmas = reverse_sigmas
+        self.set_timesteps(num_inference_steps)
+
+    def _grid(self, num_inference_steps: int, denoising_strength: float) -> np.ndarray:
+        sigma_start = self.sigma_min + (self.sigma_max - self.sigma_min) * denoising_strength
+        if self.extra_one_step:
+            grid = np.linspace(sigma_start, self.sigma_min, num_inference_steps + 1, dtype=np.float64)[:-1]
+        else:
+            grid = np.linspace(sigma_start, self.sigma_min, num_inference_steps, dtype=np.float64)
+        return grid[::-1] if self.inverse_timesteps else grid
+
+    @property
+    def _terminal(self) -> float:
+        return 1.0 if (self.inverse_timesteps or self.reverse_sigmas) else 0.0
+
+    def _set_grid(self, num_inference_steps: int, grid: np.ndarray) -> None:
+        if self.reverse_sigmas:
+            grid = 1.0 - grid
+        self.num_inference_steps = num_inference_steps
+        self.sigmas = np.concatenate([grid, [self._terminal]])
+        self.timesteps = (grid * self.num_train_timesteps).astype(np.float32)
+        self._step_index = None
+
+    def set_timesteps(self, num_inference_steps: int = 100, denoising_strength: float = 1.0,
+                      shift: Optional[float] = None, **_: object) -> None:
+        grid = shift_sigmas(self._grid(num_inference_steps, denoising_strength),
+                            shift if shift is not None else self.shift)
+        self._set_grid(num_inference_steps, grid)
+
+    def step(self, model_output, timestep, sample, to_final: bool = False, **_: object):
+        i = self.index_for_timestep(float(np.asarray(timestep).reshape(-1)[0]))
+        sigma = float(self.sigmas[i])
+        sigma_next = self._terminal if (to_final or i + 1 >= len(self.timesteps)) else float(self.sigmas[i + 1])
+        return (_euler_step(sample, model_output, sigma, sigma_next),)
+
+    def step_at(self, model_output, sample, step_index: int):
+        return _euler_step(sample, model_output, float(self.sigmas[step_index]),
+                                float(self.sigmas[step_index + 1]))
+
+
+@scheduler_registry.register("FlowMatchPairScheduler")
+class FlowMatchPairScheduler(FlowMatchScheduler):
+    """``FlowMatchScheduler`` with an optional exponential shift
+    (σ' = e^μ / (e^μ + 1/σ − 1)) and a (t_visual, t_audio) pairing interface
+    for joint audio-video engines: ``get_pairs()`` returns [N, 2] rows of
+    (t, t), or of sigmas; the named postprocess ``dual_sigma_shift`` re-shifts
+    each column with its own shift and denoising strength."""
+
+    def __init__(self, *args, exponential_shift: bool = False, exponential_shift_mu: Optional[float] = None,
+                 shift_terminal: Optional[float] = None, **kw):
+        self.exponential_shift = exponential_shift
+        self.exponential_shift_mu = exponential_shift_mu
+        self.shift_terminal = shift_terminal
+        self._pair_postprocess = None
+        super().__init__(*args, **kw)
+
+    def set_timesteps(self, num_inference_steps: int = 100, denoising_strength: float = 1.0,
+                      shift: Optional[float] = None, **kw) -> None:
+        if not (self.exponential_shift and self.exponential_shift_mu is not None):
+            return super().set_timesteps(num_inference_steps, denoising_strength, shift, **kw)
+        mu = self.exponential_shift_mu
+        grid = math.exp(mu) / (math.exp(mu) + (1.0 / self._grid(num_inference_steps, denoising_strength) - 1.0))
+        if self.shift_terminal is not None:
+            one_minus = 1.0 - grid
+            grid = 1.0 - one_minus / (one_minus[-1] / (1.0 - self.shift_terminal))
+        self._set_grid(num_inference_steps, grid)
+
+    def set_pair_postprocess(self, fn) -> None:
+        if fn is not None and not callable(fn):
+            raise TypeError("pair_postprocess must be callable or None")
+        self._pair_postprocess = fn
+
+    def set_pair_postprocess_by_name(self, name: Optional[str], **kw) -> None:
+        if name is None or str(name).lower() in ("none", "off", "false", "no"):
+            self._pair_postprocess = None
+            return
+        if name != "dual_sigma_shift":
+            raise ValueError(f"unknown pair postprocess {name!r}")
+        shifts = (float(kw.get("visual_shift", self.shift)), float(kw.get("audio_shift", self.shift)))
+        strengths = (float(kw.get("visual_denoising_strength", 1.0)),
+                     float(kw.get("audio_denoising_strength", 1.0)))
+
+        def column(shift, strength, n):
+            s = FlowMatchScheduler(num_inference_steps=n, num_train_timesteps=self.num_train_timesteps,
+                                   shift=shift, sigma_max=self.sigma_max, sigma_min=self.sigma_min,
+                                   inverse_timesteps=self.inverse_timesteps, extra_one_step=self.extra_one_step,
+                                   reverse_sigmas=self.reverse_sigmas)
+            s.set_timesteps(n, denoising_strength=strength)
+            return s
+
+        def fn(pairs: np.ndarray, source: str = "timesteps") -> np.ndarray:
+            n = pairs.shape[0]
+            cols = [column(sh, st, n) for sh, st in zip(shifts, strengths)]
+            if source == "sigmas":
+                return np.stack([c.sigmas[:n] for c in cols], axis=1)
+            return np.stack([c.timesteps[:n] for c in cols], axis=1)
+
+        self._pair_postprocess = fn
+
+    def get_pairs(self, source: str = "timesteps") -> np.ndarray:
+        base = self.sigmas[:-1] if source == "sigmas" else self.timesteps
+        pairs = np.stack([base, base], axis=1).astype(np.float64)
+        if self._pair_postprocess is not None:
+            out = np.asarray(self._pair_postprocess(pairs, source=source))
+            if out.shape != pairs.shape:
+                raise ValueError("pair postprocess changed the pairs shape")
+            return out
+        return pairs

@@ -73,6 +73,25 @@ Phases, each printed as one JSON line:
              (3 steps, 36-channel DiT, the VAE encode at T = 81); one bf16 t2i
              request (4 steps, no Linear quantized); the point mask and its
              tracking on eight 480x832 frames
+  wan_edit   the Wan editing engines from their manifests at 480x832, full
+             width and depth, the 14B DiTs int4-resident (UMT5-XXL int8, CLIP
+             ViT-H bf16), with the published configs the manifests lack
+             written into the run's home: 2-block VACE, Fun and causal DiTs
+             at full width and the CLIP vision tower on the card against the
+             CPU; VACE (Wan 2.1 14B) at 81 frames with a point-masked control
+             video and one reference image (34,320 tokens, 2 CFG steps, 192
+             launches a step), seeds 0, 0, 1 (1 and 2 identical, the
+             reference frame dropped before the decode); Wan 2.1 i2v with
+             the CLIP branch at 81 frames (240 launches a step); fflf, inp and
+             v2v on the A14B experts at 33 frames (3 steps, the switch at
+             0.875), fun_vace, phantom (two subject references) and
+             fun_control at 33 frames (2 steps); SVI as two 33-frame segments
+  wan_causal the Self-Forcing manifest (1.3B causal DiT bf16) at its defaults:
+             81 frames as 7 blocks of 3 latent frames, 4 steps and a commit
+             each (60 launches a forward, each block against the whole
+             32,760-row cache with a [1, Sk] bias); seeds 0, 0, 1, then a
+             local window with a sink and an image pre-fill; the cache read
+             before every block holds exactly the committed blocks
   server     the port's engine server (create_app on the card, 127.0.0.1, an
              ephemeral port) over HTTP and WS: ZImage Turbo requests at the
              manifest's defaults (1024², 9 steps, int8) through /engine/run,
@@ -97,8 +116,11 @@ at 30 heads and its 128-token caption block, and Qwen3's one-row decode
 against Sk = 300 with a [1, Sk] bias and a ragged Sk = 437 with a [2, Sk] bias,
 QwenImage's joint lengths at 24 heads (the edit request's, a ragged 8256,
 edit_plus's and t2i's), and Wan's at 40 heads (self-attention over 1560, 4096
-and 32,760 tokens, and each one's cross-attention over 512 text rows); the
-timing phase times each beside its bound and the library call.
+and 32,760 tokens, and each one's cross-attention over 512 text rows), and
+the editing paths' (VACE's 34,320 tokens, the CLIP image cross-attention over
+257 and 514 keys, the Self-Forcing block of 4680 queries against 32,760 cache
+rows with a [1, Sk] bias at its first and last block and with a window and a
+sink); the timing phase times each beside its bound and the library call.
 Then a ``wall`` line, a ``kernels`` line, the card and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -116,6 +138,7 @@ import json
 import math
 import os
 import shutil
+import re
 import statistics
 import subprocess
 import sys
@@ -138,7 +161,7 @@ STEPS = 4
 SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
-                  "qwenimage,wan,prompt_extension,rife")
+                  "qwenimage,wan,wan_edit,wan_causal,prompt_extension,rife")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -240,6 +263,43 @@ WAN_I2V_TRANSFORMER = {"_class_name": "WanTransformer3DModel", "patch_size": [1,
                        "num_layers": 40, "cross_attn_norm": True, "qk_norm": "rms_norm_across_heads",
                        "eps": 1e-6, "image_dim": None, "added_kv_proj_dim": None, "rope_max_seq_len": 1024,
                        "pos_embed_seq_len": None}
+WAN21_I2V_MANIFEST = REPO / "manifests" / "video" / "wan-2.1-14b-image-to-video-480p.yml"
+WAN_VACE_MANIFEST = REPO / "manifests" / "video" / "wan-2.1-14b-vace.yml"
+WAN_FFLF_MANIFEST = REPO / "manifests" / "video" / "wan2.2-a14b-first-frame-last-frame.yml"
+WAN_INP_MANIFEST = REPO / "manifests" / "video" / "wan2.2-a14b-video-inpaint.yml"
+WAN_V2V_MANIFEST = REPO / "manifests" / "video" / "wan2.2-a14b-video-to-video.yml"
+WAN_FUN_VACE_MANIFEST = REPO / "manifests" / "video" / "wan2.2-fun-a14b-vace.yml"
+WAN_PHANTOM_MANIFEST = REPO / "manifests" / "video" / "wan-2.1-14b-phantom.yml"
+WAN_FUN_CONTROL_MANIFEST = REPO / "manifests" / "video" / "wan-2.2-fun-a14b-control.yml"
+WAN_SVI_MANIFEST = REPO / "manifests" / "video" / "wan2.2-a14b-stable-video-infinity.yml"
+WAN_CAUSAL_MANIFEST = REPO / "manifests" / "video" / "wan-causal-self-forcing.yml"
+# VACE at 81 frames plus one reference frame: 22 latent frames of 1560 tokens;
+# a Self-Forcing block: 3 latent frames; 257 CLIP tokens (16 x 16 patches + class)
+WAN_EDIT_TOKENS = {"vace": 22 * 1560, "causal_block": 3 * 1560}
+VACE_LAYERS, CAUSAL_LAYERS, CAUSAL_HEADS, CLIP_TOKENS = 8, 30, 12, 257
+# CLIP ViT-H in f32 on the card (TF32 off) against the CPU through 31 layers:
+# the same sums in another order. In bf16, the manifests' precision, its
+# penultimate states read 1.0% from f32 on the card: twice that is the limit
+# (bf16's 8 bits through 31 layers, above the 2-block DiTs' BF16_REL_L2).
+CLIP_F32_REL_L2, CLIP_BF16_REL_L2 = 1e-3, 2e-2
+_WAN14B = {"_class_name": "WanTransformer3DModel", "patch_size": [1, 2, 2], "num_attention_heads": 40,
+           "attention_head_dim": 128, "in_channels": 16, "out_channels": 16, "text_dim": 4096, "freq_dim": 256,
+           "ffn_dim": 13824, "num_layers": 40, "cross_attn_norm": True, "qk_norm": "rms_norm_across_heads",
+           "eps": 1e-6, "image_dim": None, "added_kv_proj_dim": None, "rope_max_seq_len": 1024}
+# Wan-AI/Wan2.1-I2V-14B-480P-Diffusers transformer/config.json
+WAN21_I2V_TRANSFORMER = dict(_WAN14B, in_channels=36, image_dim=1280, added_kv_proj_dim=5120)
+# Wan-AI/Wan2.1-VACE-14B-diffusers transformer/config.json (the Fun-VACE manifest's too)
+WAN_VACE_TRANSFORMER = dict(_WAN14B, _class_name="WanVACETransformer3DModel", vace_layers=list(range(0, 40, 5)),
+                            vace_in_channels=96)
+# the Fun-Control manifest names the T2V experts (16 channels); the engine packs
+# 16 noise + 16 control-video channels (ROADMAP Queue 3)
+WAN_FUN_CONTROL_TRANSFORMER = dict(_WAN14B, in_channels=32)
+# gdhe17/Self-Forcing (Wan-AI/Wan2.1-T2V-1.3B's DiT): dim 1536, 30 layers
+SELF_FORCING_TRANSFORMER = dict(_WAN14B, num_attention_heads=12, ffn_dim=8960, num_layers=30)
+# Wan-AI/Wan2.1-I2V-14B-480P-Diffusers image_encoder/config.json (CLIP ViT-H/14)
+CLIP_VISION_H = {"_class_name": "CLIPVisionModelWithProjection", "hidden_size": 1280, "intermediate_size": 5120,
+                 "num_hidden_layers": 32, "num_attention_heads": 16, "image_size": 224, "patch_size": 14,
+                 "hidden_act": "gelu", "layer_norm_eps": 1e-5, "projection_dim": 1024}
 # google/byt5-small config.json (the manifest's glyph encoder)
 BYT5_SMALL = {"model_type": "t5", "d_model": 1472, "d_ff": 3584, "d_kv": 64, "num_heads": 6,
               "num_layers": 12, "vocab_size": 384, "relative_attention_num_buckets": 32,
@@ -421,6 +481,8 @@ def phase_kernels():
         run_case(name, q, k, v, reference=lambda *a: plain_in_row_chunks(*a, rows=1024))
         del q, k, v
         release()
+    # the Wan editing and causal paths' new shapes
+    wan_edit_kernel_cases(run_case)
     emit({"phase": "kernels", "cases": cases})
     bad = [c["case"] for c in cases if not c["ok"]]
     check(not bad, f"flash kernel disagrees with its plain version: {bad}")
@@ -450,25 +512,45 @@ def zimage_kernel_inputs():
     yield ("qwen3_decode_sq1_sk437_bias_b2", *qkv(2, 1, 437, QWEN3_HEADS, 128, 34), prefix(437, [400, 437]))
 
 
+def attention_bound(q, k, bias):
+    """The least time attention over these inputs needs: the larger of
+    4·H·Sq·D flops per (batch row, key) at the bf16 peak, and q and o, the
+    bias and each batch row's K/V rows moved once at the memory rate. A key
+    whose bias is the -1e30 mask (exp of it is 0) does no work and need not
+    be read, so only the keys each batch row keeps count. Returns the bound,
+    what binds it, flops, bytes, the keys counted and the bound over every
+    key as launched."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    kept = float(b * sk) if bias is None else float(
+        (bias.reshape(bias.shape[0], -1) > -1e29).sum().item() * (b // bias.shape[0]))
+    bias_bytes = bias.numel() * 4 if bias is not None else 0
+
+    def bound(keys):
+        flops = 4.0 * h * sq * d * keys
+        # q read and o written once, each kept key's K and V rows read once
+        nbytes = (2 * b * sq + 2 * keys) * h * d * q.element_size() + bias_bytes
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
+
+    bound_ms, bound_by, flops, nbytes = bound(kept)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes, "keys_kept": kept,
+            "bound_ms_as_launched": bound(float(b * sk))[0]}
+
+
 def timing_row(q, k, v, bias, kernel_ms, plain_ms, library_ms, kernel_queued_ms, library_queued_ms,
                case=None):
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    flops = 4.0 * b * h * sq * sk * d
-    # q, k, v (and the bias) read once, o written once
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
-        bias.numel() * 4 if bias is not None else 0)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    out = {"phase": "timing", "kernel": "flash_attention", "case": case, "shape": list(q.shape), "sk": sk,
+    work = attention_bound(q, k, bias)
+    bound_ms = work["bound_ms"]
+    out = {"phase": "timing", "kernel": "flash_attention", "case": case, "shape": list(q.shape), "sk": k.shape[1],
            "bias": bias is not None, "ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
-           "library_call": "torch.nn.functional.scaled_dot_product_attention",
-           "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_call": "torch.nn.functional.scaled_dot_product_attention", **work,
            "of_bound": bound_ms / kernel_ms, "vs_library": kernel_ms / library_ms,
            "queued_ms": kernel_queued_ms, "library_queued_ms": library_queued_ms,
            "queued_of_bound": bound_ms / kernel_queued_ms,
-           "flops": flops, "bytes": nbytes, "tflops_achieved": flops / kernel_ms / 1e9,
+           "tflops_achieved": work["flops"] / kernel_ms / 1e9,
            "blocks": -(-sq // 128) * b * h}
     emit(out)
     return out
@@ -544,7 +626,7 @@ def phase_timing():
         queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
     del q, k, v, qt, kt, vt
     release()
-    return flux_row, zimage_timing_rows() + qwenimage_timing_rows() + wan_timing_rows()
+    return flux_row, zimage_timing_rows() + qwenimage_timing_rows() + wan_timing_rows() + wan_edit_timing_rows()
 
 
 # -- tiny reference ----------------------------------------------------------------------
@@ -1200,19 +1282,16 @@ def hyv15_kernel_rows():
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=reps)
         kernel_q = queued_ms(lambda: flash_attention(q, k, v, bias=bias), calls=reps)
         library_q = queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), calls=reps)
-        flops = 4.0 * HYV15_HEADS * s * s * 128
-        nbytes = 4 * q.numel() * q.element_size() + (s * 4 if bias is not None else 0)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
+        work = attention_bound(q, k, bias)
+        bound_ms = work["bound_ms"]
         row = {"phase": "timing", "kernel": "flash_attention", "case": f"hyv15_{name}",
                "shape": list(q.shape), "sk": s, "bias": bias is not None, "ms": kernel_ms,
                "queued_ms": kernel_q, "plain_ms_first_rows": plain_ms,
                "plain_rows": plain_rows.stop - plain_rows.start, "library_ms": library_ms,
                "library_queued_ms": library_q,
-               "library_call": "torch.nn.functional.scaled_dot_product_attention",
-               "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_call": "torch.nn.functional.scaled_dot_product_attention", **work,
                "of_bound": bound_ms / kernel_ms, "vs_library": kernel_ms / library_ms,
-               "queued_of_bound": bound_ms / kernel_q, "flops": flops, "bytes": nbytes,
+               "queued_of_bound": bound_ms / kernel_q,
                "blocks": -(-s // 128) * HYV15_HEADS}
         emit(row)
         rows.append(row)
@@ -1500,37 +1579,15 @@ def zimage_reference():
     import numpy as np
     import torch
 
-    from apex_studio_tpu_torch.engine.base import materialize_random
     from apex_studio_tpu_torch.models.transformers.zimage import ZImageConfig, ZImageTransformer2DModel
 
-    cfg = ZImageConfig(n_layers=2, n_refiner_layers=2)
-    f32 = materialize_random(lambda: ZImageTransformer2DModel(cfg, dtype=torch.float32), torch.device("cuda"),
-                             seed=21)
-    with torch.no_grad():
-        for prm in f32.parameters():  # both sides hold the same (bf16-representable) weights
-            prm.copy_(prm.to(torch.bfloat16).float())
-    card = materialize_random(lambda: ZImageTransformer2DModel(cfg, dtype=torch.bfloat16), torch.device("cuda"),
-                              seed=0)
-    card.load_state_dict(f32.state_dict())
-    cpu = f32.to("cpu")
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(1, 16, 1, 30, 34)).astype(np.float32))
-    t = torch.tensor([0.6])
     cap = torch.from_numpy(rng.normal(size=(1, 64, 2560)).astype(np.float32))
-    mask = torch.arange(64)[None] < 50
-    with torch.inference_mode():
-        ref = cpu(x, t, cap, mask)
-        out = card(x.cuda(), t.cuda(), cap.cuda(), mask.cuda()).float().cpu()
-    rel = rel_l2(out, ref)
-    finite = bool(torch.isfinite(out).all())
-    emit({"phase": "zimage", "check": "card_bf16_vs_cpu_f32",
-          "model": "zimage dim 3840, 30 heads, 2 + 2 refiner blocks, 2 layers",
-          "parameters": sum(p.numel() for p in cpu.parameters()), "image_tokens": 255, "caption_bucket": 64,
-          "rel_l2": rel, "max_abs_err": (out - ref).abs().max().item(), "max_abs_ref": ref.abs().max().item(),
-          "tol_rel_l2": BF16_REL_L2, "finite": finite})
-    check(finite and rel <= BF16_REL_L2, f"the ZImage DiT on the card is {rel} from the CPU (limit {BF16_REL_L2})")
-    del f32, card, cpu
-    release()
+    card_vs_cpu("zimage dim 3840, 30 heads, 2 + 2 refiner blocks, 2 layers",
+                lambda dt: ZImageTransformer2DModel(ZImageConfig(n_layers=2, n_refiner_layers=2), dtype=dt),
+                lambda m, *a: m(*a), (x, torch.tensor([0.6]), cap, torch.arange(64)[None] < 50), BF16_REL_L2, 21,
+                phase="zimage", image_tokens=255, caption_bucket=64)
 
 
 def zimage_drive(label, manifest, weights, requests, steps, home, launches_per_step, **run_kw):
@@ -1724,15 +1781,15 @@ def qwenimage_kernel_inputs():
             yield (name, *qkv(1, s, s, QWENIMAGE_HEADS, 128, 40 + i), None)
 
 
-def plain_in_row_chunks(q, k, v, rows: int = 2048):
+def plain_in_row_chunks(q, k, v, rows: int = 2048, bias=None):
     """The plain version over query-row chunks (each row is independent of the
     others, so this is the whole plain output at a bounded score size)."""
     import torch
 
     from apex_studio_tpu_torch.ops.attention.flash import flash_attention_reference
 
-    return torch.cat([flash_attention_reference(q[:, i:i + rows], k, v) for i in range(0, q.shape[1], rows)],
-                     dim=1)
+    return torch.cat([flash_attention_reference(q[:, i:i + rows], k, v, bias=bias)
+                      for i in range(0, q.shape[1], rows)], dim=1)
 
 
 def qwenimage_timing_rows():
@@ -1765,21 +1822,11 @@ def qwenimage_reference():
     import numpy as np
     import torch
 
-    from apex_studio_tpu_torch.engine.base import materialize_random
     from apex_studio_tpu_torch.models.transformers import qwenimage
 
-    def pair(build, seed):
-        f32 = materialize_random(lambda: build(torch.float32), torch.device("cuda"), seed=seed)
-        with torch.no_grad():
-            for prm in f32.parameters():  # both sides hold the same (bf16-representable) weights
-                prm.copy_(prm.to(torch.bfloat16).float())
-        card = materialize_random(lambda: build(torch.bfloat16), torch.device("cuda"), seed=0)
-        card.load_state_dict(f32.state_dict())
-        return f32.to("cpu"), card
-
-    dit_cpu, dit = pair(lambda dt: qwenimage.QwenImageTransformer2DModel(
+    dit_cpu, dit = bf16_card_and_f32_cpu(lambda dt: qwenimage.QwenImageTransformer2DModel(
         qwenimage.QwenImageConfig(num_layers=2), dtype=dt), 22)
-    cn_cpu, cn = pair(lambda dt: qwenimage.QwenImageControlNetModel(
+    cn_cpu, cn = bf16_card_and_f32_cpu(lambda dt: qwenimage.QwenImageControlNetModel(
         qwenimage.QwenImageControlNetConfig(num_layers=2), dtype=dt), 23)
     rng = np.random.default_rng(0)
     grid = (12, 14)
@@ -2109,39 +2156,16 @@ def wan_reference():
     import numpy as np
     import torch
 
-    from apex_studio_tpu_torch.engine.base import materialize_random
     from apex_studio_tpu_torch.models.transformers.wan import WanConfig, WanTransformer3DModel
 
-    cfg = WanConfig(num_layers=2)
-    f32 = materialize_random(lambda: WanTransformer3DModel(cfg, dtype=torch.float32), torch.device("cuda"),
-                             seed=24)
-    with torch.no_grad():
-        for prm in f32.parameters():  # both sides hold the same (bf16-representable) weights
-            prm.copy_(prm.to(torch.bfloat16).float())
-    card = materialize_random(lambda: WanTransformer3DModel(cfg, dtype=torch.bfloat16), torch.device("cuda"),
-                              seed=0)
-    card.load_state_dict(f32.state_dict())
-    cpu = f32.to("cpu")
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(1, 16, 1, 60, 104)).astype(np.float32))
     ctx = torch.from_numpy(rng.normal(size=(1, WAN_TEXT_TOKENS, 4096)).astype(np.float32))
     ctx[:, 40:] = 0.0  # zeroed padding, as encode_prompt hands it over
-    t = torch.tensor([731.0])
-    with torch.inference_mode():
-        t0 = time.perf_counter()
-        ref = cpu(x, t, ctx)
-        cpu_s = time.perf_counter() - t0
-        out = card(x.cuda(), t.cuda(), ctx.cuda()).float().cpu()
-    row = {"phase": "wan", "check": "card_bf16_vs_cpu_f32", "model": "wan dim 5120, 40 heads, FFN 13824, 2 blocks",
-           "parameters": sum(p.numel() for p in cpu.parameters()), "tokens": WAN_TOKENS["frame"],
-           "text_rows": WAN_TEXT_TOKENS, "rel_l2": rel_l2(out, ref), "max_abs_err": (out - ref).abs().max().item(),
-           "max_abs_ref": ref.abs().max().item(), "finite": bool(torch.isfinite(out).all()),
-           "tol_rel_l2": BF16_REL_L2, "cpu_seconds": cpu_s}
-    emit(row)
-    check(row["finite"] and row["rel_l2"] <= BF16_REL_L2,
-          f"the Wan forward on the card is {row['rel_l2']} from the CPU (limit {BF16_REL_L2})")
-    del cpu, card, f32
-    release()
+    card_vs_cpu("wan dim 5120, 40 heads, FFN 13824, 2 blocks",
+                lambda dt: WanTransformer3DModel(WanConfig(num_layers=2), dtype=dt), lambda m, *a: m(*a),
+                (x, torch.tensor([731.0]), ctx), BF16_REL_L2, 24, phase="wan", tokens=WAN_TOKENS["frame"],
+                text_rows=WAN_TEXT_TOKENS)
 
 
 def wan_unipc_check():
@@ -2468,6 +2492,566 @@ def phase_wan(home: Path, kernel_rows=()):
     release()
     wan_point_mask()
     return paths, linear_rows
+
+
+# -- Wan editing and long video ----------------------------------------------------------------
+
+
+def wan_edit_kernel_inputs():
+    """(case, q, k, v, bias) at the shapes the editing and causal paths give
+    the kernel that no earlier path did: VACE's self- and cross-attention over
+    81 frames plus a reference frame (34,320 tokens, 40 heads); Wan 2.1 i2v's
+    image cross-attention over 257 CLIP tokens and first–last frame's over
+    514 (at 32,760 queries); the Self-Forcing block of 3 latent frames (4680
+    queries, 12 heads) against the whole 81-frame cache (32,760 keys) with a
+    [1, Sk] validity bias, at the first block, the last, and a local window
+    of 6 frames plus a 1-frame sink (whole key tiles masked), and its
+    cross-attention over the 512 text rows."""
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers.wan import WanCausalTransformer3DModel
+    from apex_studio_tpu_torch.ops.attention import _prep_bias
+
+    s, frame, blk = WAN_EDIT_TOKENS["vace"], WAN_TOKENS["frame"], WAN_EDIT_TOKENS["causal_block"]
+    yield (f"wan_vace_self_s{s}_h40", *qkv(1, s, s, WAN_HEADS, 128, 70), None)
+    yield (f"wan_vace_cross_sq{s}_sk{WAN_TEXT_TOKENS}_h40", *qkv(1, s, WAN_TEXT_TOKENS, WAN_HEADS, 128, 71), None)
+    clip = WAN_TOKENS["clip"]
+    yield (f"wan21_image_cross_sq{clip}_sk{CLIP_TOKENS}_h40", *qkv(1, clip, CLIP_TOKENS, WAN_HEADS, 128, 72), None)
+    yield (f"wan_fflf_image_cross_sq{clip}_sk{2 * CLIP_TOKENS}_h40",
+           *qkv(1, clip, 2 * CLIP_TOKENS, WAN_HEADS, 128, 73), None)
+    masks = {"first_block": dict(cache_pos=0), "last_block": dict(cache_pos=clip - blk),
+             "window6_sink1": dict(cache_pos=clip - blk, local_tokens=6 * frame, sink_tokens=frame)}
+    for i, (name, kw) in enumerate(masks.items()):
+        mask = WanCausalTransformer3DModel.causal_mask(1, clip, n_new=blk, device="cuda", **kw)
+        yield (f"wan_causal_{name}_sq{blk}_sk{clip}_bias_h{CAUSAL_HEADS}",
+               *qkv(1, blk, clip, CAUSAL_HEADS, 128, 74 + i), _prep_bias(None, mask).reshape(1, clip))
+    yield (f"wan_causal_cross_sq{blk}_sk{WAN_TEXT_TOKENS}_h{CAUSAL_HEADS}",
+           *qkv(1, blk, WAN_TEXT_TOKENS, CAUSAL_HEADS, 128, 77), None)
+
+
+def wan_edit_kernel_cases(run_case):
+    """The kernel at every ``wan_edit_kernel_inputs`` shape against its plain
+    version in 1024-row chunks; a biased case also against the plain version
+    over its valid keys alone (masked keys, whole tiles of them included,
+    must count for nothing)."""
+    import torch
+
+    for name, q, k, v, bias in wan_edit_kernel_inputs():
+        _, ref = run_case(name, q, k, v, bias=bias,
+                          reference=lambda q, k, v, b=bias: plain_in_row_chunks(q, k, v, rows=1024, bias=b))
+        if bias is not None:
+            keep = bias[0] == 0
+            run_case(f"{name}_vs_valid_keys_only", q, k, v, bias=bias,
+                     reference=lambda q, k, v, m=keep: plain_in_row_chunks(q, k[:, m], v[:, m], rows=1024))
+        del q, k, v, ref
+        release()
+
+
+def wan_edit_timing_rows():
+    """The kernel at the ``wan_edit_kernel_inputs`` shapes beside its plain
+    version (1024-row chunks), the library call (the bias as its mask) and its
+    bound."""
+    import torch.nn.functional as F
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    rows = []
+    for name, q, k, v, bias in wan_edit_kernel_inputs():
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = library_mask(bias)
+        reps = 10 if q.shape[1] * k.shape[1] > 1 << 22 else 25
+        rows.append(timing_row(
+            q, k, v, bias, time_ms(lambda: flash_attention(q, k, v, bias=bias), reps=reps),
+            time_ms(lambda: plain_in_row_chunks(q, k, v, rows=1024, bias=bias), reps=3, warmup=1),
+            time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=reps),
+            queued_ms(lambda: flash_attention(q, k, v, bias=bias)),
+            queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)), case=name))
+        del q, k, v, qt, kt, vt
+        release()
+    return rows
+
+
+def bf16_card_and_f32_cpu(build, seed):
+    """``build(dtype)`` twice from one seed: in f32 on the CPU and in bf16 on
+    the card, both holding the same (bf16-representable) weights."""
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+
+    f32 = materialize_random(lambda: build(torch.float32), torch.device("cuda"), seed=seed)
+    with torch.no_grad():
+        for prm in f32.parameters():
+            prm.copy_(prm.to(torch.bfloat16).float())
+    card = materialize_random(lambda: build(torch.bfloat16), torch.device("cuda"), seed=0)
+    card.load_state_dict(f32.state_dict())
+    return f32.to("cpu"), card
+
+
+def card_vs_cpu(label, build, forward, inputs, tol, seed, phase="wan_edit", **extra):
+    """``forward(model, *inputs)`` on ``bf16_card_and_f32_cpu(build, seed)``:
+    relative L2 of the card's output against the CPU's, within ``tol``."""
+    import torch
+
+    cpu, card = bf16_card_and_f32_cpu(build, seed)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = forward(cpu, *inputs)
+        cpu_s = time.perf_counter() - t0
+        out = forward(card, *(x.cuda() if isinstance(x, torch.Tensor) else x for x in inputs)).float().cpu()
+    row = {"phase": phase, "check": "card_bf16_vs_cpu_f32", "model": label,
+           "parameters": sum(p.numel() for p in cpu.parameters()), **extra, "rel_l2": rel_l2(out, ref),
+           "max_abs_err": (out - ref).abs().max().item(), "max_abs_ref": ref.abs().max().item(),
+           "finite": bool(torch.isfinite(out).all()), "tol_rel_l2": tol, "cpu_seconds": cpu_s}
+    emit(row)
+    check(row["finite"] and row["rel_l2"] <= tol, f"{label} on the card is {row['rel_l2']} from the CPU (limit {tol})")
+    del cpu, card
+    release()
+    return row
+
+
+def wan_edit_reference():
+    """The new DiT variants at full width with 2 blocks, card (bf16, kernel)
+    against CPU (f32, plain version) within BF16_REL_L2: VACE (dim 5120, both
+    blocks hinted, a 96-channel control), Fun (a one-frame subject reference
+    appended), causal (dim 1536, 12 heads: a one-frame block at the second
+    frame of a 3-frame cache with a local window and sink); over half a
+    480x832 frame (15 x 52 latent pixels, 390 tokens a frame) and 512 text
+    rows of which 40 are real; and the CLIP ViT-H vision tower at 224 px,
+    card in f32 against the CPU within CLIP_F32_REL_L2, its bf16 forward's
+    distance reported."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+    from apex_studio_tpu_torch.models.transformers import wan
+
+    rng = np.random.default_rng(1)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    ctx = tensor(1, WAN_TEXT_TOKENS, 4096)
+    ctx[:, 40:] = 0.0
+    t = torch.tensor([731.0])
+    x = tensor(1, 16, 1, 30, 104)
+    card_vs_cpu("wan.vace dim 5120, 2 blocks + 2 VACE blocks",
+                lambda dt: wan.WanVACETransformer3DModel(wan.WanConfig(num_layers=2, vace_layers=(0, 1)), dtype=dt),
+                lambda m, x, t, c, ctl: m(x, t, c, control=ctl), (x, t, ctx, tensor(1, 96, 1, 30, 104)),
+                BF16_REL_L2, 25)
+    card_vs_cpu("wan.fun dim 5120, 2 blocks, one subject-reference frame",
+                lambda dt: wan.WanFunTransformer3DModel(wan.WanConfig(num_layers=2), dtype=dt),
+                lambda m, x, t, c, r: m(x, t, c, subject_ref=r), (x, t, ctx, tensor(1, 16, 1, 30, 104)),
+                BF16_REL_L2, 26)
+    causal_cfg = wan.WanConfig.from_dict({**SELF_FORCING_TRANSFORMER, "num_layers": 2})
+
+    def causal_forward(m, x, tt, c):
+        kc, vc = m.init_cache(1, 3 * 390)
+        for cache, seed in ((kc, 3), (vc, 4)):  # earlier frames' keys and values, bf16-representable
+            cache.copy_(torch.randn(cache.shape, generator=torch.Generator().manual_seed(seed)).to(torch.bfloat16))
+        rope = m.causal_rope_tables(1, 1, 15, 52, device=x.device)
+        out, _ = m.forward_causal(x, tt, c, kc, vc, 390, *rope, local_tokens=390, sink_tokens=195)
+        return out
+
+    card_vs_cpu("wan.causal dim 1536, 12 heads, 2 blocks, a block against its cache",
+                lambda dt: wan.WanCausalTransformer3DModel(causal_cfg, dtype=dt), causal_forward,
+                (x, torch.full((1, 1), 731.0), ctx), BF16_REL_L2, 27)
+    # CLIP vision: f32 on both sides (its plain route computes in f32 there), then bf16 reported
+    cfg = CLIPVisionConfig.from_dict(CLIP_VISION_H)
+    f32 = materialize_random(lambda: CLIPVisionEncoder(cfg, dtype=torch.float32), torch.device("cuda"), seed=28)
+    px = tensor(1, 3, 224, 224)
+    with torch.inference_mode():
+        card = f32(px.cuda()).cpu()
+        bf16 = materialize_random(lambda: CLIPVisionEncoder(cfg, dtype=torch.bfloat16), torch.device("cuda"), seed=0)
+        bf16.load_state_dict(f32.state_dict())
+        card_bf16 = bf16(px.cuda()).float().cpu()
+        t0 = time.perf_counter()
+        ref = f32.to("cpu")(px)
+        cpu_s = time.perf_counter() - t0
+    row = {"phase": "wan_edit", "check": "clip_vision_card_vs_cpu", "model": "CLIP ViT-H/14 vision, 32 layers",
+           "tokens": list(ref.shape), "rel_l2_f32": rel_l2(card, ref), "tol_rel_l2_f32": CLIP_F32_REL_L2,
+           "rel_l2_bf16_vs_cpu_f32": rel_l2(card_bf16, ref), "tol_rel_l2_bf16": CLIP_BF16_REL_L2,
+           "finite": bool(torch.isfinite(card_bf16).all()), "cpu_seconds": cpu_s}
+    emit(row)
+    check(tuple(ref.shape) == (1, CLIP_TOKENS, 1280) and row["finite"] and row["rel_l2_f32"] <= CLIP_F32_REL_L2
+          and row["rel_l2_bf16_vs_cpu_f32"] <= CLIP_BF16_REL_L2, f"CLIP vision on the card: {row}")
+    del f32, bf16
+    release()
+
+
+def write_component_configs(home: Path, manifest: Path, configs=None) -> None:
+    """UMT5-XXL's ``config.json`` where ``manifest``'s text encoder names it,
+    and each ``configs`` entry (component name or type → config) where that
+    component's ``config_path`` points, under ``home``'s components."""
+    import yaml
+
+    doc = yaml.safe_load(manifest.read_text())
+    for comp in doc["spec"]["components"]:
+        cfg = (configs or {}).get(comp.get("name") or comp["type"], UMT5_XXL if comp["type"] == "text_encoder"
+                                  else None)
+        if cfg is not None and comp.get("config_path"):
+            path = home / "components" / comp["config_path"]
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(cfg))
+
+
+def edit_engine(label, manifest, model_type, home, weights, configs=None, weights_by_component=None):
+    """A Wan engine as ``wan_engine`` builds it, with ``configs`` written
+    (``write_component_configs``), synthetic ``weights`` except where
+    ``weights_by_component`` (component name or type) says otherwise, and
+    observed as there (``engine.wan_smoke``)."""
+    os.environ["APEX_SYNTHETIC_WEIGHTS"] = weights
+    write_component_configs(home / label, manifest, configs)
+    engine = wan_engine(label, manifest, model_type, home)
+    instantiate = engine._instantiate_family
+
+    def per_component(registry, spec, family):
+        os.environ["APEX_SYNTHETIC_WEIGHTS"] = (weights_by_component or {}).get(
+            spec.get("name") or spec.get("type"), (weights_by_component or {}).get(spec.get("type"), weights))
+        try:
+            return instantiate(registry, spec, family)
+        finally:
+            os.environ["APEX_SYNTHETIC_WEIGHTS"] = weights
+
+    engine._instantiate_family = per_component
+    return engine
+
+
+_STEP = re.compile(r"(?:Denoising|Causal) step (\d+)/(\d+)")
+
+
+def edit_drive(label, engine, kw, launches_per_forward, expected_forwards, frames_expected, latent_t_expected):
+    """One request through ``engine``: the kernel's launch count set to 0
+    before and read after, every progress message stamped (synchronised),
+    per-step seconds, the decode's seconds and latent frames, peak GiB, the
+    frames' count and size checked. Returns (row, frames)."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    os.environ["APEX_HOME_DIR"] = str(Path(engine.components_root).parent)
+    seen = engine.wan_smoke
+    stamps, steps = [], []
+
+    def progress(p, message, *_a, **_k):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stamps.append((message, now))
+        if _STEP.fullmatch(message):
+            steps.append(now)
+
+    for v in seen.values():
+        v.clear()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    frames = engine.run(progress_callback=progress, **kw)
+    torch.cuda.synchronize()
+    total, launches = time.perf_counter() - t0, flash_attention.launches
+    first = dict(reversed(stamps))  # each message's first time
+    start = stamps[0][1]
+    denoise_end = next((t for m, t in stamps if m in ("Denoising complete", "Causal generation complete")), None)
+    # the first step counts from the last message before it (the conditioning's end)
+    before = max((t for m, t in stamps if t < steps[0] and not _STEP.fullmatch(m)), default=start)
+    per_step = [b - a for a, b in zip([before] + steps[:-1], steps)]
+    n_forwards = sum(seen["forwards"].values()) if seen["forwards"] else None
+    row = {
+        "phase": label, "model_type": engine.model_type, "request": {k: v for k, v in kw.items()
+                                                                      if isinstance(v, (int, float, str))},
+        "timesteps": [float(t) for t in engine.scheduler.timesteps],
+        "seconds_total": total, "seconds_per_step": per_step,
+        "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
+        "seconds_before_denoise": before - start,
+        "stages": {m: t - start for m, t in first.items() if not _STEP.fullmatch(m)},
+        "seconds_decode": (first.get("Completed pipeline", first.get("Completed causal pipeline", start)) - denoise_end
+                           if denoise_end else None),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "forwards_by_expert": dict(seen["forwards"]), "forwards_expected": expected_forwards,
+        "flash_launches": launches, "flash_launches_expected": launches_per_forward * sum(expected_forwards.values()),
+        "components_built": list(seen["built"]),
+        "decoded_latents": [list(z.shape) for z in seen["decoded"]],
+        "frames": len(frames), "frame_shape": list(frames[0].shape),
+        "latents_finite": all(bool(torch.isfinite(z).all()) for z in seen["decoded"]),
+    }
+    emit(row)
+    check(len(frames) == frames_expected and all(f.shape == (kw["height"], kw["width"], 3) and f.dtype == np.uint8
+                                                  for f in frames),
+          f"{label}: {len(frames)} frames of {frames[0].shape}, expected {frames_expected}")
+    check(row["latents_finite"], f"{label}: latents not finite")
+    check(all(z[2] == latent_t_expected for z in row["decoded_latents"]),
+          f"{label}: decoded latent frames {row['decoded_latents']}, expected {latent_t_expected}")
+    check(n_forwards is None or row["forwards_by_expert"] == expected_forwards,
+          f"{label}: forwards {row['forwards_by_expert']}, expected {expected_forwards}")
+    check(launches == row["flash_launches_expected"],
+          f"{label}: flash launched {launches} times, expected {row['flash_launches_expected']}")
+    return row, frames
+
+
+def a14b_forwards(engine, timesteps, kw) -> dict:
+    """Each expert's forwards over ``timesteps``: the primary while t ≥
+    boundary_ratio·1000, ``transformer_2`` after, two a step under CFG."""
+    boundary = kw.get("boundary_ratio")
+    low = sum(1 for t in timesteps if boundary is not None and float(t) < boundary * 1000)
+    g = kw.get("guidance_scale", 5.0)
+    g2 = kw.get("guidance_scale_2") if kw.get("guidance_scale_2") is not None else g
+    want = {"transformer": (len(timesteps) - low) * (1 + (g > 1.0))}
+    if low:
+        want["transformer_2"] = low * (1 + (g > 1.0 and g2 > 1.0))
+    return want
+
+
+def wan_edit_media(frames: int, seed: int):
+    """``frames`` seeded 480x832 frames of a disk moving 6 px a frame over a
+    smooth background, and the point mask of the disk on the first frame
+    tracked over the first 8 (``mask/segment.py``, as the ``wan`` phase runs
+    it), as 0/255 RGB frames."""
+    import numpy as np
+
+    from apex_studio_tpu_torch.mask import mask_from_points, track_mask
+
+    rng = np.random.default_rng(seed)
+    background = cv2_smooth(rng, (480, 832))
+    yy, xx = np.mgrid[:480, :832]
+    video = []
+    for i in range(frames):
+        img = background.copy()
+        img[(yy - 240) ** 2 + (xx - 300 - 6 * i) ** 2 <= 70 ** 2] = [200, 80, 80]
+        video.append(img)
+    m0 = mask_from_points(video[0], [{"x": 300, "y": 240}])
+    tracked = track_mask(video[:8], m0, 0, "forward")
+    masks = [np.repeat((np.asarray(tracked[i]) > 0).astype(np.uint8)[..., None] * 255, 3, axis=-1) for i in range(8)]
+    check(all(m.shape == (480, 832, 3) and m.any() for m in masks), "the tracked point mask is empty")
+    return video, masks
+
+
+def edit_step_breakdown(name, step_s, launches, kernel_rows) -> dict:
+    """A step (or forward) of ``step_s`` seconds split into attention (queued
+    kernel ms × ``launches``, {case: launches a step}) and the rest."""
+    queued = {r["case"]: r["queued_ms"] for r in kernel_rows}
+    attention_s = sum(queued[case] * n for case, n in launches.items()) / 1e3
+    row = {"phase": "wan_edit", "step_breakdown": name, "seconds": step_s, "attention_seconds": attention_s,
+           "attention_share": attention_s / step_s, "other_seconds": step_s - attention_s,
+           "launches": launches, "reckoning": "queued kernel ms x launches; other = the rest (Linears, norms, "
+                                              "RoPE, modulation, the scheduler)"}
+    emit(row)
+    return row
+
+
+def phase_wan_edit(home: Path, kernel_rows=()):
+    """The Wan editing engines from their manifests at 480x832, full width and
+    depth, the 14B DiTs int4-resident (UMT5-XXL int8, CLIP ViT-H bf16): the
+    variants' card-vs-CPU checks; VACE (Wan 2.1 14B) at 81 frames with a
+    masked control video and a reference image, 2 CFG steps, seeds 0, 0, 1;
+    Wan 2.1 i2v with CLIP at 81 frames (2 steps); then at 33 frames fflf,
+    inp (a point mask), v2v at strength 0.7 (the A14B experts, 3 steps so
+    that the switch at 0.875 falls inside), fun_vace, phantom with two
+    subject references and fun_control (2 steps each); SVI as two segments of
+    33 frames (2 steps each)."""
+    import numpy as np
+    import torch
+
+    paths = {}
+    wan_edit_reference()
+    video, masks = wan_edit_media(81, 7)
+    ref_image = cv2_smooth(np.random.default_rng(8), (480, 832))
+    # -- VACE, the headline request
+    vace_kw = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEG, video=video, mask=masks, reference_images=[ref_image],
+                   height=480, width=832, num_frames=81, num_inference_steps=2, guidance_scale=5.0)
+    engine = edit_engine("wan_vace", WAN_VACE_MANIFEST, "vace", home, "int4",
+                         {"transformer": WAN_VACE_TRANSFORMER})
+    rows, frames = [], []
+    for seed in (0, 0, 1):
+        row, f = edit_drive("wan_vace", engine, dict(vace_kw, seed=seed), 2 * WAN_LAYERS + 2 * VACE_LAYERS,
+                            {"transformer": 4}, 81, 21)
+        rows.append(row)
+        frames.append(f)
+    same = all(np.array_equal(a, b) for a, b in zip(frames[0], frames[1]))
+    differ = not np.array_equal(frames[0][40], frames[2][40])
+    emit({"phase": "wan_vace", "requests_1_2_identical": same, "requests_1_3_differ": differ,
+          "tokens": WAN_EDIT_TOKENS["vace"], "vace_layers": list(engine.transformer.cfg.vace_layers),
+          "median_seconds_per_step_after_the_first": statistics.median(t for r in rows for t in r["seconds_per_step"]),
+          "seconds_per_request": [r["seconds_total"] for r in rows]})
+    check(same, "VACE requests 1 and 2 (same inputs and seed) differ")
+    check(differ, "VACE requests 1 and 3 (other seed) are identical")
+    check(engine.transformer.cfg.vace_layers == tuple(range(0, 40, 5)), "VACE layers")
+    paths["wan_vace_81_frames"] = rows
+    del engine, frames
+    release()
+    # -- Wan 2.1 i2v with the CLIP image branch
+    clip_kw = dict(prompt=PROMPT_B, negative_prompt=WAN_NEG, image=ref_image, height=480, width=832, num_frames=81,
+                   num_inference_steps=2, guidance_scale=5.0, seed=0)
+    engine = edit_engine("wan21_i2v", WAN21_I2V_MANIFEST, "i2v", home, "int4",
+                         {"transformer": WAN21_I2V_TRANSFORMER, "image_encoder": CLIP_VISION_H},
+                         {"helper": "bf16"})
+    row, _ = edit_drive("wan21_i2v", engine, clip_kw, 3 * WAN_LAYERS, {"transformer": 4}, 81, 21)
+    check(engine.transformer.cfg.image_dim == 1280 and engine.transformer.cfg.in_channels == 36, "Wan 2.1 I2V DiT")
+    clip = engine.helpers["image_encoder"]
+    check(clip.dtype == torch.bfloat16 and len(clip.layers) == 32, "the CLIP image encoder")
+    paths["wan21_i2v_81_frames"] = [row]
+    del engine, clip
+    release()
+    if kernel_rows:
+        vs, clip_s, frame = WAN_EDIT_TOKENS["vace"], WAN_TOKENS["clip"], 2 * WAN_LAYERS
+        vace_step = statistics.median(t for r in paths["wan_vace_81_frames"] for t in r["seconds_per_step"][1:])
+        edit_step_breakdown("vace_cfg_step_81_frames_plus_1_reference", vace_step,
+                            {f"wan_vace_self_s{vs}_h40": 2 * (WAN_LAYERS + VACE_LAYERS),
+                             f"wan_vace_cross_sq{vs}_sk{WAN_TEXT_TOKENS}_h40": 2 * (WAN_LAYERS + VACE_LAYERS)},
+                            kernel_rows)
+        edit_step_breakdown("wan21_i2v_cfg_step_81_frames", row["seconds_per_step"][-1],
+                            {f"wan_self_clip_s{clip_s}_h40": frame,
+                             f"wan_cross_clip_sq{clip_s}_sk{WAN_TEXT_TOKENS}_h40": frame,
+                             f"wan21_image_cross_sq{clip_s}_sk{CLIP_TOKENS}_h40": frame}, kernel_rows)
+    # -- the A14B i2v-derived engines and v2v at 33 frames
+    short, short_masks = video[:33], masks
+    a14b = dict(prompt=PROMPT_A, negative_prompt=WAN_NEG, height=480, width=832, num_frames=33,
+                num_inference_steps=3, guidance_scale=4.0, guidance_scale_2=3.0, boundary_ratio=0.875, seed=0)
+    i2v_configs = {"transformer": WAN_I2V_TRANSFORMER, "transformer_2": WAN_I2V_TRANSFORMER}
+    for label, manifest, mt, configs, extra in (
+            ("wan_fflf", WAN_FFLF_MANIFEST, "fflf", i2v_configs, dict(image=short[0], last_image=short[-1])),
+            ("wan_inp", WAN_INP_MANIFEST, "inp", i2v_configs, dict(video=short, mask=short_masks[0][..., 0])),
+            ("wan_v2v", WAN_V2V_MANIFEST, "v2v", None, dict(video=short, strength=0.7, num_inference_steps=4))):
+        engine = edit_engine(label, manifest, mt, home, "int4", configs)
+        kw = dict(a14b, **extra)
+        engine.load_component_by_type("scheduler")
+        engine.scheduler.set_timesteps(kw["num_inference_steps"])
+        ts = engine.scheduler.timesteps
+        if mt == "v2v":
+            ts = ts[min(int(round(len(ts) * (1.0 - kw["strength"]))), len(ts) - 1):]
+        row, _ = edit_drive(label, engine, kw, 2 * WAN_LAYERS, a14b_forwards(engine, ts, kw), 33, 9)
+        if mt != "v2v":
+            check(engine.transformer.cfg.in_channels == 36, f"{label}: the DiT takes 36 channels")
+        paths[f"{label}_33_frames"] = [row]
+        del engine
+        release()
+    # -- the one-DiT host-stepped engines at 33 frames
+    two = dict(prompt=PROMPT_A, negative_prompt=WAN_NEG, height=480, width=832, num_frames=33,
+               num_inference_steps=2, guidance_scale=5.0, seed=0)
+    subject = [ref_image, cv2_smooth(np.random.default_rng(9), (480, 832))]
+    for label, manifest, mt, configs, extra, per_forward, lat_t in (
+            ("wan_fun_vace", WAN_FUN_VACE_MANIFEST, "fun_vace", {"transformer": WAN_VACE_TRANSFORMER},
+             dict(start_image=short[0], end_image=short[-1], subject_ref_images=[ref_image]),
+             2 * WAN_LAYERS + 2 * VACE_LAYERS, 9),
+            ("wan_phantom", WAN_PHANTOM_MANIFEST, "phantom", None, dict(subject_reference_images=subject),
+             2 * WAN_LAYERS, 9),
+            ("wan_fun_control", WAN_FUN_CONTROL_MANIFEST, "fun_control", {"transformer": WAN_FUN_CONTROL_TRANSFORMER},
+             dict(control_video=short, ref_image=ref_image), 2 * WAN_LAYERS, 9)):
+        engine = edit_engine(label, manifest, mt, home, "int4", configs)
+        row, _ = edit_drive(label, engine, dict(two, **extra), per_forward, {"transformer": 4}, 33, lat_t)
+        paths[f"{label}_33_frames"] = [row]
+        del engine
+        release()
+    # -- Stable Video Infinity: two segments of 33 frames
+    svi_kw = dict(clip_kw, num_frames=33 + 33 - 4, num_frames_per_segment=33, num_overlap_frames=4,
+                  num_motion_frame=4, prompts=[PROMPT_B, PROMPT_A])
+    engine = edit_engine("wan_svi", WAN_SVI_MANIFEST, "svi", home, "int4",
+                         {"transformer": WAN21_I2V_TRANSFORMER, "image_encoder": CLIP_VISION_H},
+                         {"helper": "bf16"})
+    row, _ = edit_drive("wan_svi", engine, svi_kw, 3 * WAN_LAYERS, {"transformer": 8}, 62, 9)
+    check(len(engine.wan_smoke["decoded"]) == 2, "SVI decoded other than two segments")
+    paths["wan_svi_2_segments"] = [row]
+    del engine
+    release()
+    return paths
+
+
+def phase_wan_causal(home: Path, kernel_rows=()):
+    """The Self-Forcing manifest (Wan 2.1 1.3B causal DiT in bf16, its
+    FlowMatchScheduler, UMT5-XXL int8) at its defaults: 480x832, 81 frames
+    (21 latent frames, 7 blocks of 3 frames, 4 steps each, one commit a
+    block), twice with seed 0 and once with seed 1; once with a local window
+    of 6 latent frames and a 1-frame sink; once with an image pre-fill. The
+    cache is read around every forward: before a block's first step it holds
+    exactly the blocks committed so far."""
+    import numpy as np
+    import torch
+
+    engine = edit_engine("wan_causal", WAN_CAUSAL_MANIFEST, "causal", home, "int8",
+                         {"transformer": SELF_FORCING_TRANSFORMER}, {"transformer": "bf16"})
+    engine.load_components(return_latents=False)
+    tf = engine.transformer
+    check(tf.dtype == torch.bfloat16 and len(tf.blocks) == CAUSAL_LAYERS
+          and tf.cfg.num_attention_heads == CAUSAL_HEADS, "the Self-Forcing DiT")
+    filled = []
+    forward_causal = tf.forward_causal
+
+    def observed(x, t, ctx, kc, vc, cache_pos, *a, **k):
+        rows_before = int((kc[0, 0].abs().amax(dim=(-1, -2)) > 0).sum())
+        out = forward_causal(x, t, ctx, kc, vc, cache_pos, *a, **k)
+        filled.append((int(cache_pos), x.shape[2], rows_before, int((kc[-1, 0].abs().amax(dim=(-1, -2)) > 0).sum())))
+        return out
+
+    tf.forward_causal = observed
+    # the attention calls by kind: a block against the whole cache has a bias
+    # and S_max keys (the kernel's own counter counts every launch)
+    from apex_studio_tpu_torch.ops.attention import attention_registry
+
+    flash = attention_registry.get("flash")
+    against_cache = []
+
+    def classified(q, k, v, bias=None, **kw):
+        if bias is not None:
+            against_cache.append(k.shape[1])
+        return flash(q, k, v, bias=bias, **kw)
+
+    attention_registry._entries["flash"] = classified
+    base = dict(prompt=WAN_PROMPT, height=480, width=832, num_frames=81, num_inference_steps=4,
+                num_frame_per_block=3)
+    frame = WAN_TOKENS["frame"]
+    rows, outs = [], []
+    for label, extra, n_input in (("default", dict(seed=0), 0), ("default", dict(seed=0), 0),
+                                  ("default", dict(seed=1), 0),
+                                  ("window6_sink1", dict(seed=0, local_attn_size=6, sink_size=1), 0),
+                                  ("image_prefill", dict(seed=0, image=cv2_smooth(np.random.default_rng(10),
+                                                                                  (480, 832))), 1)):
+        filled.clear()
+        against_cache.clear()
+        blocks, steps = 7, 4
+        forwards = blocks * (steps + 1) + (1 if n_input else 0)
+        row, frames = edit_drive("wan_causal", engine, dict(base, **extra), 2 * CAUSAL_LAYERS,
+                                 {"transformer": forwards}, 81 + 4 * n_input, 21 + n_input)
+        # before each block's first step: the blocks committed so far (and the pre-fill)
+        committed = [n_input * frame + b * 3 * frame for b in range(blocks)]
+        firsts = [filled[(1 if n_input else 0) + b * (steps + 1)] for b in range(blocks)]
+        cache_ok = ([f[2] for f in firsts] == committed and all(f[0] == c for f, c in zip(firsts, committed))
+                    and filled[-1][3] == (n_input + 21) * frame)
+        check(len(filled) == forwards, f"causal ({label}): {len(filled)} forwards, expected {forwards}")
+        s_max = (21 + n_input) * frame
+        check(len(against_cache) == CAUSAL_LAYERS * forwards and set(against_cache) == {s_max},
+              f"causal ({label}): {len(against_cache)} launches against the cache (keys {set(against_cache)}), "
+              f"expected {CAUSAL_LAYERS} a forward over {s_max}")
+        row.update(variant=label, forwards=len(filled), launches_against_cache=len(against_cache),
+                   cache_rows_before_each_block=[f[2] for f in firsts],
+                   cache_rows_committed_expected=committed, cache_ok=cache_ok,
+                   s_max=tuple(engine.kv_cache[0].shape)[2])
+        emit({"phase": "wan_causal", "variant": label, "forwards": len(filled),
+              "launches_against_cache": len(against_cache), "launches": row["flash_launches"],
+              "cache_rows_before_each_block": row["cache_rows_before_each_block"], "cache_ok": cache_ok,
+              "s_max": row["s_max"]})
+        check(cache_ok, f"the causal cache ({label}) does not hold the committed blocks: {filled}")
+        check(row["s_max"] == (21 + n_input) * frame, f"causal S_max {row['s_max']}")
+        rows.append(row)
+        outs.append(frames)
+    same = all(np.array_equal(a, b) for a, b in zip(outs[0], outs[1]))
+    differ = not np.array_equal(outs[0][40], outs[2][40])
+    window_differs = not np.array_equal(outs[0][80], outs[3][80])
+    emit({"phase": "wan_causal", "requests_1_2_identical": same, "requests_1_3_differ": differ,
+          "window_changes_the_late_frames": window_differs})
+    check(same and differ, f"causal determinism: same {same}, differ {differ}")
+    check(window_differs, "the local window changed nothing")
+    tf.forward_causal = forward_causal
+    attention_registry._entries["flash"] = flash
+    if kernel_rows:
+        blk, clip = WAN_EDIT_TOKENS["causal_block"], WAN_TOKENS["clip"]
+        # a step is one forward; 4 of the 5 forwards of a block are steps
+        step = statistics.median(t for r in rows[:3] for t in r["seconds_per_step"])
+        edit_step_breakdown("causal_denoise_step_one_forward", step,
+                            {f"wan_causal_last_block_sq{blk}_sk{clip}_bias_h{CAUSAL_HEADS}": CAUSAL_LAYERS,
+                             f"wan_causal_cross_sq{blk}_sk{WAN_TEXT_TOKENS}_h{CAUSAL_HEADS}": CAUSAL_LAYERS},
+                            kernel_rows)
+    del engine, tf
+    release()
+    return {"wan_causal_81_frames": rows}
 
 
 def torch_randn_like(z, seed: int):
@@ -3144,6 +3728,12 @@ def main() -> int:
             wan_paths, _ = timed("wan", phase_wan, home, zimage_timing)
             paths.update(wan_paths)
             release()
+        if "wan_edit" in phases:
+            paths.update(timed("wan_edit", phase_wan_edit, home, zimage_timing))
+            release()
+        if "wan_causal" in phases:
+            paths.update(timed("wan_causal", phase_wan_causal, home, zimage_timing))
+            release()
         if "prompt_extension" in phases:
             paths["prompt_extension"] = timed("prompt_extension", phase_prompt_extension, home)
         if "rife" in phases:
@@ -3184,8 +3774,9 @@ def main() -> int:
                                                      "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
                                 "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
                                if r["case"].startswith("qwenimage")],
-            "wan_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "ms", "queued_ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms", "library_queued_ms")},
+            "wan_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "bias", "ms", "queued_ms", "plain_ms",
+                                               "bound_ms", "bound_by", "keys_kept", "bound_ms_as_launched",
+                                               "library_ms", "library_queued_ms")},
                           "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
                          if r["case"].startswith("wan")],
         }]})

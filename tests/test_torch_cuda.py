@@ -67,6 +67,15 @@ CASES = [
     ("wan_self_s4096_h40", 1, 4096, 4096, 40, 128, None, False),
     ("wan_cross_sq4096_sk512_h40", 1, 4096, 512, 40, 128, None, False),
     ("wan_cross_sq32760_sk512_h40", 1, 32760, 512, 40, 128, None, False),
+    # Wan 2.1 i2v's image cross-attention over the 257 CLIP tokens (one key in
+    # the last tile), first–last frame's over 514, at a reduced query length
+    ("wan21_image_cross_sq4096_sk257_h40", 1, 4096, 257, 40, 128, None, False),
+    ("fflf_image_cross_sq4096_sk514_h40", 1, 4096, 514, 40, 128, None, False),
+    # the causal block against the whole cache (12 heads), reduced: one block
+    # of a frame (1560 tokens) against a cache of 6 frames, the first block
+    # (valid keys = the block's own) and the last (every key valid)
+    ("causal_first_block_sq1560_sk9360_bias_h12", 1, 1560, 9360, 12, 128, [1560], False),
+    ("causal_last_block_sq1560_sk9360_bias_h12", 1, 1560, 9360, 12, 128, [9360], False),
 ]
 
 
@@ -150,6 +159,43 @@ def test_flash_kernel_wan_81_frame_self_attention_row_subsets(cuda):
     interior-edge 128-row subset of the kernel's output."""
     s = 32760
     g = torch.Generator(cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, s, 40, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    for rows in (slice(0, 128), slice(s - s % 128, s), slice(s // 256 * 128 - 64, s // 256 * 128 + 64)):
+        ref = flash_attention_reference(q[:, rows], k, v)
+        assert torch.isfinite(out[:, rows].float()).all()
+        assert_agrees(out[:, rows], ref)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_causal_window_and_sink_bias(cuda):
+    """A causal block against its cache with a local window and sink tokens
+    (``WanCausalTransformer3DModel.causal_mask``): the key tiles between the
+    sink and the window are wholly masked, and must give exactly what the
+    plain version gives."""
+    from apex_studio_tpu_torch.models.transformers.wan import WanCausalTransformer3DModel
+
+    mask = WanCausalTransformer3DModel.causal_mask(1, 9360, 6240, 1560, local_tokens=3120,
+                                                   sink_tokens=1560, device=cuda)
+    g = torch.Generator(cuda).manual_seed(4)
+    q = torch.randn(1, 1560, 12, 128, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(1, 9360, 12, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    bias = _prep_bias(None, mask)
+    out = flash_attention(q, k, v, bias=bias)
+    assert_agrees(out, flash_attention_reference(q, k, v, bias=bias))
+    # the masked keys do not count: the same attention over the valid keys alone
+    keep = mask[0]
+    assert_agrees(out, flash_attention_reference(q, k[:, keep], v[:, keep]))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_vace_self_attention_row_subsets(cuda):
+    """VACE's self-attention at 81 frames plus one reference frame (22 × 1560
+    = 34,320 tokens, 40 heads of 128) on three 128-row subsets of the
+    kernel's output, the plain version over all keys."""
+    s = 34320
+    g = torch.Generator(cuda).manual_seed(5)
     q, k, v = (torch.randn(1, s, 40, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -302,3 +348,42 @@ def test_wan_dit_launches_the_kernel_twice_a_block(cuda):
         out = model(x, torch.tensor([500.0], device=cuda), ctx)
     assert flash_attention.launches == before + 2 * 3
     assert out.shape == x.shape and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+def test_wan_variants_launch_the_kernel_per_attention(cuda):
+    """Small Wan DiTs (head dim 128) in bf16 on the card: Wan 2.1 i2v makes
+    three launches a block (self, text and image cross-attention); VACE two
+    a main block and two a VACE block; a causal block two a block, the self
+    launch over the whole cache with a [1, S_max] bias; outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import wan
+
+    small = dict(num_attention_heads=2, text_dim=64, ffn_dim=512, num_layers=3)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 16, 3, 18, 22, generator=g).to(cuda)  # 3 x 9 x 11 = 297 tokens
+    ctx = torch.randn(1, 512, 64, generator=g).to(cuda)
+    t = torch.tensor([500.0], device=cuda)
+    i2v = materialize_random(lambda: wan.WanTransformer3DModel(wan.WanConfig(
+        **small, image_dim=80, added_kv_proj_dim=256)), cuda, seed=0)
+    vace = materialize_random(lambda: wan.WanVACETransformer3DModel(wan.WanConfig(
+        **small, vace_layers=(0, 2), vace_in_channels=24)), cuda, seed=1)
+    causal = materialize_random(lambda: wan.WanCausalTransformer3DModel(wan.WanConfig(**small)), cuda, seed=2)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        out = i2v(x, t, ctx, context_image=torch.randn(1, 257, 80, generator=g).to(cuda))
+        assert flash_attention.launches == before + 3 * 3
+        assert out.shape == x.shape and torch.isfinite(out.float()).all()
+        before = flash_attention.launches
+        out = vace(x, t, ctx, control=torch.randn(1, 24, 3, 18, 22, generator=g).to(cuda))
+        assert flash_attention.launches == before + 2 * 3 + 2 * 2
+        assert torch.isfinite(out.float()).all()
+        kc, vc = causal.init_cache(1, 3 * 99)
+        before = flash_attention.launches
+        for start in range(3):
+            rope = causal.causal_rope_tables(start, 1, 9, 11, device=cuda)
+            out, _ = causal.forward_causal(x[:, :, start:start + 1], torch.full((1, 1), 500.0, device=cuda), ctx,
+                                           kc, vc, start * 99, *rope)
+        assert flash_attention.launches == before + 3 * 2 * 3
+        assert out.shape == (1, 16, 1, 18, 22) and torch.isfinite(out.float()).all()
+        assert kc.abs().amax(dim=(0, 1, 3, 4)).gt(0).all()

@@ -20,7 +20,7 @@ host-stepped schedulers, the tiled decode, frame-count snapping and the seed
 contract. Also:
 the UMT5 encode with zeroed padding, the steps each expert takes, the kernel
 calls a step, the encoder's release, and the i2v engine's refusal of a
-CLIP-vision transformer.
+CLIP-vision transformer whose manifest has no image encoder.
 """
 
 import copy
@@ -291,9 +291,13 @@ def test_text_encoder_released_before_the_dit_loads(t2v, monkeypatch):
 
 
 def test_i2v_refuses_a_clip_vision_transformer(tmp_path, monkeypatch):
+    """A DiT with a CLIP-vision branch needs the manifest's image encoder:
+    the A14B manifest has none (the Wan 2.1 i2v path, with one, is held in
+    tests/test_torch_engine_wan_edit.py)."""
     monkeypatch.setenv("APEX_HOME_DIR", str(tmp_path / "home"))
     monkeypatch.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
     engine = UniversalEngine(manifest(tmp_path, "i2v", {"image_dim": 16, "added_kv_proj_dim": 48}),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="CLIP-vision"):
+    engine._spec_for_type("text_encoder")["tokenizer"] = make_tokenizer()
+    with pytest.raises(KeyError, match="no helper component named 'image_encoder'"):
         engine.run(**I2V)
