@@ -317,6 +317,10 @@ class BaseEngine:
         else:  # "bf16", or no checkpoint named: random weights, no residency
             n = materialize_random_int8(model, device=self.device, seed=seed, scale=SYNTHETIC_STD,
                                         min_numel=1 << 62)
+        # Departure from the JAX engine, which draws running statistics like
+        # weights (a negative variance makes the Flux 2 VAE's normalization NaN)
+        if hasattr(model, "reset_running_stats"):
+            model.reset_running_stats()
         logger.info("random %s weights for %s on %s (seed %d, %d resident weights)",
                     synth or "unquantized", base, self.device, seed, n)
         return model.eval().requires_grad_(False)

@@ -6,7 +6,10 @@ paths load: Flux text-to-image's ``flux``, ``t5``, ``clip``,
 ``t5``; ZImage's ``zimage`` (base and control, the Comfy single-file names
 too) and ``qwen3``; QwenImage's ``qwenimage`` (DiT and ControlNet) and
 ``wan_vae``; Wan's ``wan`` DiT (its VACE keys too), UMT5 through ``t5``, and
-the Wan 2.1 i2v image encoder's ``clip_vision``).
+the Wan 2.1 i2v image encoder's ``clip_vision``; FLUX.2's ``flux2`` and
+``flux2_control`` DiTs (diffusers naming), ``flux2_vae`` (``AutoencoderKLFlux2``
+with its BatchNorm running statistics) and the ``llama`` text towers
+(Llama, Llava, Mistral3)).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -499,5 +502,81 @@ converter_registry.add(
         ],
         strip_prefixes=(),
         drop=(r"^visual_projection", r"^text_model", r"position_ids", r"logit_scale"),
+    ),
+)
+
+_FLUX2_RENAMES = [
+    (r"^time_guidance_embed\.timestep_embedder\.linear_(\d)\.", r"timestep_linear_\1."),
+    (r"^time_guidance_embed\.guidance_embedder\.linear_(\d)\.", r"guidance_linear_\1."),
+    (r"^(double_stream_modulation_img|double_stream_modulation_txt|single_stream_modulation)\.linear\.",
+     r"\1."),
+    (r"\.attn\.to_out\.0\.", ".to_out."),
+    (r"\.attn\.to_out\.", ".to_out."),  # single blocks: a plain Linear
+    (r"(transformer_blocks\.\d+)\.attn\.", r"\1."),
+    (r"(single_transformer_blocks\.\d+)\.attn\.", r"\1."),
+    (r"\.ff(_context)?\.linear_in\.", r".ff\1.linear_in."),
+    (r"^norm_out\.linear\.", "norm_out_linear."),
+]
+_FLUX2_LINEARS = ("to_q|to_k|to_v|to_out|to_add_out|add_q_proj|add_k_proj|add_v_proj|to_qkv_mlp_proj|linear_in|"
+                  "linear_out|x_embedder|context_embedder|proj_out|norm_out_linear|timestep_linear_\\d|"
+                  "guidance_linear_\\d|double_stream_modulation_img|double_stream_modulation_txt|"
+                  "single_stream_modulation")
+
+converter_registry.add(
+    # FLUX.2's DiT (diffusers Flux2Transformer2DModel naming)
+    "flux2",
+    KeyConverter(
+        renames=_FLUX2_RENAMES + [(rf"({_FLUX2_LINEARS})\.weight$", r"\1.kernel")],
+        drop=(r"^pos_embed\.",),
+    ),
+)
+
+converter_registry.add(
+    # Flux2ControlTransformer2DModel: the flux2 layout plus the control chain
+    "flux2_control",
+    KeyConverter(
+        renames=_FLUX2_RENAMES + [(rf"({_FLUX2_LINEARS}|before_proj|after_proj|control_img_in)\.weight$",
+                                   r"\1.kernel")],
+        drop=(r"^pos_embed\.",),
+    ),
+)
+
+converter_registry.add(
+    # FLUX.2's VAE (diffusers AutoencoderKLFlux2): AutoencoderKL plus the
+    # BatchNorm running statistics of the packed latents
+    "flux2_vae",
+    KeyConverter(
+        renames=[
+            (r"^bn\.running_mean$", "bn_mean"),
+            (r"^bn\.running_var$", "bn_var"),
+            (r"\.to_out\.0\.", ".to_out."),
+            (r"(conv|conv1|conv2|conv_shortcut|conv_in|conv_out|quant_conv|post_quant_conv)\.weight$",
+             r"\1.kernel"),
+            (r"(to_q|to_k|to_v|to_out)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"num_batches_tracked",),
+    ),
+)
+
+converter_registry.add(
+    # Llama-architecture text towers (LlamaModel, Llava's and Mistral3's
+    # language model)
+    "llama",
+    KeyConverter(
+        renames=[
+            # llava checkpoints nest the text tower; plain LlamaModel does not
+            (r"^language_model\.model\.", ""),
+            (r"^language_model\.", ""),
+            (r"^model\.", ""),
+            (r"^embed_tokens\.weight$", "embed_tokens"),
+            (r"(q_proj|k_proj|v_proj|o_proj)\.weight$", r"\1.kernel"),
+            (r"\.mlp\.gate_proj\.", ".mlp.w1."),
+            (r"\.mlp\.up_proj\.", ".mlp.w3."),
+            (r"\.mlp\.down_proj\.", ".mlp.w2."),
+            (r"(w1|w2|w3)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"^lm_head\.", r"rotary_emb", r"^vision_tower\.", r"^multi_modal_projector\."),
     ),
 )

@@ -9,8 +9,12 @@ single-file names of the Comfy-Org Z-Image files, control keys included),
 ``wan_vae`` (diffusers' ``AutoencoderKLWan``, with its ``[C, 1, 1(, 1)]`` RMS
 gammas and 1×1-conv attention weights), ``wan`` (diffusers'
 ``WanTransformer3DModel`` and its VACE keys, ``patch_embedding`` and
-``vace_patch_embedding`` as their Conv3d weights) and ``clip_vision``
-(transformers' ``CLIPVisionModel``, the patch embedding as its Conv2d weight).
+``vace_patch_embedding`` as their Conv3d weights), ``clip_vision``
+(transformers' ``CLIPVisionModel``, the patch embedding as its Conv2d weight),
+``flux2`` (diffusers' ``Flux2Transformer2DModel``, its control variant's chain
+too), ``flux2_vae`` (``AutoencoderKLFlux2``, the running statistics as
+``bn.running_mean`` / ``bn.running_var``) and ``llama`` (Mistral3's text
+tower under ``language_model.model.``).
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -155,6 +159,29 @@ _CLIP_VISION = (
     (r"^layers\.", "vision_model.encoder.layers."),
 )
 
+_FLUX2 = (
+    (r"^(timestep|guidance)_linear_(\d)\.", r"time_guidance_embed.\1_embedder.linear_\2."),
+    (r"^(double_stream_modulation_img|double_stream_modulation_txt|single_stream_modulation)\.",
+     r"\1.linear."),
+    (r"^((?:control_)?transformer_blocks\.\d+)\.to_out\.", r"\1.attn.to_out.0."),
+    (r"^((?:control_)?transformer_blocks\.\d+)\.(to_q|to_k|to_v|add_q_proj|add_k_proj|add_v_proj|to_add_out|"
+     r"norm_q|norm_k|norm_added_q|norm_added_k)\.", r"\1.attn.\2."),
+    (r"^(single_transformer_blocks\.\d+)\.(to_qkv_mlp_proj|to_out|norm_q|norm_k)\.", r"\1.attn.\2."),
+    (r"^norm_out_linear\.", "norm_out.linear."),
+)
+_FLUX2_VAE = (
+    (r"^bn_mean$", "bn.running_mean"),
+    (r"^bn_var$", "bn.running_var"),
+    (r"\.to_out\.", ".to_out.0."),
+)
+_LLAMA = (
+    (r"^embed_tokens$", "language_model.model.embed_tokens.weight"),
+    (r"\.mlp\.w1\.", ".mlp.gate_proj."),
+    (r"\.mlp\.w3\.", ".mlp.up_proj."),
+    (r"\.mlp\.w2\.", ".mlp.down_proj."),
+    (r"^(layers|norm)\.", r"language_model.model.\1."),
+)
+
 
 def _wan_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """diffusers' shapes: the attention's 1×1 conv weights ``[O, C, 1, 1]``,
@@ -191,7 +218,7 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
     "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE, "qwenimage": _QWENIMAGE, "wan_vae": _WAN_VAE,
-    "wan": _WAN, "clip_vision": _CLIP_VISION}
+    "wan": _WAN, "clip_vision": _CLIP_VISION, "flux2": _FLUX2, "flux2_vae": _FLUX2_VAE, "llama": _LLAMA}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

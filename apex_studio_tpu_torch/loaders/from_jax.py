@@ -20,7 +20,10 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
   ``...weight`` in ``ConvTranspose2d``'s layout ``[in, out, kh, kw]``,
   unflipped;
 - every other parameter keeps its name and layout (learned tokens, PReLU
-  slopes, embedding tables).
+  slopes, embedding tables, the FLUX.2 VAE's 1-D ``bn_mean`` / ``bn_var``).
+
+A fused projection (FLUX.2's ``to_qkv_mlp_proj``, its SwiGLU ``linear_in``)
+is one Linear on both sides and carries as any other.
 
 The input is a flat ``{dotted.nnx.path: np.ndarray}`` dict (list indices are
 path components, e.g. ``transformer_blocks.0.attn.to_q.kernel``). Loading is

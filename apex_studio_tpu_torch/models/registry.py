@@ -7,7 +7,10 @@ Keys match manifest ``base`` values: ``flux.base``, ``hunyuanvideo15.base``,
 ``qwenimage.base``, ``qwenimage.controlnet``, ``wan.base`` in the transformer
 registry (the Wan DiT, alias ``wan``; its variants ``wan.causal``, ``wan.vace``
 and ``wan.fun``) and ``wan.base`` in the VAE registry (the
-Wan VAE, which ``qwenimage`` and ``AutoencoderKLQwenImage`` name too).
+Wan VAE, which ``qwenimage`` and ``AutoencoderKLQwenImage`` name too);
+``flux2.base`` and ``flux2.control`` (FLUX.2's DiT and its control variant),
+``AutoencoderKLFlux2`` / ``flux2`` (the packed-BatchNorm AutoencoderKL) and
+``LlamaModel`` / ``Mistral3ForConditionalGeneration`` (FLUX.2's text tower).
 """
 
 import importlib
@@ -34,6 +37,8 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.transformers.qwenimage",
     "apex_studio_tpu_torch.models.vaes.wan_vae",
     "apex_studio_tpu_torch.models.transformers.wan",
+    "apex_studio_tpu_torch.models.text_encoders.llama",
+    "apex_studio_tpu_torch.models.transformers.flux2",
 )
 
 

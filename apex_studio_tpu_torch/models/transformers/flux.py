@@ -11,7 +11,7 @@ activation dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -198,11 +198,25 @@ class FluxTransformer2DModel(nn.Module):
         ids[..., 2] = np.arange(w_tok)[None, :]
         return ids.reshape(-1, 3)
 
-    def rope_tables(self, n_txt: int, h_tok: int, w_tok: int, device=None):
-        """cos/sin [1, n_txt + h_tok·w_tok, 1, D/2] in f32. Built from an int32
-        tensor of ids on the f32 path, as the JAX module builds them."""
-        ids = np.concatenate([np.zeros((n_txt, 3), np.int64), self.img_ids(h_tok, w_tok)])
-        ids_t = torch.as_tensor(ids.astype(np.int32), device=device)[None]
+    def rope_tables(self, n_txt: int, h_tok: int, w_tok: int,
+                    cond_grid_hw: Optional[Union[Tuple[int, int], Sequence[Tuple[int, int]]]] = None,
+                    device=None):
+        """cos/sin [1, S, 1, D/2] in f32 over [txt ‖ img ‖ conditioning]. Built
+        from an int32 tensor of ids on the f32 path, as the JAX module builds
+        them. Conditioning tokens (Kontext: one grid; DreamOmni2: several)
+        take t-index k+1 for the k-th grid, their widths offset by the widths
+        of the grids before them."""
+        parts = [np.zeros((n_txt, 3), np.int64), self.img_ids(h_tok, w_tok)]
+        if cond_grid_hw is not None:
+            grids = [cond_grid_hw] if isinstance(cond_grid_hw[0], int) else list(cond_grid_hw)
+            w_off = 0
+            for i, g in enumerate(grids):
+                cond_ids = self.img_ids(*g)
+                cond_ids[:, 0] = i + 1
+                cond_ids[:, 2] += w_off
+                parts.append(cond_ids)
+                w_off += g[1]
+        ids_t = torch.as_tensor(np.concatenate(parts).astype(np.int32), device=device)[None]
         cos, sin = precompute_axial_freqs(ids_t, self.cfg.axes_dims_rope, self.cfg.rope_theta)
         return cos[:, :, None, :], sin[:, :, None, :]
 
@@ -230,6 +244,8 @@ class FluxTransformer2DModel(nn.Module):
         timestep: torch.Tensor,               # [B] in [0, 1]
         guidance: Optional[torch.Tensor] = None,  # [B]
         grid_hw: Optional[Tuple[int, int]] = None,  # token grid (h_tok, w_tok)
+        cond_tokens: Optional[torch.Tensor] = None,  # Kontext: [B, N_cond, 64]
+        cond_grid_hw=None,
         rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
         b, n_img, _ = hidden_states.shape
@@ -239,10 +255,14 @@ class FluxTransformer2DModel(nn.Module):
             grid_hw = (side, side)
 
         temb = self.time_text_embed(timestep.float(), pooled_projections.to(self.dtype), guidance)
+        if cond_tokens is not None:
+            # Kontext: clean conditioning latents ride the image stream; only
+            # the leading n_img tokens are denoised and returned
+            hidden_states = torch.cat([hidden_states, cond_tokens.to(hidden_states.dtype)], dim=1)
         img = self.x_embedder(hidden_states.to(self.dtype))
         txt = self.context_embedder(encoder_hidden_states.to(self.dtype))
         rope_cos, rope_sin = rope if rope is not None else self.rope_tables(
-            n_txt, *grid_hw, device=img.device)
+            n_txt, *grid_hw, cond_grid_hw=cond_grid_hw, device=img.device)
 
         for blk in self.transformer_blocks:
             img, txt = blk(img, txt, temb, rope_cos, rope_sin)
@@ -250,7 +270,7 @@ class FluxTransformer2DModel(nn.Module):
         x = torch.cat([txt, img], dim=1)
         for blk in self.single_transformer_blocks:
             x = blk(x, temb, rope_cos, rope_sin)
-        img = x[:, n_txt: n_txt + n_img]
+        img = x[:, n_txt: n_txt + n_img]  # drop the conditioning tokens
 
         # AdaLayerNormContinuous ordering: scale first, then shift.
         scale, shift = self.norm_out_linear(F.silu(temb))[:, None, :].chunk(2, dim=-1)

@@ -1,6 +1,11 @@
-"""AutoencoderKL (SD/SDXL/Flux image VAE), port of
-``apex_studio_tpu/models/vaes/autoencoder_kl.py`` (``encode`` and ``decode``;
-``decode_tiled`` and the Flux2 packed-BatchNorm variant come later).
+"""AutoencoderKL (SD/SDXL/Flux image VAE and the Flux 2 variant), port of
+``apex_studio_tpu/models/vaes/autoencoder_kl.py`` (``encode``, ``decode`` and
+the packed-BatchNorm normalization; ``decode_tiled`` is not ported: no engine
+calls it).
+
+The Flux 2 VAE (``packed_batch_norm``) normalizes the 2×2-packed latents by
+BatchNorm running statistics (``bn_mean`` / ``bn_var``, one per packed
+channel) instead of a scaling and shift factor.
 
 The JAX module runs NHWC with HWIO kernels; this one runs NCHW with OIHW
 weights (loaders/from_jax.py transposes on carry). GroupNorm statistics are
@@ -11,6 +16,7 @@ taken in f32 and attention in the mid block goes through the plain-math
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -35,15 +41,19 @@ class AutoencoderKLConfig:
     use_quant_conv: bool = False
     use_post_quant_conv: bool = False
     mid_block_add_attention: bool = True
+    # the Flux 2 variant: packed (2x2) latents normalized by BatchNorm running
+    # statistics instead of the scaling and shift factors
+    packed_batch_norm: bool = False
+    batch_norm_eps: float = 1e-4
+    patch_size: Tuple[int, int] = (2, 2)
 
     @classmethod
     def from_dict(cls, cfg: dict) -> "AutoencoderKLConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in cfg.items() if k in known}
-        if "block_out_channels" in kw:
-            kw["block_out_channels"] = tuple(kw["block_out_channels"])
-        if cfg.get("packed_batch_norm"):
-            raise NotImplementedError("the Flux2 packed-BatchNorm VAE is not ported yet")
+        for key in ("block_out_channels", "patch_size"):
+            if key in kw:
+                kw[key] = tuple(kw[key])
         return cls(**kw)
 
     @property
@@ -241,7 +251,7 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
-@vae_registry.register("auto", aliases=("AutoencoderKL",))
+@vae_registry.register("auto", aliases=("AutoencoderKL", "AutoencoderKLFlux2", "flux2", "flux2.vae"))
 class AutoencoderKL(nn.Module):
     config_class = AutoencoderKLConfig
 
@@ -256,6 +266,31 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = (
             Conv2d(cfg.latent_channels, cfg.latent_channels, kernel=1, padding=0, dtype=dtype)
             if cfg.use_post_quant_conv else None)
+        if cfg.packed_batch_norm:
+            n_bn = math.prod(cfg.patch_size) * cfg.latent_channels
+            self.bn_mean = nn.Parameter(torch.zeros(n_bn, dtype=torch.float32))
+            self.bn_var = nn.Parameter(torch.ones(n_bn, dtype=torch.float32))
+        else:
+            self.bn_mean = self.bn_var = None
+
+    def reset_running_stats(self) -> None:
+        """Running mean 0 and variance 1, as a fresh BatchNorm starts: what
+        random synthetic weights leave for the statistics, which are not
+        weights (a variance drawn from a normal may be negative)."""
+        if self.bn_mean is not None:
+            with torch.no_grad():
+                self.bn_mean.zero_()
+                self.bn_var.fill_(1.0)
+
+    def normalize_packed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Normalize packed [B, N, C·p²] latents by the BatchNorm running
+        statistics."""
+        std = torch.sqrt(self.bn_var + self.cfg.batch_norm_eps)
+        return (tokens - self.bn_mean) / std
+
+    def denormalize_packed(self, tokens: torch.Tensor) -> torch.Tensor:
+        std = torch.sqrt(self.bn_var + self.cfg.batch_norm_eps)
+        return tokens * std + self.bn_mean
 
     def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
         """[B,3,H,W] → [B, 2·latent, H/8, W/8] (mean ‖ logvar), unscaled."""

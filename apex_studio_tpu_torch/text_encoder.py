@@ -51,6 +51,8 @@ class TextEncoder:
             return "t5"
         if "CLIP" in self.base:
             return "clip"
+        if "Llama" in self.base or "Llava" in self.base or "Mistral" in self.base:
+            return "llama"
         return self.base.lower()
 
     @property

@@ -101,6 +101,25 @@ Phases, each printed as one JSON line:
              first step message, then /mask/create, RIFE through
              /postprocessor/frame-interpolate, /system/* and the CLI
              (start / status / stop) in a subprocess
+  flux_edit  Flux 1's editing engines from their manifests at 1024x1024, full
+             width and depth, synthetic int8 weights, 2 steps each (57
+             launches a step): Kontext with a seeded reference image (8704
+             tokens), seeds 0, 0, 1 (1 and 2 identical, 3 not); Fill with an
+             image and a mask (the 384-channel DiT, its config written where
+             the manifest names it); Control with a control image (128
+             channels); DreamOmni2 with two square references (12,800 tokens)
+             from a manifest derived from Kontext's
+  flux2      FLUX.2 Dev from its manifests at 1024x1024 and its published
+             widths, the 32B DiT int4 and Mistral-Small 3.2 int8 (their text
+             and VAE configs written where the manifests name them): a 1 + 1
+             block DiT and a 2-layer Mistral at full width on the card (bf16)
+             against the CPU (f32); t2i of 4 steps, (A, 0), (B, 1), (A, 0) (56
+             launches a step, 1 and 3 identical); a VAE decode against
+             float64; edit with one reference image (8704 tokens); the
+             resident Linears at FLUX.2's shapes and the int4 step split;
+             Turbo at 8 steps with a rank-16 LoRA written at the manifest's
+             source; the control DiT (60 launches a step) with a control
+             image, an inpaint image and a mask
   prompt_extension
              PromptExtender on the synthetic int8 Qwen3-4B, greedy, 32 new
              tokens (36 launches a token); each decode step's logits against
@@ -120,7 +139,9 @@ and 32,760 tokens, and each one's cross-attention over 512 text rows), and
 the editing paths' (VACE's 34,320 tokens, the CLIP image cross-attention over
 257 and 514 keys, the Self-Forcing block of 4680 queries against 32,760 cache
 rows with a [1, Sk] bias at its first and last block and with a window and a
-sink); the timing phase times each beside its bound and the library call.
+sink), and the Flux editing paths' (FLUX.2 at 48 heads over 4608 and 8704
+tokens, Kontext over 8704 and DreamOmni2 over 12,800 at 24); the timing phase
+times each beside its bound and the library call.
 Then a ``wall`` line, a ``kernels`` line, the card and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -161,7 +182,7 @@ STEPS = 4
 SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
-                  "qwenimage,wan,wan_edit,wan_causal,prompt_extension,rife")
+                  "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,prompt_extension,rife")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -483,6 +504,12 @@ def phase_kernels():
         release()
     # the Wan editing and causal paths' new shapes
     wan_edit_kernel_cases(run_case)
+    # the Flux editing and FLUX.2 joint lengths (24 and 48 heads), the plain
+    # version in query-row chunks
+    for name, q, k, v, _ in flux_edit_kernel_inputs():
+        run_case(name, q, k, v, reference=plain_in_row_chunks)
+        del q, k, v
+        release()
     emit({"phase": "kernels", "cases": cases})
     bad = [c["case"] for c in cases if not c["ok"]]
     check(not bad, f"flash kernel disagrees with its plain version: {bad}")
@@ -626,7 +653,8 @@ def phase_timing():
         queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
     del q, k, v, qt, kt, vt
     release()
-    return flux_row, zimage_timing_rows() + qwenimage_timing_rows() + wan_timing_rows() + wan_edit_timing_rows()
+    return flux_row, (zimage_timing_rows() + chunked_timing_rows(qwenimage_kernel_inputs()) + wan_timing_rows()
+                      + wan_edit_timing_rows() + chunked_timing_rows(flux_edit_kernel_inputs()))
 
 
 # -- tiny reference ----------------------------------------------------------------------
@@ -1792,15 +1820,15 @@ def plain_in_row_chunks(q, k, v, rows: int = 2048, bias=None):
                       for i in range(0, q.shape[1], rows)], dim=1)
 
 
-def qwenimage_timing_rows():
-    """The kernel at the QwenImage shapes beside its plain version (in row
-    chunks), the library call and its bound."""
+def chunked_timing_rows(inputs):
+    """The kernel at each of ``inputs``' unmasked long shapes beside its plain
+    version (in row chunks), the library call and its bound."""
     import torch.nn.functional as F
 
     from apex_studio_tpu_torch.ops.attention.flash import flash_attention
 
     rows = []
-    for name, q, k, v, _ in qwenimage_kernel_inputs():
+    for name, q, k, v, _ in inputs:
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         rows.append(timing_row(
             q, k, v, None, time_ms(lambda: flash_attention(q, k, v), reps=10),
@@ -2825,15 +2853,22 @@ def wan_edit_media(frames: int, seed: int):
     return video, masks
 
 
-def edit_step_breakdown(name, step_s, launches, kernel_rows) -> dict:
-    """A step (or forward) of ``step_s`` seconds split into attention (queued
-    kernel ms × ``launches``, {case: launches a step}) and the rest."""
+def step_breakdown(phase, name, step_s, launches, kernel_rows, w4_calls=None, linear_rows=()) -> dict:
+    """A step of ``step_s`` seconds split into attention (queued kernel ms x
+    ``launches``, {case: launches a step}), the ``_w4`` Linears (queued ms x
+    ``w4_calls`` by shape, when given) and the rest."""
     queued = {r["case"]: r["queued_ms"] for r in kernel_rows}
     attention_s = sum(queued[case] * n for case, n in launches.items()) / 1e3
-    row = {"phase": "wan_edit", "step_breakdown": name, "seconds": step_s, "attention_seconds": attention_s,
-           "attention_share": attention_s / step_s, "other_seconds": step_s - attention_s,
-           "launches": launches, "reckoning": "queued kernel ms x launches; other = the rest (Linears, norms, "
-                                              "RoPE, modulation, the scheduler)"}
+    row = {"phase": phase, "step_breakdown": name, "seconds_per_step": step_s, "attention_seconds": attention_s,
+           "attention_share": attention_s / step_s, "launches": launches}
+    if w4_calls:
+        by = {key: sum(w4_calls[(r["rows"], r["in"], r["out"])] * r[key] for r in linear_rows) / 1e3
+              for key in ("w4_ms", "bf16_ms")}
+        row.update(w4_linear_seconds=by["w4_ms"], w4_linear_share=by["w4_ms"] / step_s,
+                   bf16_linear_seconds_same_calls=by["bf16_ms"])
+    row["other_seconds"] = step_s - attention_s - row.get("w4_linear_seconds", 0.0)
+    row["reckoning"] = ("queued kernel ms x launches; queued _w4 ms x calls by shape where given; other = the "
+                        "rest (norms, modulation, RoPE, the bf16 and smaller Linears, the step update)")
     emit(row)
     return row
 
@@ -2894,11 +2929,11 @@ def phase_wan_edit(home: Path, kernel_rows=()):
     if kernel_rows:
         vs, clip_s, frame = WAN_EDIT_TOKENS["vace"], WAN_TOKENS["clip"], 2 * WAN_LAYERS
         vace_step = statistics.median(t for r in paths["wan_vace_81_frames"] for t in r["seconds_per_step"][1:])
-        edit_step_breakdown("vace_cfg_step_81_frames_plus_1_reference", vace_step,
+        step_breakdown("wan_edit", "vace_cfg_step_81_frames_plus_1_reference", vace_step,
                             {f"wan_vace_self_s{vs}_h40": 2 * (WAN_LAYERS + VACE_LAYERS),
                              f"wan_vace_cross_sq{vs}_sk{WAN_TEXT_TOKENS}_h40": 2 * (WAN_LAYERS + VACE_LAYERS)},
                             kernel_rows)
-        edit_step_breakdown("wan21_i2v_cfg_step_81_frames", row["seconds_per_step"][-1],
+        step_breakdown("wan_edit", "wan21_i2v_cfg_step_81_frames", row["seconds_per_step"][-1],
                             {f"wan_self_clip_s{clip_s}_h40": frame,
                              f"wan_cross_clip_sq{clip_s}_sk{WAN_TEXT_TOKENS}_h40": frame,
                              f"wan21_image_cross_sq{clip_s}_sk{CLIP_TOKENS}_h40": frame}, kernel_rows)
@@ -3045,13 +3080,391 @@ def phase_wan_causal(home: Path, kernel_rows=()):
         blk, clip = WAN_EDIT_TOKENS["causal_block"], WAN_TOKENS["clip"]
         # a step is one forward; 4 of the 5 forwards of a block are steps
         step = statistics.median(t for r in rows[:3] for t in r["seconds_per_step"])
-        edit_step_breakdown("causal_denoise_step_one_forward", step,
+        step_breakdown("wan_causal", "causal_denoise_step_one_forward", step,
                             {f"wan_causal_last_block_sq{blk}_sk{clip}_bias_h{CAUSAL_HEADS}": CAUSAL_LAYERS,
                              f"wan_causal_cross_sq{blk}_sk{WAN_TEXT_TOKENS}_h{CAUSAL_HEADS}": CAUSAL_LAYERS},
                             kernel_rows)
     del engine, tf
     release()
     return {"wan_causal_81_frames": rows}
+
+
+# -- Flux editing and FLUX.2 ---------------------------------------------------------------------
+
+
+FLUX_KONTEXT_MANIFEST = REPO / "manifests" / "image" / "flux-dev-kontext.yml"
+FLUX_FILL_MANIFEST = REPO / "manifests" / "image" / "flux-dev-fill.yml"
+FLUX_CONTROL_MANIFEST = REPO / "manifests" / "image" / "flux-dev-control.yml"
+FLUX2_MANIFEST = REPO / "manifests" / "image" / "flux2-dev.yml"
+FLUX2_TURBO_MANIFEST = REPO / "manifests" / "image" / "flux2-dev-turbo.yml"
+# black-forest-labs/FLUX.1-Fill-dev and FLUX.1-Canny-dev transformer/config.json: Flux Dev's widths, 384
+# input channels (noise 64 + masked-image latents 64 + 8x8 mask bits packed 2x2, 256) and 128 (noise +
+# control-image latents)
+_FLUX_DEV = {"_class_name": "FluxTransformer2DModel", "patch_size": 1, "out_channels": 64, "num_layers": 19,
+             "num_single_layers": 38, "attention_head_dim": 128, "num_attention_heads": 24,
+             "joint_attention_dim": 4096, "pooled_projection_dim": 768, "guidance_embeds": True,
+             "axes_dims_rope": [16, 56, 56]}
+FLUX_FILL_TRANSFORMER = dict(_FLUX_DEV, in_channels=384)
+FLUX_CANNY_TRANSFORMER = dict(_FLUX_DEV, in_channels=128)
+# joint lengths at 1024²: 512 T5 / Mistral rows + 4096 noise tokens + 4096 for each reference image
+# (DreamOmni2's two square references both take the 1024x1024 bucket)
+FLUX_EDIT_TOKENS = {"kontext": 512 + 2 * 4096, "dreamomni2": 512 + 3 * 4096}
+FLUX2_TOKENS = {"t2i": 512 + 4096, "edit": 512 + 2 * 4096}
+FLUX2_HEADS, FLUX2_LAYERS, FLUX2_CONTROL_BLOCKS = 48, 8 + 48, 4
+# mistralai/Mistral-Small-3.2-24B-Instruct-2506's text_config (FLUX.2-dev's text_encoder), written flat:
+# neither package unnests a text_config; stack_layers (10, 20, 30) come from the manifest
+MISTRAL_SMALL_32 = {"model_type": "mistral", "vocab_size": 131072, "hidden_size": 5120, "intermediate_size": 32768,
+                    "num_hidden_layers": 40, "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+                    "rms_norm_eps": 1e-5, "rope_theta": 1e9, "max_position_embeddings": 131072}
+# black-forest-labs/FLUX.2-dev vae/config.json (AutoencoderKLFlux2): AutoencoderKL's widths with 32 latent
+# channels and quant convs, the packed latents (2x2 x 32 = 128 channels) normalized by BatchNorm running
+# statistics in place of a scaling and shift factor
+FLUX2_VAE = {"_class_name": "AutoencoderKLFlux2", "latent_channels": 32, "block_out_channels": [128, 256, 512, 512],
+             "layers_per_block": 2, "norm_num_groups": 32, "use_quant_conv": True, "use_post_quant_conv": True,
+             "packed_batch_norm": True, "batch_norm_eps": 1e-4, "patch_size": [2, 2], "scaling_factor": 1.0,
+             "shift_factor": None}
+# rows, in, out and calls a forward of the FLUX.2 DiT's resident Linears at t2i's 4096 image and 512 text
+# rows: the 8 dual blocks' q/k/v/out and SwiGLU in and out per stream, the 48 single blocks' fused in- and
+# out-projections over 4608 rows, the context embedder, the shared modulations on one row
+FLUX2_LINEAR_CALLS = {(4096, 6144, 6144): 32, (4096, 6144, 36864): 8, (4096, 18432, 6144): 8,
+                      (512, 6144, 6144): 32, (512, 6144, 36864): 8, (512, 18432, 6144): 8,
+                      (4608, 6144, 55296): 48, (4608, 24576, 6144): 48, (512, 15360, 6144): 1,
+                      (1, 6144, 36864): 2, (1, 6144, 18432): 1}
+FLUX2_LORA_RANK = 16
+# The FLUX.2 DiT's bf16 forward on the card against f32 on the CPU (1 + 1 blocks,
+# synthetic weights): its distance grows with the width, as bf16 rounding
+# does here (the 12- and 24-head rows of the same check hold BF16_REL_L2); at
+# the published 48 heads it read 1.30% on an H100, so the limit there is 2%.
+FLUX2_BF16_REL_L2 = 2e-2
+
+
+def flux_edit_kernel_inputs():
+    """(case, q, k, v, bias) at the joint lengths the Flux editing and FLUX.2
+    paths give the kernel at 1024² (unmasked): FLUX.2 t2i and edit with one
+    reference at 48 heads of 128, Kontext and DreamOmni2 with two references
+    at 24."""
+    cases = [(f"flux2_t2i_s{FLUX2_TOKENS['t2i']}_h48", FLUX2_TOKENS["t2i"], FLUX2_HEADS),
+             (f"flux2_edit_s{FLUX2_TOKENS['edit']}_h48", FLUX2_TOKENS["edit"], FLUX2_HEADS),
+             (f"flux_kontext_s{FLUX_EDIT_TOKENS['kontext']}_h24", FLUX_EDIT_TOKENS["kontext"], 24),
+             (f"flux_dreamomni2_s{FLUX_EDIT_TOKENS['dreamomni2']}_h24", FLUX_EDIT_TOKENS["dreamomni2"], 24)]
+    for i, (name, s, h) in enumerate(cases):
+        yield (name, *qkv(1, s, s, h, 128, 90 + i), None)
+
+
+def write_manifest_config(root: Path, manifest: Path, ctype: str, cfg: dict) -> None:
+    """``cfg`` as the config.json that ``manifest``'s ``ctype`` component
+    names (``config_path``), under ``root``'s components."""
+    import yaml
+
+    comp = next(c for c in yaml.safe_load(manifest.read_text())["spec"]["components"] if c["type"] == ctype)
+    path = root / "components" / comp["config_path"]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(cfg))
+
+
+def derived_manifest(home: Path, source: Path, model_type: str, transformer_base: str = None) -> Path:
+    """``source`` with another ``model_type`` (and transformer base), written into ``home``."""
+    import yaml
+
+    doc = yaml.safe_load(source.read_text())
+    doc["metadata"]["id"] = f"{doc['metadata']['id']}-{model_type}-smoke"
+    doc["spec"]["model_type"] = model_type
+    if transformer_base:
+        next(c for c in doc["spec"]["components"] if c["type"] == "transformer")["base"] = transformer_base
+    path = home / f"{source.stem}-{model_type}.yml"
+    path.write_text(yaml.safe_dump(doc))
+    return path
+
+
+def image_engine(label, manifest, model_type, home, weights, configs=()):
+    """``UniversalEngine`` on the card over ``manifest`` with synthetic
+    ``weights``, its own home (``configs``: (component type, config) written
+    where the manifest names them), the byte-level tokenizer in every text
+    encoder, and the memory fallback's gate read at the transformer's load
+    (``engine.gate``)."""
+    from apex_studio_tpu_torch.engine import UniversalEngine
+    from apex_studio_tpu_torch.utils.memory import should_stream
+
+    os.environ["APEX_SYNTHETIC_WEIGHTS"] = weights
+    os.environ["APEX_HOME_DIR"] = str(home / label)
+    for ctype, cfg in configs:
+        write_manifest_config(home / label, manifest, ctype, cfg)
+    engine = UniversalEngine(manifest, model_type=model_type, device="cuda")
+    tok = make_tokenizer()
+    for spec in engine.component_specs.values():
+        if spec.get("type") == "text_encoder":
+            spec["tokenizer"] = tok
+    fallback, engine.gate = engine._apply_memory_fallback, []
+
+    def observed_fallback(model, spec):
+        engine.gate.append(should_stream(model, device=engine.device))
+        return fallback(model, spec)
+
+    engine._apply_memory_fallback = observed_fallback
+    return engine
+
+
+def image_drive(label, engine, requests, steps, launches_per_step):
+    """Requests (run keyword dicts) through ``engine`` at 1024², each with the
+    kernel's launch count set to 0 before and read after: every progress
+    message stamped (synchronised) with the peak GiB of the stage it ends,
+    seconds per step (the first from the message before it), the latents
+    handed to the decode checked finite, the frame checked. Returns (rows,
+    frames)."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    decode, latents_finite = engine._decode_frames, []
+
+    def observed_decode(tokens, *a):
+        latents_finite.append(bool(torch.isfinite(tokens).all()))
+        return decode(tokens, *a)
+
+    engine._decode_frames = observed_decode
+    rows, frames_out = [], []
+    for i, kw in enumerate(requests):
+        stamps, peaks = [], {}
+
+        def progress(p, message, *_a, **_k):
+            torch.cuda.synchronize()
+            stamps.append((message, time.perf_counter()))
+            stage = "denoise" if _STEP.fullmatch(message) else message
+            peaks[stage] = max(peaks.get(stage, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+
+        latents_finite.clear()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        frames = engine.run(height=SIZE, width=SIZE, num_inference_steps=steps, progress_callback=progress, **kw)
+        torch.cuda.synchronize()
+        total, launches = time.perf_counter() - t0, flash_attention.launches
+        step_t = [t for m, t in stamps if _STEP.fullmatch(m)]
+        before = max(t for m, t in stamps if t < step_t[0] and not _STEP.fullmatch(m))
+        per_step = [b - a for a, b in zip([before] + step_t[:-1], step_t)]
+        row = {
+            "phase": label, "model_type": engine.model_type, "request": i + 1,
+            "inputs": {k: (v if isinstance(v, (int, float, str)) else f"{len(v)} images" if isinstance(v, list)
+                           else list(np.shape(v))) for k, v in kw.items()},
+            "steps": steps, "seconds_total": total, "seconds_per_step": per_step,
+            "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
+            "stages": {m: t - t0 for m, t in dict(reversed(stamps)).items() if not _STEP.fullmatch(m)},
+            "peak_gib_by_stage": peaks, "peak_gib": max(peaks.values()),
+            "flash_launches": launches, "flash_launches_per_step": launches / steps,
+            "flash_launches_expected": launches_per_step * steps,
+            "frames": [list(f.shape) for f in frames], "latents_finite": latents_finite,
+        }
+        emit(row)
+        check(len(frames) == 1 and frames[0].shape == (SIZE, SIZE, 3) and frames[0].dtype == np.uint8,
+              f"{label} request {i + 1}: bad frames {row['frames']}")
+        check(latents_finite == [True], f"{label} request {i + 1}: latents not finite")
+        check(launches == launches_per_step * steps,
+              f"{label} request {i + 1}: flash launched {launches} times, expected {launches_per_step * steps}")
+        rows.append(row)
+        frames_out.append(frames[0])
+    return rows, frames_out
+
+
+def phase_flux_edit(home: Path, kernel_rows=()):
+    """Flux 1's editing engines from their manifests at 1024x1024, full width
+    and depth, synthetic int8 weights (W8A8), 2 steps a request, 57 launches a
+    step: Kontext with a seeded reference image, seeds 0, 0, 1 (1 and 2
+    identical, 3 not; S = 8704); Fill with an image and a mask (a 384-channel
+    DiT); Control with a control image (128 channels); DreamOmni2 with two
+    square references at the 1024² bucket (S = 12,800), from a manifest
+    derived from Kontext's."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    source, second, control = (cv2_smooth(rng, (SIZE, SIZE)) for _ in range(3))
+    mask = np.zeros((SIZE, SIZE), np.uint8)
+    mask[256:768, 320:704] = 255
+    paths = {}
+    engine = image_engine("flux_kontext", FLUX_KONTEXT_MANIFEST, "kontext", home, "int8")
+    kw = dict(prompt=PROMPT_B, image=source, guidance_scale=2.5)
+    rows, frames = image_drive("flux_kontext", engine, [dict(kw, seed=0), dict(kw, seed=0), dict(kw, seed=1)], 2,
+                               BLOCKS)
+    same, differ = bool(np.array_equal(frames[0], frames[1])), not np.array_equal(frames[0], frames[2])
+    emit({"phase": "flux_kontext", "requests_1_2_identical": same, "requests_1_3_differ": differ,
+          "joint_tokens": FLUX_EDIT_TOKENS["kontext"], "memory_fallback_gate": engine.gate})
+    check(same, "Kontext requests 1 and 2 (same inputs and seed) differ")
+    check(differ, "Kontext requests 1 and 3 (other seed) are identical")
+    paths["flux_kontext"] = rows
+    del engine, frames
+    release()
+    for label, manifest, model_type, cfg, extra in (
+            ("flux_fill", FLUX_FILL_MANIFEST, "fill", FLUX_FILL_TRANSFORMER, dict(image=source, mask_image=mask)),
+            ("flux_control", FLUX_CONTROL_MANIFEST, "control", FLUX_CANNY_TRANSFORMER, dict(control_image=control))):
+        engine = image_engine(label, manifest, model_type, home, "int8", [("transformer", cfg)])
+        paths[label] = image_drive(label, engine, [dict(prompt=PROMPT_A, seed=2, **extra)], 2, BLOCKS)[0]
+        check(engine.transformer.cfg.in_channels == cfg["in_channels"], f"{label}: the DiT's input channels")
+        del engine
+        release()
+    engine = image_engine("flux_dreamomni2", derived_manifest(home, FLUX_KONTEXT_MANIFEST, "dreamomni2"),
+                          "dreamomni2", home, "int8")
+    paths["flux_dreamomni2"] = image_drive("flux_dreamomni2", engine, [dict(
+        prompt="the fox from the first image in the room of the second", image_list=[source, second], seed=3)],
+        2, BLOCKS)[0]
+    del engine
+    release()
+    if kernel_rows:
+        for name, model_type in (("kontext", "flux_kontext"), ("dreamomni2", "flux_dreamomni2")):
+            s = FLUX_EDIT_TOKENS[name]
+            step_breakdown("flux_edit", f"{name}_int8_step_s{s}", statistics.median(
+                t for r in paths[model_type] for t in r["seconds_per_step"][1:]),
+                {f"flux_{name}_s{s}_h24": BLOCKS}, kernel_rows)
+    return paths
+
+
+def flux2_reference():
+    """The FLUX.2 DiT with 1 dual and 1 single block at 12, 24 and its full
+    48 heads of 128 (the 15360-wide context), and Mistral-Small 3.2's text
+    tower at full width with 2 layers (stacked at 1 and 2), each on the card
+    in bf16 (the kernel; the encoder's masked attention on the plain route)
+    against the same weights on the CPU in f32: the DiT over an 8 x 8 grid,
+    one 4 x 4 reference grid and 64 text rows, within BF16_REL_L2 up to 24
+    heads and FLUX2_BF16_REL_L2 at 48; the encoder over 64 tokens of which
+    40 are real, within BF16_REL_L2."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.text_encoders import llama
+    from apex_studio_tpu_torch.models.transformers import flux2
+
+    rng = np.random.default_rng(13)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    inputs = (tensor(1, 64, 128), tensor(1, 64, 15360), torch.tensor([0.6]), torch.tensor([4.0]),
+              tensor(1, 16, 128))
+    for heads, tol in ((12, BF16_REL_L2), (24, BF16_REL_L2), (FLUX2_HEADS, FLUX2_BF16_REL_L2)):
+        card_vs_cpu(f"flux2.base {heads} heads of 128, 1 + 1 blocks, one reference grid",
+                    lambda dt, h=heads: flux2.Flux2Transformer2DModel(
+                        flux2.Flux2Config(num_layers=1, num_single_layers=1, num_attention_heads=h), dtype=dt),
+                    lambda m, x, s, t, g, c: m(x, s, t, g, grid_hw=(8, 8), cond_tokens=c, cond_grids=((4, 4),)),
+                    inputs, tol, 31, phase="flux2")
+    ids = torch.from_numpy(rng.integers(0, 131072, size=(1, 64)))
+    mask = (torch.arange(64) < 40)[None].to(torch.int32)
+    cfg = llama.LlamaConfig.from_dict({**MISTRAL_SMALL_32, "num_hidden_layers": 2, "stack_layers": [1, 2]})
+    card_vs_cpu("Mistral-Small 3.2 text tower, 2 layers, stacked at 1 and 2",
+                lambda dt: llama.LlamaTextEncoder(cfg, dtype=dt), lambda m, i, k: m(i, attention_mask=k),
+                (ids, mask), BF16_REL_L2, 32, phase="flux2")
+
+
+def write_flux2_lora(path: Path) -> int:
+    """A rank-16 LoRA in the published PEFT naming (diffusers' module names
+    under ``transformer.``), seeded, bf16: the 8 dual blocks' eight attention
+    projections and the 48 single blocks' fused in- and out-projections.
+    Returns the adapter count."""
+    import torch
+
+    from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
+
+    d, inner = 6144, 18432
+    shapes = {f"transformer_blocks.{i}.attn.{p}": (d, d) for i in range(8)
+              for p in ("to_q", "to_k", "to_v", "to_out.0", "add_q_proj", "add_k_proj", "add_v_proj", "to_add_out")}
+    for i in range(48):
+        shapes[f"single_transformer_blocks.{i}.attn.to_qkv_mlp_proj"] = (d, 3 * d + 2 * inner)
+        shapes[f"single_transformer_blocks.{i}.attn.to_out"] = (d + inner, d)
+    g, sd = torch.Generator().manual_seed(0), {}
+    for module, (n_in, n_out) in shapes.items():
+        sd[f"transformer.{module}.lora_A.weight"] = (0.01 * torch.randn(FLUX2_LORA_RANK, n_in, generator=g)).bfloat16()
+        sd[f"transformer.{module}.lora_B.weight"] = (0.01 * torch.randn(n_out, FLUX2_LORA_RANK, generator=g)).bfloat16()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_safetensors(path, sd)
+    return len(shapes)
+
+
+def phase_flux2(home: Path, kernel_rows=()):
+    """FLUX.2 Dev from its manifests at 1024x1024, its published widths (the
+    Flux2Config defaults: 8 + 48 blocks, 48 heads of 128), the 32B DiT
+    int4-resident and Mistral-Small 3.2 int8, both resident through the run,
+    with the text tower's and the VAE's configs written where the manifests
+    name them: the 2-block card-vs-CPU checks; t2i of 4 steps, (A, 0), (B, 1),
+    (A, 0) (56 launches a step, 1 and 3 identical, 2 not); one VAE decode
+    against float64; edit with one 1024² reference image (2 steps, S = 8704);
+    the resident Linears at FLUX.2's shapes and the step split; Turbo at its
+    8 steps with a rank-16 LoRA written at the manifest's LoRA source; the
+    control DiT (4 chain blocks, 60 launches a step) with a control image,
+    an inpaint image and a mask (2 steps)."""
+    import numpy as np
+    import torch
+
+    import yaml
+
+    from apex_studio_tpu_torch.quantize.residency import count_resident
+    from apex_studio_tpu_torch.utils.defaults import get_lora_path
+    from apex_studio_tpu_torch.utils.memory import params_nbytes
+
+    flux2_reference()
+    rng = np.random.default_rng(12)
+    reference, control, inpaint = (cv2_smooth(rng, (SIZE, SIZE)) for _ in range(3))
+    configs = [("text_encoder", MISTRAL_SMALL_32), ("vae", FLUX2_VAE)]
+    paths = {}
+    engine = image_engine("flux2_t2i", FLUX2_MANIFEST, "ti2i", home, "int4", configs)
+    rows, frames = image_drive("flux2_t2i", engine, [dict(prompt=PROMPT_A, seed=0), dict(prompt=PROMPT_B, seed=1),
+                                                     dict(prompt=PROMPT_A, seed=0)], 4, FLUX2_LAYERS)
+    tf, te = engine.transformer, engine.text_encoder.model
+    bits = {m.weight_bits for m in tf.modules() if getattr(m, "weight_scale", None) is not None}
+    same, differ = bool(np.array_equal(frames[0], frames[2])), not np.array_equal(frames[0], frames[1])
+    emit({"phase": "flux2", "requests_1_3_identical": same, "requests_1_2_differ": differ,
+          "resident_weights": count_resident(tf), "resident_bits": sorted(bits),
+          "encoder_resident_weights": count_resident(te), "encoder_stack_layers": list(te.cfg.stack_layers),
+          "memory_fallback_gate": engine.gate, "vae_latent_channels": engine.vae.cfg.latent_channels,
+          "dit_gib": params_nbytes(tf) / 2**30, "encoder_gib": params_nbytes(te) / 2**30})
+    check(same, "FLUX.2 t2i requests 1 and 3 (same prompt and seed) differ")
+    check(differ, "FLUX.2 t2i requests 1 and 2 (other prompt and seed) are identical")
+    check(bits == {4} and count_resident(tf) > 0, f"the FLUX.2 DiT's resident bits {bits}")
+    check(engine.gate == [False], f"the memory fallback's gate fired: {engine.gate}")
+    check(te.cfg.hidden_size == 5120 and te.cfg.stack_layers == (10, 20, 30), "the Mistral tower's config")
+    check(engine.vae.cfg.packed_batch_norm and engine.vae.cfg.latent_channels == 32, "the FLUX.2 VAE's config")
+    g = torch.Generator("cuda").manual_seed(14)
+    z = torch.randn(1, 32, SIZE // 8, SIZE // 8, generator=g, device="cuda")
+    vae_row = {"phase": "flux2", "check": "vae_decode_vs_float64", **vae_decode_vs_float64(engine.vae, z),
+               "tol": 2e-2}
+    emit(vae_row)
+    check(vae_row["rel_l2_vs_float64"] <= 2e-2, f"the FLUX.2 VAE's decode is {vae_row['rel_l2_vs_float64']} "
+                                                "from float64")
+    paths["flux2_t2i"] = rows
+    paths["flux2_edit"] = image_drive("flux2_edit", engine, [dict(prompt=QWENIMAGE_EDIT_PROMPT, images=[reference],
+                                                                  seed=0)], 2, FLUX2_LAYERS)[0]
+    del engine, tf, te, frames
+    release()
+    linear_rows = residency_timing(list(FLUX2_LINEAR_CALLS), phase="flux2")
+    if kernel_rows:
+        t2i_step = statistics.median(t for r in rows for t in r["seconds_per_step"][1:])
+        step_breakdown("flux2", f"t2i_int4_step_s{FLUX2_TOKENS['t2i']}", t2i_step,
+                            {f"flux2_t2i_s{FLUX2_TOKENS['t2i']}_h48": FLUX2_LAYERS}, kernel_rows,
+                            FLUX2_LINEAR_CALLS, linear_rows)
+        step_breakdown("flux2", f"edit_int4_step_s{FLUX2_TOKENS['edit']}",
+                            paths["flux2_edit"][0]["seconds_per_step"][-1],
+                            {f"flux2_edit_s{FLUX2_TOKENS['edit']}_h48": FLUX2_LAYERS}, kernel_rows)
+    # Turbo: the manifest's LoRA source, written where the engine resolves it
+    os.environ["APEX_HOME_DIR"] = str(home / "flux2_turbo")
+    source = yaml.safe_load(FLUX2_TURBO_MANIFEST.read_text())["spec"]["loras"][0]["source"]
+    adapters = write_flux2_lora(get_lora_path() / source)
+    engine = image_engine("flux2_turbo", FLUX2_TURBO_MANIFEST, "ti2i", home, "int4", configs)
+    paths["flux2_turbo"] = image_drive("flux2_turbo", engine, [dict(prompt=PROMPT_B, seed=4)], 8, FLUX2_LAYERS)[0]
+    merged = [(r["scale"], r["applied"], len(r["skipped"])) for r in engine.lora_results]
+    emit({"phase": "flux2_turbo", "lora_rank": FLUX2_LORA_RANK, "loras": merged, "adapters_written": adapters})
+    check(merged == [(1.0, adapters, 0)], f"Turbo LoRA merge: {merged}, expected {adapters} applied")
+    del engine
+    release()
+    engine = image_engine("flux2_control", derived_manifest(home, FLUX2_MANIFEST, "control", "flux2.control"),
+                          "control", home, "int4", configs)
+    mask = np.zeros((SIZE, SIZE), np.uint8)
+    mask[:, SIZE // 2:] = 255
+    paths["flux2_control"] = image_drive("flux2_control", engine, [dict(
+        prompt=PROMPT_A, control_image=control, inpaint_image=inpaint, mask_image=mask, seed=5)], 2,
+        FLUX2_LAYERS + FLUX2_CONTROL_BLOCKS)[0]
+    cfg = engine.transformer.cfg
+    check(cfg.control_in_dim == 260 and tuple(cfg.control_layers) == (0, 2, 4, 6), "the control DiT's config")
+    del engine
+    release()
+    return paths, linear_rows
 
 
 def torch_randn_like(z, seed: int):
@@ -3734,6 +4147,12 @@ def main() -> int:
         if "wan_causal" in phases:
             paths.update(timed("wan_causal", phase_wan_causal, home, zimage_timing))
             release()
+        if "flux_edit" in phases:
+            paths.update(timed("flux_edit", phase_flux_edit, home, zimage_timing))
+            release()
+        if "flux2" in phases:
+            paths.update(timed("flux2", phase_flux2, home, zimage_timing)[0])
+            release()
         if "prompt_extension" in phases:
             paths["prompt_extension"] = timed("prompt_extension", phase_prompt_extension, home)
         if "rife" in phases:
@@ -3769,7 +4188,7 @@ def main() -> int:
             "zimage_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "bias", "ms", "queued_ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
                              "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
-                            if not r["case"].startswith(("qwenimage", "wan"))],
+                            if not r["case"].startswith(("qwenimage", "wan", "flux"))],
             "qwenimage_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "ms", "queued_ms", "plain_ms",
                                                      "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
                                 "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
@@ -3779,6 +4198,10 @@ def main() -> int:
                                                "library_ms", "library_queued_ms")},
                           "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
                          if r["case"].startswith("wan")],
+            "flux_edit_rows": [{**{k: r[k] for k in ("case", "shape", "sk", "ms", "queued_ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "library_ms", "library_queued_ms")},
+                                "max_abs_err": case_err.get(r["case"])} for r in zimage_timing
+                               if r["case"].startswith("flux")],
         }]})
         print(card)
     except CheckFailed as e:

@@ -76,6 +76,8 @@ CASES = [
     # (valid keys = the block's own) and the last (every key valid)
     ("causal_first_block_sq1560_sk9360_bias_h12", 1, 1560, 9360, 12, 128, [1560], False),
     ("causal_last_block_sq1560_sk9360_bias_h12", 1, 1560, 9360, 12, 128, [9360], False),
+    # FLUX.2 t2i at 1024px: 512 text + 4096 image tokens, 48 heads
+    ("flux2_t2i_s4608_h48", 1, 4608, 4608, 48, 128, None, False),
 ]
 
 
@@ -387,3 +389,55 @@ def test_wan_variants_launch_the_kernel_per_attention(cuda):
         assert flash_attention.launches == before + 3 * 2 * 3
         assert out.shape == (1, 16, 1, 18, 22) and torch.isfinite(out.float()).all()
         assert kc.abs().amax(dim=(0, 1, 3, 4)).gt(0).all()
+
+
+# the joint lengths of the editing paths at 1024px: FLUX.2 edit with one
+# reference (512 + 2 x 4096, 48 heads), Flux Kontext (the same, 24 heads),
+# DreamOmni2 with two references at the 1024² bucket (512 + 3 x 4096, 24 heads)
+LONG_EDIT_SHAPES = [("flux2_edit_s8704_h48", 8704, 48), ("kontext_s8704_h24", 8704, 24),
+                    ("dreamomni2_s12800_h24", 12800, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LONG_EDIT_SHAPES, ids=[c[0] for c in LONG_EDIT_SHAPES])
+def test_flash_kernel_flux_edit_lengths_row_subsets(shape, cuda):
+    """The kernel at the Flux editing lengths on three 128-row subsets of its
+    output (the first tile, the ragged last and one across a tile edge), the
+    plain version over all keys."""
+    _, s, h = shape
+    g = torch.Generator(cuda).manual_seed(6)
+    q, k, v = (torch.randn(1, s, h, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    for rows in (slice(0, 128), slice(s - 128, s), slice(s // 2 - 64, s // 2 + 64)):
+        ref = flash_attention_reference(q[:, rows], k, v)
+        assert torch.isfinite(out[:, rows].float()).all()
+        assert_agrees(out[:, rows], ref)
+
+
+@pytest.mark.cuda
+def test_flux2_dits_launch_the_kernel_per_block(cuda):
+    """Small FLUX.2 DiTs (head dim 128) in bf16 on the card: one joint launch
+    a dual and a single block, reference tokens included; the control chain
+    one more a chain block; outputs finite and of the noise tokens' shape."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import flux2
+
+    small = dict(in_channels=16, num_layers=2, num_single_layers=3, num_attention_heads=2, joint_attention_dim=64,
+                 axes_dims_rope=(32, 32, 32, 32))
+    base = materialize_random(lambda: flux2.Flux2Transformer2DModel(flux2.Flux2Config(**small)), cuda, seed=0)
+    ctrl = materialize_random(lambda: flux2.Flux2ControlTransformer2DModel(flux2.Flux2ControlConfig(
+        **small, control_layers=(0, 1), control_in_dim=36)), cuda, seed=1)
+    g = torch.Generator().manual_seed(0)
+    x, cond = (torch.randn(1, n, 16, generator=g).to(cuda) for n in (99, 30))
+    seq = torch.randn(1, 40, 64, generator=g).to(cuda)
+    t, gd = torch.tensor([0.5], device=cuda), torch.tensor([4.0], device=cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        out = base(x, seq, t, gd, grid_hw=(9, 11), cond_tokens=cond, cond_grids=((5, 6),))
+        assert flash_attention.launches == before + 2 + 3
+        assert out.shape == x.shape and torch.isfinite(out.float()).all()
+        before = flash_attention.launches
+        out = ctrl(x, seq, t, gd, grid_hw=(9, 11), control_context=torch.randn(1, 99, 36, generator=g).to(cuda))
+        assert flash_attention.launches == before + 2 + 3 + 2
+        assert out.shape == x.shape and torch.isfinite(out.float()).all()

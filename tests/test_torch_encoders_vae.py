@@ -90,3 +90,72 @@ class TestAutoencoderKL:
         with torch.no_grad():
             out = pm.encode(torch.from_numpy(x))
         assert_close(out, ref)
+
+
+FLUX2_VAE = dict(latent_channels=4, block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4,
+                 scaling_factor=1.0, shift_factor=None, use_quant_conv=True, use_post_quant_conv=True,
+                 packed_batch_norm=True)
+
+
+class TestFlux2VAE:
+    """The FLUX.2 variant: quant convs, and the packed latents normalized by
+    BatchNorm running statistics (16 = 2·2·4 of them here, carried as 1-D
+    parameters), as ``AutoencoderKLFlux2`` / ``flux2`` name it."""
+
+    @pytest.fixture(scope="class")
+    def pair(self):
+        jm = jax_build(lambda: JaxVAE(JaxVAEConfig(**FLUX2_VAE), **f32()), seed=2)
+        pm = port_from_jax(lambda: AutoencoderKL(AutoencoderKLConfig(**FLUX2_VAE), dtype=torch.float32), jm)
+        return jm, pm
+
+    def test_statistics_and_quant_convs_are_carried(self, pair):
+        _, pm = pair
+        assert tuple(pm.bn_mean.shape) == tuple(pm.bn_var.shape) == (16,)
+        assert pm.quant_conv is not None and pm.post_quant_conv is not None
+        assert float(pm.bn_var.min()) > 0 and not torch.all(pm.bn_mean == 0)
+
+    def test_encode_normalize_match_jax(self, pair):
+        from apex_studio_tpu.models.transformers.flux2 import Flux2Transformer2DModel as JaxFlux2
+        from apex_studio_tpu_torch.models.transformers.flux2 import Flux2Transformer2DModel
+
+        jm, pm = pair
+        x = np.random.default_rng(3).uniform(-1, 1, size=(1, 3, 16, 24)).astype(np.float32)
+        ref = jm.normalize_packed(JaxFlux2.pack_latents(jm.encode(jnp.asarray(x))))
+        with torch.no_grad():
+            out = pm.normalize_packed(Flux2Transformer2DModel.pack_latents(pm.encode(torch.from_numpy(x))))
+        assert tuple(out.shape) == (1, 24, 16)
+        assert_close(out, ref)
+
+    def test_denormalize_decode_match_jax(self, pair):
+        jm, pm = pair
+        tokens = np.random.default_rng(4).normal(size=(1, 12, 16)).astype(np.float32)
+        ref = jm.denormalize_packed(jnp.asarray(tokens))
+        with torch.no_grad():
+            out = pm.denormalize_packed(torch.from_numpy(tokens))
+            back = pm.normalize_packed(out)
+        assert_close(out, ref)
+        assert_close(back, tokens)
+        z = np.random.default_rng(5).normal(size=(1, 4, 6, 8)).astype(np.float32)
+        with torch.no_grad():
+            img = pm.decode(torch.from_numpy(z))
+        assert tuple(img.shape) == (1, 3, 12, 16)
+        assert_close(img, jm.decode(jnp.asarray(z)))
+
+    def test_registered_under_the_manifest_names(self):
+        from apex_studio_tpu_torch.models.registry import _load_builtin_families, vae_registry
+
+        _load_builtin_families()
+        for name in ("AutoencoderKLFlux2", "flux2", "flux2.vae", "auto"):
+            assert vae_registry.get(name) is AutoencoderKL
+
+    def test_synthetic_running_statistics_are_reset(self):
+        """Random synthetic weights leave the running statistics at a fresh
+        BatchNorm's (mean 0, variance 1): a variance drawn as a weight may be
+        negative, and the normalization would be NaN."""
+        from apex_studio_tpu_torch.engine.base import materialize_random
+
+        pm = materialize_random(lambda: AutoencoderKL(AutoencoderKLConfig(**FLUX2_VAE), dtype=torch.float32),
+                                torch.device("cpu"), seed=0)
+        assert float(pm.bn_var.min()) < 0  # drawn like a weight
+        pm.reset_running_stats()
+        assert torch.equal(pm.bn_mean, torch.zeros(16)) and torch.equal(pm.bn_var, torch.ones(16))

@@ -128,6 +128,106 @@ class TestFluxEngineParity:
         assert diff.max() <= 1
 
 
+# The engines built on t2i (kontext, fill, control, dreamomni2), each from the
+# tiny manifest with its model type and input width, against the JAX engine
+# with every component carried; latents after 2 steps max|Δ| ≤ 1e-4·max|ref|,
+# frames within 1 LSB. The tiny VAE halves the size, so a 32² request has
+# 8 × 8 tokens and fill's 4 mask bits a latent pixel pack into 16 features.
+def _edit_inputs():
+    rng = np.random.default_rng(21)
+    img = rng.integers(0, 256, size=(40, 48, 3)).astype(np.uint8)
+    mask = np.zeros((32, 32), np.uint8)
+    mask[8:24, 12:28] = 255
+    refs = [rng.integers(0, 256, size=(24, 32, 3)).astype(np.uint8),
+            rng.integers(0, 256, size=(32, 16, 3)).astype(np.uint8)]
+    return img, mask, refs
+
+
+EDIT_CASES = {  # model type: (transformer in_channels, run inputs)
+    "kontext": (16, lambda img, mask, refs: {"image": img}),
+    "fill": (48, lambda img, mask, refs: {"image": img, "mask_image": mask}),
+    "control": (32, lambda img, mask, refs: {"control_image": img}),
+    "dreamomni2": (16, lambda img, mask, refs: {"image_list": refs, "resize_to_preferred_resolution": False}),
+}
+
+
+@pytest.fixture(scope="module", params=list(EDIT_CASES))
+def edit_engines(request, tmp_path_factory):
+    model_type = request.param
+    in_channels, make_inputs = EDIT_CASES[model_type]
+    tmp = tmp_path_factory.mktemp(model_type)
+    doc = copy.deepcopy(FLUX_TINY)
+    doc["spec"]["model_type"] = model_type
+    for comp in doc["spec"]["components"]:
+        if comp["type"] != "scheduler":
+            comp["precision"] = "fp32"
+        if comp["type"] == "transformer":
+            comp["config"]["in_channels"] = in_channels
+    path = tmp / f"flux-{model_type}-tiny.yml"
+    path.write_text(yaml.safe_dump(doc))
+    run = dict(RUN, **make_inputs(*_edit_inputs()))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("APEX_HOME_DIR", str(tmp / "home_jax"))
+        jeng = fast_jax_engine(JaxUniversalEngine(path))
+        inject_tokenizer(jeng)
+        jax_parts = load_all(jeng)
+        ref_lat = np.asarray(jeng.run(return_latents=True, **run))
+        ref_frames = jeng.run(**run)
+        mp.setenv("APEX_HOME_DIR", str(tmp / "home_port"))
+        peng = UniversalEngine(path, device="cpu")
+        inject_tokenizer(peng)
+        for name, module in load_all(peng).items():
+            load_from_jax(module, jax_params(jax_parts[name]))
+        lat = peng.run(return_latents=True, **run)
+        frames = peng.run(**run)
+    return model_type, peng, ref_lat, ref_frames, lat, frames
+
+
+class TestFluxEditEngines:
+    def test_registered(self, edit_engines):
+        model_type, peng = edit_engines[:2]
+        assert type(peng).__name__ == {"kontext": "FluxKontextEngine", "fill": "FluxFillEngine",
+                                       "control": "FluxControlEngine",
+                                       "dreamomni2": "FluxDreamOmni2Engine"}[model_type]
+
+    def test_latents_match_jax(self, edit_engines):
+        _, _, ref_lat, _, lat, _ = edit_engines
+        assert tuple(lat.shape) == ref_lat.shape == (1, 64, 16)  # the noise tokens alone
+        assert_close(lat, ref_lat)
+
+    def test_frames_within_one_lsb(self, edit_engines):
+        _, _, _, ref_frames, _, frames = edit_engines
+        assert frames[0].shape == (32, 32, 3)
+        assert np.abs(frames[0].astype(np.int16) - ref_frames[0].astype(np.int16)).max() <= 1
+
+    def test_conditioning_changes_the_latents(self, edit_engines):
+        """Other conditioning pixels give other latents: the inputs reach the DiT."""
+        model_type, peng, _, _, lat, _ = edit_engines
+        img, mask, refs = _edit_inputs()
+        run = dict(RUN, **EDIT_CASES[model_type][1](255 - img, mask, [255 - r for r in refs]))
+        assert not torch.allclose(peng.run(return_latents=True, **run), lat, rtol=0, atol=1e-4)
+
+
+def test_kontext_buckets_are_jax_s():
+    from apex_studio_tpu.engine.flux import PREFERRED_KONTEXT_RESOLUTIONS as JAX_BUCKETS
+    from apex_studio_tpu_torch.engine.flux import PREFERRED_KONTEXT_RESOLUTIONS
+
+    assert PREFERRED_KONTEXT_RESOLUTIONS == JAX_BUCKETS
+
+
+@pytest.mark.parametrize("model_type,missing", [("kontext", "image"), ("fill", "mask"), ("control", "control"),
+                                                ("dreamomni2", "reference")])
+def test_edit_engines_require_their_inputs(model_type, missing, tmp_path):
+    doc = copy.deepcopy(FLUX_TINY)
+    doc["spec"]["model_type"] = model_type
+    path = tmp_path / "m.yml"
+    path.write_text(yaml.safe_dump(doc))
+    eng = UniversalEngine(path, device="cpu")
+    kw = {"image": np.zeros((32, 32, 3), np.uint8)} if model_type == "fill" else {}
+    with pytest.raises(ValueError, match=missing):
+        eng.run(prompt="x", height=32, width=32, **kw)
+
+
 MODEL_PATHS = {"transformer": "flux-tiny/flux1-tiny.safetensors", "vae": "flux-tiny/vae.safetensors",
                "text_encoder": "flux-tiny/text_encoder/model.safetensors",
                "text_encoder_2": "flux-tiny/text_encoder_2"}

@@ -66,6 +66,32 @@ class TestFluxDiT:
         np.testing.assert_allclose(c.numpy(), np.asarray(rc), atol=1e-6)
         np.testing.assert_allclose(s.numpy(), np.asarray(rs), atol=1e-6)
 
+    # Kontext: one conditioning grid at t-index 1; DreamOmni2: two grids at 1
+    # and 2, the second's widths offset by the first's
+    @pytest.mark.parametrize("cond_grids", [(2, 3), ((2, 3), (3, 2))], ids=["kontext", "dreamomni2"])
+    def test_conditioning_tokens_match_jax(self, cond_grids):
+        jm, pm = build_pair(True)
+        grids = [cond_grids] if isinstance(cond_grids[0], int) else list(cond_grids)
+        rng = np.random.default_rng(3)
+        h, w, lt = 4, 6, 7
+        x = rng.normal(size=(1, h * w, 16)).astype(np.float32)
+        cond = rng.normal(size=(1, sum(a * b for a, b in grids), 16)).astype(np.float32)
+        txt = rng.normal(size=(1, lt, 128)).astype(np.float32)
+        pooled = rng.normal(size=(1, 64)).astype(np.float32)
+        t, g = np.array([0.6], np.float32), np.array([3.5], np.float32)
+        rc, rs = jm.rope_tables(lt, h, w, cond_grid_hw=cond_grids)
+        c, s = pm.rope_tables(lt, h, w, cond_grid_hw=cond_grids)
+        assert tuple(c.shape) == tuple(rc.shape) == (1, lt + h * w + cond.shape[1], 1, 32)
+        np.testing.assert_allclose(c.numpy(), np.asarray(rc), atol=1e-6)
+        np.testing.assert_allclose(s.numpy(), np.asarray(rs), atol=1e-6)
+        fwd = nnx.jit(lambda m, *a: m(*a[:-1], grid_hw=(h, w), cond_tokens=a[-1], cond_grid_hw=cond_grids))
+        ref = fwd(jm, *(jnp.asarray(a) for a in (x, txt, pooled, t, g, cond)))
+        with torch.no_grad():
+            out = pm(*(torch.from_numpy(a) for a in (x, txt, pooled, t, g)), grid_hw=(h, w),
+                     cond_tokens=torch.from_numpy(cond), cond_grid_hw=cond_grids)
+        assert tuple(out.shape) == (1, h * w, 16)  # the conditioning tokens are dropped
+        assert_close(out, ref)
+
     def test_carry_is_strict(self):
         jm, pm = build_pair(True)
         flat = jax_params(jm)

@@ -42,6 +42,8 @@ from apex_studio_tpu.models.text_encoders.qwen3 import Qwen3TextEncoder as JaxQw
 from apex_studio_tpu.models.transformers import qwenimage as jax_qwenimage
 from apex_studio_tpu.models.transformers import zimage as jax_zimage
 from apex_studio_tpu.models.transformers import wan as jax_wan
+from apex_studio_tpu.models.transformers import flux2 as jax_flux2
+from apex_studio_tpu.models.text_encoders import llama as jax_llama
 from apex_studio_tpu.models.vaes.wan_vae import AutoencoderKLWan as JaxWanVAE
 from apex_studio_tpu.models.vaes.wan_vae import WanVAEConfig as JaxWanVAEConfig
 from apex_studio_tpu.quantize.writers import write_gguf
@@ -57,7 +59,8 @@ from apex_studio_tpu_torch.models.vaes.autoencoder_kl import AutoencoderKL, Auto
 from apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae import AutoencoderKLHunyuanVideo15, HYV15VAEConfig
 from apex_studio_tpu_torch.models.vaes.tae_vae import TAEVAE, TAEConfig
 from apex_studio_tpu_torch.models.text_encoders.qwen3 import Qwen3Config, Qwen3TextEncoder
-from apex_studio_tpu_torch.models.transformers import qwenimage, wan, zimage
+from apex_studio_tpu_torch.models.transformers import flux2, qwenimage, wan, zimage
+from apex_studio_tpu_torch.models.text_encoders import llama
 from apex_studio_tpu_torch.models.vaes.wan_vae import AutoencoderKLWan, WanVAEConfig
 from apex_studio_tpu_torch.quantize.gguf import load_gguf_state_dict
 from tests.torch_port_helpers import assert_close
@@ -93,6 +96,13 @@ WAN = dict(num_attention_heads=2, attention_head_dim=16, in_channels=4, out_chan
            freq_dim=16, ffn_dim=48, num_layers=2)
 QWEN3 = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
              num_attention_heads=4, num_key_value_heads=2, head_dim=16)
+FLUX2 = dict(in_channels=16, num_layers=2, num_single_layers=2, attention_head_dim=16, num_attention_heads=2,
+             joint_attention_dim=48, mlp_ratio=2.0, axes_dims_rope=(4, 4, 4, 4))
+FLUX2_CONTROL = dict(FLUX2, control_layers=(0, 1), control_in_dim=36)
+FLUX2_VAE = dict(VAE, scaling_factor=1.0, shift_factor=None, use_quant_conv=True, use_post_quant_conv=True,
+                 packed_batch_norm=True)
+LLAMA = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=4,
+             num_key_value_heads=2, head_dim=8, stack_layers=(1, 2))
 
 
 # -- safetensors ---------------------------------------------------------------------------
@@ -294,6 +304,25 @@ def run_wan(model, is_jax):
                    for a in args))
 
 
+def run_flux2(model, is_jax):
+    rng = np.random.default_rng(0)
+    args = [rng.normal(size=(1, 12, 16)), rng.normal(size=(1, 5, 48)), np.array([0.6]), np.array([4.0])]
+    cc = rng.normal(size=(1, 12, 36))
+    wrap = (lambda a: jnp.asarray(a, jnp.float32)) if is_jax else (lambda a: torch.from_numpy(a.astype(np.float32)))
+    kw = {"control_context": wrap(cc)} if hasattr(model, "control_img_in") else {}
+    return model(*map(wrap, args), grid_hw=(3, 4), **kw)
+
+
+def run_flux2_vae(model, is_jax):
+    """Packed tokens denormalized by the running statistics, unpacked and decoded."""
+    tokens = np.random.default_rng(0).normal(size=(1, 6, 16)).astype(np.float32)
+    if is_jax:
+        z = jax_flux2.Flux2Transformer2DModel.unpack_latents(model.denormalize_packed(jnp.asarray(tokens)), 4, 6)
+    else:
+        z = flux2.Flux2Transformer2DModel.unpack_latents(model.denormalize_packed(torch.from_numpy(tokens)), 4, 6)
+    return model.decode(z)
+
+
 def zimage_single_file(sd):
     """The Comfy single-file naming under a ``model.diffusion_model.`` prefix,
     which the converter strips."""
@@ -354,6 +383,20 @@ FAMILIES = {
     "qwen3": ("qwen3", lambda: Qwen3TextEncoder(Qwen3Config(**QWEN3), dtype=torch.float32),
               lambda: JaxQwen3(JaxQwen3Config(**QWEN3), **f32()), lambda sd: published_state_dict("qwen3", sd),
               run_encoder),
+    "flux2": ("flux2", lambda: flux2.Flux2Transformer2DModel(flux2.Flux2Config(**FLUX2), dtype=torch.float32),
+              lambda: jax_flux2.Flux2Transformer2DModel(jax_flux2.Flux2Config(**FLUX2), **f32()),
+              lambda sd: published_state_dict("flux2", sd), run_flux2),
+    "flux2_control": ("flux2_control", lambda: flux2.Flux2ControlTransformer2DModel(
+                          flux2.Flux2ControlConfig(**FLUX2_CONTROL), dtype=torch.float32),
+                      lambda: jax_flux2.Flux2ControlTransformer2DModel(jax_flux2.Flux2ControlConfig(**FLUX2_CONTROL),
+                                                                       **f32()),
+                      lambda sd: published_state_dict("flux2", sd), run_flux2),
+    "flux2_vae": ("flux2_vae", lambda: AutoencoderKL(AutoencoderKLConfig(**FLUX2_VAE), dtype=torch.float32),
+                  lambda: JaxVAE(JaxVAEConfig(**FLUX2_VAE), **f32()),
+                  lambda sd: published_state_dict("flux2_vae", sd), run_flux2_vae),
+    "llama": ("llama", lambda: llama.LlamaTextEncoder(llama.LlamaConfig(**LLAMA), dtype=torch.float32),
+              lambda: jax_llama.LlamaTextEncoder(jax_llama.LlamaConfig(**LLAMA), **f32()),
+              lambda sd: published_state_dict("llama", sd), run_encoder),
 }
 
 
@@ -368,6 +411,8 @@ def family(request, tmp_path_factory):
     module loaded back from that file."""
     fam, build, build_jax, export, forward = FAMILIES[request.param]
     source = materialize_random(build, torch.device("cpu"), seed=3, std=0.1)
+    if getattr(source, "bn_var", None) is not None:  # a variance, drawn like a weight
+        source.bn_var.data.abs_()
     path = tmp_path_factory.mktemp(request.param) / "model.safetensors"
     safetensors_io.save_safetensors(path, export(source.state_dict()))
     loaded = meta(build)
@@ -396,8 +441,19 @@ class TestFamilies:
                   "qwenimage_controlnet": "controlnet_blocks.1.weight",
                   "wan_vae": "decoder.up_blocks.0.upsamplers.0.resample.1.weight",
                   "umt5": "encoder.block.1.layer.0.SelfAttention.relative_attention_bias.weight",
-                  "wan": "condition_embedder.time_embedder.linear_2.weight"}[name]
+                  "wan": "condition_embedder.time_embedder.linear_2.weight",
+                  "flux2": "single_transformer_blocks.1.attn.to_qkv_mlp_proj.weight",
+                  "flux2_control": "control_transformer_blocks.0.before_proj.weight",
+                  "flux2_vae": "bn.running_var",
+                  "llama": "language_model.model.layers.1.mlp.gate_proj.weight"}[name]
         assert marker in keys
+        if name == "flux2":  # diffusers' Flux2Transformer2DModel names
+            assert {"time_guidance_embed.timestep_embedder.linear_1.weight",
+                    "time_guidance_embed.guidance_embedder.linear_2.weight",
+                    "double_stream_modulation_txt.linear.weight", "single_stream_modulation.linear.weight",
+                    "transformer_blocks.0.attn.to_out.0.weight", "transformer_blocks.0.attn.norm_added_k.weight",
+                    "transformer_blocks.1.ff_context.linear_in.weight", "single_transformer_blocks.0.attn.to_out.weight",
+                    "single_transformer_blocks.0.attn.norm_q.weight", "norm_out.linear.weight"} <= set(keys)
         if name == "wan":  # the published Conv3d weight [O, C, 1, 2, 2] and diffusers' block names
             assert safetensors_io.load_safetensors(path)["patch_embedding.weight"].shape == (32, 4, 1, 2, 2)
             assert {"blocks.1.attn2.to_out.0.weight", "blocks.1.norm2.bias", "blocks.1.ffn.net.2.weight",
@@ -478,6 +534,94 @@ class TestHYV15EngineLoad:
             assert sorted(loaded) == sorted(want)
             for k in want:
                 assert loaded[k].dtype == want[k].dtype and torch.equal(loaded[k], want[k]), (ctype, k)
+
+
+class TestFlux2EngineLoad:
+    """FLUX.2's transformer (diffusers naming), VAE (``AutoencoderKLFlux2``,
+    with ``bn.running_*``) and Mistral3 text tower (``language_model.model.``,
+    a sharded directory) written by ``export.py`` and named by a manifest's
+    ``model_path``, with a manifest LoRA in the published PEFT naming (as
+    the Turbo manifest names one): both engines load them through their
+    converters (strict), merge the LoRA and run the same request; the port's
+    VAE and encoder tensors are bit-equal to what was written, all five
+    adapters merge, and its latents are within 1e-3·max|ref| of the JAX
+    engine's."""
+
+    def test_engines_load_and_agree(self, tmp_path, monkeypatch):
+        import copy
+
+        import yaml
+
+        from apex_studio_tpu.engine.registry import UniversalEngine as JaxUniversalEngine
+        from apex_studio_tpu_torch.engine import UniversalEngine
+        from tests.test_engine_flux2 import FLUX2_TINY
+        from tests.test_engine_zimage import make_tokenizer
+        from tests.torch_port_helpers import fast_jax_engine
+
+        doc = copy.deepcopy(FLUX2_TINY)
+        builds = {
+            "transformer": ("flux2", lambda c: flux2.Flux2Transformer2DModel(flux2.Flux2Config.from_dict(c),
+                                                                              dtype=torch.float32)),
+            "vae": ("flux2_vae", lambda c: AutoencoderKL(AutoencoderKLConfig.from_dict(c), dtype=torch.float32)),
+            "text_encoder": ("llama", lambda c: llama.LlamaTextEncoder(llama.LlamaConfig.from_dict(c),
+                                                                       dtype=torch.float32)),
+        }
+        written = {}
+        for i, comp in enumerate(doc["spec"]["components"]):
+            if comp["type"] not in builds:
+                continue
+            fam, build = builds[comp["type"]]
+            source = materialize_random(lambda: build(comp["config"]), torch.device("cpu"), seed=10 + i, std=0.1)
+            if fam == "flux2_vae":
+                source.bn_var.data.abs_()
+            sd = published_state_dict(fam, source.state_dict())
+            comp["precision"] = "fp32"
+            if fam == "flux2_vae":
+                comp["base"] = "flux2"  # the manifests' name, which both engines route to flux2_vae
+            root = tmp_path / "components" / "flux2-tiny" / comp["type"]
+            root.mkdir(parents=True)
+            names = sorted(sd)
+            for j, shard in enumerate((names[::2], names[1::2])):
+                safetensors_io.save_safetensors(root / f"model-0000{j + 1}-of-00002.safetensors",
+                                                {k: sd[k] for k in shard})
+            comp["model_path"] = f"flux2-tiny/{comp['type']}"
+            written[comp["type"]] = source
+        # a rank-4 PEFT LoRA over the dual block's attention and the single
+        # block's fused projections, merged by both engines at load
+        rng, lora = np.random.default_rng(0), {}
+        d, inner = 32, 64
+        for module, (n_in, n_out) in {"transformer_blocks.0.attn.to_q": (d, d),
+                                      "transformer_blocks.0.attn.to_out.0": (d, d),
+                                      "transformer_blocks.0.attn.add_k_proj": (d, d),
+                                      "single_transformer_blocks.0.attn.to_qkv_mlp_proj": (d, 3 * d + 2 * inner),
+                                      "single_transformer_blocks.0.attn.to_out": (d + inner, d)}.items():
+            lora[f"transformer.{module}.lora_A.weight"] = rng.normal(size=(4, n_in)).astype(np.float32) * 0.3
+            lora[f"transformer.{module}.lora_B.weight"] = rng.normal(size=(n_out, 4)).astype(np.float32) * 0.3
+        safetensors_io.save_safetensors(tmp_path / "turbo.safetensors", lora)
+        doc["spec"]["loras"] = [{"source": str(tmp_path / "turbo.safetensors"), "scale": 0.8}]
+        path = tmp_path / "flux2.yml"
+        path.write_text(yaml.safe_dump(doc))
+        run = dict(prompt="a red kite", height=32, width=32, num_inference_steps=2, seed=3,
+                   max_sequence_length=32, return_latents=True)
+        monkeypatch.delenv("APEX_SYNTHETIC_WEIGHTS", raising=False)
+        monkeypatch.setenv("APEX_COMPONENTS_PATH", str(tmp_path / "components"))
+        lats = {}
+        for name, make in (("jax", lambda: fast_jax_engine(JaxUniversalEngine(path))),
+                           ("port", lambda: UniversalEngine(path, device="cpu"))):
+            monkeypatch.setenv("APEX_HOME_DIR", str(tmp_path / f"home_{name}"))
+            eng = make()
+            eng._spec_for_type("text_encoder")["tokenizer"] = make_tokenizer()
+            lats[name] = eng.run(**run)
+        assert [(r["applied"], r["skipped"]) for r in eng.lora_results] == [(5, [])]
+        for ctype, source in written.items():
+            if ctype == "transformer":  # merged with the LoRA
+                continue
+            got = (eng.text_encoder.model if ctype == "text_encoder" else getattr(eng, ctype)).state_dict()
+            want = source.state_dict()
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (ctype, k)
+        assert_close(lats["port"], np.asarray(lats["jax"]), rel=1e-3)
 
 
 class TestQwenImageVAERouting:
