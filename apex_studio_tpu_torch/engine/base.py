@@ -422,6 +422,9 @@ class BaseEngine:
             family = "clip_vision"
         elif "siglip" in base.lower():
             family = "siglip"
+        elif "Wav2Vec2" in base:
+            # the JAX engine derives "wav2vec2model", which names no converter
+            family = "wav2vec2"
         else:
             family = base.split(".")[0].lower()
         model = self._instantiate_family(_registry("text_encoder"), spec, family)

@@ -2,9 +2,10 @@
 text-to-image and image-to-video (Wan 2.1 with its CLIP-vision branch and
 the Wan 2.2 A14B dual-expert pair), and the editing and long-video engines:
 first–last frame, inpaint, video-to-video, VACE and Fun-VACE, Phantom,
-Fun-Control, Fun, Stable Video Infinity and the block-causal Self-Forcing
-engine. The other Wan model types (Recam, Holocine, ATI, S2V, …) are not
-ported.
+Fun-Control, Fun, Stable Video Infinity, the block-causal Self-Forcing
+engine and HuMo (text + audio + reference images, its wav2vec2 windows
+driving the DiT's per-frame audio cross-attention). The other Wan model
+types (Recam, Holocine, ATI, S2V, …) are not ported.
 
 - UMT5 features of 512 tokens with the padding zeroed, no cross-attention
   mask (Wan's conditioning convention); encoded before the DiT loads and the
@@ -1209,4 +1210,167 @@ class WanCausalEngine(WanShared):
             return output
         frames = self.decode_latents(output)
         safe_emit_progress(progress_callback, 1.0, "Completed causal pipeline")
+        return frames
+
+
+@register_engine("wan", "humo")
+class WanHuMoEngine(WanShared):
+    """HuMo: human video from text and audio, with reference images. The
+    reference latents take the last latent slots, flagged by the 4-channel
+    mask; each latent frame's window of stacked wav2vec2 states drives the
+    DiT's per-frame audio cross-attention. Guidance blends the audio and text
+    deltas, ``a·(TIA − TI) + t·(TI − neg) + neg`` in the DiT's dtype, the
+    negative branch image-conditioned above ``step_change`` and fully null
+    below it (where the text scale drops by 2); without references (TA) the
+    image condition is null throughout. The JAX engine computes both negative
+    branches every step and selects one; this one computes the selected one.
+    It also encodes the prompts (then releases UMT5) and the condition video
+    before the DiT loads; JAX loads every component first. The scheduler
+    steps on the host, as in JAX."""
+
+    @staticmethod
+    def audio_windows(emb: np.ndarray, frame_num: int, t_scale: int, shift: int = 2) -> np.ndarray:
+        """[F_pix, blocks, C] → [T_lat, t_scale + 2·shift, blocks, C]: latent
+        frame 0 sees pixel frames −shift..shift, frame l the t_scale frames
+        from 1 + t_scale·(l − 1) and shift on each side; frames outside are
+        zero rows."""
+        n_lat = 1 + (frame_num - 1) // t_scale
+        n_rows = t_scale + 2 * shift
+        zero = np.zeros(emb.shape[1:], emb.dtype)
+
+        def row(i):
+            return emb[i] if 0 <= i < emb.shape[0] else zero
+
+        wind = []
+        for lt in range(n_lat):
+            if lt == 0:
+                rows = [zero] * (n_rows - (2 * shift + 1)) + [row(i) for i in range(-shift, shift + 1)]
+            else:
+                st = 1 + t_scale * (lt - 1) - shift
+                rows = [row(i) for i in range(st, st + n_rows)]
+            wind.append(np.stack(rows))
+        return np.stack(wind)
+
+    @torch.inference_mode()
+    def encode_audio_stack(self, audio: Any, sampling_rate: int, frame_num: int) -> np.ndarray:
+        """Waveform (array or WAV file) → [F_pix, blocks, C]: the wav2vec2
+        hidden states after the embeddings, resampled to one row a pixel
+        frame, stacked."""
+        from apex_studio_tpu_torch.utils.media import load_audio
+
+        wav = load_audio(audio, sampling_rate)
+        wav = (wav - wav.mean()) / np.sqrt(wav.var() + 1e-7)
+        encoder = self.load_helper("audio_encoder")
+        blocks = self.transformer.cfg.audio_blocks
+        if encoder.cfg.num_hidden_layers != blocks:
+            raise ValueError(f"the audio encoder gives {encoder.cfg.num_hidden_layers} hidden states after its "
+                             f"embeddings; the DiT's windows stack {blocks}")
+        states = encoder(torch.from_numpy(np.ascontiguousarray(wav, np.float32))[None].to(self.device),
+                         seq_len=frame_num)
+        return torch.stack(states[1:], dim=0)[:, 0].transpose(0, 1).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        audio: Any = None,
+        image: Any = None,
+        negative_prompt: Optional[str] = None,
+        height: int = 480,
+        width: int = 832,
+        duration: Optional[float] = None,
+        fps: int = 25,
+        num_frames: Optional[int] = None,
+        num_inference_steps: int = 50,
+        guidance_scale_a: float = 5.5,
+        guidance_scale_t: float = 5.0,
+        step_change: int = 980,
+        sampling_rate: int = 16000,
+        seed: Optional[int] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        import cv2
+
+        safe_emit_progress(progress_callback, 0.0, "Starting HuMo pipeline")
+        # the prompts encode, and the VAE encodes the condition, before the
+        # DiT loads: at 97 frames the zero video's encode alone takes most of
+        # the card
+        if self.text_encoder is None:
+            self.load_component_by_type("text_encoder")
+        context = self.encode_prompt(prompt or "")
+        use_cfg = guidance_scale_t > 1.0 and negative_prompt is not None
+        neg_context = self.encode_prompt(negative_prompt) if use_cfg else None
+        self.maybe_release_text_encoders()
+        safe_emit_progress(progress_callback, 0.1, "Prompts encoded")
+        if self.vae is None:
+            self.load_component_by_type("vae")
+        t_scale, s_scale = self.vae.cfg.temporal_scale, self.vae.cfg.spatial_scale
+        if num_frames is None:
+            num_frames = int(round((duration or 3.9) * fps)) + 1
+        num_frames = max(1, t_scale * ((num_frames - 1) // t_scale) + 1)
+        height -= height % (s_scale * 2)
+        width -= width % (s_scale * 2)
+        lat_t = (num_frames - 1) // t_scale + 1
+        lat_h, lat_w = height // s_scale, width // s_scale
+        z = self.vae.cfg.z_dim
+
+        # reference latents, in the last latent slots
+        refs = [self.encode_video_latents(_pixels(_resized([self.load_image_input(r)], width, height,
+                                                           cv2.INTER_LANCZOS4)))
+                for r in _as_list(image)]
+        tia_mode = bool(refs)
+        ref_lat = (torch.cat(refs, dim=2).float() if refs
+                   else torch.zeros(1, z, 1, lat_h, lat_w, device=self.device))
+        n_ref = ref_lat.shape[2]
+        # the condition: the mask flags the trailing reference slots
+        zero_vae = self.encode_video_latents(torch.zeros(1, 3, num_frames, height, width)).float()
+        mask = torch.zeros(1, t_scale, lat_t, lat_h, lat_w, device=self.device)
+        mask[:, :, lat_t - n_ref:] = 1.0
+        y_c = torch.cat([mask, torch.cat([zero_vae[:, :, :lat_t - n_ref], ref_lat], dim=2)], dim=1)
+        y_null = torch.cat([mask, zero_vae[:, :, :lat_t]], dim=1)
+        del zero_vae
+        self.load_components(return_latents=False)
+        tf = self.transformer
+
+        # audio windows, zero rows for the reference slots
+        if audio is not None:
+            stack = self.encode_audio_stack(audio, sampling_rate, num_frames)
+        else:
+            stack = np.zeros((num_frames, tf.cfg.audio_blocks, tf.cfg.audio_channels), np.float32)
+        wind = self.audio_windows(stack, num_frames, t_scale)
+        wind = np.concatenate([wind, np.zeros((n_ref,) + wind.shape[1:], wind.dtype)], axis=0)
+        audio_w = torch.from_numpy(wind)[None].to(self.device)
+        audio_zero = torch.zeros_like(audio_w)
+        safe_emit_progress(progress_callback, 0.2, "Audio encoded")
+
+        x = self.get_latents((1, z, lat_t, lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps)
+        g_a, g_t = guidance_scale_a, guidance_scale_t
+        cb = make_mapped_progress(progress_callback, 0.25, 0.9)
+        for i, tstep in enumerate(ts):
+            t_b = torch.full((1,), float(tstep), dtype=torch.float32, device=self.device)
+            hi = float(tstep) > step_change
+            xd = x.to(tf.dtype)
+            if tia_mode:
+                tia = tf(xd, t_b, context, audio_w, y_c)
+                ti = tf(xd, t_b, context, audio_zero, y_c)
+                neg = tf(xd, t_b, neg_context, audio_zero, y_c if hi else y_null) if use_cfg else ti
+                t_sc = g_t if hi or not use_cfg else g_t - 2.0
+                v = g_a * (tia - ti) + t_sc * (ti - neg) + neg
+            else:
+                ta = tf(xd, t_b, context, audio_w, y_null)
+                t_only = tf(xd, t_b, context, audio_zero, y_null)
+                neg = tf(xd, t_b, neg_context, audio_zero, y_null) if use_cfg else t_only
+                v = g_a * (ta - t_only) + g_t * (t_only - neg) + neg
+            (x,) = self.scheduler.step(v.float(), float(tstep), x)
+            safe_emit_progress(cb, (i + 1) / len(ts), f"Denoising step {i + 1}/{len(ts)}")
+
+        safe_emit_progress(progress_callback, 0.9, "Denoising complete")
+        video_lat = x[:, :, :lat_t - n_ref] if tia_mode else x
+        if return_latents:
+            return video_lat
+        frames = self.decode_latents(video_lat)
+        safe_emit_progress(progress_callback, 1.0, "Completed pipeline")
         return frames

@@ -9,7 +9,9 @@ too) and ``qwen3``; QwenImage's ``qwenimage`` (DiT and ControlNet) and
 the Wan 2.1 i2v image encoder's ``clip_vision``; FLUX.2's ``flux2`` and
 ``flux2_control`` DiTs (diffusers naming), ``flux2_vae`` (``AutoencoderKLFlux2``
 with its BatchNorm running statistics) and the ``llama`` text towers
-(Llama, Llava, Mistral3)).
+(Llama, Llava, Mistral3); HunyuanVideo's ``hunyuanvideo`` (the DiT and
+FramePack's, diffusers naming) and ``hunyuanvideo_vae``; HuMo's ``wan_humo``
+and ``wav2vec2``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -338,6 +340,63 @@ converter_registry.add(
 )
 
 converter_registry.add(
+    # HunyuanVideo (diffusers HunyuanVideoTransformer3DModel naming) and its
+    # FramePack variant's history embedders and image projection
+    "hunyuanvideo",
+    KeyConverter(
+        renames=[
+            (r"^x_embedder\.proj\.weight$", "x_embedder.kernel"),
+            (r"^x_embedder\.proj\.bias$", "x_embedder.bias"),
+            (r"^time_text_embed\.timestep_embedder\.linear_(\d)\.", r"time_linear_\1."),
+            (r"^time_text_embed\.text_embedder\.linear_(\d)\.", r"text_linear_\1."),
+            (r"^time_text_embed\.guidance_embedder\.linear_(\d)\.", r"guidance_linear_\1."),
+            (r"^context_embedder\.time_text_embed\.timestep_embedder\.linear_(\d)\.",
+             r"context_embedder.timestep_linear_\1."),
+            (r"^context_embedder\.time_text_embed\.text_embedder\.linear_(\d)\.",
+             r"context_embedder.text_linear_\1."),
+            (r"^context_embedder\.token_refiner\.refiner_blocks\.", "context_embedder.refiner_blocks."),
+            (r"(refiner_blocks\.\d+)\.attn\.to_out\.0\.", r"\1.to_out."),
+            (r"(refiner_blocks\.\d+)\.attn\.", r"\1."),
+            (r"(refiner_blocks\.\d+)\.ff\.net\.0\.proj\.", r"\1.ff_in."),
+            (r"(refiner_blocks\.\d+)\.ff\.net\.2\.", r"\1.ff_out."),
+            (r"(refiner_blocks\.\d+)\.norm_out\.linear\.", r"\1.ada_linear."),
+            (r"\.norm1\.linear\.", ".norm1_linear."),
+            (r"\.norm1_context\.linear\.", ".norm1_context_linear."),
+            (r"\.norm\.linear\.", ".norm_linear."),  # single-block adaLN
+            (r"\.attn\.to_out\.0\.", ".to_out."),
+            (r"(transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"(single_transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"\.ff(_context)?\.net\.0\.proj\.", r".ff\1.fc1."),
+            (r"\.ff(_context)?\.net\.2\.", r".ff\1.fc2."),
+            (r"^norm_out\.linear\.", "norm_out_linear."),
+            (r"^clean_x_embedder\.(proj(?:_2x|_4x)?)\.weight$", r"clean_x_embedder.\1.kernel"),
+            (r"^image_projection\.(up|down)\.weight$", r"image_projection.\1.kernel"),
+            (r"(to_q|to_k|to_v|to_out|to_add_out|add_q_proj|add_k_proj|add_v_proj|fc1|fc2|ff_in|ff_out|ada_linear|"
+             r"proj_in|proj_mlp|proj_out|norm1_linear|norm1_context_linear|norm_linear|norm_out_linear|"
+             r"time_linear_\d|timestep_linear_\d|text_linear_\d|guidance_linear_\d)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope\.",),
+    ),
+)
+
+converter_registry.add(
+    # diffusers AutoencoderKLHunyuanVideo: each causal conv wraps its Conv3d
+    # as ``.conv``; the mid attention keeps the deprecated ``to_out.0``
+    "hunyuanvideo_vae",
+    KeyConverter(
+        renames=[
+            (r"\.conv\.weight$", ".kernel"),
+            (r"\.conv\.bias$", ".bias"),
+            (r"^(post_)?quant_conv\.weight$", r"\1quant_conv.kernel"),
+            (r"\.attentions\.0\.to_out\.0\.", ".attentions.0.to_out."),
+            (r"(to_q|to_k|to_v|to_out|conv_shortcut)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(),
+    ),
+)
+
+converter_registry.add(
     "tae_vae",
     KeyConverter(
         renames=[
@@ -578,5 +637,69 @@ converter_registry.add(
         ],
         strip_prefixes=(),
         drop=(r"^lm_head\.", r"rotary_emb", r"^vision_tower\.", r"^multi_modal_projector\."),
+    ),
+)
+
+converter_registry.add(
+    # transformers' Wav2Vec2Model (HuMo's audio encoder); Wav2Vec2ForCTC nests
+    # it under ``wav2vec2.``; the positional conv's weight norm is kept as
+    # (g, v) in either of torch's two spellings
+    "wav2vec2",
+    KeyConverter(
+        renames=[
+            (r"^wav2vec2\.", ""),
+            (r"^feature_extractor\.conv_layers\.(\d+)\.conv\.weight$", r"conv_layers.\1.conv.kernel"),
+            (r"^feature_extractor\.conv_layers\.(\d+)\.conv\.bias$", r"conv_layers.\1.conv.bias"),
+            (r"^feature_extractor\.conv_layers\.(\d+)\.layer_norm\.", r"conv_layers.\1.layer_norm."),
+            (r"^feature_projection\.layer_norm\.", "fp_layer_norm."),
+            (r"^feature_projection\.projection\.weight$", "fp_projection.kernel"),
+            (r"^feature_projection\.projection\.bias$", "fp_projection.bias"),
+            (r"^encoder\.pos_conv_embed\.conv\.parametrizations\.weight\.original0$", "pos_conv_g"),
+            (r"^encoder\.pos_conv_embed\.conv\.parametrizations\.weight\.original1$", "pos_conv_v"),
+            (r"^encoder\.pos_conv_embed\.conv\.weight_g$", "pos_conv_g"),
+            (r"^encoder\.pos_conv_embed\.conv\.weight_v$", "pos_conv_v"),
+            (r"^encoder\.pos_conv_embed\.conv\.bias$", "pos_conv_bias"),
+            (r"^encoder\.layer_norm\.", "enc_layer_norm."),
+            (r"^encoder\.layers\.(\d+)\.attention\.", r"layers.\1."),
+            (r"^encoder\.layers\.(\d+)\.feed_forward\.", r"layers.\1."),
+            (r"^encoder\.layers\.(\d+)\.", r"layers.\1."),
+            (r"(q_proj|k_proj|v_proj|out_proj|intermediate_dense|output_dense)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"^masked_spec_embed$", r"^quantizer\.", r"^project_q\.", r"^project_hid\.", r"adapter"),
+    ),
+)
+
+converter_registry.add(
+    # HuMo (q/k/v/o attention naming, the audio projection's DummyAdapterLayer
+    # wrappers)
+    "wan_humo",
+    KeyConverter(
+        renames=[
+            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"^text_embedding\.0\.", "text_embedding_1."),
+            (r"^text_embedding\.2\.", "text_embedding_2."),
+            (r"^time_embedding\.0\.", "time_embedding_1."),
+            (r"^time_embedding\.2\.", "time_embedding_2."),
+            (r"^time_projection\.1\.", "time_projection."),
+            (r"^audio_proj\.audio_proj_glob_(\d)\.layer\.", r"audio_proj.glob_\1."),
+            (r"^audio_proj\.audio_proj_glob_norm\.layer\.", "audio_proj.glob_norm."),
+            (r"\.self_attn\.([qkvo])\.", r".to_\1."),
+            (r"\.self_attn\.norm_([qk])\.", r".norm_\1."),
+            (r"\.cross_attn\.([qkvo])\.", r".c_to_\1."),
+            (r"\.cross_attn\.norm_([qk])\.", r".c_norm_\1."),
+            (r"\.audio_cross_attn_wrapper\.audio_cross_attn\.([qkvo])\.", r".a_to_\1."),
+            (r"\.audio_cross_attn_wrapper\.audio_cross_attn\.norm_([qk])\.", r".a_norm_\1."),
+            (r"\.audio_cross_attn_wrapper\.norm1_audio\.(weight|bias)$", r".norm1_audio_\1"),
+            (r"\.norm3\.(weight|bias)$", r".norm3_\1"),
+            (r"\.ffn\.0\.", ".ffn.fc1."),
+            (r"\.ffn\.2\.", ".ffn.fc2."),
+            (r"^head\.modulation$", "head_norm_mod"),
+            (r"^head\.head\.weight$", "head.kernel"),
+            (r"^head\.head\.bias$", "head.bias"),
+            (r"(to_q|to_k|to_v|to_o|c_to_q|c_to_k|c_to_v|c_to_o|a_to_q|a_to_k|a_to_v|a_to_o|fc1|fc2|glob_\d|"
+             r"text_embedding_\d|time_embedding_\d|time_projection)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^freqs", r"^head\.norm\."),
     ),
 )

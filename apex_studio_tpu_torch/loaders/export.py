@@ -13,8 +13,13 @@ gammas and 1×1-conv attention weights), ``wan`` (diffusers'
 (transformers' ``CLIPVisionModel``, the patch embedding as its Conv2d weight),
 ``flux2`` (diffusers' ``Flux2Transformer2DModel``, its control variant's chain
 too), ``flux2_vae`` (``AutoencoderKLFlux2``, the running statistics as
-``bn.running_mean`` / ``bn.running_var``) and ``llama`` (Mistral3's text
-tower under ``language_model.model.``).
+``bn.running_mean`` / ``bn.running_var``), ``llama`` (Mistral3's text
+tower under ``language_model.model.``), ``hunyuanvideo`` and
+``hunyuanvideo_vae`` (diffusers' ``HunyuanVideoTransformer3DModel``, with
+FramePack's extra keys, and ``AutoencoderKLHunyuanVideo``), ``wan_humo``
+(HuMo's reference names, ``patch_embedding`` as its Conv3d weight) and
+``wav2vec2`` (transformers' ``Wav2Vec2Model``, the positional conv's weight
+norm as ``weight_g`` / ``weight_v``).
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -182,6 +187,65 @@ _LLAMA = (
     (r"^(layers|norm)\.", r"language_model.model.\1."),
 )
 
+_HUNYUANVIDEO = (
+    (r"^x_embedder\.", "x_embedder.proj."),
+    (r"^(time|text|guidance)_linear_(\d)\.", r"time_text_embed.\1_embedder.linear_\2."),
+    (r"^time_text_embed\.time_embedder\.", "time_text_embed.timestep_embedder."),
+    (r"^context_embedder\.(timestep|text)_linear_(\d)\.",
+     r"context_embedder.time_text_embed.\1_embedder.linear_\2."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.to_out\.", r"context_embedder.refiner_blocks.\1.attn.to_out.0."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.(to_q|to_k|to_v)\.", r"context_embedder.refiner_blocks.\1.attn.\2."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.ff_in\.", r"context_embedder.refiner_blocks.\1.ff.net.0.proj."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.ff_out\.", r"context_embedder.refiner_blocks.\1.ff.net.2."),
+    (r"^context_embedder\.refiner_blocks\.(\d+)\.ada_linear\.", r"context_embedder.refiner_blocks.\1.norm_out.linear."),
+    (r"^context_embedder\.refiner_blocks\.", "context_embedder.token_refiner.refiner_blocks."),
+    (r"\.norm1_linear\.", ".norm1.linear."),
+    (r"\.norm1_context_linear\.", ".norm1_context.linear."),
+    (r"^(single_transformer_blocks\.\d+)\.norm_linear\.", r"\1.norm.linear."),
+    (r"^(single_transformer_blocks\.\d+)\.(to_q|to_k|to_v|norm_q|norm_k)\.", r"\1.attn.\2."),
+    (r"^(transformer_blocks\.\d+)\.to_out\.", r"\1.attn.to_out.0."),
+    (r"^(transformer_blocks\.\d+)\.(to_q|to_k|to_v|add_q_proj|add_k_proj|add_v_proj|to_add_out|norm_q|norm_k|"
+     r"norm_added_q|norm_added_k)\.", r"\1.attn.\2."),
+    (r"\.ff(_context)?\.fc1\.", r".ff\1.net.0.proj."),
+    (r"\.ff(_context)?\.fc2\.", r".ff\1.net.2."),
+    (r"^norm_out_linear\.", "norm_out.linear."),
+)
+# each causal conv wraps its Conv3d as ``.conv``; the quant convs, the group
+# norms and the mid attention's projections have no extra level
+_HUNYUANVIDEO_VAE = (
+    (r"^(.*\.(?:conv_in|conv_out|conv1|conv2|conv_shortcut|conv))\.(weight|bias)$", r"\1.conv.\2"),
+    (r"\.to_out\.", ".to_out.0."),
+)
+_WAN_HUMO = (
+    (r"^text_embedding_([12])\.", lambda m: f"text_embedding.{2 * int(m.group(1)) - 2}."),
+    (r"^time_embedding_([12])\.", lambda m: f"time_embedding.{2 * int(m.group(1)) - 2}."),
+    (r"^time_projection\.", "time_projection.1."),
+    (r"^audio_proj\.glob_(\d|norm)\.", r"audio_proj.audio_proj_glob_\1.layer."),
+    (r"\.a_to_([qkvo])\.", r".audio_cross_attn_wrapper.audio_cross_attn.\1."),
+    (r"\.a_norm_([qk])\.", r".audio_cross_attn_wrapper.audio_cross_attn.norm_\1."),
+    (r"\.norm1_audio_(weight|bias)$", r".audio_cross_attn_wrapper.norm1_audio.\1"),
+    (r"\.c_to_([qkvo])\.", r".cross_attn.\1."),
+    (r"\.c_norm_([qk])\.", r".cross_attn.norm_\1."),
+    (r"^(blocks\.\d+)\.to_([qkvo])\.", r"\1.self_attn.\2."),
+    (r"^(blocks\.\d+)\.norm_([qk])\.", r"\1.self_attn.norm_\2."),
+    (r"\.norm3_(weight|bias)$", r".norm3.\1"),
+    (r"\.ffn\.fc1\.", ".ffn.0."),
+    (r"\.ffn\.fc2\.", ".ffn.2."),
+    (r"^head_norm_mod$", "head.modulation"),
+    (r"^head\.(weight|bias)$", r"head.head.\1"),
+)
+_WAV2VEC2 = (
+    (r"^conv_layers\.", "feature_extractor.conv_layers."),
+    (r"^fp_layer_norm\.", "feature_projection.layer_norm."),
+    (r"^fp_projection\.", "feature_projection.projection."),
+    (r"^pos_conv_(g|v)$", r"encoder.pos_conv_embed.conv.weight_\1"),
+    (r"^pos_conv_bias$", "encoder.pos_conv_embed.conv.bias"),
+    (r"^enc_layer_norm\.", "encoder.layer_norm."),
+    (r"^layers\.(\d+)\.(q_proj|k_proj|v_proj|out_proj)\.", r"encoder.layers.\1.attention.\2."),
+    (r"^layers\.(\d+)\.(intermediate_dense|output_dense)\.", r"encoder.layers.\1.feed_forward.\2."),
+    (r"^layers\.", "encoder.layers."),
+)
+
 
 def _wan_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """diffusers' shapes: the attention's 1×1 conv weights ``[O, C, 1, 1]``,
@@ -204,6 +268,14 @@ def _wan_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     return value
 
 
+def _wan_humo_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """``patch_embedding.weight`` as the published Conv3d weight
+    ``[O, C, 1, 2, 2]``."""
+    if key == "patch_embedding.weight":
+        return value.reshape(value.shape[0], -1, 1, 2, 2)
+    return value
+
+
 def _clip_vision_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """The patch embedding as the published Conv2d weight ``[O, 3, p, p]``."""
     if key == "vision_model.embeddings.patch_embedding.weight":
@@ -213,12 +285,15 @@ def _clip_vision_layout(key: str, value: torch.Tensor) -> torch.Tensor:
 
 
 _LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
-    "wan_vae": _wan_vae_layout, "wan": _wan_layout, "clip_vision": _clip_vision_layout}
+    "wan_vae": _wan_vae_layout, "wan": _wan_layout, "clip_vision": _clip_vision_layout,
+    "wan_humo": _wan_humo_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
     "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE, "qwenimage": _QWENIMAGE, "wan_vae": _WAN_VAE,
-    "wan": _WAN, "clip_vision": _CLIP_VISION, "flux2": _FLUX2, "flux2_vae": _FLUX2_VAE, "llama": _LLAMA}
+    "wan": _WAN, "clip_vision": _CLIP_VISION, "flux2": _FLUX2, "flux2_vae": _FLUX2_VAE, "llama": _LLAMA,
+    "hunyuanvideo": _HUNYUANVIDEO, "hunyuanvideo_vae": _HUNYUANVIDEO_VAE, "wan_humo": _WAN_HUMO,
+    "wav2vec2": _WAV2VEC2}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

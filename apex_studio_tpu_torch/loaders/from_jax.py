@@ -3,8 +3,8 @@
 The port keeps the JAX attribute names, so the mapping is mechanical:
 
 - ``...kernel`` becomes ``...weight``; a 2-D Linear kernel [in, out] is
-  transposed to [out, in], a 4-D conv kernel HWIO to OIHW and a 5-D conv
-  kernel DHWIO to OIDHW;
+  transposed to [out, in], a 3-D conv kernel WIO (wav2vec2's) to OIW, a 4-D
+  conv kernel HWIO to OIHW and a 5-D conv kernel DHWIO to OIDHW;
 - a quantized Linear comes with ``...kernel_scale``: its int8 kernel
   [in, out] becomes an int8 weight [out, in], its nibble-packed int4 kernel
   (uint8 [in, out/2]) the packed weight [out/2, in] (a plain transpose: the
@@ -54,6 +54,8 @@ def convert_jax_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
             parts[-1] = "weight"
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 5:

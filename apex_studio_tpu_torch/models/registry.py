@@ -10,7 +10,11 @@ and ``wan.fun``) and ``wan.base`` in the VAE registry (the
 Wan VAE, which ``qwenimage`` and ``AutoencoderKLQwenImage`` name too);
 ``flux2.base`` and ``flux2.control`` (FLUX.2's DiT and its control variant),
 ``AutoencoderKLFlux2`` / ``flux2`` (the packed-BatchNorm AutoencoderKL) and
-``LlamaModel`` / ``Mistral3ForConditionalGeneration`` (FLUX.2's text tower).
+``LlamaModel`` / ``Mistral3ForConditionalGeneration`` (FLUX.2's text tower,
+llava-llama-3); ``hunyuanvideo.base`` and ``hunyuanvideo.framepack`` (the
+original HunyuanVideo DiT and FramePack's) and ``AutoencoderKLHunyuanVideo``
+(its VAE); ``wan.humo`` (HuMo's DiT) and ``Wav2Vec2Model`` (its audio
+encoder, in the text-encoder registry as in JAX).
 """
 
 import importlib
@@ -39,6 +43,11 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.transformers.wan",
     "apex_studio_tpu_torch.models.text_encoders.llama",
     "apex_studio_tpu_torch.models.transformers.flux2",
+    "apex_studio_tpu_torch.models.transformers.hunyuanvideo",
+    "apex_studio_tpu_torch.models.transformers.hunyuanvideo_framepack",
+    "apex_studio_tpu_torch.models.vaes.hunyuanvideo_vae",
+    "apex_studio_tpu_torch.models.audio.wav2vec2",
+    "apex_studio_tpu_torch.models.transformers.wan_humo",
 )
 
 

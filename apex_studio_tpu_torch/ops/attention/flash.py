@@ -203,7 +203,8 @@ def flash_attention_tiled_reference(q, k, v, *, bias=None, scale=None, is_causal
 def flash_attention(q, k, v, *, bias=None, scale=None, is_causal=False):
     """q/k/v: [B, S, H, D] → [B, Sq, H, D]. ``bias``: additive key-padding
     bias [B, Sk] or [B, 1, 1, Sk]. CPU tensors take the plain version; CUDA
-    tensors take the kernel (bf16, D in {64, 128}) or raise."""
+    tensors take the kernel (bf16, or f32 rounded to bf16 and returned in
+    f32; D in {64, 128}) or raise."""
     _check(q, k, v, is_causal)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -212,8 +213,15 @@ def flash_attention(q, k, v, *, bias=None, scale=None, is_causal=False):
         return flash_attention_reference(q, k, v, bias=bias, scale=scale, is_causal=is_causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    if q.dtype == k.dtype == v.dtype == torch.float32:
+        # f32 attention (the audio encoder's) runs on the kernel's bf16 tiles,
+        # as an f32 dot at the TPU's default precision runs on the MXU in bf16
+        # passes, with f32 scores and softmax; the output returns in f32
+        return flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), bias=bias, scale=scale,
+                               is_causal=is_causal).float()
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"the flash kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise ValueError(f"the flash kernel takes bf16 (or f32, rounded to bf16 tiles) q/k/v, "
+                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in (64, 128):
         raise ValueError(f"the flash kernel takes head dim 64 or 128, got {d}")
     if sk == 0 or b * h > 65535:

@@ -78,6 +78,12 @@ CASES = [
     ("causal_last_block_sq1560_sk9360_bias_h12", 1, 1560, 9360, 12, 128, [9360], False),
     # FLUX.2 t2i at 1024px: 512 text + 4096 image tokens, 48 heads
     ("flux2_t2i_s4608_h48", 1, 4608, 4608, 48, 128, None, False),
+    # HunyuanVideo's token refiner: 256 llava-llama-3 slots, 24 heads, a 60-token prompt kept
+    ("hyv_refiner_s256_bias_h24", 1, 256, 256, 24, 128, [60], False),
+    # HuMo's per-frame audio cross-attention at 97 frames of 480x832: each of
+    # the 25 latent frames' 1560 tokens against its 16 audio tokens (the
+    # frames as the batch), 40 heads
+    ("humo_audio_cross_b25_sq1560_sk16_h40", 25, 1560, 16, 40, 128, None, False),
 ]
 
 
@@ -122,7 +128,7 @@ def test_flash_kernel_reads_strided_bshd(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.randn(1, 16, 2, 64, device=cuda)
+    q = torch.randn(1, 16, 2, 64, device=cuda).to(torch.float16)
     with pytest.raises(ValueError, match="bf16"):
         flash_attention(q, q, q)
     q = q.to(torch.bfloat16)
@@ -205,6 +211,94 @@ def test_flash_kernel_vace_self_attention_row_subsets(cuda):
         ref = flash_attention_reference(q[:, rows], k, v)
         assert torch.isfinite(out[:, rows].float()).all()
         assert_agrees(out[:, rows], ref)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_hunyuanvideo_joint_attention_with_text_bias(cuda):
+    """HunyuanVideo's joint attention at 33 frames of 720x1280: 32,400 image
+    and 256 text tokens, 24 heads of 128, the text key padding as a [1, S]
+    bias keeping a 60-token prompt. The plain version's scores cannot be held
+    whole (102 GB), so it is computed over all keys for three 128-row subsets
+    of the kernel's output (the first tile, the last with the text queries,
+    one across an interior tile edge), and over the kept keys alone."""
+    s = 9 * 45 * 80 + 256
+    g = torch.Generator(cuda).manual_seed(7)
+    q, k, v = (torch.randn(1, s, 24, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    bias = torch.zeros(1, s, device=cuda)
+    bias[:, s - 256 + 60:] = -1e30
+    out = flash_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    keep = bias[0] == 0
+    for rows in (slice(0, 128), slice(s - s % 128, s), slice(s // 256 * 128 - 64, s // 256 * 128 + 64)):
+        assert torch.isfinite(out[:, rows].float()).all()
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v, bias=bias))
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k[:, keep], v[:, keep]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [97, 33])
+def test_flash_kernel_takes_f32_through_bf16_tiles(frames, cuda):
+    """HuMo's wav2vec2 self-attention in f32 (12 heads of 64 over the audio
+    features resampled to one a video frame): one launch on bf16 tiles, the
+    output in f32, against the plain version in f32 on the same inputs."""
+    g = torch.Generator(cuda).manual_seed(frames)
+    q, k, v = (torch.randn(1, frames, 12, 64, generator=g, device=cuda) for _ in range(3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert_agrees(out, flash_attention_reference(q, k, v))
+
+
+@pytest.mark.cuda
+def test_wav2vec2_launches_the_kernel_once_a_layer(cuda):
+    """A small wav2vec2 (head dim 64) on the card in f32: one launch an
+    encoder layer; every hidden state finite and f32."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.audio.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+
+    model = materialize_random(lambda: Wav2Vec2Model(Wav2Vec2Config(
+        hidden_size=128, num_hidden_layers=3, num_attention_heads=2, intermediate_size=256, conv_dim=(32,) * 7,
+        num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)), cuda, seed=0)
+    wav = 0.1 * torch.randn(1, 16000, generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        states = model(wav, seq_len=33)
+    assert flash_attention.launches == before + 3
+    assert all(s.dtype == torch.float32 and s.shape == (1, 33, 128) and torch.isfinite(s).all() for s in states)
+
+
+@pytest.mark.cuda
+def test_hunyuanvideo_and_humo_dits_launch_the_kernel_per_attention(cuda):
+    """Small HunyuanVideo and HuMo DiTs (head dim 128) in bf16 on the card:
+    HunyuanVideo one joint launch a dual and a single block (the text mask
+    as the bias) plus one a refiner block; HuMo three a block (self, text
+    cross and the per-frame audio cross-attention); outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import hunyuanvideo as hv
+    from apex_studio_tpu_torch.models.transformers import wan_humo
+
+    g = torch.Generator().manual_seed(0)
+    hyv = materialize_random(lambda: hv.HunyuanVideoTransformer3DModel(hv.HunyuanVideoConfig(
+        num_attention_heads=2, num_layers=2, num_single_layers=3, text_embed_dim=64, pooled_projection_dim=32,
+        image_condition_type="token_replace")), cuda, seed=0)
+    x = torch.randn(1, 16, 3, 8, 10, generator=g).to(cuda)
+    text = torch.randn(1, 40, 64, generator=g).to(cuda)
+    mask = (torch.arange(40) < 25)[None].to(cuda)
+    t = torch.tensor([500.0], device=cuda)
+    humo = materialize_random(lambda: wan_humo.HumoWanTransformerModel(wan_humo.WanHuMoConfig(
+        dim=256, ffn_dim=512, num_heads=2, num_layers=3, text_dim=64, audio_kv_dim=64, audio_window=2,
+        audio_blocks=2, audio_channels=16, audio_intermediate_dim=32)), cuda, seed=1)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        out = hyv(x, t, text, mask, pooled=torch.randn(1, 32, generator=g).to(cuda), guidance=t * 12)
+        assert flash_attention.launches == before + 2 + 3 + 2
+        assert out.shape == x.shape and torch.isfinite(out.float()).all()
+        before = flash_attention.launches
+        out = humo(x, t, text, torch.randn(1, 3, 2, 2, 16, generator=g).to(cuda),
+                   torch.randn(1, 20, 3, 8, 10, generator=g).to(cuda))
+        assert flash_attention.launches == before + 3 * 3
+        assert out.shape == x.shape and torch.isfinite(out.float()).all()
 
 
 # -- int8 / int4 resident Linear -------------------------------------------------------
