@@ -601,10 +601,10 @@ class BaseEngine:
     # -- postprocessing ----------------------------------------------------------------
 
     @torch.inference_mode()
-    def decode_video_frames(self, z: torch.Tensor, tile: int, threshold: int) -> List[np.ndarray]:
-        """Video latents [B, C, T, h, w] → B·T HWC uint8 frames through the
-        VAE; grids of more than ``threshold`` latent pixels (h·w) decode in
-        tiles of ``tile`` latent pixels (models/vaes/tiling.py).
+    def decode_video_tensor(self, z: torch.Tensor, tile: int, threshold: int) -> torch.Tensor:
+        """Video latents [B, C, T, h, w] → video [B, 3, T', H, W] in [-1, 1]
+        through the VAE; grids of more than ``threshold`` latent pixels (h·w)
+        decode in tiles of ``tile`` latent pixels (models/vaes/tiling.py).
         ``APEX_VAE_TILE_THRESHOLD`` / ``APEX_VAE_TILE`` override both."""
         from apex_studio_tpu_torch.models.vaes.tiling import decode_tiled_3d
 
@@ -612,9 +612,12 @@ class BaseEngine:
         z = z.float()
         if z.ndim == 5 and z.shape[-2] * z.shape[-1] > threshold:
             tile = int(os.environ.get("APEX_VAE_TILE", tile))
-            video = decode_tiled_3d(self.vae.decode, z, self.vae.cfg.spatial_scale, tile=tile)
-        else:
-            video = self.vae.decode(z)
+            return decode_tiled_3d(self.vae.decode, z, self.vae.cfg.spatial_scale, tile=tile)
+        return self.vae.decode(z)
+
+    def decode_video_frames(self, z: torch.Tensor, tile: int, threshold: int) -> List[np.ndarray]:
+        """Video latents → B·T HWC uint8 frames (``decode_video_tensor``)."""
+        video = self.decode_video_tensor(z, tile, threshold)
         b, c, t, h, w = video.shape
         return self.tensor_to_frames(video.transpose(1, 2).reshape(b * t, c, h, w))
 

@@ -1,10 +1,10 @@
 """Engine registry + UniversalEngine facade (port of
 ``apex_studio_tpu/engine/registry.py``). Ported: ``("flux", "t2i" | "kontext" |
 "fill" | "control" | "dreamomni2")``, ``("flux2", "ti2i" | "klein" | "t2i" |
-"control")``, ``("hunyuanvideo15", "t2v" | "i2v")``, ``("hunyuanvideo", "t2v" | "i2v" | "framepack")``, ``("zimage", "t2i" | "control")``,
+"control")``, ``("hunyuanvideo15", "t2v" | "i2v")``, ``("hunyuanvideo", "t2v" | "i2v" | "framepack" | "avatar")``, ``("zimage", "t2i" | "control")``,
 ``("qwenimage", "t2i" | "edit" | "edit_plus" | "controlnet")`` and
 ``("wan", "t2v" | "t2i" | "i2v" | "fflf" | "inp" | "v2v" | "svi" | "vace" |
-"fun_vace" | "phantom" | "fun_control" | "fun" | "causal" | "humo")``."""
+"fun_vace" | "phantom" | "fun_control" | "fun" | "causal" | "humo" | "s2v" | "multitalk")``."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from apex_studio_tpu_torch.manifest.loader import load_manifest
 _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.engine.hunyuanvideo15",
                   "apex_studio_tpu_torch.engine.zimage", "apex_studio_tpu_torch.engine.qwenimage",
                   "apex_studio_tpu_torch.engine.wan", "apex_studio_tpu_torch.engine.flux2",
-                  "apex_studio_tpu_torch.engine.hunyuanvideo")
+                  "apex_studio_tpu_torch.engine.hunyuanvideo", "apex_studio_tpu_torch.engine.hunyuanvideo_avatar")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

@@ -3,9 +3,11 @@ text-to-image and image-to-video (Wan 2.1 with its CLIP-vision branch and
 the Wan 2.2 A14B dual-expert pair), and the editing and long-video engines:
 first–last frame, inpaint, video-to-video, VACE and Fun-VACE, Phantom,
 Fun-Control, Fun, Stable Video Infinity, the block-causal Self-Forcing
-engine and HuMo (text + audio + reference images, its wav2vec2 windows
-driving the DiT's per-frame audio cross-attention). The other Wan model
-types (Recam, Holocine, ATI, S2V, …) are not ported.
+engine, and the audio-driven engines on wav2vec2: HuMo (text + audio +
+reference images, its windows driving the DiT's per-frame audio
+cross-attention), S2V (chunk-autoregressive speech-to-video with a motion
+buffer) and MultiTalk / InfiniteTalk (one or two speakers, L-RoPE routing).
+The other Wan model types (Recam, Holocine, ATI, Animate, …) are not ported.
 
 - UMT5 features of 512 tokens with the padding zeroed, no cross-attention
   mask (Wan's conditioning convention); encoded before the DiT loads and the
@@ -1213,6 +1215,15 @@ class WanCausalEngine(WanShared):
         return frames
 
 
+def _check_audio_encoder(encoder, n_states: int, width: int, what: str) -> None:
+    """The encoder's hidden states (its layers + the embeddings) and width
+    against what the DiT takes; a mismatch raises before the DiT runs."""
+    have = (encoder.cfg.num_hidden_layers + 1, encoder.cfg.hidden_size)
+    if have != (n_states, width):
+        raise ValueError(f"the audio encoder gives {have[0]} hidden states of {have[1]}; {what} takes "
+                         f"{n_states} of {width}")
+
+
 @register_engine("wan", "humo")
 class WanHuMoEngine(WanShared):
     """HuMo: human video from text and audio, with reference images. The
@@ -1261,10 +1272,8 @@ class WanHuMoEngine(WanShared):
         wav = load_audio(audio, sampling_rate)
         wav = (wav - wav.mean()) / np.sqrt(wav.var() + 1e-7)
         encoder = self.load_helper("audio_encoder")
-        blocks = self.transformer.cfg.audio_blocks
-        if encoder.cfg.num_hidden_layers != blocks:
-            raise ValueError(f"the audio encoder gives {encoder.cfg.num_hidden_layers} hidden states after its "
-                             f"embeddings; the DiT's windows stack {blocks}")
+        cfg = self.transformer.cfg
+        _check_audio_encoder(encoder, cfg.audio_blocks + 1, cfg.audio_channels, "the HuMo DiT")
         states = encoder(torch.from_numpy(np.ascontiguousarray(wav, np.float32))[None].to(self.device),
                          seq_len=frame_num)
         return torch.stack(states[1:], dim=0)[:, 0].transpose(0, 1).float().cpu().numpy()
@@ -1372,5 +1381,387 @@ class WanHuMoEngine(WanShared):
         if return_latents:
             return video_lat
         frames = self.decode_latents(video_lat)
+        safe_emit_progress(progress_callback, 1.0, "Completed pipeline")
+        return frames
+
+
+@register_engine("wan", "s2v")
+class WanS2VEngine(WanShared):
+    """Speech-to-video, chunk-autoregressive: each chunk of
+    ``num_frames_per_chunk`` frames denoises fresh latents conditioned on the
+    reference image (RoPE t = 30), a rolling 73-frame motion buffer (negative
+    RoPE times), the wav2vec2 states injected per latent frame and, given a
+    pose video, its VAE latents (reverse-padded to the clip's length and
+    encoded chunk by chunk). CFG zeroes the audio in the negative branch. The
+    first chunk drops the motion tokens (``drop_first_motion``) unless
+    ``init_first_frame`` seeds the buffer with the image; each chunk decodes
+    [motion ‖ x] (or [condition ‖ x]) and the motion latents are re-encoded
+    from the last pixels. The scheduler steps on the host, as in JAX.
+
+    The prompts encode before the DiT loads and UMT5 is released after them;
+    JAX loads every component first and keeps UMT5. The decodes take the Wan
+    engines' whole-or-tiled rule by the latent's size (JAX decodes each chunk
+    whole); at the tests' sizes both are whole. As in JAX, the request
+    returns frames (``return_latents`` is not read)."""
+
+    motion_frames = 73
+    drop_first_motion = True
+
+    @torch.inference_mode()
+    def encode_audio(self, audio: Any, sampling_rate: int, num_frames: int, fps: int = 16):
+        """→ ([1, L, C_a, frames] wav2vec2 states a video frame, chunks): all
+        hidden states, 50 Hz resampled to 30 fps, then picked at ``fps`` over
+        whole buckets of ``num_frames``."""
+        from apex_studio_tpu_torch.models.audio.wav2vec2 import interpolate_linear
+        from apex_studio_tpu_torch.utils.media import load_audio
+
+        wav = load_audio(audio, sampling_rate)
+        wav = (wav - wav.mean()) / np.sqrt(wav.var() + 1e-7)  # zero mean, unit variance
+        encoder = self.load_helper("audio_encoder")
+        _check_audio_encoder(encoder, self.transformer.cfg.num_wav2vec_layers, self.transformer.cfg.audio_dim,
+                             "the S2V DiT")
+        states = encoder(torch.from_numpy(np.ascontiguousarray(wav, np.float32))[None].to(self.device))
+        feat = torch.cat(states, dim=0)  # [L + 1, T, D]
+        video_rate = 30
+        out_len = int(feat.shape[1] / 50.0 * video_rate)  # 50 Hz → 30 fps
+        feat = interpolate_linear(feat, max(out_len, 1)).float().cpu().numpy()
+        n_layers, audio_frame_num, audio_dim = feat.shape
+
+        scale = video_rate / fps
+        num_repeat = int(audio_frame_num / (num_frames * scale)) + 1
+        bucket = num_repeat * num_frames
+        duration = bucket / fps
+        total = int(np.ceil(duration * video_rate))
+        times = np.linspace(0.0, duration, bucket, endpoint=False)
+        idx = np.clip(np.round(times * video_rate).astype(int), 0, total - 1)
+        rows = np.zeros((bucket, n_layers, audio_dim), np.float32)
+        valid = idx < audio_frame_num
+        rows[valid] = feat[:, np.clip(idx[valid], 0, audio_frame_num - 1)].transpose(1, 0, 2)
+        return torch.from_numpy(np.ascontiguousarray(rows.transpose(1, 2, 0)))[None].to(self.device), num_repeat
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        audio: Any = None,
+        image: Any = None,
+        sampling_rate: int = 16000,
+        negative_prompt: Optional[str] = None,
+        pose_video: Any = None,
+        height: int = 480,
+        width: int = 832,
+        num_frames_per_chunk: int = 80,
+        num_inference_steps: int = 40,
+        guidance_scale: float = 4.5,
+        fps: int = 16,
+        seed: Optional[int] = None,
+        num_chunks: Optional[int] = None,
+        init_first_frame: bool = False,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        import cv2
+
+        safe_emit_progress(progress_callback, 0.0, "Starting s2v pipeline")
+        if audio is None or image is None:
+            raise ValueError("s2v requires audio and a reference image")
+        if self.text_encoder is None:
+            self.load_component_by_type("text_encoder")
+        context = self.encode_prompt(prompt or "")
+        use_cfg = negative_prompt is not None and guidance_scale > 1.0
+        neg_context = self.encode_prompt(negative_prompt) if use_cfg else context
+        self.maybe_release_text_encoders()
+        for ctype in ("vae", "scheduler"):
+            if getattr(self, ctype) is None:
+                self.load_component_by_type(ctype)
+        if self.transformer is None:
+            self.transformer = self._load_transformer(self._primary_transformer_spec())
+        tf = self.transformer
+        t_scale, s_scale = self.vae.cfg.temporal_scale, self.vae.cfg.spatial_scale
+        num_frames_per_chunk = max(t_scale, num_frames_per_chunk - num_frames_per_chunk % t_scale)
+        height -= height % (s_scale * tf.cfg.patch_size[1])
+        width -= width % (s_scale * tf.cfg.patch_size[2])
+
+        audio_embeds, audio_chunks = self.encode_audio(audio, sampling_rate, num_frames_per_chunk, fps)
+        num_chunks = min(num_chunks or audio_chunks, audio_chunks)
+        safe_emit_progress(progress_callback, 0.2, f"Audio encoded ({num_chunks} chunks)")
+
+        img_px = _pixels(_resized([self.load_image_input(image)], width, height, cv2.INTER_LANCZOS4))
+        condition = self.encode_video_latents(img_px)  # [1, C, 1, h, w]
+        motion_frames = self.motion_frames
+        lat_motion = (motion_frames + 3) // t_scale
+        lat_per_chunk = (num_frames_per_chunk + 3 + motion_frames) // t_scale - lat_motion
+        lat_h, lat_w = height // s_scale, width // s_scale
+        z_dim = tf.cfg.in_channels
+
+        pose_chunks = None
+        if pose_video is not None:
+            from apex_studio_tpu_torch.preprocess.base import load_frames
+
+            frames = load_frames(pose_video) if _is_path(pose_video) else list(pose_video)
+            need = num_chunks * num_frames_per_chunk
+            while len(frames) < need:
+                frames = frames + frames[::-1]  # reverse-padded
+            pose_px = _pixels(_resized(frames[:need], width, height, cv2.INTER_LANCZOS4))
+            pose_chunks = []
+            for r in range(num_chunks):
+                seg = pose_px[:, :, r * num_frames_per_chunk:(r + 1) * num_frames_per_chunk]
+                pose_chunks.append(self.encode_video_latents(torch.cat([seg[:, :, :1], seg], dim=2))[:, :, 1:])
+            del pose_px
+
+        motion_px = torch.zeros(1, 3, motion_frames, height, width)
+        drop_first = self.drop_first_motion
+        if init_first_frame:
+            drop_first = False
+            motion_px[:, :, -6:] = img_px
+        motion_latents = self.encode_video_latents(motion_px)
+        last_pixels = motion_px.to(self.device)
+        zero_pose = torch.zeros(1, z_dim, lat_per_chunk, lat_h, lat_w, device=self.device)
+
+        videos = []
+        cb = make_mapped_progress(progress_callback, 0.25, 0.95)
+        for r in range(num_chunks):
+            chunk_cb = make_mapped_progress(cb, r / num_chunks, (r + 1) / num_chunks)
+            x = self.get_latents((1, z_dim, lat_per_chunk, lat_h, lat_w), seed=None if seed is None else seed + r)
+            a_slice = audio_embeds[..., r * num_frames_per_chunk:(r + 1) * num_frames_per_chunk]
+            pose = pose_chunks[r] if pose_chunks is not None else zero_pose
+            drop_motion = drop_first and r == 0
+            kw = dict(motion_latents=motion_latents.to(tf.dtype), image_latents=condition.to(tf.dtype),
+                      pose_latents=pose.to(tf.dtype), motion_frames=(motion_frames, lat_motion),
+                      drop_motion_frames=drop_motion)
+            ts, _ = self.get_timesteps(self.scheduler, num_inference_steps)
+            for i, tstep in enumerate(ts):
+                t_b = torch.full((1,), float(tstep), dtype=torch.float32, device=self.device)
+                xd = x.to(tf.dtype)
+                v = tf(xd, t_b, context, audio_embeds=a_slice, **kw)
+                if use_cfg:
+                    neg = tf(xd, t_b, neg_context, audio_embeds=a_slice * 0.0, **kw)
+                    v = neg + guidance_scale * (v - neg)
+                (x,) = self.scheduler.step(v.float(), float(tstep), x)
+                safe_emit_progress(chunk_cb, 0.1 + 0.7 * (i + 1) / len(ts), f"Denoising step {i + 1}/{len(ts)}")
+            decode_lat = torch.cat([condition if drop_motion else motion_latents, x], dim=2)
+            video = self.decode_video_tensor(decode_lat, self.VAE_TILE, self.VAE_TILE_THRESHOLD)
+            video = video[:, :, -num_frames_per_chunk:]
+            if drop_motion:
+                video = video[:, :, 3:]
+            n_overlap = min(motion_frames, video.shape[2])
+            last_pixels = torch.cat([last_pixels[:, :, n_overlap:], video[:, :, -n_overlap:]], dim=2)
+            motion_latents = self.encode_video_latents(last_pixels)
+            videos.append(video.cpu())
+            safe_emit_progress(chunk_cb, 1.0, f"chunk {r + 1}/{num_chunks} done")
+
+        safe_emit_progress(progress_callback, 0.95, "Denoising complete")
+        full = torch.cat(videos, dim=2)
+        b, c, t, h, w = full.shape
+        frames = self.tensor_to_frames(full.transpose(1, 2).reshape(b * t, c, h, w))
+        safe_emit_progress(progress_callback, 1.0, "Completed pipeline")
+        return frames
+
+
+def match_and_blend_colors(video: np.ndarray, reference: np.ndarray, strength: float) -> np.ndarray:
+    """Per-channel mean / std colour match of a [B, 3, T, H, W] video to a
+    reference frame, blended by ``strength`` and clipped to [-1, 1]."""
+    if strength <= 0.0:
+        return video
+    v_mean = video.mean(axis=(0, 2, 3, 4), keepdims=True)
+    v_std = video.std(axis=(0, 2, 3, 4), keepdims=True) + 1e-6
+    r_mean = reference.mean(axis=(0, 2, 3, 4), keepdims=True)
+    r_std = reference.std(axis=(0, 2, 3, 4), keepdims=True) + 1e-6
+    matched = (video - v_mean) / v_std * r_std + r_mean
+    return np.clip(video * (1.0 - strength) + matched * strength, -1.0, 1.0)
+
+
+@register_engine("wan", "multitalk")
+class WanMultiTalkEngine(WanShared):
+    """Multi-person audio-driven i2v (MultiTalk, and InfiniteTalk's weights),
+    clip-autoregressive: each clip of ``num_frames`` carries the i2v mask +
+    latent condition of its first frame (then of the previous clip's last
+    ``motion_frames``, whose latents are re-noised to each step's t from a
+    seeded ``np.random.default_rng(seed + 7·clip)``), each speaker's windowed
+    wav2vec2 states, the speaker masks for L-RoPE routing and the CLIP-vision
+    features. With a negative prompt a step takes three forwards (text
+    dropped, then text and audio dropped), else two (audio dropped). Each
+    clip is colour-matched to the reference. The scheduler steps on the host.
+
+    The prompts encode before the DiT loads and UMT5 is released after them;
+    JAX loads every component first and keeps UMT5. The decodes take the Wan
+    engines' whole-or-tiled rule by the latent's size (JAX decodes whole); at
+    the tests' sizes both are whole. As in JAX, the request returns frames
+    (``return_latents`` is not read)."""
+
+    @torch.inference_mode()
+    def encode_person_audio(self, audio: Any, sampling_rate: int, fps: int) -> np.ndarray:
+        """→ [F_pix, blocks, C]: the wav2vec2 states after the embeddings,
+        resampled to one row a video frame, stacked."""
+        from apex_studio_tpu_torch.utils.media import load_audio
+
+        wav = load_audio(audio, sampling_rate)
+        wav = (wav - wav.mean()) / np.sqrt(wav.var() + 1e-7)
+        video_length = max(int(len(wav) / sampling_rate * fps), 1)
+        encoder = self.load_helper("audio_encoder")
+        cfg = self.transformer.cfg
+        _check_audio_encoder(encoder, cfg.audio_blocks + 1, cfg.audio_channels, "the MultiTalk DiT")
+        states = encoder(torch.from_numpy(np.ascontiguousarray(wav, np.float32))[None].to(self.device),
+                         seq_len=video_length)
+        return torch.stack(states[1:], dim=0)[:, 0].transpose(0, 1).float().cpu().numpy()
+
+    @staticmethod
+    def human_masks(human_num: int, height: int, width: int, face_scale: float = 0.05) -> np.ndarray:
+        """The default speaker layout: one speaker → the whole frame; two →
+        the left and right halves' face boxes and the background."""
+        if human_num == 1:
+            m = np.ones((height, width), np.float32)
+            return np.stack([m, np.ones_like(m), np.ones_like(m)])
+        x0, x1 = int(height * face_scale), int(height * (1 - face_scale))
+        half = width // 2
+        m1 = np.zeros((height, width), np.float32)
+        m1[x0:x1, int(half * face_scale):int(half * (1 - face_scale))] = 1
+        m2 = np.zeros((height, width), np.float32)
+        m2[x0:x1, int(half * face_scale) + half:int(half * (1 - face_scale)) + half] = 1
+        return np.stack([m1, m2, ((m1 + m2) == 0).astype(np.float32)])
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        image: Any = None,
+        audio: Any = None,
+        person_1_audio: Any = None,
+        person_2_audio: Any = None,
+        audio_type: str = "para",
+        negative_prompt: Optional[str] = None,
+        sampling_rate: int = 16000,
+        height: int = 480,
+        width: int = 832,
+        num_frames: int = 81,
+        max_num_frames: int = 1000,
+        motion_frames: int = 25,
+        num_inference_steps: int = 40,
+        guidance_scale: float = 5.0,
+        audio_guidance_scale: float = 4.0,
+        fps: int = 25,
+        seed: Optional[int] = None,
+        face_scale: float = 0.05,
+        color_correction_strength: float = 1.0,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        import cv2
+
+        safe_emit_progress(progress_callback, 0.0, "Starting multitalk pipeline")
+        if image is None:
+            raise ValueError("multitalk requires a conditioning image")
+        if person_1_audio is None and audio is not None:
+            person_1_audio = audio
+        speakers = [a for a in (person_1_audio, person_2_audio) if a is not None]
+        if not speakers:
+            raise ValueError("multitalk requires at least one speaker audio")
+        human_num = len(speakers)
+
+        if self.text_encoder is None:
+            self.load_component_by_type("text_encoder")
+        context = self.encode_prompt(prompt or "")
+        use_cfg = guidance_scale > 1.0 and negative_prompt is not None
+        neg_context = self.encode_prompt(negative_prompt) if use_cfg else context
+        self.maybe_release_text_encoders()
+        for ctype in ("vae", "scheduler"):
+            if getattr(self, ctype) is None:
+                self.load_component_by_type(ctype)
+        if self.transformer is None:
+            self.transformer = self._load_transformer(self._primary_transformer_spec())
+        tf = self.transformer
+        t_scale, s_scale = self.vae.cfg.temporal_scale, self.vae.cfg.spatial_scale
+        num_frames = max(1, num_frames - (num_frames - 1) % t_scale)
+        height -= height % (s_scale * 2)
+        width -= width % (s_scale * 2)
+
+        full_audio = [self.encode_person_audio(a, sampling_rate, fps) for a in speakers]
+        if human_num == 2 and audio_type == "add":  # both speakers hear the summed track
+            n = min(len(full_audio[0]), len(full_audio[1]))
+            summed = full_audio[0][:n] + full_audio[1][:n]
+            full_audio = [summed, summed]
+        total_frames = min(max_num_frames, min(len(a) for a in full_audio))
+        safe_emit_progress(progress_callback, 0.15, "Audio encoded")
+
+        img = self.load_image_input(image)
+        clip_feats = WanI2VEngine.encode_image_clip(self, img) if tf.cfg.image_dim is not None else None
+        cond_px = _pixels(_resized([img], width, height, cv2.INTER_LANCZOS4))
+        ref_px = cond_px.numpy()
+
+        lat_t = (num_frames - 1) // t_scale + 1
+        lat_h, lat_w = height // s_scale, width // s_scale
+        token_masks = np.stack([cv2.resize(m, (lat_w // 2, lat_h // 2), interpolation=cv2.INTER_NEAREST)
+                                for m in self.human_masks(human_num, height, width, face_scale)])
+        ref_masks = torch.from_numpy((token_masks > 0).reshape(len(token_masks), -1).astype(np.float32)).to(
+            self.device)
+        window = tf.cfg.audio_window
+        offsets = np.arange(window) - window // 2
+        z_dim = self.vae.cfg.z_dim
+
+        def velocity(x_in, t_b, audio_embs):
+            xd = x_in.to(tf.dtype)
+            silent = audio_embs * 0.0
+            pos = tf(xd, t_b, context, clip_feats, audio_embs, ref_target_masks=ref_masks)
+            if use_cfg:
+                drop_text = tf(xd, t_b, neg_context, clip_feats, audio_embs, ref_target_masks=ref_masks)
+                uncond = tf(xd, t_b, neg_context, clip_feats, silent, ref_target_masks=ref_masks)
+                return uncond + guidance_scale * (pos - drop_text) + audio_guidance_scale * (drop_text - uncond)
+            drop_audio = tf(xd, t_b, context, clip_feats, silent, ref_target_masks=ref_masks)
+            return drop_audio + audio_guidance_scale * (pos - drop_audio)
+
+        all_frames = []
+        audio_start, cur_motion, cond_source, clip_idx = 0, 1, cond_px, 0
+        cb = make_mapped_progress(progress_callback, 0.2, 0.95)
+        while True:
+            clip_idx += 1
+            is_first = clip_idx == 1
+            idx = np.clip(np.arange(audio_start, audio_start + num_frames)[:, None] + offsets[None, :], 0,
+                          total_frames - 1)
+            audio_embs = torch.from_numpy(np.stack([a[idx] for a in full_audio])).to(self.device)
+
+            # the i2v condition: the motion pixels then zeros, the mask on the motion span
+            pad = torch.zeros(1, 3, num_frames - cond_source.shape[2], height, width)
+            latent_cond = self.encode_video_latents(torch.cat([cond_source.cpu(), pad], dim=2))
+            valid = np.zeros((1, 1, num_frames, lat_h, lat_w), np.float32)
+            valid[:, :, :cur_motion] = 1.0
+            mask = torch.from_numpy(_packed_frame_mask(valid, t_scale)).to(self.device)
+            condition = torch.cat([mask, latent_cond], dim=1)
+            cur_motion_lat = 1 + (cur_motion - 1) // t_scale
+            motion_lat = latent_cond[:, :, :cur_motion_lat]
+
+            x = self.get_latents((1, z_dim, lat_t, lat_h, lat_w), seed=None if seed is None else seed + clip_idx)
+            ts, _ = self.get_timesteps(self.scheduler, num_inference_steps)
+            clip_cb = make_mapped_progress(cb, min(audio_start / max(total_frames, 1), 1.0),
+                                           min((audio_start + num_frames) / max(total_frames, 1), 1.0))
+            rng = np.random.default_rng(0 if seed is None else seed + 7 * clip_idx)
+            motion_noise = torch.from_numpy(rng.standard_normal(tuple(motion_lat.shape)).astype(np.float32)).to(
+                self.device)
+            for i, tstep in enumerate(ts):
+                if not is_first:
+                    x[:, :, :cur_motion_lat] = self.scheduler.add_noise(motion_lat, motion_noise, float(tstep))
+                t_b = torch.full((1,), float(tstep), dtype=torch.float32, device=self.device)
+                v = velocity(torch.cat([x, condition], dim=1), t_b, audio_embs)
+                (x,) = self.scheduler.step(v.float(), float(tstep), x)
+                safe_emit_progress(clip_cb, (i + 1) / len(ts), f"Denoising step {i + 1}/{len(ts)}")
+            if not is_first:
+                x[:, :, :cur_motion_lat] = motion_lat
+
+            video = self.decode_video_tensor(x, self.VAE_TILE, self.VAE_TILE_THRESHOLD).float().cpu().numpy()
+            if color_correction_strength > 0.0:
+                video = match_and_blend_colors(video, ref_px, color_correction_strength)
+            all_frames.append(video if is_first else video[:, :, cur_motion:])
+            audio_start += num_frames - motion_frames
+            if audio_start + num_frames >= total_frames or total_frames <= num_frames:
+                break
+            cur_motion = min(motion_frames, video.shape[2])
+            cond_source = torch.from_numpy(np.ascontiguousarray(video[:, :, -cur_motion:]))
+
+        safe_emit_progress(progress_callback, 0.95, "Denoising complete")
+        full = np.concatenate(all_frames, axis=2)[:, :, :total_frames]
+        b, c, t, h, w = full.shape
+        frames = self.tensor_to_frames(torch.from_numpy(np.ascontiguousarray(
+            full.transpose(0, 2, 1, 3, 4).reshape(b * t, c, h, w))))
         safe_emit_progress(progress_callback, 1.0, "Completed pipeline")
         return frames

@@ -11,7 +11,8 @@ the Wan 2.1 i2v image encoder's ``clip_vision``; FLUX.2's ``flux2`` and
 with its BatchNorm running statistics) and the ``llama`` text towers
 (Llama, Llava, Mistral3); HunyuanVideo's ``hunyuanvideo`` (the DiT and
 FramePack's, diffusers naming) and ``hunyuanvideo_vae``; HuMo's ``wan_humo``
-and ``wav2vec2``).
+and ``wav2vec2``; the audio-driven DiTs' ``wan_s2v``, ``wan_multitalk`` and
+``hunyuanvideo_avatar``, whose audio encoders load through ``wav2vec2``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -701,5 +702,163 @@ converter_registry.add(
              r"text_embedding_\d|time_embedding_\d|time_projection)\.weight$", r"\1.kernel"),
         ],
         drop=(r"^freqs", r"^head\.norm\."),
+    ),
+)
+
+
+converter_registry.add(
+    "hunyuanvideo_avatar",
+    KeyConverter(
+        # HunyuanAvatarVideoTransformer3DModel (reference
+        # src/transformer/hunyuanvideo/avatar/model.py:780): hunyuanvideo
+        # layout plus ref embedders, motion/fps condition MLPs, whisper
+        # audio projection and the perceiver audio adapters.
+        renames=[
+            (r"^x_embedder\.proj\.weight$", "x_embedder.kernel"),
+            (r"^x_embedder\.proj\.bias$", "x_embedder.bias"),
+            (r"^ref_latents_embedder\.proj\.weight$",
+             "ref_latents_embedder.kernel"),
+            (r"^ref_latents_embedder\.proj\.bias$",
+             "ref_latents_embedder.bias"),
+            (r"^time_text_embed\.timestep_embedder\.linear_(\d)\.",
+             r"time_linear_\1."),
+            (r"^time_text_embed\.text_embedder\.linear_(\d)\.",
+             r"text_linear_\1."),
+            (r"^time_text_embed\.guidance_embedder\.linear_(\d)\.",
+             r"guidance_linear_\1."),
+            (r"^time_text_embed\.motion_exp\.linear_(\d)\.",
+             r"motion_exp_linear_\1."),
+            (r"^time_text_embed\.motion_pose\.linear_(\d)\.",
+             r"motion_pose_linear_\1."),
+            (r"^time_text_embed\.fps_proj\.linear_(\d)\.", r"fps_linear_\1."),
+            (r"^context_embedder\.time_text_embed\.timestep_embedder\.linear_(\d)\.",
+             r"context_embedder.timestep_linear_\1."),
+            (r"^context_embedder\.time_text_embed\.text_embedder\.linear_(\d)\.",
+             r"context_embedder.text_linear_\1."),
+            (r"^context_embedder\.token_refiner\.refiner_blocks\.",
+             "context_embedder.refiner_blocks."),
+            (r"(refiner_blocks\.\d+)\.attn\.to_out\.0\.", r"\1.to_out."),
+            (r"(refiner_blocks\.\d+)\.attn\.", r"\1."),
+            (r"(refiner_blocks\.\d+)\.ff\.net\.0\.proj\.", r"\1.ff_in."),
+            (r"(refiner_blocks\.\d+)\.ff\.net\.2\.", r"\1.ff_out."),
+            (r"(refiner_blocks\.\d+)\.norm_out\.linear\.", r"\1.ada_linear."),
+            (r"^audio_projection\.norm\.weight$",
+             "audio_projection.norm_weight"),
+            (r"^audio_projection\.norm\.bias$", "audio_projection.norm_bias"),
+            (r"^audio_projection\.(proj\d)\.", r"audio_projection.\1."),
+            (r"(audio_adapter_blocks\.\d+)\.norm(\d)\.weight$",
+             r"\1.norm\2_weight"),
+            (r"(audio_adapter_blocks\.\d+)\.norm(\d)\.bias$",
+             r"\1.norm\2_bias"),
+            (r"\.norm1\.linear\.", ".norm1_linear."),
+            (r"\.norm1_context\.linear\.", ".norm1_context_linear."),
+            (r"\.norm\.linear\.", ".norm_linear."),
+            (r"\.attn\.to_out\.0\.", ".to_out."),
+            (r"(transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"(single_transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"\.ff(_context)?\.net\.0\.proj\.", r".ff\1.fc1."),
+            (r"\.ff(_context)?\.net\.2\.", r".ff\1.fc2."),
+            (r"^norm_out\.linear\.", "norm_out_linear."),
+            (r"(to_q|to_k|to_v|to_kv|to_out|to_add_out|add_q_proj|add_k_proj|"
+             r"add_v_proj|fc1|fc2|ff_in|ff_out|ada_linear|proj_in|proj_mlp|"
+             r"proj_out|proj\d|norm1_linear|norm1_context_linear|norm_linear|"
+             r"norm_out_linear|ref_latents_proj|time_linear_\d|"
+             r"timestep_linear_\d|text_linear_\d|guidance_linear_\d|"
+             r"motion_exp_linear_\d|motion_pose_linear_\d|fps_linear_\d)"
+             r"\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope\.",),
+    ),
+)
+
+
+converter_registry.add(
+    "wan_s2v",
+    KeyConverter(
+        # Wan 2.2 S2V (reference src/transformer/wan/s2v/model.py:886).
+        renames=[
+            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"^condition_embedder\.time_embedder\.linear_(\d)\.",
+             r"time_embedder_linear_\1."),
+            (r"^condition_embedder\.time_proj\.", "time_proj."),
+            (r"^condition_embedder\.text_embedder\.linear_(\d)\.",
+             r"text_embedder_linear_\1."),
+            (r"^condition_embedder\.causal_audio_encoder\.weights$",
+             "causal_audio_encoder.weights"),
+            (r"^condition_embedder\.causal_audio_encoder\.encoder\.",
+             "causal_audio_encoder.encoder."),
+            (r"^condition_embedder\.pose_embedder\.weight$", "pose_embedder.kernel"),
+            (r"^condition_embedder\.pose_embedder\.bias$", "pose_embedder.bias"),
+            (r"(conv1_local|conv1_global|conv2|conv3)\.conv\.weight$", r"\1.kernel_w"),
+            (r"(conv1_local|conv1_global|conv2|conv3)\.conv\.bias$", r"\1.bias"),
+            (r"^trainable_condition_mask\.weight$", "trainable_condition_mask"),
+            (r"^audio_injector\.injector\.(\d+)\.", r"injector.\1.attn."),
+            (r"^audio_injector\.injector_adain_layers\.(\d+)\.linear\.",
+             r"injector.\1.adain_linear."),
+            (r"^audio_injector\.injector_pre_norm_feat\.\d+\.", "DROPME."),
+            (r"^audio_injector\.injector_pre_norm_vec\.\d+\.", "DROPME."),
+            (r"^blocks\.(\d+)\.attn1\.", r"blocks.\1.attn1."),
+            (r"^blocks\.(\d+)\.attn2\.", r"blocks.\1.attn2."),
+            (r"\.attn(\d)\.norm_q\.", r".attn\1.norm_q."),
+            (r"\.attn(\d)\.to_out\.0\.", r".attn\1.to_out."),
+            (r"^blocks\.(\d+)\.norm2\.weight$", r"blocks.\1.norm2_weight"),
+            (r"^blocks\.(\d+)\.norm2\.bias$", r"blocks.\1.norm2_bias"),
+            (r"^blocks\.(\d+)\.ffn\.net\.0\.proj\.", r"blocks.\1.ffn.fc1."),
+            (r"^blocks\.(\d+)\.ffn\.net\.2\.", r"blocks.\1.ffn.fc2."),
+            (r"^norm_out\.", "DROPME."),  # affine-free
+            (r"^scale_shift_table$", "norm_out_scale_shift"),
+            (r"^frame_packer\.proj(_2x|_4x)?\.weight$", r"frame_packer.proj\1.kernel"),
+            (r"^frame_packer\.proj(_2x|_4x)?\.bias$", r"frame_packer.proj\1.bias"),
+            (r"(to_q|to_k|to_v|to_out|add_k_proj|add_v_proj|fc1|fc2|final_linear|adain_linear|time_embedder_linear_\d|text_embedder_linear_\d|time_proj|proj_out)\.weight$",
+             r"\1.kernel"),
+        ],
+        drop=(r"DROPME", r"^rope\.", r"frame_packer\.rope"),
+    ),
+)
+
+
+converter_registry.add(
+    "wan_multitalk",
+    KeyConverter(
+        # Wan MultiTalk (reference src/transformer/wan/multitalk/model.py:982).
+        renames=[
+            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"^condition_embedder\.time_embedder\.linear_(\d)\.",
+             r"time_embedder_linear_\1."),
+            (r"^condition_embedder\.time_proj\.", "time_proj."),
+            (r"^condition_embedder\.text_embedder\.linear_(\d)\.",
+             r"text_embedder_linear_\1."),
+            (r"^condition_embedder\.image_embedder\.norm1\.weight$", "img_norm1"),
+            (r"^condition_embedder\.image_embedder\.norm1\.bias$", "img_norm1_bias"),
+            (r"^condition_embedder\.image_embedder\.norm2\.weight$", "img_norm2"),
+            (r"^condition_embedder\.image_embedder\.norm2\.bias$", "img_norm2_bias"),
+            (r"^condition_embedder\.image_embedder\.ff\.net\.0\.proj\.", "img_ff1."),
+            (r"^condition_embedder\.image_embedder\.ff\.net\.2\.", "img_ff2."),
+            (r"^audio_proj\.", "audio_proj."),
+            (r"\.attn1\.to_out\.0\.", ".to_out."),
+            (r"\.attn1\.", "."),
+            (r"\.attn2\.to_out\.0\.", ".c_to_out."),
+            (r"\.attn2\.to_q\.", ".c_to_q."),
+            (r"\.attn2\.to_k\.", ".c_to_k."),
+            (r"\.attn2\.to_v\.", ".c_to_v."),
+            (r"\.attn2\.norm_q\.", ".c_norm_q."),
+            (r"\.attn2\.norm_k\.", ".c_norm_k."),
+            (r"\.attn2\.add_k_proj\.", ".add_k_proj."),
+            (r"\.attn2\.add_v_proj\.", ".add_v_proj."),
+            (r"\.attn2\.norm_added_k\.", ".norm_added_k."),
+            (r"\.audio_attn2\.q_linear\.", ".a_q_linear."),
+            (r"\.audio_attn2\.kv_linear\.", ".a_kv_linear."),
+            (r"\.audio_attn2\.proj\.", ".a_proj."),
+            (r"\.norm2\.weight$", ".norm2_weight"),
+            (r"\.norm2\.bias$", ".norm2_bias"),
+            (r"\.norm_x\.weight$", ".norm_x_weight"),
+            (r"\.norm_x\.bias$", ".norm_x_bias"),
+            (r"\.ffn\.net\.0\.proj\.", ".ffn.fc1."),
+            (r"\.ffn\.net\.2\.", ".ffn.fc2."),
+            (r"^scale_shift_table$", "norm_out_scale_shift"),
+            (r"(to_q|to_k|to_v|to_out|c_to_q|c_to_k|c_to_v|c_to_out|add_k_proj|add_v_proj|a_q_linear|a_kv_linear|a_proj|fc1|fc2|img_ff1|img_ff2|proj1|proj1_vf|proj2|proj3|time_embedder_linear_\d|text_embedder_linear_\d|time_proj|proj_out)\.weight$",
+             r"\1.kernel"),
+        ],
+        drop=(r"^rope\.", r"audio_attn2\.(q_norm|k_norm|add_q_norm|add_k_norm)"),
     ),
 )

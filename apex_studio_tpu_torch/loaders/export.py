@@ -19,7 +19,11 @@ tower under ``language_model.model.``), ``hunyuanvideo`` and
 FramePack's extra keys, and ``AutoencoderKLHunyuanVideo``), ``wan_humo``
 (HuMo's reference names, ``patch_embedding`` as its Conv3d weight) and
 ``wav2vec2`` (transformers' ``Wav2Vec2Model``, the positional conv's weight
-norm as ``weight_g`` / ``weight_v``).
+norm as ``weight_g`` / ``weight_v``), ``wan_s2v``, ``wan_multitalk`` and
+``hunyuanvideo_avatar`` (the names their converters read: the reference's
+``condition_embedder`` / ``audio_injector`` / ``audio_attn2`` levels, the
+patch, pose and FramePack embeddings as Conv3d weights, the causal audio
+convs as ``.conv.weight``).
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -234,6 +238,47 @@ _WAN_HUMO = (
     (r"^head_norm_mod$", "head.modulation"),
     (r"^head\.(weight|bias)$", r"head.head.\1"),
 )
+_HUNYUANVIDEO_AVATAR = _HUNYUANVIDEO + (
+    (r"^ref_latents_embedder\.", "ref_latents_embedder.proj."),
+    (r"^(motion_exp|motion_pose)_linear_(\d)\.", r"time_text_embed.\1.linear_\2."),
+    (r"^fps_linear_(\d)\.", r"time_text_embed.fps_proj.linear_\1."),
+    (r"^audio_projection\.norm_(weight|bias)$", r"audio_projection.norm.\1"),
+    (r"^(audio_adapter_blocks\.\d+)\.norm(\d)_(weight|bias)$", r"\1.norm\2.\3"),
+)
+_WAN_S2V = (
+    (r"^(time|text)_embedder_linear_(\d)\.", r"condition_embedder.\1_embedder.linear_\2."),
+    (r"^time_proj\.", "condition_embedder.time_proj."),
+    (r"^(causal_audio_encoder|pose_embedder)\.", r"condition_embedder.\1."),
+    (r"\.(conv1_local|conv1_global|conv2|conv3)\.kernel_w$", r".\1.conv.weight"),
+    (r"\.(conv1_local|conv1_global|conv2|conv3)\.bias$", r".\1.conv.bias"),
+    (r"^trainable_condition_mask$", "trainable_condition_mask.weight"),
+    (r"^injector\.(\d+)\.attn\.", r"audio_injector.injector.\1."),
+    (r"^injector\.(\d+)\.adain_linear\.", r"audio_injector.injector_adain_layers.\1.linear."),
+    (r"^(blocks\.\d+)\.(attn\d)\.to_out\.", r"\1.\2.to_out.0."),
+    (r"^(blocks\.\d+)\.norm2_(weight|bias)$", r"\1.norm2.\2"),
+    (r"\.ffn\.fc1\.", ".ffn.net.0.proj."),
+    (r"\.ffn\.fc2\.", ".ffn.net.2."),
+    (r"^norm_out_scale_shift$", "scale_shift_table"),
+)
+_WAN_MULTITALK = (
+    (r"^(time|text)_embedder_linear_(\d)\.", r"condition_embedder.\1_embedder.linear_\2."),
+    (r"^time_proj\.", "condition_embedder.time_proj."),
+    (r"^img_norm(\d)$", r"condition_embedder.image_embedder.norm\1.weight"),
+    (r"^img_norm(\d)_bias$", r"condition_embedder.image_embedder.norm\1.bias"),
+    (r"^img_ff1\.", "condition_embedder.image_embedder.ff.net.0.proj."),
+    (r"^img_ff2\.", "condition_embedder.image_embedder.ff.net.2."),
+    (r"^(blocks\.\d+)\.to_out\.", r"\1.attn1.to_out.0."),
+    (r"^(blocks\.\d+)\.(to_q|to_k|to_v|norm_q|norm_k)\.", r"\1.attn1.\2."),
+    (r"^(blocks\.\d+)\.c_to_out\.", r"\1.attn2.to_out.0."),
+    (r"^(blocks\.\d+)\.c_(to_q|to_k|to_v|norm_q|norm_k)\.", r"\1.attn2.\2."),
+    (r"^(blocks\.\d+)\.(add_k_proj|add_v_proj|norm_added_k)\.", r"\1.attn2.\2."),
+    (r"^(blocks\.\d+)\.a_(q_linear|kv_linear)\.", r"\1.audio_attn2.\2."),
+    (r"^(blocks\.\d+)\.a_proj\.", r"\1.audio_attn2.proj."),
+    (r"^(blocks\.\d+)\.(norm2|norm_x)_(weight|bias)$", r"\1.\2.\3"),
+    (r"\.ffn\.fc1\.", ".ffn.net.0.proj."),
+    (r"\.ffn\.fc2\.", ".ffn.net.2."),
+    (r"^norm_out_scale_shift$", "scale_shift_table"),
+)
 _WAV2VEC2 = (
     (r"^conv_layers\.", "feature_extractor.conv_layers."),
     (r"^fp_layer_norm\.", "feature_projection.layer_norm."),
@@ -276,6 +321,15 @@ def _wan_humo_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     return value
 
 
+def _wan_s2v_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """The patch and pose embeddings and the FramePack projections as their
+    published Conv3d weights ``[O, C, pt, ph, pw]``."""
+    patch = {"patch_embedding.weight": (1, 2, 2), "condition_embedder.pose_embedder.weight": (1, 2, 2),
+             "frame_packer.proj.weight": (1, 2, 2), "frame_packer.proj_2x.weight": (2, 4, 4),
+             "frame_packer.proj_4x.weight": (4, 8, 8)}.get(key)
+    return value.reshape(value.shape[0], -1, *patch) if patch else value
+
+
 def _clip_vision_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """The patch embedding as the published Conv2d weight ``[O, 3, p, p]``."""
     if key == "vision_model.embeddings.patch_embedding.weight":
@@ -286,14 +340,15 @@ def _clip_vision_layout(key: str, value: torch.Tensor) -> torch.Tensor:
 
 _LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
     "wan_vae": _wan_vae_layout, "wan": _wan_layout, "clip_vision": _clip_vision_layout,
-    "wan_humo": _wan_humo_layout}
+    "wan_humo": _wan_humo_layout, "wan_multitalk": _wan_humo_layout, "wan_s2v": _wan_s2v_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
     "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE, "qwenimage": _QWENIMAGE, "wan_vae": _WAN_VAE,
     "wan": _WAN, "clip_vision": _CLIP_VISION, "flux2": _FLUX2, "flux2_vae": _FLUX2_VAE, "llama": _LLAMA,
     "hunyuanvideo": _HUNYUANVIDEO, "hunyuanvideo_vae": _HUNYUANVIDEO_VAE, "wan_humo": _WAN_HUMO,
-    "wav2vec2": _WAV2VEC2}
+    "wav2vec2": _WAV2VEC2, "wan_s2v": _WAN_S2V, "wan_multitalk": _WAN_MULTITALK,
+    "hunyuanvideo_avatar": _HUNYUANVIDEO_AVATAR}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -15,6 +15,9 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
 - a 2-D ``..._kernel`` leaf is a raw ``[in, out]`` projection matrix kept
   outside a Linear (the Wan VAE attention's ``to_qkv_kernel`` and
   ``proj_kernel``): it becomes ``..._weight`` ``[out, in]``;
+- a 3-D ``...kernel_w`` is a causal 1-D conv kernel kept outside a Linear
+  (Wan S2V's ``CausalConv1d``): [k, in, out] becomes ``Conv1d``'s
+  [out, in, k] under the same name;
 - a 4-D ``...w`` is a transposed-convolution kernel that the JAX module
   keeps spatially flipped in HWIO (RIFE's ``Deconv2x``): it becomes
   ``...weight`` in ``ConvTranspose2d``'s layout ``[in, out, kh, kw]``,
@@ -65,6 +68,8 @@ def convert_jax_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         elif parts[-1].endswith("_kernel") and arr.ndim == 2:
             parts[-1] = parts[-1][: -len("kernel")] + "weight"
             arr = arr.T
+        elif parts[-1] == "kernel_w" and arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)
         elif parts[-1] == "w" and arr.ndim == 4:
             parts[-1] = "weight"
             arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]

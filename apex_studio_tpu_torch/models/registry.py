@@ -14,7 +14,8 @@ Wan VAE, which ``qwenimage`` and ``AutoencoderKLQwenImage`` name too);
 llava-llama-3); ``hunyuanvideo.base`` and ``hunyuanvideo.framepack`` (the
 original HunyuanVideo DiT and FramePack's) and ``AutoencoderKLHunyuanVideo``
 (its VAE); ``wan.humo`` (HuMo's DiT) and ``Wav2Vec2Model`` (its audio
-encoder, in the text-encoder registry as in JAX).
+encoder, in the text-encoder registry as in JAX); ``wan.s2v``, ``wan.multitalk``
+and ``hunyuanvideo.avatar`` (the audio-driven DiTs).
 """
 
 import importlib
@@ -48,6 +49,9 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.vaes.hunyuanvideo_vae",
     "apex_studio_tpu_torch.models.audio.wav2vec2",
     "apex_studio_tpu_torch.models.transformers.wan_humo",
+    "apex_studio_tpu_torch.models.transformers.wan_s2v",
+    "apex_studio_tpu_torch.models.transformers.wan_multitalk",
+    "apex_studio_tpu_torch.models.transformers.hunyuanvideo_avatar",
 )
 
 

@@ -38,7 +38,7 @@ Phases, each printed as one JSON line:
              with a bias) timed beside its bound and the library call; two
              identical 33-frame requests (tiled decode, frames and latents
              equal), one TAE preview, one decode tile against float64, one
-             121-frame request of one step, timed; the
+             121-frame request, 1 step each, timed; the
              DiT's resident Linears timed by shape, and the step split into
              attention, W8A8 Linears and the rest; then one 33-frame request
              through the t2v manifest's own engine
@@ -52,7 +52,7 @@ Phases, each printed as one JSON line:
   qwenimage  QwenImage Edit 2509 at 1024x1024 from its manifest, full width and
              depth, the 20B DiT int4-resident: a 2-block DiT and ControlNet at
              full width on the card (bf16) against the CPU (f32); the bench
-             leg's edit request ("make the sky purple", 8 steps, true CFG off)
+             leg's edit request ("make the sky purple", 4 of its 8 steps, true CFG off)
              three times (60 launches a step, requests 1 and 3 identical, the
              repeated prompt a disk-cache hit); one Wan VAE decode against
              float64; the resident Linears at QwenImage's shapes and the int4
@@ -74,21 +74,24 @@ Phases, each printed as one JSON line:
              request (4 steps, no Linear quantized); the point mask and its
              tracking on eight 480x832 frames
   wan_edit   the Wan editing engines from their manifests at 480x832, full
-             width and depth, the 14B DiTs int4-resident (UMT5-XXL int8, CLIP
+             width, the requests' DiTs cut to 20 of their 40 blocks (VACE
+             hints at 0, 5, 10, 15), the 14B DiTs int4-resident (UMT5-XXL int8, CLIP
              ViT-H bf16), with the published configs the manifests lack
              written into the run's home: 2-block VACE, Fun and causal DiTs
              at full width and the CLIP vision tower on the card against the
              CPU; VACE (Wan 2.1 14B) at 81 frames with a point-masked control
-             video and one reference image (34,320 tokens, 2 CFG steps, 192
+             video and one reference image (34,320 tokens, 1 CFG step, 96
              launches a step), seeds 0, 0, 1 (1 and 2 identical, the
              reference frame dropped before the decode); Wan 2.1 i2v with
-             the CLIP branch at 81 frames (240 launches a step); fflf, inp and
+             the CLIP branch at 81 frames (120 launches a step); fflf, inp and
              v2v on the A14B experts at 33 frames (3 steps, the switch at
              0.875), fun_vace, phantom (two subject references) and
-             fun_control at 33 frames (2 steps); SVI as two 33-frame segments
-  wan_causal the Self-Forcing manifest (1.3B causal DiT bf16) at its defaults:
-             81 frames as 7 blocks of 3 latent frames, 4 steps and a commit
-             each (60 launches a forward, each block against the whole
+             fun_control at 33 frames (1 step); SVI as two 33-frame segments
+             (1 step each)
+  wan_causal the Self-Forcing manifest (1.3B causal DiT bf16, 15 of its 30
+             blocks) at its defaults: 81 frames as 7 blocks of 3 latent
+             frames, 4 steps and a commit each (30 launches a forward, each
+             block against the whole
              32,760-row cache with a [1, Sk] bias); seeds 0, 0, 1, then a
              local window with a sink and an image pre-fill; the cache read
              before every block holds exactly the committed blocks
@@ -129,18 +132,46 @@ Phases, each printed as one JSON line:
              and a VAE decode against float64; t2v at 33 frames twice (one
              seed, frames bit-identical), at 81 frames (the decode in tiles),
              i2v token_replace at 33 frames (the I2V config written; the first
-             latent frame pinned); 2 steps, 62 launches a forward; the W8A8
+             latent frame pinned); 1 step each, 62 launches a forward; the W8A8
              Linears at the 81-frame shapes and the step split
-  humo       HuMo 17B from its manifest at the WanHuMoConfig defaults, the
-             DiT int4 and UMT5-XXL int8, a 13-layer wav2vec2 of base widths
-             (configs written), a seeded 16 kHz WAV: the kernel at the path's
+  humo       HuMo 17B from its manifest at the WanHuMoConfig widths (the
+             requests' DiT cut to 20 of its 40 blocks), the DiT int4 and
+             UMT5-XXL int8, a 13-layer wav2vec2 of base widths (configs
+             written), a seeded 16 kHz WAV: the kernel at the path's
              shapes (self over 39,000 and 14,040 tokens, text cross over 512,
              the per-frame audio cross-attention of 25 and 9 frames against 16
              audio tokens); a 2-block DiT against f32; TIA at the manifest's
              defaults (97 frames, one reference image, a negative prompt: 3
              forwards a step, the negative branch switching at step_change),
-             then TA at 33 frames twice (bit-identical); 2 steps, 120 launches
-             a forward
+             then TA at 33 frames twice (bit-identical); 2 steps (TA 1), 3
+             launches a block
+  s2v        Wan 2.2 S2V from its manifest at the published widths (its
+             transformer and wav2vec2-large configs written; the DiT int4,
+             UMT5-XXL int8), a seeded 10 s WAV: the kernel at the path's shapes
+             (self over 35,074 tokens, text cross, the audio injector over 5
+             keys, wav2vec2-large's f32 attention over 499 frames); the
+             2-block DiT against f32; one 480x832 request of two 80-frame
+             chunks with a pose video and CFG (the second chunk's motion
+             buffer re-encoded from the first's frames), then two identical
+             32-frame requests seeded with the image; 2 steps, 92 launches a
+             forward and the encoder's 24 a request
+  multitalk  Wan 2.1 MultiTalk from its manifest (the Wan2.1-I2V-14B-480P,
+             CLIP ViT-H and chinese-wav2vec2-base configs written; DiT int4,
+             CLIP bf16): the kernel at the path's shapes (self over 32,760,
+             text and CLIP cross, the L-RoPE audio cross over two speakers'
+             64 tokens, the encoder's f32 attention); the 2-block DiT with two
+             speakers against f32; 81 frames with two speakers and a negative
+             prompt (3 forwards a step), then two identical one-speaker
+             33-frame requests; 2 steps, 160 launches a forward
+  avatar     HunyuanVideo Avatar from its manifest at the family defaults'
+             widths, synthetic int8 weights: the kernel at the path's shapes
+             (the joint attention over 35,072 tokens and the refiner, each
+             with the text bias); the 1 + 1-block DiT with the audio adapter
+             against f32; the manifest's defaults (512x512, 125 frames, one
+             window of 33 latent frames) with a negative prompt and zero
+             Whisper features (no encoder files), then two identical 33-frame
+             requests in windows of 9 latent frames; 2 steps, 62 launches a
+             forward
   prompt_extension
              PromptExtender on the synthetic int8 Qwen3-4B, greedy, 32 new
              tokens (36 launches a token); each decode step's logits against
@@ -162,8 +193,9 @@ the editing paths' (VACE's 34,320 tokens, the CLIP image cross-attention over
 rows with a [1, Sk] bias at its first and last block and with a window and a
 sink), and the Flux editing paths' (FLUX.2 at 48 heads over 4608 and 8704
 tokens, Kontext over 8704 and DreamOmni2 over 12,800 at 24); the timing phase
-times each beside its bound and the library call. The hyv and humo phases
-hold and time the kernel at their own shapes (``path_kernel_rows``).
+times each beside its bound and the library call. The hyv, humo, s2v,
+multitalk and avatar phases hold and time the kernel at their own shapes
+(``path_kernel_rows``).
 Then a ``wall`` line, a ``kernels`` line, the card and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -204,7 +236,8 @@ STEPS = 4
 SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
-                  "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,prompt_extension,rife")
+                  "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
+                  "rife")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -222,7 +255,8 @@ HYV15_MANIFEST = REPO / "manifests" / "video" / "hunyuanvideo-1.5-i2v.yml"
 # SigLIP + 128 byT5 + 1000 Qwen2.5-VL tokens
 HYV15_CONTEXT_TOKENS = 729 + 128 + 1000
 HYV15_TOKENS = {33: 9 * 45 * 80 + HYV15_CONTEXT_TOKENS, 121: 31 * 45 * 80 + HYV15_CONTEXT_TOKENS}
-HYV15_MLLM_TOKENS, HYV15_HEADS, HYV15_STEPS = 1000, 16, 2
+# one step a request: a cut of depth that keeps the whole script inside its limit
+HYV15_MLLM_TOKENS, HYV15_HEADS, HYV15_STEPS = 1000, 16, 1
 # the 121-frame request runs one step: its seconds per step are that step's
 # (a cut of depth that keeps the whole script inside its time limit)
 HYV15_LONG_STEPS = 1
@@ -264,7 +298,8 @@ QWENIMAGE_MANIFEST = REPO / "manifests" / "image" / "qwenimage.yml"
 # 1024x1024: 128x128 latents packed 2x2 into 4096 tokens of 24 heads of 128;
 # 60 DiT blocks and 5 ControlNet blocks, one joint launch each
 QWENIMAGE_TOKENS, QWENIMAGE_HEADS, QWENIMAGE_LAYERS, QWENIMAGE_CN_LAYERS = 4096, 24, 60, 5
-QWENIMAGE_EDIT_PROMPT, QWENIMAGE_EDIT_STEPS = "make the sky purple", 8
+# the bench leg's edit request runs 4 of its 8 steps: a cut of depth
+QWENIMAGE_EDIT_PROMPT, QWENIMAGE_EDIT_STEPS = "make the sky purple", 4
 # rows, in, out and calls a forward of the edit request's resident Linears: the
 # image stream (4096 noise + 4096 condition rows) q/k/v/out, MLP in and out, and
 # the two 6·d modulations on one row (the text stream's q/k/v/out are added at
@@ -327,7 +362,10 @@ WAN_CAUSAL_MANIFEST = REPO / "manifests" / "video" / "wan-causal-self-forcing.ym
 # VACE at 81 frames plus one reference frame: 22 latent frames of 1560 tokens;
 # a Self-Forcing block: 3 latent frames; 257 CLIP tokens (16 x 16 patches + class)
 WAN_EDIT_TOKENS = {"vace": 22 * 1560, "causal_block": 3 * 1560}
-VACE_LAYERS, CAUSAL_LAYERS, CAUSAL_HEADS, CLIP_TOKENS = 8, 30, 12, 257
+# the Self-Forcing requests' DiT has 15 of its published 30 blocks (a cut of
+# depth that keeps the whole script inside its limit; the 2-block
+# full-width check stays)
+VACE_LAYERS, CAUSAL_LAYERS, CAUSAL_HEADS, CLIP_TOKENS = 8, 15, 12, 257
 # CLIP ViT-H in f32 on the card (TF32 off) against the CPU through 31 layers:
 # the same sums in another order. In bf16, the manifests' precision, its
 # penultimate states read 1.0% from f32 on the card: twice that is the limit
@@ -347,6 +385,21 @@ WAN_VACE_TRANSFORMER = dict(_WAN14B, _class_name="WanVACETransformer3DModel", va
 WAN_FUN_CONTROL_TRANSFORMER = dict(_WAN14B, in_channels=32)
 # gdhe17/Self-Forcing (Wan-AI/Wan2.1-T2V-1.3B's DiT): dim 1536, 30 layers
 SELF_FORCING_TRANSFORMER = dict(_WAN14B, num_attention_heads=12, ffn_dim=8960, num_layers=30)
+# the Wan editing requests' 14B DiTs have 20 of the published 40 blocks (a cut
+# of depth that keeps the whole script inside its limit; the 2-block
+# full-width checks stay); VACE keeps a hint every fifth block
+EDIT_LAYERS = 20
+EDIT_VACE_LAYERS = len(range(0, EDIT_LAYERS, 5))
+
+
+def edit_depth(cfg: dict) -> dict:
+    """A published DiT config at the editing requests' depth."""
+    cut = dict(cfg, num_layers=EDIT_LAYERS)
+    if "vace_layers" in cfg:
+        cut["vace_layers"] = list(range(0, EDIT_LAYERS, 5))
+    return cut
+
+
 # Wan-AI/Wan2.1-I2V-14B-480P-Diffusers image_encoder/config.json (CLIP ViT-H/14)
 CLIP_VISION_H = {"_class_name": "CLIPVisionModelWithProjection", "hidden_size": 1280, "intermediate_size": 5120,
                  "num_hidden_layers": 32, "num_attention_heads": 16, "image_size": 224, "patch_size": 14,
@@ -362,7 +415,9 @@ HYV_I2V_MANIFEST = REPO / "manifests" / "video" / "hunyuanvideo-i2v.yml"
 # HunyuanVideo at 720x1280: 45 x 80 image tokens a latent frame (patch 2)
 # and 256 llava-llama-3 text slots after the template's crop; a forward makes
 # 20 + 40 joint launches and the token refiner's 2
-HYV_HEADS, HYV_TEXT_TOKENS, HYV_STEPS, HYV_SIZE = 24, 256, 2, (720, 1280)
+# one step a request: a cut of depth that keeps the whole script inside its
+# limit
+HYV_HEADS, HYV_TEXT_TOKENS, HYV_STEPS, HYV_SIZE = 24, 256, 1, (720, 1280)
 HYV_TOKENS = {33: 9 * 45 * 80 + HYV_TEXT_TOKENS, 81: 21 * 45 * 80 + HYV_TEXT_TOKENS}
 HYV_LAUNCHES_PER_FORWARD = 20 + 40 + 2
 # The HunyuanVideo 1 + 1-block DiT's bf16 forward against f32 at its full
@@ -393,7 +448,14 @@ HUMO_MANIFEST = REPO / "manifests" / "video" / "humo-17b.yml"
 # (the last one the reference's), 33 are 9; 16 audio tokens a latent frame;
 # a forward makes 3 launches a block (self, text and audio cross-attention)
 HUMO_TOKENS = {97: 25 * 1560, 33: 9 * 1560}
-HUMO_AUDIO_TOKENS, HUMO_STEPS, HUMO_LAUNCHES_PER_FORWARD = 16, 2, 3 * 40
+# the requests' DiT has 20 of the published 40 blocks (a cut of depth that
+# keeps the whole script inside its limit; the full-width check runs on 2
+# blocks)
+HUMO_LAYERS = 20
+HUMO_TRANSFORMER = {"num_layers": HUMO_LAYERS}
+HUMO_AUDIO_TOKENS, HUMO_STEPS, HUMO_LAUNCHES_PER_FORWARD = 16, 2, 3 * HUMO_LAYERS
+# the TA pair runs one step (TIA keeps two to cross step_change): a cut of depth
+HUMO_TA_STEPS = 1
 # facebook/wav2vec2-base widths (768, 12 heads, the group-norm extractor)
 # with 13 layers: the engine stacks the hidden states after the embeddings,
 # one a layer, and the DiT's windows take 13 (WanHuMoConfig.audio_blocks)
@@ -401,6 +463,56 @@ HUMO_WAV2VEC2 = {"model_type": "wav2vec2", "hidden_size": 768, "num_hidden_layer
                  "intermediate_size": 3072, "conv_dim": [512] * 7, "conv_kernel": [10, 3, 3, 3, 3, 2, 2],
                  "conv_stride": [5, 2, 2, 2, 2, 2, 2], "feat_extract_norm": "group", "do_stable_layer_norm": False,
                  "num_conv_pos_embeddings": 128, "num_conv_pos_embedding_groups": 16, "layer_norm_eps": 1e-5}
+WAN_S2V_MANIFEST = REPO / "manifests" / "video" / "wan2.2-s2v-14b.yml"
+WAN_MULTITALK_MANIFEST = REPO / "manifests" / "video" / "wan-2.1-14b-multitalk.yml"
+HYV_AVATAR_MANIFEST = REPO / "manifests" / "video" / "hunyuanvideo-avatar.yml"
+# Wan-AI/Wan2.2-S2V-14B, wan/configs/wan_s2v_14B.py of the Wan2.2 repository:
+# the 14B Wan widths, wav2vec2-large's 1024-wide states (25 with the
+# embeddings), audio injected after 12 blocks, the FramePack motioner, the
+# zero-timestep condition tokens, 16 pose channels. The WanS2VConfig defaults
+# (audio_dim 1280, 8 inject layers, no FramePack) meet no published encoder
+# (ROADMAP Queue 3).
+WAN_S2V_TRANSFORMER = {"_class_name": "WanS2VTransformer3DModel", "patch_size": [1, 2, 2],
+                       "num_attention_heads": 40, "attention_head_dim": 128, "in_channels": 16,
+                       "out_channels": 16, "text_dim": 4096, "freq_dim": 256, "ffn_dim": 13824, "num_layers": 40,
+                       "cross_attn_norm": True, "eps": 1e-6, "audio_dim": 1024, "num_wav2vec_layers": 25,
+                       "audio_inject_layers": [0, 4, 8, 12, 16, 20, 24, 27, 30, 33, 36, 39], "enable_adain": True,
+                       "adain_mode": "attn_norm", "pose_dim": 16, "enable_framepack": True,
+                       "framepack_drop_mode": "padd", "zero_timestep": True, "num_audio_token": 4}
+# jonatasgrosman/wav2vec2-large-xlsr-53-english config.json (the S2V
+# repository's audio encoder): 24 layers of 1024, 16 heads, the layer-norm
+# feature extractor with the stable layer norm
+WAV2VEC2_LARGE = {"model_type": "wav2vec2", "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
+                  "intermediate_size": 4096, "conv_dim": [512] * 7, "conv_kernel": [10, 3, 3, 3, 3, 2, 2],
+                  "conv_stride": [5, 2, 2, 2, 2, 2, 2], "feat_extract_norm": "layer", "do_stable_layer_norm": True,
+                  "num_conv_pos_embeddings": 128, "num_conv_pos_embedding_groups": 16, "layer_norm_eps": 1e-5}
+# TencentGameMate/chinese-wav2vec2-base config.json (MultiTalk's audio
+# encoder): 12 layers of 768, the group-norm extractor; the DiT stacks its 12
+# states after the embeddings (WanMultiTalkConfig.audio_blocks)
+WAV2VEC2_BASE = dict(HUMO_WAV2VEC2, num_hidden_layers=12)
+# S2V at 480x832, 80 frames a chunk: 20 latent frames of 1560 noise tokens,
+# the reference's 1560 and FramePack's 1560 + 390 + 4 x 7 x 13 motion tokens
+# (the 4x bucket's 8 x 8 patch cropped from 60 x 104); the first chunk drops
+# the motion (32,760); 4 audio tokens a frame and a padding token
+S2V_FRAMES = 20
+S2V_TOKENS = {"chunk": S2V_FRAMES * 1560 + 1560 + 1560 + 390 + 4 * 7 * 13, "first_chunk": (S2V_FRAMES + 1) * 1560}
+S2V_AUDIO_TOKENS, S2V_INJECT_LAYERS = 4 + 1, 12
+# a forward: self and text cross-attention in each block, the audio injector's after 12 of them
+S2V_LAUNCHES_PER_FORWARD = 2 * 40 + S2V_INJECT_LAYERS
+# the 10 s clip's wav2vec2 frames (50 Hz) behind the two 80-frame chunks at 16 fps
+S2V_AUDIO_SECONDS, S2V_W2V_FRAMES = 10.0, 499
+# MultiTalk at 480x832 and 81 frames: 21 latent frames of 1560 tokens; 32 audio
+# tokens a speaker and frame; 257 CLIP tokens; a forward makes self, text,
+# CLIP and audio cross-attention launches in each of the 40 blocks
+MULTITALK_TOKENS, MULTITALK_AUDIO_TOKENS = 21 * 1560, 2 * 32
+MULTITALK_LAUNCHES_PER_FORWARD = 4 * 40
+# 3.2 s of each speaker's voice: 80 video frames at 25 fps, the wav2vec2 states resampled to them
+MULTITALK_AUDIO_SECONDS, MULTITALK_W2V_FRAMES = 3.2, 80
+# the Avatar at 512x512: one window of 33 latent frames of 32 x 32 tokens, the
+# reference frame's 1024 in front and the 256 text slots; a forward makes the
+# HunyuanVideo DiT's 62 launches
+AVATAR_TOKENS = 1024 + 33 * 1024 + HYV_TEXT_TOKENS
+AUDIO_VIDEO_STEPS = 2
 
 
 class CheckFailed(Exception):
@@ -1510,7 +1622,7 @@ def phase_hyv15(home: Path):
 
 def hyv15_t2v_request(home: Path):
     """One 33-frame 720x1280 request through the t2v manifest's own engine
-    (synthetic int8 weights, CFG 6.0, two steps), decoded; its frames go on
+    (synthetic int8 weights, CFG 6.0, ``HYV15_STEPS``), decoded; its frames go on
     to the rife phase."""
     import numpy as np
     import torch
@@ -2040,8 +2152,8 @@ def qwenimage_drive(label, manifest, model_type, weights, requests, steps, home,
 def phase_qwenimage(home: Path, kernel_rows=()):
     """QwenImage Edit 2509 at 1024x1024 from its manifest, full width and
     depth, the DiT int4-resident (encoder and VAE int8 / bf16): the 2-block
-    card-vs-CPU check; the bench leg's edit request three times (8 steps,
-    true_cfg_scale 1.0; request 2 with another seed); the Wan VAE against
+    card-vs-CPU check; the bench leg's edit request three times (4 of its 8
+    steps, true_cfg_scale 1.0; request 2 with another seed); the Wan VAE against
     float64; the resident Linears at QwenImage's shapes and the step split;
     then edit_plus with two condition images, t2i with true CFG, the
     ControlNet at scales 1 and 0, and a bf16 edit, each of 2 steps."""
@@ -2715,7 +2827,8 @@ def edit_drive(label, engine, kw, launches_per_forward, expected_forwards, frame
     before and read after (``launches_per_forward`` a forward and
     ``extra_launches`` a request outside them expected), every progress
     message stamped (synchronised), per-step seconds, the decode's seconds
-    and latent frames, peak GiB, the frames' count and size checked. Returns
+    and latent frames (``latent_t_expected``: each decode's, or a list in
+    decode order), peak GiB, the frames' count and size checked. Returns
     (row, frames)."""
     import numpy as np
     import torch
@@ -2772,7 +2885,9 @@ def edit_drive(label, engine, kw, launches_per_forward, expected_forwards, frame
                                                   for f in frames),
           f"{label}: {len(frames)} frames of {frames[0].shape}, expected {frames_expected}")
     check(row["latents_finite"], f"{label}: latents not finite")
-    check(all(z[2] == latent_t_expected for z in row["decoded_latents"]),
+    want_t = (list(latent_t_expected) if isinstance(latent_t_expected, (list, tuple))
+              else [latent_t_expected] * len(row["decoded_latents"]))
+    check([z[2] for z in row["decoded_latents"]] == want_t,
           f"{label}: decoded latent frames {row['decoded_latents']}, expected {latent_t_expected}")
     check(n_forwards is None or row["forwards_by_expert"] == expected_forwards,
           f"{label}: forwards {row['forwards_by_expert']}, expected {expected_forwards}")
@@ -2839,16 +2954,16 @@ def step_breakdown(phase, name, step_s, launches, kernel_rows, w4_calls=None, li
 
 
 def phase_wan_edit(home: Path, kernel_rows=()):
-    """The Wan editing engines from their manifests at 480x832, full width and
-    depth, the 14B DiTs int4-resident (UMT5-XXL int8, CLIP ViT-H bf16): the
+    """The Wan editing engines from their manifests at 480x832, full width
+    (the requests' DiTs ``EDIT_LAYERS`` of their 40 blocks), the 14B DiTs
+    int4-resident (UMT5-XXL int8, CLIP ViT-H bf16): the
     variants' card-vs-CPU checks; VACE (Wan 2.1 14B) at 81 frames with a
-    masked control video and a reference image, 2 CFG steps, seeds 0, 0 and
-    1 (the last of one step);
-    Wan 2.1 i2v with CLIP at 81 frames (2 steps); then at 33 frames fflf,
-    inp (a point mask), v2v at strength 0.7 (the A14B experts, 3 steps so
-    that the switch at 0.875 falls inside), fun_vace, phantom with two
-    subject references and fun_control (2 steps each); SVI as two segments of
-    33 frames (2 steps each)."""
+    masked control video and a reference image, one CFG step each, seeds 0,
+    0 and 1; Wan 2.1 i2v with CLIP at 81 frames (1 step); then at 33 frames
+    fflf, inp (a point mask), v2v at strength 0.7 (the A14B experts, 3 steps
+    so that the switch at 0.875 falls inside), fun_vace, phantom with two
+    subject references and fun_control (1 step each); SVI as two segments of
+    33 frames (1 step each)."""
     import numpy as np
     import torch
 
@@ -2860,13 +2975,12 @@ def phase_wan_edit(home: Path, kernel_rows=()):
     vace_kw = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEG, video=video, mask=masks, reference_images=[ref_image],
                    height=480, width=832, num_frames=81, num_inference_steps=2, guidance_scale=5.0)
     engine = edit_engine("wan_vace", WAN_VACE_MANIFEST, "vace", home, "int4",
-                         {"transformer": WAN_VACE_TRANSFORMER})
+                         {"transformer": edit_depth(WAN_VACE_TRANSFORMER)})
     rows, frames = [], []
-    # the third request (another seed, for the frames to differ) runs one of
-    # the two steps: a cut of depth that keeps the script inside its limit
-    for seed, steps in ((0, 2), (0, 2), (1, 1)):
+    # one step each: a cut of depth that keeps the script inside its limit
+    for seed, steps in ((0, 1), (0, 1), (1, 1)):
         row, f = edit_drive("wan_vace", engine, dict(vace_kw, seed=seed, num_inference_steps=steps),
-                            2 * WAN_LAYERS + 2 * VACE_LAYERS, {"transformer": 2 * steps}, 81, 21)
+                            2 * EDIT_LAYERS + 2 * EDIT_VACE_LAYERS, {"transformer": 2 * steps}, 81, 21)
         rows.append(row)
         frames.append(f)
     same = all(np.array_equal(a, b) for a, b in zip(frames[0], frames[1]))
@@ -2877,17 +2991,18 @@ def phase_wan_edit(home: Path, kernel_rows=()):
           "seconds_per_request": [r["seconds_total"] for r in rows]})
     check(same, "VACE requests 1 and 2 (same inputs and seed) differ")
     check(differ, "VACE requests 1 and 3 (other seed) are identical")
-    check(engine.transformer.cfg.vace_layers == tuple(range(0, 40, 5)), "VACE layers")
+    check(engine.transformer.cfg.vace_layers == tuple(range(0, EDIT_LAYERS, 5)), "VACE layers")
     paths["wan_vace_81_frames"] = rows
     del engine, frames
     release()
     # -- Wan 2.1 i2v with the CLIP image branch
+    # one step: a cut of depth
     clip_kw = dict(prompt=PROMPT_B, negative_prompt=WAN_NEG, image=ref_image, height=480, width=832, num_frames=81,
-                   num_inference_steps=2, guidance_scale=5.0, seed=0)
+                   num_inference_steps=1, guidance_scale=5.0, seed=0)
     engine = edit_engine("wan21_i2v", WAN21_I2V_MANIFEST, "i2v", home, "int4",
-                         {"transformer": WAN21_I2V_TRANSFORMER, "image_encoder": CLIP_VISION_H},
+                         {"transformer": edit_depth(WAN21_I2V_TRANSFORMER), "image_encoder": CLIP_VISION_H},
                          {"helper": "bf16"})
-    row, _ = edit_drive("wan21_i2v", engine, clip_kw, 3 * WAN_LAYERS, {"transformer": 4}, 81, 21)
+    row, _ = edit_drive("wan21_i2v", engine, clip_kw, 3 * EDIT_LAYERS, {"transformer": 2}, 81, 21)
     check(engine.transformer.cfg.image_dim == 1280 and engine.transformer.cfg.in_channels == 36, "Wan 2.1 I2V DiT")
     clip = engine.helpers["image_encoder"]
     check(clip.dtype == torch.bfloat16 and len(clip.layers) == 32, "the CLIP image encoder")
@@ -2895,11 +3010,11 @@ def phase_wan_edit(home: Path, kernel_rows=()):
     del engine, clip
     release()
     if kernel_rows:
-        vs, clip_s, frame = WAN_EDIT_TOKENS["vace"], WAN_TOKENS["clip"], 2 * WAN_LAYERS
-        vace_step = statistics.median(t for r in paths["wan_vace_81_frames"] for t in r["seconds_per_step"][1:])
+        vs, clip_s, frame = WAN_EDIT_TOKENS["vace"], WAN_TOKENS["clip"], 2 * EDIT_LAYERS
+        vace_step = statistics.median(r["seconds_per_step"][-1] for r in paths["wan_vace_81_frames"])
         step_breakdown("wan_edit", "vace_cfg_step_81_frames_plus_1_reference", vace_step,
-                            {f"wan_vace_self_s{vs}_h40": 2 * (WAN_LAYERS + VACE_LAYERS),
-                             f"wan_vace_cross_sq{vs}_sk{WAN_TEXT_TOKENS}_h40": 2 * (WAN_LAYERS + VACE_LAYERS)},
+                            {f"wan_vace_self_s{vs}_h40": 2 * (EDIT_LAYERS + EDIT_VACE_LAYERS),
+                             f"wan_vace_cross_sq{vs}_sk{WAN_TEXT_TOKENS}_h40": 2 * (EDIT_LAYERS + EDIT_VACE_LAYERS)},
                             kernel_rows)
         step_breakdown("wan_edit", "wan21_i2v_cfg_step_81_frames", row["seconds_per_step"][-1],
                             {f"wan_self_clip_s{clip_s}_h40": frame,
@@ -2909,11 +3024,13 @@ def phase_wan_edit(home: Path, kernel_rows=()):
     short, short_masks = video[:33], masks
     a14b = dict(prompt=PROMPT_A, negative_prompt=WAN_NEG, height=480, width=832, num_frames=33,
                 num_inference_steps=3, guidance_scale=4.0, guidance_scale_2=3.0, boundary_ratio=0.875, seed=0)
-    i2v_configs = {"transformer": WAN_I2V_TRANSFORMER, "transformer_2": WAN_I2V_TRANSFORMER}
+    i2v_configs = {"transformer": edit_depth(WAN_I2V_TRANSFORMER), "transformer_2": edit_depth(WAN_I2V_TRANSFORMER)}
+    t2v_configs = {"transformer": edit_depth(_WAN14B), "transformer_2": edit_depth(_WAN14B)}
     for label, manifest, mt, configs, extra in (
             ("wan_fflf", WAN_FFLF_MANIFEST, "fflf", i2v_configs, dict(image=short[0], last_image=short[-1])),
             ("wan_inp", WAN_INP_MANIFEST, "inp", i2v_configs, dict(video=short, mask=short_masks[0][..., 0])),
-            ("wan_v2v", WAN_V2V_MANIFEST, "v2v", None, dict(video=short, strength=0.7, num_inference_steps=4))):
+            ("wan_v2v", WAN_V2V_MANIFEST, "v2v", t2v_configs,
+             dict(video=short, strength=0.7, num_inference_steps=4))):
         engine = edit_engine(label, manifest, mt, home, "int4", configs)
         kw = dict(a14b, **extra)
         engine.load_component_by_type("scheduler")
@@ -2921,36 +3038,39 @@ def phase_wan_edit(home: Path, kernel_rows=()):
         ts = engine.scheduler.timesteps
         if mt == "v2v":
             ts = ts[min(int(round(len(ts) * (1.0 - kw["strength"]))), len(ts) - 1):]
-        row, _ = edit_drive(label, engine, kw, 2 * WAN_LAYERS, a14b_forwards(engine, ts, kw), 33, 9)
+        row, _ = edit_drive(label, engine, kw, 2 * EDIT_LAYERS, a14b_forwards(engine, ts, kw), 33, 9)
         if mt != "v2v":
             check(engine.transformer.cfg.in_channels == 36, f"{label}: the DiT takes 36 channels")
         paths[f"{label}_33_frames"] = [row]
         del engine
         release()
     # -- the one-DiT host-stepped engines at 33 frames
+    # one step each: a cut of depth
     two = dict(prompt=PROMPT_A, negative_prompt=WAN_NEG, height=480, width=832, num_frames=33,
-               num_inference_steps=2, guidance_scale=5.0, seed=0)
+               num_inference_steps=1, guidance_scale=5.0, seed=0)
     subject = [ref_image, cv2_smooth(np.random.default_rng(9), (480, 832))]
     for label, manifest, mt, configs, extra, per_forward, lat_t in (
-            ("wan_fun_vace", WAN_FUN_VACE_MANIFEST, "fun_vace", {"transformer": WAN_VACE_TRANSFORMER},
+            ("wan_fun_vace", WAN_FUN_VACE_MANIFEST, "fun_vace", {"transformer": edit_depth(WAN_VACE_TRANSFORMER)},
              dict(start_image=short[0], end_image=short[-1], subject_ref_images=[ref_image]),
-             2 * WAN_LAYERS + 2 * VACE_LAYERS, 9),
-            ("wan_phantom", WAN_PHANTOM_MANIFEST, "phantom", None, dict(subject_reference_images=subject),
-             2 * WAN_LAYERS, 9),
-            ("wan_fun_control", WAN_FUN_CONTROL_MANIFEST, "fun_control", {"transformer": WAN_FUN_CONTROL_TRANSFORMER},
-             dict(control_video=short, ref_image=ref_image), 2 * WAN_LAYERS, 9)):
+             2 * EDIT_LAYERS + 2 * EDIT_VACE_LAYERS, 9),
+            ("wan_phantom", WAN_PHANTOM_MANIFEST, "phantom", {"transformer": edit_depth(_WAN14B)},
+             dict(subject_reference_images=subject),
+             2 * EDIT_LAYERS, 9),
+            ("wan_fun_control", WAN_FUN_CONTROL_MANIFEST, "fun_control",
+             {"transformer": edit_depth(WAN_FUN_CONTROL_TRANSFORMER)},
+             dict(control_video=short, ref_image=ref_image), 2 * EDIT_LAYERS, 9)):
         engine = edit_engine(label, manifest, mt, home, "int4", configs)
-        row, _ = edit_drive(label, engine, dict(two, **extra), per_forward, {"transformer": 4}, 33, lat_t)
+        row, _ = edit_drive(label, engine, dict(two, **extra), per_forward, {"transformer": 2}, 33, lat_t)
         paths[f"{label}_33_frames"] = [row]
         del engine
         release()
     # -- Stable Video Infinity: two segments of 33 frames
     svi_kw = dict(clip_kw, num_frames=33 + 33 - 4, num_frames_per_segment=33, num_overlap_frames=4,
-                  num_motion_frame=4, prompts=[PROMPT_B, PROMPT_A])
+                  num_motion_frame=4, prompts=[PROMPT_B, PROMPT_A], num_inference_steps=1)
     engine = edit_engine("wan_svi", WAN_SVI_MANIFEST, "svi", home, "int4",
-                         {"transformer": WAN21_I2V_TRANSFORMER, "image_encoder": CLIP_VISION_H},
+                         {"transformer": edit_depth(WAN21_I2V_TRANSFORMER), "image_encoder": CLIP_VISION_H},
                          {"helper": "bf16"})
-    row, _ = edit_drive("wan_svi", engine, svi_kw, 3 * WAN_LAYERS, {"transformer": 8}, 62, 9)
+    row, _ = edit_drive("wan_svi", engine, svi_kw, 3 * EDIT_LAYERS, {"transformer": 4}, 62, 9)
     check(len(engine.wan_smoke["decoded"]) == 2, "SVI decoded other than two segments")
     paths["wan_svi_2_segments"] = [row]
     del engine
@@ -2959,8 +3079,9 @@ def phase_wan_edit(home: Path, kernel_rows=()):
 
 
 def phase_wan_causal(home: Path, kernel_rows=()):
-    """The Self-Forcing manifest (Wan 2.1 1.3B causal DiT in bf16, its
-    FlowMatchScheduler, UMT5-XXL int8) at its defaults: 480x832, 81 frames
+    """The Self-Forcing manifest (Wan 2.1 1.3B causal DiT in bf16 at its
+    widths, ``CAUSAL_LAYERS`` of its 30 blocks; its FlowMatchScheduler,
+    UMT5-XXL int8) at its defaults: 480x832, 81 frames
     (21 latent frames, 7 blocks of 3 frames, 4 steps each, one commit a
     block), twice with seed 0 and once with seed 1; once with a local window
     of 6 latent frames and a 1-frame sink; once with an image pre-fill. The
@@ -2970,7 +3091,8 @@ def phase_wan_causal(home: Path, kernel_rows=()):
     import torch
 
     engine = edit_engine("wan_causal", WAN_CAUSAL_MANIFEST, "causal", home, "int8",
-                         {"transformer": SELF_FORCING_TRANSFORMER}, {"transformer": "bf16"})
+                         {"transformer": dict(SELF_FORCING_TRANSFORMER, num_layers=CAUSAL_LAYERS)},
+                         {"transformer": "bf16"})
     engine.load_components(return_latents=False)
     tf = engine.transformer
     check(tf.dtype == torch.bfloat16 and len(tf.blocks) == CAUSAL_LAYERS
@@ -3442,6 +3564,11 @@ def phase_flux2(home: Path, kernel_rows=()):
 # -- HunyuanVideo and HuMo ------------------------------------------------------------------
 
 
+def dit_bits(tf) -> list:
+    """The bit widths of a DiT's quantized Linears."""
+    return sorted({m.weight_bits for m in tf.modules() if getattr(m, "weight_scale", None) is not None})
+
+
 def path_kernel_rows(label, inputs):
     """The kernel at a path's shapes (``inputs``: (case, q, k, v, [B|1, Sk]
     bias or None)) against its plain version: whole where its f32 scores
@@ -3640,7 +3767,7 @@ def phase_hyv(home: Path):
     f32 / float64; t2v at 33 frames twice with one seed (bit-identical), i2v
     token_replace at 33 frames from a seeded image (the first latent frame
     pinned to the image latent), both decoded whole; t2v at 81 frames
-    (75,856 tokens), decoded in tiles; 2 steps each, 62 launches a forward;
+    (75,856 tokens), decoded in tiles; 1 step each, 62 launches a forward;
     the resident Linears at the 81-frame shapes and the step split."""
     import numpy as np
     import torch
@@ -3752,22 +3879,25 @@ def humo_reference():
 
 
 def phase_humo(home: Path):
-    """HuMo 17B from its manifest at the WanHuMoConfig defaults (dim 5120,
-    40 blocks, 40 heads), the DiT int4-resident and UMT5-XXL int8 (Wan's
+    """HuMo 17B from its manifest at the WanHuMoConfig widths (dim 5120, 40
+    heads; the requests' DiT ``HUMO_LAYERS`` of the published 40 blocks), the
+    DiT int4-resident and UMT5-XXL int8 (Wan's
     residency), UMT5-XXL's and a 13-layer Wav2Vec2-base-wide audio encoder's
     configs written where the manifest names them: the kernel at the path's
     shapes; the 2-block DiT against f32; one TIA request at the manifest's
     defaults (480x832, 97 frames, one reference image, a negative prompt: the
     negative branch image-conditioned at the first step and null at the
-    second), then two TA requests at 33 frames with one seed (bit-identical);
-    2 steps each, 120 launches a forward and the audio encoder's 13 a request;
+    second, 2 steps), then two TA requests at 33 frames with one seed
+    (bit-identical, 1 step each); 3 launches a block and the audio
+    encoder's 13 a request;
     a seeded 16 kHz waveform written as a WAV file."""
     import numpy as np
     import torch
 
     kernel_rows, kernel_err = path_kernel_rows("humo", humo_kernel_inputs())
     humo_reference()
-    engine = edit_engine("humo", HUMO_MANIFEST, "humo", home, "int4", {"audio_encoder": HUMO_WAV2VEC2})
+    engine = edit_engine("humo", HUMO_MANIFEST, "humo", home, "int4",
+                         {"audio_encoder": HUMO_WAV2VEC2, "transformer": HUMO_TRANSFORMER})
     wav = home / "humo" / "voice.wav"
     write_humo_audio(wav, 4.0, 19)
     reference = cv2_smooth(np.random.default_rng(20), (480, 832))
@@ -3778,22 +3908,323 @@ def phase_humo(home: Path):
                             HUMO_WAV2VEC2["num_hidden_layers"])
     ta, latents = [], []
     for _ in range(2):
-        ta.append(edit_drive("humo_ta", engine, dict(base, num_frames=33, seed=1, height=480, width=832),
-                             HUMO_LAUNCHES_PER_FORWARD, {"transformer": 2 * HUMO_STEPS}, 33, 9,
+        ta.append(edit_drive("humo_ta", engine, dict(base, num_frames=33, seed=1, height=480, width=832,
+                                                     num_inference_steps=HUMO_TA_STEPS),
+                             HUMO_LAUNCHES_PER_FORWARD, {"transformer": 2 * HUMO_TA_STEPS}, 33, 9,
                              HUMO_WAV2VEC2["num_hidden_layers"]))
         latents.append(engine.wan_smoke["decoded"][-1])
     tf = engine.transformer
-    bits = {m.weight_bits for m in tf.modules() if getattr(m, "weight_scale", None) is not None}
+    bits = set(dit_bits(tf))
     same = bool(torch.equal(*latents)) and bool(np.array_equal(np.stack(ta[0][1]), np.stack(ta[1][1])))
     emit({"phase": "humo", "requests_ta_identical_latents_and_frames": same, "dit_bits": sorted(bits),
           "timesteps": tia_row["timesteps"], "dit_parameters": sum(p.numel() for p in tf.parameters()),
           "audio_encoder_layers": engine.helpers["audio_encoder"].cfg.num_hidden_layers})
     check(same, "HuMo TA requests (same audio, prompt and seed) differ")
-    check(bits == {4} and tf.cfg.dim == 5120 and len(tf.blocks) == 40, f"the HuMo DiT's widths or bits {bits}")
+    check(bits == {4} and tf.cfg.dim == 5120 and len(tf.blocks) == HUMO_LAYERS,
+          f"the HuMo DiT's widths, depth or bits {bits}")
     check(tia_row["timesteps"][0] > 980 > tia_row["timesteps"][1], "the 2-step schedule does not cross step_change")
     del engine, tf
     release()
     return {"humo_tia": [tia_row], "humo_ta": [r for r, _ in ta]}, kernel_rows, kernel_err
+
+
+# -- the audio-driven video engines: Wan S2V, MultiTalk, HunyuanVideo Avatar ---------------------
+
+
+def s2v_kernel_inputs():
+    """(case, q, k, v, bias) at the S2V path's shapes, 40 heads of 128: the
+    self-attention over a chunk with its motion tokens (35,074; the first
+    chunk's 32,760 is Wan's 81-frame shape), its text cross-attention over
+    the 512 UMT5 rows, the audio injector (each of the 20 latent frames' 1560
+    tokens against its 4 audio tokens and the padding token, the frames as
+    the batch), and wav2vec2-large's f32 self-attention, 16 heads of 64, over
+    the 10 s clip's 499 frames."""
+    s, f = S2V_TOKENS["chunk"], S2V_FRAMES
+    yield (f"s2v_self_s{s}_h40", *qkv(1, s, s, WAN_HEADS, 128, 130), None)
+    yield (f"s2v_text_cross_sq{s}_sk{WAN_TEXT_TOKENS}_h40", *qkv(1, s, WAN_TEXT_TOKENS, WAN_HEADS, 128, 131), None)
+    yield (f"s2v_audio_injector_b{f}_sq{WAN_TOKENS['frame']}_sk{S2V_AUDIO_TOKENS}_h40",
+           *qkv(f, WAN_TOKENS["frame"], S2V_AUDIO_TOKENS, WAN_HEADS, 128, 132), None)
+    heads = WAV2VEC2_LARGE["num_attention_heads"]
+    d = WAV2VEC2_LARGE["hidden_size"] // heads
+    yield (f"s2v_wav2vec2_s{S2V_W2V_FRAMES}_h{heads}_d{d}_f32",
+           *(x.float() for x in qkv(1, S2V_W2V_FRAMES, S2V_W2V_FRAMES, heads, d, 133)), None)
+
+
+def multitalk_kernel_inputs():
+    """(case, q, k, v, bias) at the MultiTalk path's shapes, 40 heads of 128:
+    self-attention over 81 frames (32,760 tokens, Wan's shape), the text
+    cross-attention over 512 rows and the CLIP one over 257, the per-frame
+    audio cross-attention (21 frames of 1560 tokens against two speakers' 32
+    tokens each, q and k rotated by L-RoPE: queries in the speakers' bands,
+    keys at the bands' centres), and the base wav2vec2's f32 self-attention
+    (12 heads of 64) over the 80 video frames of a speaker's 3.2 s."""
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers.wan_multitalk import rope_1d_pairs
+
+    s, frame = MULTITALK_TOKENS, WAN_TOKENS["frame"]
+    yield (f"multitalk_self_s{s}_h40", *qkv(1, s, s, WAN_HEADS, 128, 140), None)
+    yield (f"multitalk_text_cross_sq{s}_sk{WAN_TEXT_TOKENS}_h40", *qkv(1, s, WAN_TEXT_TOKENS, WAN_HEADS, 128, 141),
+           None)
+    yield (f"multitalk_clip_cross_sq{s}_sk{CLIP_TOKENS}_h40", *qkv(1, s, CLIP_TOKENS, WAN_HEADS, 128, 142), None)
+    q, k, v = qkv(s // frame, frame, MULTITALK_AUDIO_TOKENS, WAN_HEADS, 128, 143)
+    g = torch.Generator("cuda").manual_seed(144)
+    pos_q = torch.where(torch.rand(frame, generator=g, device="cuda") < 0.5,
+                        4.0 * torch.rand(frame, generator=g, device="cuda"),
+                        20.0 + 4.0 * torch.rand(frame, generator=g, device="cuda"))
+    half = MULTITALK_AUDIO_TOKENS // 2
+    pos_k = torch.tensor([2.0] * half + [22.0] * half, device="cuda")
+    yield (f"multitalk_audio_cross_lrope_b{s // frame}_sq{frame}_sk{MULTITALK_AUDIO_TOKENS}_h40",
+           rope_1d_pairs(q, pos_q, 128), rope_1d_pairs(k, pos_k, 128), v, None)
+    heads = WAV2VEC2_BASE["num_attention_heads"]
+    d = WAV2VEC2_BASE["hidden_size"] // heads
+    yield (f"multitalk_wav2vec2_s{MULTITALK_W2V_FRAMES}_h{heads}_d{d}_f32",
+           *(x.float() for x in qkv(1, MULTITALK_W2V_FRAMES, MULTITALK_W2V_FRAMES, heads, d, 145)), None)
+
+
+def avatar_kernel_inputs():
+    """(case, q, k, v, bias) at the Avatar path's shapes, 24 heads of 128: the
+    joint attention over [reference | 33 latent frames | 256 text slots] at
+    512x512 (35,072 tokens) and the token refiner over the 256 slots, each
+    with the text key padding as a [1, S] bias keeping a
+    ``HYV_TEXT_KEPT``-token prompt."""
+    for i, (name, s) in enumerate((("avatar_joint", AVATAR_TOKENS), ("avatar_refiner", HYV_TEXT_TOKENS))):
+        yield (f"{name}_s{s}_bias_h{HYV_HEADS}", *qkv(1, s, s, HYV_HEADS, 128, 150 + i),
+               text_bias(s, HYV_TEXT_TOKENS, HYV_TEXT_KEPT))
+
+
+def _reference_tensors(seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    ctx = tensor(1, WAN_TEXT_TOKENS, 4096)
+    ctx[:, 40:] = 0.0
+    return tensor, ctx, torch.tensor([731.0])
+
+
+def s2v_reference():
+    """The S2V DiT at full width with the published audio widths, FramePack
+    and 2 blocks, the injector after both, on the card in bf16 (the kernel)
+    against the same weights on the CPU in f32 (the plain version), within
+    BF16_REL_L2: 2 latent frames of half a 480x832 frame, 19 motion frames
+    (FramePack's 2x and 4x patches cropped from 30 x 52), a pose, the 25
+    wav2vec2-large states and 512 text rows of which 40 are real."""
+    from apex_studio_tpu_torch.models.transformers import wan_s2v
+
+    tensor, ctx, t = _reference_tensors(35)
+    cfg = {k: v for k, v in WAN_S2V_TRANSFORMER.items() if not k.startswith("_")}
+    cfg.update(num_layers=2, audio_inject_layers=[0, 1])
+    # 8 audio columns after the 73 motion ones: ceil(ceil(81 / 2) / 2) = 21 = 19 motion + 2 video frames
+    card_vs_cpu("wan.s2v dim 5120, 2 blocks, the injector after both, FramePack",
+                lambda dt: wan_s2v.WanS2VTransformer3DModel(wan_s2v.WanS2VConfig.from_dict(cfg), dtype=dt),
+                lambda m, x, tt, c, mot, a, img, pose: m(x, tt, c, mot, a, img, pose_latents=pose,
+                                                         motion_frames=(73, 19)),
+                (tensor(1, 16, 2, 30, 52), t, ctx, tensor(1, 16, 19, 30, 52), tensor(1, 25, 1024, 8),
+                 tensor(1, 16, 1, 30, 52), tensor(1, 16, 2, 30, 52)), BF16_REL_L2, 36, phase="s2v")
+
+
+def multitalk_reference():
+    """The MultiTalk DiT at full width (36 channels, the CLIP branch) with 2
+    blocks, card bf16 against CPU f32 within BF16_REL_L2, with two speakers
+    (L-RoPE through ``ref_attn_maps``) over 2 latent frames of half a
+    480x832 frame."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers import wan_multitalk as mt
+
+    tensor, ctx, t = _reference_tensors(37)
+    masks = np.zeros((3, 390), np.float32)
+    masks[0, :195], masks[1, 195:], masks[2, ::7] = 1.0, 1.0, 1.0
+    card_vs_cpu("wan.multitalk dim 5120, 2 blocks, CLIP branch, two speakers",
+                lambda dt: mt.WanMultiTalkTransformer3DModel(mt.WanMultiTalkConfig(
+                    num_layers=2, added_kv_proj_dim=5120), dtype=dt),
+                lambda m, x, tt, c, img, a, mk: m(x, tt, c, img, a, mk),
+                (tensor(1, 36, 2, 30, 52), t, ctx, tensor(1, CLIP_TOKENS, 1280), tensor(2, 5, 5, 12, 768),
+                 torch.from_numpy(masks)), BF16_REL_L2, 38, phase="multitalk")
+
+
+def avatar_reference():
+    """The Avatar DiT at HunyuanVideo 13B's widths with 1 + 1 blocks and the
+    audio adapter after the dual block, card bf16 against CPU f32 within
+    HYV_BF16_REL_L2 (HunyuanVideo's own), over 2 latent frames of 16 x 16,
+    a face mask, 5 Whisper windows and 64 text rows of which 40 are real."""
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers import hunyuanvideo_avatar as av
+
+    tensor, _, t = _reference_tensors(39)
+    mask = (torch.arange(64) < 40)[None].to(torch.int32)
+    face = torch.zeros(1, 1, 1, 32, 32)
+    face[..., 8:24, 6:26] = 1.0
+
+    def forward(m, x, tt, txt, k, p, r, a, fm):
+        dev = x.device
+        return m(x, tt, txt, k, pooled=p, ref_latents=r, audio=a, face_mask=fm,
+                 motion_exp=torch.full((1, 4), 30.0, device=dev), motion_pose=torch.full((1, 4), 25.0, device=dev),
+                 fps=torch.full((1,), 25.0, device=dev))
+
+    card_vs_cpu("hunyuanvideo.avatar 24 heads of 128, 1 + 1 blocks, the audio adapter",
+                lambda dt: av.HunyuanAvatarVideoModel(av.HunyuanAvatarConfig(
+                    num_layers=1, num_single_layers=1, double_stream_list=(0,)), dtype=dt), forward,
+                (tensor(1, 16, 2, 32, 32), t, tensor(1, 64, 4096), mask, tensor(1, 768), tensor(1, 16, 2, 32, 32),
+                 tensor(1, 5, 10, 5, 384), face), HYV_BF16_REL_L2, 40, phase="avatar")
+
+
+def observe_decodes(engine):
+    """``observe(engine)`` for an engine that decodes through
+    ``decode_video_tensor`` (S2V, MultiTalk): each decode's latents recorded."""
+    seen = observe(engine).wan_smoke
+    decode = engine.decode_video_tensor
+
+    def observed(z, *a):
+        seen["decoded"].append(z.detach().clone())
+        return decode(z, *a)
+
+    engine.decode_video_tensor = observed
+    return engine
+
+
+def identical_pair(label, engine, kw, launches_per_forward, forwards, frames_expected, latent_t, extra=0):
+    """``kw`` twice through ``edit_drive``: both requests' decoded latents
+    and frames bit-identical. Returns the two rows."""
+    import numpy as np
+    import torch
+
+    rows, latents = [], []
+    for _ in range(2):
+        rows.append(edit_drive(label, engine, kw, launches_per_forward, forwards, frames_expected, latent_t, extra))
+        latents.append(list(engine.wan_smoke["decoded"]))
+    same = (all(torch.equal(a, b) for a, b in zip(*latents))
+            and bool(np.array_equal(np.stack(rows[0][1]), np.stack(rows[1][1]))))
+    emit({"phase": label, "requests_identical_latents_and_frames": same})
+    check(same, f"{label}: two requests with the same inputs and seed differ")
+    return [r for r, _ in rows]
+
+
+def phase_s2v(home: Path):
+    """Wan 2.2 S2V from its manifest at the published widths (its transformer
+    and wav2vec2-large configs written; the DiT int4, UMT5-XXL int8): the
+    kernel at the path's shapes; the 2-block DiT against f32; one request at
+    480x832 of two 80-frame chunks from a 10 s seeded WAV, a reference image
+    and a 16-frame pose video (reverse-padded to 160), a negative prompt (2
+    forwards a step), 2 steps a chunk: the first chunk's motion dropped, the
+    second's motion buffer re-encoded from the first's last 73 frames; then
+    two identical 32-frame requests of one chunk seeded with the image
+    (``init_first_frame``), without CFG."""
+    import numpy as np
+
+    kernel_rows, kernel_err = path_kernel_rows("s2v", s2v_kernel_inputs())
+    s2v_reference()
+    engine = observe_decodes(edit_engine("s2v", WAN_S2V_MANIFEST, "s2v", home, "int4",
+                                         {"transformer": WAN_S2V_TRANSFORMER, "audio_encoder": WAV2VEC2_LARGE}))
+    wav = home / "s2v" / "voice.wav"
+    write_humo_audio(wav, S2V_AUDIO_SECONDS, 39)
+    rng = np.random.default_rng(40)
+    image, pose = cv2_smooth(rng, (480, 832)), [cv2_smooth(rng, (480, 832)) for _ in range(16)]
+    base = dict(prompt=WAN_PROMPT, audio=str(wav), image=image, height=480, width=832,
+                num_inference_steps=AUDIO_VIDEO_STEPS, seed=0)
+    w2v = WAV2VEC2_LARGE["num_hidden_layers"]
+    # chunk 1 decodes [condition ‖ 20 latent frames] and drops 3 frames, chunk 2 [19 motion ‖ 20]
+    main_row, _ = edit_drive("s2v", engine, dict(base, negative_prompt=WAN_NEG, guidance_scale=4.5,
+                                                 num_frames_per_chunk=80, num_chunks=2, pose_video=pose),
+                             S2V_LAUNCHES_PER_FORWARD, {"transformer": 2 * 2 * AUDIO_VIDEO_STEPS}, 80 - 3 + 80,
+                             [1 + 20, 19 + 20], w2v)
+    pair = identical_pair("s2v_pair", engine, dict(base, guidance_scale=1.0, num_frames_per_chunk=32,
+                                                   num_chunks=1, init_first_frame=True),
+                          S2V_LAUNCHES_PER_FORWARD, {"transformer": AUDIO_VIDEO_STEPS}, 32, 19 + 8, w2v)
+    tf = engine.transformer
+    emit({"phase": "s2v", "dit_bits": dit_bits(tf), "dit_parameters": sum(p.numel() for p in tf.parameters()),
+          "framepack": tf.frame_packer is not None, "inject_layers": sorted(tf.audio_inject_map),
+          "tokens": S2V_TOKENS, "audio_encoder_layers": engine.helpers["audio_encoder"].cfg.num_hidden_layers})
+    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == 40 and tf.frame_packer is not None
+          and len(tf.injector) == S2V_INJECT_LAYERS, "the S2V DiT's widths, bits or audio layers")
+    del engine, tf
+    release()
+    return {"s2v": [main_row], "s2v_pair": pair}, kernel_rows, kernel_err
+
+
+def phase_multitalk(home: Path):
+    """Wan 2.1 MultiTalk from its manifest at the published widths (the
+    Wan2.1-I2V-14B-480P transformer, CLIP ViT-H and chinese-wav2vec2-base
+    configs written; the DiT int4, UMT5-XXL int8, CLIP bf16): the kernel at
+    the path's shapes; one request at 480x832 and 81 frames with two
+    speakers' seeded 3.2 s voices (L-RoPE routing over the chunked
+    ``ref_attn_maps``) and a negative prompt (3 forwards a step), 2 steps;
+    then two identical one-speaker requests of 33 frames (2 forwards a step)."""
+    import numpy as np
+
+    kernel_rows, kernel_err = path_kernel_rows("multitalk", multitalk_kernel_inputs())
+    multitalk_reference()
+    engine = observe_decodes(edit_engine("multitalk", WAN_MULTITALK_MANIFEST, "multitalk", home, "int4",
+                                         {"transformer": WAN21_I2V_TRANSFORMER, "image_encoder": CLIP_VISION_H,
+                                          "audio_encoder": WAV2VEC2_BASE}, {"helper": "bf16"}))
+    voices = [home / "multitalk" / f"voice_{i}.wav" for i in (1, 2)]
+    for i, path in enumerate(voices):
+        write_humo_audio(path, MULTITALK_AUDIO_SECONDS, 41 + i)
+    image = cv2_smooth(np.random.default_rng(43), (480, 832))
+    base = dict(prompt=WAN_PROMPT, image=image, height=480, width=832, num_inference_steps=AUDIO_VIDEO_STEPS,
+                guidance_scale=5.0, audio_guidance_scale=4.0, seed=0)
+    w2v = WAV2VEC2_BASE["num_hidden_layers"]
+    main_row, _ = edit_drive("multitalk", engine, dict(base, person_1_audio=str(voices[0]),
+                                                       person_2_audio=str(voices[1]), negative_prompt=WAN_NEG,
+                                                       num_frames=81),
+                             MULTITALK_LAUNCHES_PER_FORWARD, {"transformer": 3 * AUDIO_VIDEO_STEPS},
+                             int(MULTITALK_AUDIO_SECONDS * 25), 21, 2 * w2v)
+    pair = identical_pair("multitalk_pair", engine, dict(base, audio=str(voices[0]), num_frames=33,
+                                                         max_num_frames=33),
+                          MULTITALK_LAUNCHES_PER_FORWARD, {"transformer": 2 * AUDIO_VIDEO_STEPS}, 33, 9, w2v)
+    tf = engine.transformer
+    emit({"phase": "multitalk", "dit_bits": dit_bits(tf), "dit_parameters": sum(p.numel() for p in tf.parameters()),
+          "in_channels": tf.cfg.in_channels, "added_kv_proj_dim": tf.cfg.added_kv_proj_dim,
+          "clip_dtype": str(engine.helpers["image_encoder"].dtype)})
+    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == 40 and tf.cfg.in_channels == 36
+          and tf.cfg.added_kv_proj_dim == 5120, "the MultiTalk DiT's widths or bits")
+    del engine, tf
+    release()
+    return {"multitalk": [main_row], "multitalk_pair": pair}, kernel_rows, kernel_err
+
+
+def phase_avatar(home: Path):
+    """HunyuanVideo Avatar from its manifest at the HunyuanAvatarConfig
+    defaults (HunyuanVideo 13B's widths, the Whisper-tiny feature geometry;
+    synthetic int8 weights as the hyv phase): the kernel at the path's
+    shapes; one request at the manifest's defaults (512x512, 5 s at 25 fps:
+    125 frames, one window of 33 latent frames) with a seeded WAV, whose
+    Whisper features are zeros (the manifest's encoder has no files), and a
+    negative prompt (2 forwards a step), 2 steps; then two identical 33-frame
+    requests in windows of 9 latent frames."""
+    import numpy as np
+
+    kernel_rows, kernel_err = path_kernel_rows("avatar", avatar_kernel_inputs())
+    avatar_reference()
+    engine = hyv_engine("avatar", HYV_AVATAR_MANIFEST, "avatar", home)
+    wav = home / "avatar" / "voice.wav"
+    wav.parent.mkdir(parents=True, exist_ok=True)
+    write_humo_audio(wav, 5.0, 44)
+    image = cv2_smooth(np.random.default_rng(45), (512, 512))
+    base = dict(prompt=HYV_PROMPT, image=image, audio=str(wav), num_inference_steps=AUDIO_VIDEO_STEPS, seed=0,
+                height=512, width=512)
+    main_row, _ = edit_drive("avatar", engine, dict(base, negative_prompt="blurry, static"),
+                             HYV_LAUNCHES_PER_FORWARD, {"transformer": 2 * AUDIO_VIDEO_STEPS}, 125, 32)
+    pair = identical_pair("avatar_pair", engine, dict(base, num_frames=33, frame_per_batch=9),
+                          HYV_LAUNCHES_PER_FORWARD, {"transformer": AUDIO_VIDEO_STEPS}, 33, 9)
+    tf = engine.transformer
+    zero = engine.audio_features(str(wav), 125)
+    emit({"phase": "avatar", "dit_bits": dit_bits(tf), "dit_parameters": sum(p.numel() for p in tf.parameters()),
+          "whisper_files": str(engine.whisper_files()), "audio_features": list(zero.shape),
+          "audio_features_zero": not zero.any(), "decoded_whole": engine.decoded_whole})
+    check(dit_bits(tf) == [8] and tf.cfg.dim == 3072 and len(tf.single_transformer_blocks) == 40
+          and len(tf.audio_adapter_blocks) == 10, "the Avatar DiT's widths or bits")
+    check(engine.whisper_files() is None and not zero.any(), "the Avatar's audio features without Whisper files")
+    del engine, tf
+    release()
+    return {"avatar": [main_row], "avatar_pair": pair}, kernel_rows, kernel_err
 
 
 def torch_randn_like(z, seed: int):
@@ -4483,7 +4914,8 @@ def main() -> int:
             paths.update(timed("flux2", phase_flux2, home, zimage_timing)[0])
             release()
         path_rows, path_err = {}, {}
-        for name, phase in (("hyv", phase_hyv), ("humo", phase_humo)):
+        for name, phase in (("hyv", phase_hyv), ("humo", phase_humo), ("s2v", phase_s2v),
+                            ("multitalk", phase_multitalk), ("avatar", phase_avatar)):
             if name in phases:
                 new_paths, path_rows[name], path_err[name] = timed(name, phase, home)
                 paths.update(new_paths)
@@ -4494,9 +4926,10 @@ def main() -> int:
             timed("rife", phase_rife, home, hyv15_frames)
             del hyv15_frames
         if len(paths) > 1:
+            # a one-step request gives its one step
             emit({"phase": "steps", "median_seconds_per_step_after_the_first": {
-                name: statistics.median(t for r in rows if not r.get("linear_hooks_on")
-                                        for t in r["seconds_per_step"][1:])
+                name: statistics.median(t for r in ([r for r in rows if not r.get("linear_hooks_on")] or rows)
+                                        for t in (r["seconds_per_step"][1:] or r["seconds_per_step"]))
                 for name, rows in paths.items()}})
         by_path = {name: sum(r["flash_launches"] for r in rows) for name, rows in paths.items()}
         per_step = {name: by_path[name] // sum(len(r["seconds_per_step"]) for r in rows)

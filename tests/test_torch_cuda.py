@@ -84,6 +84,15 @@ CASES = [
     # the 25 latent frames' 1560 tokens against its 16 audio tokens (the
     # frames as the batch), 40 heads
     ("humo_audio_cross_b25_sq1560_sk16_h40", 25, 1560, 16, 40, 128, None, False),
+    # Wan S2V at 480x832, 80 frames a chunk: the audio injector (each of the 20
+    # latent frames' 1560 tokens against 4 audio tokens and a padding token)
+    # and the text cross-attention of a chunk with its motion tokens (35,074)
+    ("s2v_audio_injector_b20_sq1560_sk5_h40", 20, 1560, 5, 40, 128, None, False),
+    ("s2v_text_cross_sq35074_sk512_h40", 1, 35074, 512, 40, 128, None, False),
+    # MultiTalk at 81 frames: two speakers' 2 x 32 audio tokens a latent frame,
+    # and the CLIP image cross-attention over 257 keys at the clip's 32,760 queries
+    ("multitalk_audio_cross_b21_sq1560_sk64_h40", 21, 1560, 64, 40, 128, None, False),
+    ("multitalk_clip_cross_sq32760_sk257_h40", 1, 32760, 257, 40, 128, None, False),
 ]
 
 
@@ -299,6 +308,92 @@ def test_hunyuanvideo_and_humo_dits_launch_the_kernel_per_attention(cuda):
                    torch.randn(1, 20, 3, 8, 10, generator=g).to(cuda))
         assert flash_attention.launches == before + 3 * 3
         assert out.shape == x.shape and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h", [(35074, 40), (9 * 1024 + 1024 + 256, 24), (33 * 1024 + 1024 + 256, 24)],
+                         ids=["s2v_self_s35074_h40", "avatar_joint_s10496_bias_h24", "avatar_joint_s35072_bias_h24"])
+def test_flash_kernel_audio_video_self_attention_row_subsets(s, h, cuda):
+    """S2V's self-attention over a chunk with its motion tokens (40 heads)
+    and the Avatar's joint attention over [reference | latent frames | 256
+    text slots] at 512x512 (24 heads, a [1, S] bias keeping a 60-token
+    prompt), for one window of 9 and of 33 latent frames: three 128-row
+    subsets of the kernel's output against the plain version over all keys."""
+    g = torch.Generator(cuda).manual_seed(s)
+    q, k, v = (torch.randn(1, s, h, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    bias = None
+    if h == 24:
+        bias = torch.zeros(1, s, device=cuda)
+        bias[:, s - 256 + 60:] = -1e30
+    out = flash_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    for rows in (slice(0, 128), slice(s - (s % 128 or 128), s), slice(s // 256 * 128 - 64, s // 256 * 128 + 64)):
+        assert torch.isfinite(out[:, rows].float()).all()
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v, bias=bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,heads", [(499, 16), (80, 12)], ids=["s2v_wav2vec2_large", "multitalk_wav2vec2"])
+def test_flash_kernel_audio_encoder_f32_shapes(frames, heads, cuda):
+    """The audio encoders' f32 self-attention, head dim 64: wav2vec2-large
+    (16 heads) over S2V's 10 s clip at 50 Hz, the base encoder (12 heads) over
+    MultiTalk's 80 video frames; bf16 tiles, f32 out, against the plain
+    version in f32."""
+    g = torch.Generator(cuda).manual_seed(frames)
+    q, k, v = (torch.randn(1, frames, heads, 64, generator=g, device=cuda) for _ in range(3))
+    out = flash_attention(q, k, v)
+    assert out.dtype == torch.float32
+    assert_agrees(out, flash_attention_reference(q, k, v))
+
+
+@pytest.mark.cuda
+def test_audio_video_dits_launch_the_kernel_per_attention(cuda):
+    """Small S2V, MultiTalk and Avatar DiTs (head dim 128) in bf16 on the
+    card: S2V two a block and one an injector layer; MultiTalk four a block
+    (self, text, CLIP and audio cross-attention), two speakers; the Avatar
+    the HunyuanVideo DiT's joint launches and the refiner's, its perceiver
+    adapter on the plain route; outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import hunyuanvideo_avatar as av
+    from apex_studio_tpu_torch.models.transformers import wan_multitalk as mt
+    from apex_studio_tpu_torch.models.transformers import wan_s2v
+
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    t = torch.tensor([500.0], device=cuda)
+    s2v = materialize_random(lambda: wan_s2v.WanS2VTransformer3DModel(wan_s2v.WanS2VConfig(
+        num_attention_heads=2, num_layers=3, ffn_dim=256, text_dim=64, audio_dim=32, num_wav2vec_layers=3,
+        audio_inject_layers=(0, 2), enable_framepack=True, pose_dim=16)), cuda, seed=0)
+    talk = materialize_random(lambda: mt.WanMultiTalkTransformer3DModel(mt.WanMultiTalkConfig(
+        num_attention_heads=2, num_layers=3, ffn_dim=256, text_dim=64, image_dim=32, added_kv_proj_dim=256,
+        audio_blocks=2, audio_channels=16, intermediate_dim=32, audio_output_dim=32, context_tokens=4)), cuda,
+        seed=1)
+    avatar = materialize_random(lambda: av.HunyuanAvatarVideoModel(av.HunyuanAvatarConfig(
+        num_attention_heads=2, num_layers=2, num_single_layers=3, text_embed_dim=64, pooled_projection_dim=32,
+        audio_seq_len=2, audio_blocks=2, audio_channels=8, audio_intermediate_dim=32, audio_output_dim=256,
+        double_stream_list=(1,))), cuda, seed=2)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        # 3 latent frames and 2 motion frames: (9 + 11) audio columns quarter to 5 frames
+        out = s2v(rand(1, 16, 3, 16, 16), t, rand(1, 20, 64), rand(1, 16, 2, 16, 16), rand(1, 3, 32, 11),
+                  rand(1, 16, 1, 16, 16), rand(1, 16, 3, 16, 16), motion_frames=(9, 2))
+        assert flash_attention.launches == before + 2 * 3 + 2
+        assert out.shape == (1, 16, 3, 16, 16) and torch.isfinite(out.float()).all()
+        masks = torch.zeros(3, 64, device=cuda)
+        masks[0, :32], masks[1, 32:], masks[2, ::5] = 1.0, 1.0, 1.0
+        before = flash_attention.launches
+        out = talk(rand(1, 36, 3, 16, 16), t, rand(1, 20, 64), rand(1, 5, 32), rand(2, 9, 5, 2, 16), masks)
+        assert flash_attention.launches == before + 4 * 3
+        assert out.shape == (1, 16, 3, 16, 16) and torch.isfinite(out.float()).all()
+        before = flash_attention.launches
+        mask = (torch.arange(40) < 25)[None].to(cuda)
+        out = avatar(rand(1, 16, 3, 8, 8), t, rand(1, 40, 64), mask, pooled=rand(1, 32),
+                     ref_latents=rand(1, 16, 3, 8, 8), audio=rand(1, 9, 2, 2, 8))
+        assert flash_attention.launches == before + 2 + 3 + 2
+        assert out.shape == (1, 16, 3, 8, 8) and torch.isfinite(out.float()).all()
 
 
 # -- int8 / int4 resident Linear -------------------------------------------------------

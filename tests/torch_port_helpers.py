@@ -109,3 +109,24 @@ def assert_rel_l2(out, ref, tol):
     assert out.shape == ref.shape, (out.shape, ref.shape)
     err = float(np.linalg.norm(out - ref)) / max(float(np.linalg.norm(ref)), 1e-30)
     assert err <= tol, err
+
+
+def assert_published_round_trip(family, build, jax_model):
+    """A port module's state under the family's published names
+    (``loaders/export.py``) loads back through the port's converter, strictly
+    and bit-equal; and the JAX package's converter maps the same names onto
+    exactly ``jax_model``'s parameter paths."""
+    from apex_studio_tpu.loaders.converters import convert_keys as jax_convert_keys
+
+    from apex_studio_tpu_torch.loaders.converters import convert_keys
+    from apex_studio_tpu_torch.loaders.export import published_state_dict
+    from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
+
+    src = materialize_random(build, torch.device("cpu"), seed=3)
+    published = published_state_dict(family, src.state_dict())
+    assert set(published) != set(src.state_dict())  # the published names differ
+    dst = materialize_random(build, torch.device("cpu"), seed=4)
+    apply_state_dict(dst, convert_keys(family, published), strict=True)
+    for name, value in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[name], value), name
+    assert set(jax_convert_keys(family, {k: v.numpy() for k, v in published.items()})) == set(jax_params(jax_model))
