@@ -49,7 +49,16 @@
 //   masked by the bias averages V uniformly, as the JAX reference does. The
 //   mask is paid only on tiles that the tail or the diagonal crosses; causal
 //   tiles wholly above the diagonal are skipped.
-// - Head dims 64 and 128 run on this one template.
+// - Head dims: any multiple of 8 from 16 to 128 (the Pallas kernel takes any
+//   head dim; SAM2's Hiera launches 56, 72 or 96 and its mask decoder 32 and
+//   16). The template width DP is 64 for d <= 64 and 128 above. The tensor
+//   maps' innermost extent is the real d, while the box stays 64 columns
+//   wide, so TMA fills the columns past d with zeros in shared memory (and
+//   still counts the whole box in the transaction bytes). Zero columns add
+//   nothing to Q K^T, and the output columns past d that P V forms from V's
+//   zero columns are never stored. So the function is exactly the one at the
+//   real d; the scale is the real d's, passed by the wrapper. The cost: the
+//   products run at the padded width (d = 56 pays 64/56 of the operations).
 //
 // Bound on an H100 SXM at the Flux Dev 1024px shape (B=1, S=4608, H=24,
 // D=128): 4*B*H*Sq*Sk*D = 2.61e11 FLOP -> 0.264 ms at 989 TFLOP/s bf16, while
@@ -234,6 +243,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
 
 template <int D>
 struct Tiles {
+  static_assert(D == 64 || D == 128, "the template widths are 64 and 128");
   static constexpr int PANELS = D / 64;
   static constexpr int TILE_BYTES = PANELS * PANEL_BYTES;  // 128 rows x D bf16
   // +1024: the tiles start at the next 1024-byte boundary (the swizzle's period).
@@ -356,8 +366,8 @@ __global__ void __launch_bounds__(NUM_THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias,
-                     bf16* __restrict__ o, int H, int Sq, int Sk, int64_t o_sb, int64_t o_ss,
-                     int64_t o_sh, int64_t bias_sb, float scale_log2, int causal) {
+                     bf16* __restrict__ o, int H, int Sq, int Sk, int d, int64_t o_sb,
+                     int64_t o_ss, int64_t o_sh, int64_t bias_sb, float scale_log2, int causal) {
   constexpr int PANELS = Tiles<D>::PANELS;
   constexpr int TILE_BYTES = Tiles<D>::TILE_BYTES;
   constexpr int NO = D / 2;       // output accumulators a thread
@@ -527,7 +537,9 @@ __global__ void __launch_bounds__(NUM_THREADS, 1)
     bf16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
     for (int nt = 0; nt < NO / 4; ++nt) {
+      // d is a multiple of 8, so a column pair is wholly inside or past it.
       const int col = nt * 8 + t4 * 2;
+      if (col >= d) continue;
       if (row_a < Sq) {
         *reinterpret_cast<uint32_t*>(ob + row_a * o_ss + col) =
             pack_bf16(acc[4 * nt + 0] * inv0, acc[4 * nt + 1] * inv0);
@@ -563,7 +575,7 @@ constexpr int ERR_MAP_BASE = 101000;    // + 1000 * (0 q, 1 k, 2 v) + CUresult
 
 // A [B, S, H, D] bf16 tensor with strides (sb, ss, sh, 1) in elements, as a
 // 4-D map (D, S, H, B) with boxes of [128 rows][64 columns], 128-byte swizzle.
-// Out-of-bounds rows read as zeros.
+// Out-of-bounds rows, and columns past the real D, read as zeros.
 CUresult encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int64_t sb,
                      int64_t ss, int64_t sh) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
@@ -581,16 +593,18 @@ CUresult encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// D is the template width (64 or 128), d the real head dim (d <= D).
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* o, int B, int H,
-           int Sq, int Sk, const int64_t* st, float scale_log2, int causal, cudaStream_t stream) {
+           int Sq, int Sk, int d, const int64_t* st, float scale_log2, int causal,
+           cudaStream_t stream) {
   if (encode_tiled() == nullptr) return ERR_NO_ENCODER;
   CUtensorMap map_q, map_k, map_v;
-  CUresult res = encode_bshd(&map_q, q, B, Sq, H, D, st[0], st[1], st[2]);
+  CUresult res = encode_bshd(&map_q, q, B, Sq, H, d, st[0], st[1], st[2]);
   if (res != CUDA_SUCCESS) return ERR_MAP_BASE + (int)res;
-  res = encode_bshd(&map_k, k, B, Sk, H, D, st[3], st[4], st[5]);
+  res = encode_bshd(&map_k, k, B, Sk, H, d, st[3], st[4], st[5]);
   if (res != CUDA_SUCCESS) return ERR_MAP_BASE + 1000 + (int)res;
-  res = encode_bshd(&map_v, v, B, Sk, H, D, st[6], st[7], st[8]);
+  res = encode_bshd(&map_v, v, B, Sk, H, d, st[6], st[7], st[8]);
   if (res != CUDA_SUCCESS) return ERR_MAP_BASE + 2000 + (int)res;
 
   // The shared-memory attribute is set once per device and head dim.
@@ -607,7 +621,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
   }
   dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, B * H);
   flash_fwd_kernel<D><<<grid, NUM_THREADS, Tiles<D>::SMEM_BYTES, stream>>>(
-      map_q, map_k, map_v, static_cast<const float*>(bias), static_cast<bf16*>(o), H, Sq, Sk,
+      map_q, map_k, map_v, static_cast<const float*>(bias), static_cast<bf16*>(o), H, Sq, Sk, d,
       st[9], st[10], st[11], st[12], scale_log2, causal);
   return (int)cudaGetLastError();
 }
@@ -615,8 +629,9 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
 }  // namespace
 
 // strides: 13 int64 values, in elements: q (b, s, h), k (b, s, h), v (b, s, h),
-// o (b, s, h), bias (b). The head dim is contiguous; q/k/v base pointers are
-// 16-byte aligned and their strides multiples of 8 elements. bias may be null.
+// o (b, s, h), bias (b). The head dim D is a multiple of 8 from 16 to 128 and
+// contiguous; q/k/v base pointers are 16-byte aligned and their strides
+// multiples of 8 elements; o's rows are 4-byte aligned. bias may be null.
 // Returns 0 on success; the cudaError_t of the launch; 100000 when
 // cuTensorMapEncodeTiled is not to be had; or 101000 + 1000 * (0 q, 1 k, 2 v) + CUresult
 // when a tensor map could not be encoded.
@@ -625,17 +640,15 @@ extern "C" int apex_flash_attn_fwd_bf16(const void* q, const void* k, const void
                                         int D, const int64_t* strides, float scale_log2,
                                         int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, bias, o, B, H, Sq, Sk, strides, scale_log2, causal, s);
-    case 128:
-      return launch<128>(q, k, v, bias, o, B, H, Sq, Sk, strides, scale_log2, causal, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (D % 8 != 0 || D < 16 || D > 128) return (int)cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch<64>(q, k, v, bias, o, B, H, Sq, Sk, D, strides, scale_log2, causal, s);
+  return launch<128>(q, k, v, bias, o, B, H, Sq, Sk, D, strides, scale_log2, causal, s);
 }
 
-// Shared memory a block asks for, for the record (bytes; 0 for other head dims).
+// Shared memory a block asks for at head dim D, for the record (bytes; 0 for
+// a head dim the kernel does not take).
 extern "C" int apex_flash_attn_smem_bytes(int D) {
-  return D == 64 ? Tiles<64>::SMEM_BYTES : D == 128 ? Tiles<128>::SMEM_BYTES : 0;
+  if (D % 8 != 0 || D < 16 || D > 128) return 0;
+  return D <= 64 ? Tiles<64>::SMEM_BYTES : Tiles<128>::SMEM_BYTES;
 }

@@ -50,6 +50,7 @@ from apex_studio_tpu_torch.engine.base import BaseEngine
 from apex_studio_tpu_torch.engine.fused import build_euler_step, build_unipc_step, cfg_combine, init_unipc_carry
 from apex_studio_tpu_torch.engine.registry import register_engine
 from apex_studio_tpu_torch.ops.easycache import EasyCacheState, cached_step, init_state
+from apex_studio_tpu_torch.utils.jax_resize import nearest_index
 from apex_studio_tpu_torch.utils.progress import make_mapped_progress, safe_emit_progress
 
 logger = logging.getLogger("apex.engine.wan")
@@ -810,9 +811,7 @@ class WanVaceEngine(_HostLoop):
         s = self.vae.cfg.spatial_scale
         m = mask_f.reshape(f, lat_h, s, lat_w, s).transpose(2, 4, 0, 1, 3).reshape(s * s, f, lat_h, lat_w)
         if f != lat_f:
-            idx = np.floor((np.arange(lat_f, dtype=np.float32) + np.float32(0.5)) * np.float32(f)
-                           / np.float32(lat_f)).astype(np.int64)
-            m = m[:, idx]
+            m = m[:, nearest_index(f, lat_f)]
         return torch.from_numpy(np.ascontiguousarray(m, dtype=np.float32))
 
     @torch.inference_mode()

@@ -12,7 +12,8 @@ with its BatchNorm running statistics) and the ``llama`` text towers
 (Llama, Llava, Mistral3); HunyuanVideo's ``hunyuanvideo`` (the DiT and
 FramePack's, diffusers naming) and ``hunyuanvideo_vae``; HuMo's ``wan_humo``
 and ``wav2vec2``; the audio-driven DiTs' ``wan_s2v``, ``wan_multitalk`` and
-``hunyuanvideo_avatar``, whose audio encoders load through ``wav2vec2``).
+``hunyuanvideo_avatar``, whose audio encoders load through ``wav2vec2``;
+SAM2's ``sam2`` (the image model) and ``sam2_video`` (the memory bank)).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -860,5 +861,87 @@ converter_registry.add(
              r"\1.kernel"),
         ],
         drop=(r"^rope\.", r"audio_attn2\.(q_norm|k_norm|add_q_norm|add_k_norm)"),
+    ),
+)
+
+converter_registry.add(
+    # Official SAM2 checkpoint layout (sam2 package) → mask/sam2.py modules.
+    "sam2",
+    KeyConverter(
+        renames=[
+            (r"^image_encoder\.trunk\.", "trunk."),
+            (r"^image_encoder\.neck\.convs\.(\d+)\.conv\.", r"neck.convs.\1."),
+            (r"^sam_prompt_encoder\.pe_layer\.positional_encoding_gaussian_matrix$",
+             "prompt_encoder.pe_gaussian"),
+            (r"^sam_prompt_encoder\.point_embeddings\.(\d+)\.weight$",
+             r"prompt_encoder.point_embeddings.\1"),
+            (r"^sam_prompt_encoder\.not_a_point_embed\.weight$",
+             "prompt_encoder.not_a_point_embed"),
+            (r"^sam_prompt_encoder\.no_mask_embed\.weight$", "prompt_encoder.no_mask_embed"),
+            (r"^sam_mask_decoder\.transformer\.layers\.", "mask_decoder.layers."),
+            (r"^sam_mask_decoder\.transformer\.final_attn_token_to_image\.",
+             "mask_decoder.final_attn_token_to_image."),
+            (r"^sam_mask_decoder\.transformer\.norm_final_attn\.",
+             "mask_decoder.norm_final_attn."),
+            (r"^sam_mask_decoder\.iou_token\.weight$", "mask_decoder.iou_token"),
+            (r"^sam_mask_decoder\.mask_tokens\.weight$", "mask_decoder.mask_tokens"),
+            (r"^sam_mask_decoder\.obj_score_token\.weight$", "mask_decoder.obj_score_token"),
+            (r"^sam_mask_decoder\.output_upscaling\.0\.", "mask_decoder.upscale1."),
+            (r"^sam_mask_decoder\.output_upscaling\.1\.", "mask_decoder.upscale_norm."),
+            (r"^sam_mask_decoder\.output_upscaling\.3\.", "mask_decoder.upscale2."),
+            (r"^sam_mask_decoder\.", "mask_decoder."),
+            (r"^sam_mask_decoder_extra\.", "mask_decoder."),
+            (r"\.attn\.qkv\.", ".qkv."),
+            (r"\.attn\.proj\.", ".proj_attn."),
+            (r"\.mlp\.layers\.0\.", ".mlp_lin1."),
+            (r"\.mlp\.layers\.1\.", ".mlp_lin2."),
+            (r"\.mlp\.lin1\.", ".mlp_lin1."),
+            (r"\.mlp\.lin2\.", ".mlp_lin2."),
+            # before the generic ``proj.weight`` rule, which in the JAX table
+            # takes it first and leaves ``patch_embed.proj.kernel`` (ROADMAP
+            # Queue 3)
+            (r"(patch_embed)\.proj\.weight$", r"\1.kernel"),
+            (r"(q_proj|k_proj|v_proj|out_proj|qkv|proj_attn|proj|mlp_lin1|mlp_lin2)\.weight$",
+             r"\1.kernel"),
+            (r"(layers\.\d+)\.weight$", r"\1.kernel"),  # MLP heads
+            (r"^conv_s0\.weight$", "conv_s0.kernel"),
+            (r"^conv_s1\.weight$", "conv_s1.kernel"),
+            (r"(neck\.convs\.\d+)\.weight$", r"\1.kernel"),
+            (r"(patch_embed)\.proj\.weight$", r"\1.kernel"),
+            (r"(patch_embed)\.proj\.bias$", r"\1.bias"),
+            (r"(upscale1|upscale2)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"memory_", r"mask_downsample", r"maskmem", r"^obj_ptr", r"no_obj",
+              r"temporal", r"^image_encoder\.neck\.position_encoding"),
+    ),
+)
+
+converter_registry.add(
+    "sam2_video",
+    KeyConverter(
+        renames=[
+            # memory components (sam2 video checkpoints; the image keys go
+            # through the "sam2" table)
+            (r"^memory_attention\.layers\.", "memory_attention."),
+            (r"^memory_attention\.norm\.", "memory_attention_norm."),
+            # mask_downsampler Sequential (conv,LN,GELU)×4 + conv → packed
+            (r"mask_downsampler\.encoder\.0\.", "mask_downsampler.encoder.0."),
+            (r"mask_downsampler\.encoder\.1\.", "mask_downsampler.encoder.1."),
+            (r"mask_downsampler\.encoder\.3\.", "mask_downsampler.encoder.2."),
+            (r"mask_downsampler\.encoder\.4\.", "mask_downsampler.encoder.3."),
+            (r"mask_downsampler\.encoder\.6\.", "mask_downsampler.encoder.4."),
+            (r"mask_downsampler\.encoder\.7\.", "mask_downsampler.encoder.5."),
+            (r"mask_downsampler\.encoder\.9\.", "mask_downsampler.encoder.6."),
+            (r"mask_downsampler\.encoder\.10\.", "mask_downsampler.encoder.7."),
+            (r"mask_downsampler\.encoder\.12\.", "mask_downsampler.encoder.8."),
+            (r"fuser\.layers\.", "fuser."),
+            (r"^obj_ptr_proj\.layers\.(\d+)\.weight$", r"obj_ptr_proj.layers.\1.kernel"),
+            (r"(q_proj|k_proj|v_proj|out_proj|linear1|linear2|pwconv1|pwconv2)\.weight$",
+             r"\1.kernel"),
+            (r"(pix_feat_proj|out_proj|dwconv)\.weight$", r"\1.kernel"),
+            (r"(mask_downsampler\.encoder\.\d+)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"no_mem_pos_enc", r"no_obj_ptr", r"obj_ptr_tpos_proj",
+              r"\.freqs", r"rotary"),
     ),
 )

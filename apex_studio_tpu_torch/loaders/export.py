@@ -338,6 +338,59 @@ def _clip_vision_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     return value
 
 
+# SAM2 (the sam2 package's names; ``conv_s0`` / ``conv_s1`` at the top level,
+# where the ``sam2`` converter takes them)
+_SAM2 = [
+    (r"^trunk\.patch_embed\.", "image_encoder.trunk.patch_embed.proj."),
+    (r"^trunk\.blocks\.(\d+)\.qkv\.", r"image_encoder.trunk.blocks.\1.attn.qkv."),
+    (r"^trunk\.blocks\.(\d+)\.proj_attn\.", r"image_encoder.trunk.blocks.\1.attn.proj."),
+    (r"^trunk\.blocks\.(\d+)\.mlp_lin1\.", r"image_encoder.trunk.blocks.\1.mlp.layers.0."),
+    (r"^trunk\.blocks\.(\d+)\.mlp_lin2\.", r"image_encoder.trunk.blocks.\1.mlp.layers.1."),
+    (r"^trunk\.", "image_encoder.trunk."),
+    (r"^neck\.convs\.(\d+)\.", r"image_encoder.neck.convs.\1.conv."),
+    (r"^prompt_encoder\.pe_gaussian$", "sam_prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
+    (r"^prompt_encoder\.(point_embeddings\.\d+|not_a_point_embed|no_mask_embed)$", r"sam_prompt_encoder.\1.weight"),
+    (r"^mask_decoder\.(iou_token|mask_tokens|obj_score_token)$", r"sam_mask_decoder.\1.weight"),
+    (r"^mask_decoder\.layers\.(\d+)\.mlp_lin1\.", r"sam_mask_decoder.transformer.layers.\1.mlp.layers.0."),
+    (r"^mask_decoder\.layers\.(\d+)\.mlp_lin2\.", r"sam_mask_decoder.transformer.layers.\1.mlp.layers.1."),
+    (r"^mask_decoder\.(layers|final_attn_token_to_image|norm_final_attn)\.", r"sam_mask_decoder.transformer.\1."),
+    (r"^mask_decoder\.upscale1\.", "sam_mask_decoder.output_upscaling.0."),
+    (r"^mask_decoder\.upscale_norm\.", "sam_mask_decoder.output_upscaling.1."),
+    (r"^mask_decoder\.upscale2\.", "sam_mask_decoder.output_upscaling.3."),
+    (r"^mask_decoder\.", "sam_mask_decoder."),
+]
+
+# the SAM2 video model's memory bank (its image keys go through _SAM2)
+_SAM2_VIDEO = [
+    # (conv, LayerNorm2d, GELU) x 4 + conv in the published Sequential; from the
+    # last index down, so that no rule renames another's output
+    *[(rf"^memory_encoder\.mask_downsampler\.encoder\.{i}\.", f"memory_encoder.mask_downsampler.encoder.{j}.")
+      for i, j in reversed(list(enumerate((0, 1, 3, 4, 6, 7, 9, 10, 12))))],
+    (r"^memory_encoder\.fuser\.(\d+)\.", r"memory_encoder.fuser.layers.\1."),
+    (r"^memory_attention\.(\d+)\.", r"memory_attention.layers.\1."),
+    (r"^memory_attention_norm\.", "memory_attention.norm."),
+]
+
+# Depth Anything V2 (the published depth_anything_v2_*.pth names)
+_DEPTH_ANYTHING_V2 = [
+    (r"^pretrained\.patch_embed\.", "pretrained.patch_embed.proj."),
+    (r"^depth_head\.resize(\d)\.", r"depth_head.resize_layers.\1."),
+    *[(rf"^depth_head\.layer_rn\.{i}\.", f"depth_head.scratch.layer{i + 1}_rn.") for i in range(4)],
+    (r"^depth_head\.(refinenet\d|output_conv1)\.", r"depth_head.scratch.\1."),
+    (r"^depth_head\.output_conv2_(\d)\.", r"depth_head.scratch.output_conv2.\1."),
+]
+
+# OpenPose body (the published body_pose_model.pth names)
+_OPENPOSE_TRUNK = ("conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2", "conv3_3", "conv3_4",
+                   "conv4_1", "conv4_2", "conv4_3_CPM", "conv4_4_CPM")
+_OPENPOSE = [
+    *[(rf"^trunk\.{i}\.", f"model0.{name}.") for i, name in enumerate(_OPENPOSE_TRUNK)],
+    *[(rf"^stage1_l{b}\.convs\.{i}\.", f"model1_{b}.conv5_{i + 1}_CPM_L{b}.") for b in (1, 2) for i in range(5)],
+    *[(rf"^refine_l{b}\.{s}\.convs\.{i}\.", f"model{s + 2}_{b}.Mconv{i + 1}_stage{s + 2}_L{b}.")
+      for b in (1, 2) for s in range(5) for i in range(7)],
+]
+
+
 _LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
     "wan_vae": _wan_vae_layout, "wan": _wan_layout, "clip_vision": _clip_vision_layout,
     "wan_humo": _wan_humo_layout, "wan_multitalk": _wan_humo_layout, "wan_s2v": _wan_s2v_layout}
@@ -348,7 +401,8 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "wan": _WAN, "clip_vision": _CLIP_VISION, "flux2": _FLUX2, "flux2_vae": _FLUX2_VAE, "llama": _LLAMA,
     "hunyuanvideo": _HUNYUANVIDEO, "hunyuanvideo_vae": _HUNYUANVIDEO_VAE, "wan_humo": _WAN_HUMO,
     "wav2vec2": _WAV2VEC2, "wan_s2v": _WAN_S2V, "wan_multitalk": _WAN_MULTITALK,
-    "hunyuanvideo_avatar": _HUNYUANVIDEO_AVATAR}
+    "hunyuanvideo_avatar": _HUNYUANVIDEO_AVATAR, "sam2": _SAM2, "sam2_video": _SAM2_VIDEO,
+    "depth_anything_v2": _DEPTH_ANYTHING_V2, "openpose": _OPENPOSE}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

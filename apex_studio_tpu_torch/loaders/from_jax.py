@@ -21,7 +21,9 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
 - a 4-D ``...w`` is a transposed-convolution kernel that the JAX module
   keeps spatially flipped in HWIO (RIFE's ``Deconv2x``): it becomes
   ``...weight`` in ``ConvTranspose2d``'s layout ``[in, out, kh, kw]``,
-  unflipped;
+  unflipped; a port module whose class sets ``jax_w_flipped = False``
+  (Depth Anything's ``BlockUpsample``, whose JAX ``w`` is an unflipped HWIO
+  block kernel) gets the same layout without the flip;
 - every other parameter keeps its name and layout (learned tokens, PReLU
   slopes, embedding tables, the FLUX.2 VAE's 1-D ``bn_mean`` / ``bn_var``).
 
@@ -85,6 +87,10 @@ def load_from_jax(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Modul
     kernel keeps its integer dtype and makes its Linear resident."""
     params = dict(module.named_parameters())
     converted = convert_jax_params(flat)
+    for key in flat:
+        parent, _, leaf = key.rpartition(".")
+        if leaf == "w" and not getattr(_owner(module, f"{parent}.weight"), "jax_w_flipped", True):
+            converted[f"{parent}.weight"] = converted[f"{parent}.weight"][:, :, ::-1, ::-1]
     scales = {name for name in converted if name.rpartition(".")[2] == "weight_scale"
               and isinstance(_owner(module, name), Linear)}
     unexpected = sorted(set(converted) - set(params) - scales)

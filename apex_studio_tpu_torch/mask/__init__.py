@@ -1,5 +1,6 @@
 """Point / box masks and their tracking across frames (port of
-``apex_studio_tpu/mask``, the classical segmenter; SAM2 is not ported)."""
+``apex_studio_tpu/mask``): SAM2 (``sam2.py``, ``predictor.py``) where a
+checkpoint is configured or on disk, else the classical segmenter."""
 
 from apex_studio_tpu_torch.mask.segment import (  # noqa: F401
     mask_from_box,

@@ -6,19 +6,17 @@ from the prompt, with morphological cleanup; tracking warps the mask along
 dense optical flow with periodic GrabCut refinement. The output formats
 (HxW uint8 masks, flat contour polygons, shape bounds) are the JAX module's.
 
-Departure: the JAX ``mask_from_points`` runs a SAM2 predictor where a
-checkpoint is configured and falls back to GrabCut on any error. SAM2
-(``mask/predictor.py``, ``mask/sam2.py``) is not ported, so where a checkpoint
-is configured (``APEX_SAM2_PATH``, or a file under
-``<preprocessor_models>/sam2/``) a point or box prompt raises
-``NotImplementedError`` instead of silently taking GrabCut; without one the
-port runs GrabCut as the JAX module does, and fetches nothing.
+A point or box prompt runs the SAM2 predictor (``mask/predictor.py``) where a
+checkpoint is configured or on disk, on ``device`` (``None`` is the card);
+without one it runs GrabCut, as the JAX module does, and fetches nothing.
+
+Departure: the JAX ``mask_from_points`` falls back to GrabCut on any SAM2
+error; here a SAM2 failure raises (ROADMAP "Departures").
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -86,16 +84,17 @@ def mask_from_points(
     point_labels: Optional[Sequence[int]] = None,
     box: Optional[Dict[str, float]] = None,
     tool: str = "touch",
+    device=None,
 ) -> np.ndarray:
-    """HWC uint8 RGB image + prompt → binary mask HxW uint8, through GrabCut.
-    A point or box prompt raises ``NotImplementedError`` where a SAM2
-    checkpoint is configured (the SAM2 predictor is not ported)."""
+    """HWC uint8 RGB image + prompt → binary mask HxW uint8: SAM2 on
+    ``device`` where a checkpoint resolves (``mask/predictor.py``), else
+    GrabCut."""
     if tool != "lasso" and (points or box is not None):
-        configured = sam2_checkpoint_configured()
-        if configured is not None:
-            raise NotImplementedError(
-                f"a SAM2 checkpoint is configured ({configured}) but the SAM2 predictor is not ported; "
-                "unset APEX_SAM2_PATH and remove the checkpoint to use the GrabCut segmenter")
+        from apex_studio_tpu_torch.mask.predictor import get_sam2_predictor
+
+        predictor = get_sam2_predictor(device)
+        if predictor is not None:
+            return predictor.predict(image, points, point_labels, box)
     import cv2
 
     pts = np.array([[p["x"], p["y"]] for p in points], np.float32) if points else np.zeros((0, 2))
@@ -125,30 +124,6 @@ def mask_from_points(
         rect = (x1, y1, x2, y2)
 
     return _grabcut(image, rect=rect, fg_points=fg, bg_points=bg, seed_mask=seed_mask)
-
-
-def sam2_checkpoint_configured() -> Optional[str]:
-    """Where a SAM2 checkpoint is configured: ``APEX_SAM2_PATH``, else a file
-    under ``<preprocessor_models>/sam2/`` (where the JAX predictor keeps the
-    checkpoints it fetches); None when neither is."""
-    from apex_studio_tpu_torch.utils.defaults import get_preprocessor_models_path
-
-    env = os.environ.get("APEX_SAM2_PATH")
-    if env:
-        return env
-    local = get_preprocessor_models_path() / "sam2"
-    found = sorted(p for p in local.iterdir() if p.is_file()) if local.is_dir() else []
-    return str(found[0]) if found else None
-
-
-def mask_backend_status() -> Dict[str, object]:
-    """Which segmenter /mask requests use, under the keys of the JAX
-    ``mask/predictor.py mask_backend_status`` (GET /system/memory
-    ``mask_backend``): always the classical one here; ``error`` says why a
-    point or box prompt raises when a SAM2 checkpoint is configured."""
-    checkpoint = sam2_checkpoint_configured()
-    return {"backend": "classical", "model_type": None, "checkpoint": checkpoint,
-            "error": "the SAM2 predictor is not ported" if checkpoint else None}
 
 
 def mask_from_box(image: np.ndarray, box: Dict[str, float]) -> np.ndarray:

@@ -36,6 +36,7 @@ from apex_studio_tpu_torch.ops.attention import _prep_bias
 from apex_studio_tpu_torch.ops.embeddings import timestep_embedding
 from apex_studio_tpu_torch.ops.norms import layer_norm
 from apex_studio_tpu_torch.ops.rope import precompute_axial_freqs
+from apex_studio_tpu_torch.utils.jax_resize import nearest_index
 
 
 @dataclasses.dataclass
@@ -48,13 +49,6 @@ class HunyuanAvatarConfig(HunyuanVideoConfig):
     audio_context_tokens: int = 4
     audio_heads: int = 33
     double_stream_list: Tuple[int, ...] = (1, 3, 5, 7, 9, 11, 13, 15, 17, 19)
-
-
-def nearest_index(n_in: int, n_out: int) -> np.ndarray:
-    """``jax.image.resize(..., "nearest")``'s source index along one axis:
-    ⌊f32((i + 0.5)·n_in) / f32(n_out)⌋."""
-    return np.floor((np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in)
-                    / np.float32(n_out)).astype(np.int64)
 
 
 class AudioProjNet2(nn.Module):

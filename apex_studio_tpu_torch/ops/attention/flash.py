@@ -17,6 +17,13 @@ Bound: at the Flux Dev 1024px shape (B=1, S=4608, H=24, D=128) one call does
 4·B·H·Sq·Sk·D = 2.61e11 FLOP, 0.264 ms at the H100's 989 TFLOP/s bf16, and
 moves 113 MB, 0.034 ms at 3.35 TB/s: it is bound by tensor-core operations.
 
+Head dims: any multiple of 8 from 16 to 128, as the Pallas kernel takes any
+(SAM2 launches 56, 72, 96, 32 and 16 beside the engines' 64 and 128). The
+kernel runs a head dim up to 64 on its 64-wide template and one up to 128 on
+its 128-wide template; the tensor maps end at the real head dim, so TMA fills
+the columns past it with zeros in shared memory, and only the real columns
+are stored (``padded_head_dim``). No padded copy is made in device memory.
+
 ``flash_attention`` runs the plain version for tensors on the CPU and the
 kernel for tensors on the card; a failed build, tensor-map encoding or launch
 raises. ``flash_attention.launches`` counts kernel launches.
@@ -109,6 +116,14 @@ def _describe_error(err: int) -> str:
     return f"cudaError {err}"
 
 
+def padded_head_dim(d: int) -> int:
+    """The kernel template's width for head dim ``d``: 64 or 128. Raises for
+    a head dim the kernel does not take (a multiple of 8 from 16 to 128)."""
+    if d % 8 or not 16 <= d <= 128:
+        raise ValueError(f"the flash kernel takes a head dim that is a multiple of 8 from 16 to 128, got {d}")
+    return 64 if d <= 64 else 128
+
+
 def _key_padding_bias(bias: Optional[torch.Tensor], b: int, sk: int) -> Optional[torch.Tensor]:
     """Normalize a key-padding bias ([B|1, Sk] or [B|1, 1, 1, Sk]) to [B|1, Sk];
     anything richer raises (the dispatcher routes it to the ``xla`` backend)."""
@@ -157,17 +172,22 @@ def flash_attention_tiled_reference(q, k, v, *, bias=None, scale=None, is_causal
     (zero-filled, as the tensor map gives them) and the causal upper triangle
     set to -inf, causal tiles wholly above the diagonal skipped, the running
     max guarded against ``(-inf) - (-inf)``, P rounded to ``v.dtype`` before
-    P·V, and ``1 / max(l, 1e-30)`` at the end.
+    P·V, and ``1 / max(l, 1e-30)`` at the end. The head dim is zero-padded to
+    the kernel template's width (``padded_head_dim``), as the tensor maps fill
+    it, with the scale of the real head dim; the padded output columns are
+    dropped.
     """
     _check(q, k, v, is_causal)
-    b, sq, h, d = q.shape
+    b, sq, h, d_real = q.shape
     sk = k.shape[1]
     kv_bias = _key_padding_bias(bias, b, sk)
-    scale_log2 = (scale if scale is not None else d ** -0.5) * LOG2E
+    scale_log2 = (scale if scale is not None else d_real ** -0.5) * LOG2E
+    d = padded_head_dim(d_real)
     pad = (-sk) % block_n
-    qf = q.float().permute(0, 2, 1, 3)                                          # [B, H, Sq, D]
-    kf = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)).float().permute(0, 2, 3, 1)  # [B, H, D, Sk+]
-    vf = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).float().permute(0, 2, 1, 3)  # [B, H, Sk+, D]
+    cols_pad = d - d_real
+    qf = torch.nn.functional.pad(q, (0, cols_pad)).float().permute(0, 2, 1, 3)          # [B, H, Sq, D]
+    kf = torch.nn.functional.pad(k, (0, cols_pad, 0, 0, 0, pad)).float().permute(0, 2, 3, 1)  # [B, H, D, Sk+]
+    vf = torch.nn.functional.pad(v, (0, cols_pad, 0, 0, 0, pad)).float().permute(0, 2, 1, 3)  # [B, H, Sk+, D]
     if kv_bias is not None:
         kv_bias = torch.nn.functional.pad(kv_bias.float(), (0, pad)) * LOG2E   # [B|1, Sk+]
     cols = torch.arange(sk + pad, device=q.device)
@@ -197,14 +217,14 @@ def flash_attention_tiled_reference(q, k, v, *, bias=None, scale=None, is_causal
             acc = acc * corr[..., None] + p.to(v.dtype).float() @ vf[:, :, c]
             m_run = m_new
         out[:, :, rows] = (acc / l_run.clamp_min(1e-30)[..., None]).to(q.dtype)
-    return out.permute(0, 2, 1, 3)
+    return out[..., :d_real].permute(0, 2, 1, 3)
 
 
 def flash_attention(q, k, v, *, bias=None, scale=None, is_causal=False):
     """q/k/v: [B, S, H, D] → [B, Sq, H, D]. ``bias``: additive key-padding
     bias [B, Sk] or [B, 1, 1, Sk]. CPU tensors take the plain version; CUDA
     tensors take the kernel (bf16, or f32 rounded to bf16 and returned in
-    f32; D in {64, 128}) or raise."""
+    f32; D a multiple of 8 from 16 to 128) or raise."""
     _check(q, k, v, is_causal)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -214,7 +234,7 @@ def flash_attention(q, k, v, *, bias=None, scale=None, is_causal=False):
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
     if q.dtype == k.dtype == v.dtype == torch.float32:
-        # f32 attention (the audio encoder's) runs on the kernel's bf16 tiles,
+        # f32 attention (the audio encoder's, SAM2's) runs on the kernel's bf16 tiles,
         # as an f32 dot at the TPU's default precision runs on the MXU in bf16
         # passes, with f32 scores and softmax; the output returns in f32
         return flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), bias=bias, scale=scale,
@@ -222,8 +242,7 @@ def flash_attention(q, k, v, *, bias=None, scale=None, is_causal=False):
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"the flash kernel takes bf16 (or f32, rounded to bf16 tiles) q/k/v, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"the flash kernel takes head dim 64 or 128, got {d}")
+    padded_head_dim(d)
     if sk == 0 or b * h > 65535:
         raise ValueError(f"unsupported flash shape B*H={b * h}, Sk={sk}")
     dev = q.device
@@ -232,7 +251,8 @@ def flash_attention(q, k, v, *, bias=None, scale=None, is_causal=False):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         # What a tensor map takes: a contiguous head dim, a 16-byte aligned
-        # base and every other stride a multiple of 16 bytes.
+        # base and every other stride a multiple of 16 bytes (at head dim 56
+        # a fused qkv view's rows are 112 bytes apart).
         if st[3] != 1 or st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16:
             raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned rows")
     if kv_bias is not None:

@@ -9,7 +9,8 @@ NHWC; this one in NCHW, in f32, with the same arithmetic:
 - ``resize_half_pixel`` is ``jax.image.resize(..., "bilinear")``, whose
   ``antialias`` is on: when it downsamples, the triangle kernel widens by the
   factor, so it is not ``F.interpolate(mode="bilinear")``. It is computed as
-  JAX computes it, one weight matrix per spatial axis.
+  JAX computes it (``utils/jax_resize.py``), one weight matrix per spatial
+  axis.
 - ``flow_warp`` clamps the sample coordinates to the border and gathers the
   four neighbours, as the JAX function does (not ``grid_sample``).
 - ``Deconv2x`` is ``ConvTranspose2d(k=4, s=2, p=1)`` with its weight in
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_studio_tpu_torch.postprocess.base import BasePostprocessor, postprocessor_registry
+from apex_studio_tpu_torch.utils import jax_resize
 from apex_studio_tpu_torch.utils.progress import safe_emit_progress
 
 logger = logging.getLogger("apex.postprocess.rife")
@@ -114,31 +116,10 @@ def pixel_shuffle2(x: torch.Tensor) -> torch.Tensor:
     return F.pixel_shuffle(x, 2)
 
 
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """``[n_in, n_out]`` weights of ``jax.image.resize``'s bilinear (triangle)
-    kernel on half-pixel centres; when downsampling the kernel widens by
-    ``n_in / n_out`` (antialias), then every column is normalised to sum 1."""
-    inv = n_in / n_out
-    kernel_scale = max(inv, 1.0)
-    sample = (torch.arange(n_out, dtype=torch.float64) + 0.5) * inv - 0.5
-    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float64)[:, None]).abs() / kernel_scale
-    w = (1.0 - x).clamp_min(0.0)
-    total = w.sum(0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    w = torch.where(inside[None, :], w, torch.zeros_like(w))
-    return w.to(device=device, dtype=torch.float32)
-
-
 def resize_half_pixel(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """``jax.image.resize(x, (B, h, w, C), "bilinear")`` on NCHW: a spatial
     axis whose size does not change is left as it is."""
-    if x.shape[3] != w:
-        x = x @ _resize_weights(x.shape[3], w, x.device)
-    if x.shape[2] != h:
-        x = torch.einsum("bchw,hy->bcyw", x, _resize_weights(x.shape[2], h, x.device))
-    return x
+    return jax_resize.resize(x, (*x.shape[:2], h, w), "bilinear")
 
 
 def flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,10 @@ manifests). Same contract: a preprocessor takes an image / list of frames
 over frames. Model-backed detectors (depth, pose, segmentation) plug in via
 the same registry with lazy weight loading.
 
-No detector is ported yet, so ``preprocessor_registry`` is empty: a run of
-any name raises the registry's ``KeyError``, as the JAX registry does for a
-name it lacks.
+Departure: ``run_preprocessor`` and a preprocessor's call take a ``device``
+(``None`` is the card), where a model-backed detector builds its model; the
+weight-free ones run on the host and ignore it. A name the registry lacks
+raises its ``KeyError``, as the JAX registry does.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ class BasePreprocessor:
 
     name: str = ""
     params_schema: Dict[str, Any] = {}
+    device: Any = None
 
     def setup(self) -> None:
         """Lazy one-time initialization (weight loading for model detectors)."""
@@ -46,10 +48,12 @@ class BasePreprocessor:
         self,
         frames: Union[Frame, Sequence[Frame]],
         progress_callback: Optional[ProgressCallback] = None,
+        device: Any = None,
         **params: Any,
     ) -> List[Frame]:
         single = isinstance(frames, np.ndarray) and frames.ndim == 3
         batch = [frames] if single else list(frames)
+        self.device = device
         self.setup()
         out: List[Frame] = []
         for i, frame in enumerate(batch):
@@ -65,10 +69,13 @@ def run_preprocessor(
     frames: Union[Frame, Sequence[Frame]],
     params: Optional[Dict[str, Any]] = None,
     progress_callback: Optional[ProgressCallback] = None,
+    device: Any = None,
 ) -> List[Frame]:
+    """Run the registered preprocessor ``name`` over ``frames``; a
+    model-backed one on ``device`` (``None`` is the card)."""
     proc_cls = preprocessor_registry.get(name)
     proc = proc_cls() if isinstance(proc_cls, type) else proc_cls
-    return proc(frames, progress_callback=progress_callback, **(params or {}))
+    return proc(frames, progress_callback=progress_callback, device=device, **(params or {}))
 
 
 def load_frames(path: Union[str, Path], max_frames: Optional[int] = None) -> List[Frame]:

@@ -24,6 +24,7 @@ class Registry:
     def __init__(self, kind: str):
         self.kind = kind
         self._entries: Dict[str, Any] = {}
+        self._aliases: set = set()
         self._default: Optional[str] = None
 
     def register(self, name: Optional[str] = None, *, default: bool = False,
@@ -34,6 +35,8 @@ class Registry:
                 raise ValueError(f"{self.kind}: cannot infer a registry name for {obj!r}")
             for k in (key, *aliases):
                 self._entries[k] = obj
+            self._aliases.discard(key)
+            self._aliases.update(aliases)
             if default or self._default is None:
                 self._default = key
             return obj
@@ -47,14 +50,10 @@ class Registry:
         return name in self._entries
 
     def names(self) -> List[str]:
-        """Registered names, each entry once (an alias of a listed entry is
-        left out)."""
-        seen, out = set(), []
-        for k, obj in self._entries.items():
-            if id(obj) not in seen:
-                seen.add(id(obj))
-                out.append(k)
-        return out
+        """Registered names, each registration once: its aliases are left
+        out, and an object registered again under another name is listed
+        again, as in the JAX registry."""
+        return [k for k in self._entries if k not in self._aliases]
 
     def get(self, name: Optional[str] = None) -> Any:
         key = name or self._default

@@ -19,7 +19,9 @@ Departures from the JAX app:
 - ``create_app(..., device=None)``: ``device`` goes to every engine the runner
   or the warm pool builds and to every learned postprocessor. ``None`` is the
   card (``resolve_device`` raises without one, so an engine job then ends in
-  that error); nothing falls back to the CPU. Tests pass ``"cpu"``.
+  that error); nothing falls back to the CPU. Tests pass ``"cpu"``. The
+  SAM2 predictor behind /mask/* and the model-backed preprocessors behind
+  /preprocessor/run run there too.
 - No XLA compile cache and no device mesh: the JAX app sets both up inside
   ``try/except``, so no response depends on them (one card; multi-GPU is
   ROADMAP Queue 1 item 9).
@@ -424,7 +426,7 @@ async def system_memory(_req: web.Request) -> web.Response:
     import psutil
     import torch
 
-    from apex_studio_tpu_torch.mask.segment import mask_backend_status
+    from apex_studio_tpu_torch.mask.predictor import mask_backend_status
 
     vm = psutil.virtual_memory()
     payload = {
@@ -686,7 +688,7 @@ def create_app(
     from apex_studio_tpu_torch.utils.defaults import get_results_path
 
     add_processing_routes(app, store, executor, device)
-    add_mask_routes(app, store, executor)
+    add_mask_routes(app, store, executor, device)
 
     app.router.add_static("/files/engine_results", engine_results_dir(), show_index=False)
     for kind in ("preprocessor", "postprocessor"):

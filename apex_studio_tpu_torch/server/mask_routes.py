@@ -1,9 +1,11 @@
 """Mask routers (/mask/create, /mask/track) — port of
 ``apex_studio_tpu/server/mask_routes.py``, reference api/mask.py:418,584.
 
-The segmenter is the port's ``mask/segment.py`` (GrabCut, host work). SAM2 is
-not ported: where a SAM2 checkpoint is configured, a point or box prompt
-raises ``NotImplementedError`` (ROADMAP Queue 3).
+The segmenter is the port's ``mask/segment.py``: the SAM2 predictor on the
+server's ``device`` (``None`` is the card) where a checkpoint is configured
+or on disk, else GrabCut on the host; a SAM2 failure raises (ROADMAP
+"Departures"). Tracking propagates the first mask by optical flow, as the
+JAX routes do.
 
 `create` is synchronous (sub-second); `track` runs as a job streaming
 per-frame contours over /ws/job/{id}, with cancellation like the reference's
@@ -51,7 +53,7 @@ def _load_frame(path: str, frame_number: int | None):
     return load_frames(path)[0], is_video
 
 
-def _run_track_job(job: Job, body: Dict[str, Any]) -> Dict[str, Any]:
+def _run_track_job(job: Job, body: Dict[str, Any], device: Any = None) -> Dict[str, Any]:
     from apex_studio_tpu_torch.mask.segment import mask_from_points, mask_to_contours, track_mask
     from apex_studio_tpu_torch.preprocess.base import load_frames
 
@@ -64,6 +66,7 @@ def _run_track_job(job: Job, body: Dict[str, Any]) -> Dict[str, Any]:
         body.get("point_labels"),
         body.get("box"),
         tool=body.get("tool", "touch"),
+        device=device,
     )
 
     def progress(p, message, metadata=None):
@@ -87,7 +90,7 @@ def _run_track_job(job: Job, body: Dict[str, Any]) -> Dict[str, Any]:
     return job.result
 
 
-def add_mask_routes(app: web.Application, store: JobStore, executor: JobExecutor) -> None:
+def add_mask_routes(app: web.Application, store: JobStore, executor: JobExecutor, device: Any = None) -> None:
     async def create(req: web.Request) -> web.Response:
         from apex_studio_tpu_torch.mask.segment import mask_from_points, mask_to_contours
 
@@ -112,6 +115,7 @@ def add_mask_routes(app: web.Application, store: JobStore, executor: JobExecutor
             body.get("point_labels"),
             body.get("box"),
             tool=body.get("tool", "touch"),
+            device=device,
         )
         return web.json_response(
             {
@@ -134,7 +138,7 @@ def add_mask_routes(app: web.Application, store: JobStore, executor: JobExecutor
         except ValueError as e:
             return web.json_response({"detail": str(e)}, status=409)
         ws_manager.send_update(job_id, 0.0, "Queued", {"status": "queued"})
-        executor.submit(job, lambda j: _run_track_job(j, body))
+        executor.submit(job, lambda j: _run_track_job(j, body, device))
         return web.json_response({"job_id": job_id, "status": "queued"})
 
     async def track_cancel(req: web.Request) -> web.Response:
@@ -211,7 +215,7 @@ def add_mask_routes(app: web.Application, store: JobStore, executor: JobExecutor
                 initial = mask_from_points(
                     frames[a], body.get("points") or [],
                     body.get("point_labels"), body.get("box"),
-                    tool=body.get("tool", "touch"))
+                    tool=body.get("tool", "touch"), device=device)
 
                 def bounds_of(mask):
                     return shape_bounds_from_contours(

@@ -5,9 +5,10 @@ Wire-compatible with the reference routers (api/preprocessor.py:235,
 api/postprocessor.py:36, api/download.py:189, api/components.py:34): jobs go
 through the same store/executor and stream progress over /ws/job/{id}.
 
-No preprocessor is ported yet: ``/preprocessor/list`` answers ``[]`` (the JAX
-route hides manifests without an implementation too) and a run ends its job
-with the registry's ``KeyError``. Learned postprocessors run on ``device``
+``/preprocessor/list`` lists the ported preprocessors with their manifest
+metadata (the JAX route hides manifests without an implementation too); a
+name the registry lacks ends its job with the registry's ``KeyError``.
+Model-backed preprocessors and learned postprocessors run on ``device``
 (``None`` is the card).
 """
 
@@ -143,12 +144,12 @@ def _progress(job: Job):
     return cb
 
 
-def _run_preprocessor_job(job: Job, body: Dict[str, Any]) -> Dict[str, Any]:
+def _run_preprocessor_job(job: Job, body: Dict[str, Any], device: Any = None) -> Dict[str, Any]:
     from apex_studio_tpu_torch.preprocess.base import load_frames, run_preprocessor
 
     name = body.get("preprocessor_name") or body.get("name")
     frames = load_frames(body["input_path"], max_frames=body.get("max_frames"))
-    out = run_preprocessor(name, frames, body.get("params") or {}, _progress(job))
+    out = run_preprocessor(name, frames, body.get("params") or {}, _progress(job), device=device)
     out_dir = _results_dir("preprocessor", job.job_id)
     if len(out) == 1:
         path = save_image(out[0], out_dir / f"{name}.png")
@@ -243,7 +244,7 @@ def add_processing_routes(app: web.Application, store: JobStore, executor: JobEx
             return web.json_response({"detail": "preprocessor_name required"}, status=400)
         if not body.get("input_path"):
             return web.json_response({"detail": "input_path required"}, status=400)
-        return submit("processor", _run_preprocessor_job, body)
+        return submit("processor", lambda j, b: _run_preprocessor_job(j, b, device), body)
 
     async def preprocessor_list(_req: web.Request) -> web.Response:
         from apex_studio_tpu_torch.preprocess.base import preprocessor_registry

@@ -181,6 +181,20 @@ Phases, each printed as one JSON line:
              frames the hyv15 phase decoded (seeded 720x1280 frames without
              it): 65 frames, one against the CPU; the cv2 frame_interpolation
              once
+  sam2       SAM2 at Hiera-B+ widths (sam2.1_hiera_b+.yaml) at 1024²: the
+             kernel at the path's shapes (head dim 56 windows, the global
+             q-pool launches, the decoder's 32 and 16; Hiera-L's 72 and
+             T/S's 96); a seeded checkpoint in the published layout named by
+             APEX_SAM2_PATH; the mask logits with the kernel against the
+             plain attention on the card; two identical /mask/create
+             requests through the port's server (31 launches each,
+             mask_backend "sam2"); sam2_track_video on a SAM2VideoModel of
+             the same widths over 10 frames (31 launches a frame)
+  preprocess /preprocessor/list and /preprocessor/run (canny on a clip, Depth
+             Anything V2 vitl on an image) through the port's server;
+             depth_anything_v2 (vitl, 518) and openpose (368) twice each on
+             seeded checkpoints at the published names; Depth Anything vits
+             and OpenPose f32 on the card against the CPU
 The kernels phase holds the kernel at every shape of the table in PERF.md:
 Flux's, the tile edges, biases and causal cases, ZImage's S = 4224 and 4096
 at 30 heads and its 128-token caption block, and Qwen3's one-row decode
@@ -194,8 +208,10 @@ rows with a [1, Sk] bias at its first and last block and with a window and a
 sink), and the Flux editing paths' (FLUX.2 at 48 heads over 4608 and 8704
 tokens, Kontext over 8704 and DreamOmni2 over 12,800 at 24); the timing phase
 times each beside its bound and the library call. The hyv, humo, s2v,
-multitalk and avatar phases hold and time the kernel at their own shapes
-(``path_kernel_rows``).
+multitalk, avatar and sam2 phases hold and time the kernel at their own
+shapes (``path_kernel_rows``); the kernels phase also holds it at head dims
+16, 32, 56, 72 and 96 (ragged, with a bias, on fused-qkv views in bf16 and
+f32).
 Then a ``wall`` line, a ``kernels`` line, the card and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -237,7 +253,7 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "rife")
+                  "rife,sam2,preprocess")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -512,7 +528,25 @@ MULTITALK_AUDIO_SECONDS, MULTITALK_W2V_FRAMES = 3.2, 80
 # reference frame's 1024 in front and the 256 text slots; a forward makes the
 # HunyuanVideo DiT's 62 launches
 AVATAR_TOKENS = 1024 + 33 * 1024 + HYV_TEXT_TOKENS
-AUDIO_VIDEO_STEPS = 2
+AUDIO_VIDEO_STEPS = 1
+# facebookresearch/sam2, sam2/configs/sam2.1/sam2.1_hiera_b+.yaml (the default
+# MASK_MODEL, sam2_base_plus): Hiera-B+ (embed 112, 2 heads doubling at each
+# stage: head dim 56 throughout), stages 2-3-16-3, windows 8-4-14-7, global
+# attention at blocks 12, 16 and 20, 1024² at patch stride 4; the 256-wide FPN
+# and two-way mask decoder (8 heads, MLP 2048, 3 multimask outputs + 1)
+SAM2_BASE_PLUS = {"embed_dim": 112, "num_heads": 2, "stages": [2, 3, 16, 3], "window_specs": [8, 4, 14, 7],
+                  "global_att_blocks": [12, 16, 20], "img_size": 1024, "d_model": 256, "decoder_depth": 2,
+                  "decoder_heads": 8, "decoder_mlp_dim": 2048, "num_multimask_outputs": 3}
+# one launch a Hiera block, three a two-way block, the final token→image one
+SAM2_LAUNCHES = sum(SAM2_BASE_PLUS["stages"]) + 3 * SAM2_BASE_PLUS["decoder_depth"] + 1
+SAM2_TRACK_FRAMES = 10
+# The mask logits with the kernel against the plain attention on the card
+# (both f32 models): the kernel rounds q/k/v and P to bf16. The same rounding
+# on the CPU at Hiera-B+ widths and 512² (tests/torch_sam2_bf16.py) reads
+# 0.09% for the JAX module with bf16-rounded q/k/v against f32 and 0.21% for
+# the port's plain bf16 route (P rounded too); the limit is about five times
+# the larger, for 1024²'s longer key sets and the smoke run's weights.
+SAM2_LOGITS_REL_L2 = 1e-2
 
 
 class CheckFailed(Exception):
@@ -691,6 +725,20 @@ def phase_kernels():
         release()
     # the Wan editing and causal paths' new shapes
     wan_edit_kernel_cases(run_case)
+    # head dims other than 64 and 128 (SAM2's Hiera 56, Hiera-L's 72, Hiera-T/S's
+    # 96, its decoder's 32 and 16): a ragged Sk across a tile edge, with and
+    # without a [B, Sk] bias, and the non-contiguous views of a fused qkv
+    # projection, bf16 and (as Hiera gives them) f32
+    for d in (16, 32, 56, 72, 96):
+        q, k, v = qkv(2, 130, 257, 4, d, 60 + d)
+        run_case(f"d{d}_ragged_sq130_sk257", q, k, v)
+        keep = torch.arange(257, device="cuda")[None, :] < torch.tensor([200, 77], device="cuda")[:, None]
+        run_case(f"d{d}_ragged_sq130_sk257_bias_b2", q, k, v, bias=_prep_bias(None, keep))
+        fused = torch.randn(2, 257, 3, 4, d, generator=g, device="cuda")
+        fused_bf16 = fused.to(torch.bfloat16)
+        run_case(f"d{d}_views_of_fused_projection", fused_bf16[:, :, 0], fused_bf16[:, :, 1], fused_bf16[:, :, 2])
+        run_case(f"d{d}_views_of_fused_projection_f32", fused[:, :, 0], fused[:, :, 1], fused[:, :, 2])
+    del q, k, v, fused, fused_bf16
     # the Flux editing and FLUX.2 joint lengths (24 and 48 heads), the plain
     # version in query-row chunks
     for name, q, k, v, _ in flux_edit_kernel_inputs():
@@ -731,17 +779,22 @@ def attention_bound(q, k, bias):
     4·H·Sq·D flops per (batch row, key) at the bf16 peak, and q and o, the
     bias and each batch row's K/V rows moved once at the memory rate. A key
     whose bias is the -1e30 mask (exp of it is 0) does no work and need not
-    be read, so only the keys each batch row keeps count. Returns the bound,
-    what binds it, flops, bytes, the keys counted and the bound over every
-    key as launched."""
+    be read, so only the keys each batch row keeps count. D is the real head
+    dim, the work the Pallas kernel does. Returns the bound, what binds it,
+    flops, bytes, the keys counted, the bound over every key as launched, and
+    that bound with the products at the kernel template's padded head dim
+    (64 or 128; the padded columns are zeros in shared memory, not bytes
+    moved)."""
+    from apex_studio_tpu_torch.ops.attention.flash import padded_head_dim
+
     b, sq, h, d = q.shape
     sk = k.shape[1]
     kept = float(b * sk) if bias is None else float(
         (bias.reshape(bias.shape[0], -1) > -1e29).sum().item() * (b // bias.shape[0]))
     bias_bytes = bias.numel() * 4 if bias is not None else 0
 
-    def bound(keys):
-        flops = 4.0 * h * sq * d * keys
+    def bound(keys, d_ops=d):
+        flops = 4.0 * h * sq * d_ops * keys
         # q read and o written once, each kept key's K and V rows read once
         nbytes = (2 * b * sq + 2 * keys) * h * d * q.element_size() + bias_bytes
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -749,12 +802,13 @@ def attention_bound(q, k, bias):
 
     bound_ms, bound_by, flops, nbytes = bound(kept)
     return {"bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes, "keys_kept": kept,
-            "bound_ms_as_launched": bound(float(b * sk))[0]}
+            "bound_ms_as_launched": bound(float(b * sk))[0],
+            "bound_ms_as_launched_padded": bound(float(b * sk), padded_head_dim(d))[0]}
 
 
 # the keys of a timing row that the final kernels line carries
 ROW_KEYS = ("case", "shape", "sk", "bias", "ms", "queued_ms", "plain_ms", "plain_rows", "bound_ms", "bound_by",
-            "keys_kept", "bound_ms_as_launched", "library_ms", "library_queued_ms")
+            "keys_kept", "bound_ms_as_launched", "bound_ms_as_launched_padded", "library_ms", "library_queued_ms")
 
 
 def timing_row(case, q, k, v, bias=None, plain_rows=None, path=None) -> dict:
@@ -4227,6 +4281,398 @@ def phase_avatar(home: Path):
     return {"avatar": [main_row], "avatar_pair": pair}, kernel_rows, kernel_err
 
 
+# -- SAM2 point masks and tracking; the preprocessors ------------------------------------
+
+
+def sam2_kernel_inputs():
+    """(case, q, k, v, None) at the shapes SAM2's Hiera-B+ at 1024² and its
+    mask decoder give the kernel (bf16 here; the f32 model's route rounds to
+    these tiles): a 256 x 256 token grid at patch stride 4, head dim 56 in
+    every block. Stage 1's windows of 8 (1024 windows of 64 tokens, 2 heads);
+    the q-pool blocks, global in the JAX module (16,384 pooled queries against
+    65,536 keys at 4 heads, 4096 against 16,384 at 8, 1024 against 4096 at
+    16); stage 2's windows of 4 (1024 x 16 tokens); stage 3's windows of 14 on
+    64 x 64 padded to 70 (25 x 196) and its global blocks (4096 at 8 heads);
+    stage 4's windows of 7 on 32 x 32 padded to 35 (25 x 49). The decoder's
+    10 tokens (obj, iou, 4 mask tokens, a bucket of 4 prompt points): their
+    self-attention (8 heads of 32) and the token↔image attentions over the
+    64 x 64 embedding (8 heads of 16). Then the global-block shape at the
+    other published trunks' head dims: Hiera-L's 72 (8 heads) and Hiera-T/S's
+    96 (4 heads)."""
+    d = SAM2_BASE_PLUS["embed_dim"] // SAM2_BASE_PLUS["num_heads"]
+    yield (f"sam2_s1_window8_b1024_s64_h2_d{d}", *qkv(1024, 64, 64, 2, d, 130), None)
+    yield (f"sam2_qpool2_sq16384_sk65536_h4_d{d}", *qkv(1, 16384, 65536, 4, d, 131), None)
+    yield (f"sam2_s2_window4_b1024_s16_h4_d{d}", *qkv(1024, 16, 16, 4, d, 132), None)
+    yield (f"sam2_qpool3_sq4096_sk16384_h8_d{d}", *qkv(1, 4096, 16384, 8, d, 133), None)
+    yield (f"sam2_s3_window14_b25_s196_h8_d{d}", *qkv(25, 196, 196, 8, d, 134), None)
+    yield (f"sam2_s3_global_s4096_h8_d{d}", *qkv(1, 4096, 4096, 8, d, 135), None)
+    yield (f"sam2_qpool4_sq1024_sk4096_h16_d{d}", *qkv(1, 1024, 4096, 16, d, 136), None)
+    yield (f"sam2_s4_window7_b25_s49_h16_d{d}", *qkv(25, 49, 49, 16, d, 137), None)
+    yield ("sam2_decoder_self_s10_h8_d32", *qkv(1, 10, 10, 8, 32, 138), None)
+    yield ("sam2_decoder_token_to_image_sq10_sk4096_h8_d16", *qkv(1, 10, 4096, 8, 16, 139), None)
+    yield ("sam2_decoder_image_to_token_sq4096_sk10_h8_d16", *qkv(1, 4096, 10, 8, 16, 140), None)
+    yield ("hiera_l_global_s4096_h8_d72", *qkv(1, 4096, 4096, 8, 72, 141), None)
+    yield ("hiera_s_global_s4096_h4_d96", *qkv(1, 4096, 4096, 4, 96, 142), None)
+
+
+def seeded_like_tests(module, seed: int):
+    """Fill ``module`` (on the CPU) with the CPU tests' recipe
+    (``tests/torch_port_helpers.py jax_build``): weights of rank 2 or more
+    normal(0, 1/√fan_in), biases normal(0, 0.05), other 1-D parameters
+    1 + normal(0, 0.05), the rest normal(0, 0.02)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rpartition(".")[2]
+            x = torch.randn(p.shape, generator=g)
+            if leaf == "weight" and p.ndim >= 2:
+                x = x / math.sqrt(max(1, p[0].numel()))
+            elif leaf == "bias":
+                x = 0.05 * x
+            elif p.ndim == 1:
+                x = 1.0 + 0.05 * x
+            else:
+                x = 0.02 * x
+            p.copy_(x)
+    return module.eval().requires_grad_(False)
+
+
+def write_sam2_checkpoint(root: Path) -> Path:
+    """The seeded Hiera-B+ SAM2 image model (the port module's initialisers,
+    torch's global generator at seed 0) as ``sam2.1_hiera_base_plus.pt`` in
+    the published key layout, under ``{"model": ...}`` as the published file
+    keeps it, with its ``config.json`` beside it; returns the path."""
+    import torch
+
+    from apex_studio_tpu_torch.loaders.export import published_state_dict
+    from apex_studio_tpu_torch.mask.sam2 import SAM2Config, SAM2ImageModel
+
+    torch.manual_seed(0)
+    model = SAM2ImageModel(SAM2Config.from_dict(SAM2_BASE_PLUS))
+    path = root / "sam2" / "sam2.1_hiera_base_plus.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": published_state_dict("sam2", model.state_dict())}, path)
+    (path.parent / "config.json").write_text(json.dumps(SAM2_BASE_PLUS))
+    return path
+
+
+def disk_clip(n: int, h: int = 480, w: int = 832, seed: int = 50):
+    """``n`` seeded frames of a bright disk moving 6 px a frame over smooth
+    noise, and the disk's first centre."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    frames = []
+    for i in range(n):
+        f = (cv2_smooth(rng, (h, w)) // 3).astype(np.uint8)
+        f[(yy - h // 2) ** 2 + (xx - w // 3 - 6 * i) ** 2 <= (h // 6) ** 2] = [220, 90, 80]
+        frames.append(f)
+    return frames, (w // 3, h // 2)
+
+
+def wait_job(base: str, job_id: str, limit_s: float = 300.0) -> dict:
+    """Poll ``/jobs/status/{job_id}`` until the job leaves queued / running."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit_s:
+        st = http(base, "GET", f"/jobs/status/{job_id}")[1]
+        if st.get("status") not in ("queued", "running", "pending"):
+            return st
+        time.sleep(0.05)
+    raise CheckFailed(f"job {job_id} did not finish in {limit_s} s")
+
+
+def phase_sam2(home: Path):
+    """SAM2 at Hiera-B+ widths (``SAM2_BASE_PLUS``) on the card: the kernel
+    at the path's shapes; a seeded checkpoint written in the published
+    ``sam2.1_hiera_base_plus.pt`` layout with its ``config.json`` and named by
+    ``APEX_SAM2_PATH``; the predictor's mask logits with the kernel against
+    the plain attention on the card within ``SAM2_LOGITS_REL_L2``; two
+    identical ``/mask/create`` requests through the port's server (points on
+    a 480x832 frame: contours equal to each other and to ``mask_from_points``,
+    ``/system/memory``'s ``mask_backend`` reading ``sam2``), ``SAM2_LAUNCHES``
+    a request; then ``sam2_track_video`` on a ``SAM2VideoModel`` of the same
+    widths (seeded) over ``SAM2_TRACK_FRAMES`` frames, forward, the memory
+    bank rolling past its 7 slots, ``SAM2_LAUNCHES`` a frame. Returns the path
+    rows, the kernel rows and the largest max|Δ|."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.mask import mask_from_points, mask_to_contours
+    from apex_studio_tpu_torch.mask import predictor as sam2_predictor
+    from apex_studio_tpu_torch.mask.sam2 import SAM2Config, SAM2VideoModel
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+    from apex_studio_tpu_torch.server.app import create_app
+    from PIL import Image
+
+    kernel_rows, kernel_err = path_kernel_rows("sam2", sam2_kernel_inputs())
+    sh = home / "sam2"
+    ckpt = write_sam2_checkpoint(sh / "models")
+    saved = {k: os.environ.get(k) for k in ("APEX_HOME_DIR", "APEX_SAM2_PATH")}
+    os.environ.update({"APEX_HOME_DIR": str(sh), "APEX_SAM2_PATH": str(ckpt)})
+    sam2_predictor.reset_sam2_predictor()
+    frames, (cx, cy) = disk_clip(SAM2_TRACK_FRAMES)
+    points, labels = [{"x": cx, "y": cy}, {"x": 40, "y": 40}], [1, 0]
+    rows, track_rows = [], []
+    try:
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pred = sam2_predictor.get_sam2_predictor()
+        load_s = time.perf_counter() - t0
+        model = pred.model
+        check(model.cfg.embed_dim == 112 and len(model.trunk.blocks) == 24 and pred.device.type == "cuda",
+              "the SAM2 predictor's widths or device")
+        img = pred._image(frames[0])
+        pts, lab = pred._prompt([[cx / 832, cy / 480], [40 / 832, 40 / 480], [0, 0], [0, 0]], [1, 0, -1, -1])
+        with torch.no_grad():
+            flash_attention.launches = 0
+            masks, iou, _ = model.predict(img, pts, lab)
+            launches = flash_attention.launches
+            again = model.predict(img, pts, lab)[0]
+            with plain_attention():
+                plain, plain_iou, _ = model.predict(img, pts, lab)
+        torch.cuda.synchronize()
+        rel = rel_l2(masks, plain)
+        signs = float(((masks > 0) == (plain > 0)).float().mean())
+        emit({"phase": "sam2", "check": "mask_logits_kernel_vs_plain_attention", "rel_l2": rel,
+              "tol": SAM2_LOGITS_REL_L2, "sign_agreement": signs, "launches": launches,
+              "logits_shape": list(masks.shape), "bit_identical_repeat": bool(torch.equal(masks, again)),
+              "seconds_load": load_s, "iou": iou[0].tolist(), "iou_plain": plain_iou[0].tolist()})
+        check(bool(torch.isfinite(masks).all()) and list(masks.shape) == [1, 4, 256, 256],
+              f"SAM2 logits {list(masks.shape)}")
+        check(rel <= SAM2_LOGITS_REL_L2, f"SAM2 logits with the kernel {rel:.4f} from the plain attention")
+        check(launches == SAM2_LAUNCHES, f"SAM2 predict launched flash {launches} times, expected {SAM2_LAUNCHES}")
+        check(bool(torch.equal(masks, again)), "two identical SAM2 predictions differ")
+        del masks, again, plain
+
+        # served: two identical /mask/create requests
+        image = sh / "mask_input.png"
+        Image.fromarray(frames[0]).save(image)
+        base, stop = start_server(create_app())
+        try:
+            served = []
+            for i in range(2):
+                flash_attention.launches = 0
+                t0 = time.perf_counter()
+                code, out = http(base, "POST", "/mask/create", {"input_path": str(image), "points": points,
+                                                                "point_labels": labels})
+                seconds = time.perf_counter() - t0
+                launches = flash_attention.launches
+                row = {"phase": "sam2", "request": f"mask_create_{i + 1}", "status": code,
+                       "contours": len(out.get("contours", [])) if isinstance(out, dict) else None,
+                       "seconds_post_to_response": seconds, "flash_launches": launches,
+                       "flash_launches_expected": SAM2_LAUNCHES, "seconds_per_step": [seconds]}
+                emit(row)
+                check(code == 200 and out["status"] == "success", f"/mask/create answered {code}: {out}")
+                check(launches == SAM2_LAUNCHES, f"/mask/create launched flash {launches} times")
+                served.append(out["contours"])
+                rows.append(row)
+            backend = http(base, "GET", "/system/memory")[1]["mask_backend"]
+        finally:
+            stop()
+        direct = mask_to_contours(mask_from_points(frames[0], points, labels))
+        emit({"phase": "sam2", "check": "served_masks", "mask_backend": backend,
+              "contours_equal": served[0] == served[1] == direct, "contour_points": [len(c) for c in direct]})
+        check(backend["backend"] == "sam2" and backend["checkpoint"] == str(ckpt),
+              f"/system/memory mask_backend {backend}")
+        check(served[0] == served[1] == direct, "the served SAM2 masks differ from each other or the predictor's")
+        peak_create = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # tracking on the video model at the same widths
+        del pred, model
+        sam2_predictor.reset_sam2_predictor()
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(1)
+        video = SAM2VideoModel(SAM2Config.from_dict(SAM2_BASE_PLUS)).cuda().eval().requires_grad_(False)
+        tracker = sam2_predictor.SAM2Predictor(video, img_size=SAM2_BASE_PLUS["img_size"])
+        steps, track_step = [], video.track_step
+
+        def timed_step(*a, **kw):  # a frame's seconds and launches, synchronised
+            t, n = time.perf_counter(), flash_attention.launches
+            out = track_step(*a, **kw)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t, flash_attention.launches - n))
+            return out
+
+        video.track_step = timed_step
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        masks = sam2_predictor.sam2_track_video(tracker, frames, points, labels, start_frame=0,
+                                                direction="forward")
+        total_s = time.perf_counter() - t0
+        launches = flash_attention.launches
+        per_launch = [n for _, n in steps]
+        track_row = {"phase": "sam2", "request": "track_video", "frames": len(frames), "seconds": total_s,
+                     "seconds_per_step": [t for t, _ in steps], "flash_launches": launches,
+                     "flash_launches_expected": SAM2_LAUNCHES * len(frames), "launches_per_frame": per_launch,
+                     "mask_pixels": [int(masks[i].sum()) for i in sorted(masks)],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        emit(track_row)
+        check(sorted(masks) == list(range(len(frames))) and all(m.shape == (480, 832) for m in masks.values()),
+              "sam2_track_video's masks")
+        check(launches == SAM2_LAUNCHES * len(frames) and per_launch == [SAM2_LAUNCHES] * len(frames),
+              f"tracking launched flash {launches} times ({per_launch} a frame)")
+        track_rows.append(track_row)
+        emit({"phase": "sam2", "peak_gib_mask_create": peak_create, "peak_gib_track": track_row["peak_gib"],
+              "checkpoint_mib": ckpt.stat().st_size / 2 ** 20})
+        del video, tracker
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        sam2_predictor.reset_sam2_predictor()
+        release()
+    return {"sam2": rows + track_rows}, kernel_rows, kernel_err
+
+
+def write_preprocessor_checkpoints(models: Path) -> dict:
+    """Seeded ``depth_anything_v2_vitl.pth`` and ``body_pose_model.pth`` at
+    their published widths and key names (``seeded_like_tests``; OpenPose's
+    final heatmap bias at -1) under ``models``; returns their sizes in MiB."""
+    import torch
+
+    from apex_studio_tpu_torch.loaders.export import published_state_dict
+    from apex_studio_tpu_torch.preprocess.depth_anything import DAv2Config, DepthAnythingV2
+    from apex_studio_tpu_torch.preprocess.openpose import OpenPoseBody, OpenPoseConfig
+
+    models.mkdir(parents=True, exist_ok=True)
+    sizes = {}
+    for name, family, build, seed in (
+            ("depth_anything_v2_vitl.pth", "depth_anything_v2",
+             lambda: DepthAnythingV2(DAv2Config.from_name("vitl")), 60),
+            ("body_pose_model.pth", "openpose", lambda: OpenPoseBody(OpenPoseConfig()), 61)):
+        module = seeded_like_tests(build(), seed)
+        if family == "openpose":
+            # The last stage's heatmaps background, as trained ones are almost
+            # everywhere: random ones hold thousands of peaks a part, whose
+            # greedy assembly on the host is quadratic in them.
+            module.refine_l2[-1].convs[-1].bias.fill_(-1.0)
+        torch.save(published_state_dict(family, module.state_dict()), models / name)
+        sizes[name] = (models / name).stat().st_size / 2 ** 20
+        del module
+    return sizes
+
+
+def preprocess_card_vs_cpu() -> dict:
+    """Depth Anything V2 ``vits`` on a 518² input and OpenPose at its published
+    widths on a 184² input, seeded (``seeded_like_tests``), f32 on the card
+    (products in full f32, as the preprocessors set them) against the same
+    module on the CPU, within ``F32_REL_L2`` (summation order)."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import configure_float32_matmul
+    from apex_studio_tpu_torch.preprocess.depth_anything import DAv2Config, DepthAnythingV2
+    from apex_studio_tpu_torch.preprocess.openpose import OpenPoseBody, OpenPoseConfig
+
+    configure_float32_matmul()
+    rng = np.random.default_rng(62)
+    out = {}
+    for name, build, shape in (("depth_anything_v2_vits", lambda: DepthAnythingV2(DAv2Config.from_name("vits")),
+                                (1, 518, 518, 3)),
+                               ("openpose", lambda: OpenPoseBody(OpenPoseConfig()), (1, 184, 184, 3))):
+        cpu = seeded_like_tests(build(), 63)
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        with torch.no_grad():
+            ref = cpu(x)
+            card = [t.cpu() for t in (lambda o: o if isinstance(o, tuple) else (o,))(cpu.cuda()(x.cuda()))]
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        out[name] = [rel_l2(c, r) for c, r in zip(card, ref)]
+        del cpu
+    emit({"phase": "preprocess", "check": "f32_card_vs_cpu", "rel_l2": out, "tol": F32_REL_L2})
+    check(all(e <= F32_REL_L2 for errs in out.values() for e in errs),
+          f"the preprocessors' f32 forward on the card is too far from the CPU's: {out}")
+    return out
+
+
+def phase_preprocess(home: Path):
+    """The preprocessors on the card: ``/preprocessor/list`` through the
+    port's server answers every registered name; ``/preprocessor/run`` runs
+    canny on an 8-frame 480x832 clip and ``depth_anything_v2`` (``vitl``,
+    518) on a 720x1280 image on the server's device; ``run_preprocessor``
+    runs ``depth_anything_v2`` at ``vitl`` and 518 and ``openpose`` at 368
+    on the card, each twice (bit-identical); seeded checkpoints at the
+    published widths and names under the preprocessor models dir; Depth
+    Anything ``vits`` and OpenPose f32 on the card against the CPU. No flash
+    launch: Depth Anything's attention is the plain version, as in JAX."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+    from apex_studio_tpu_torch.preprocess import preprocessor_registry, run_preprocessor
+    from apex_studio_tpu_torch.server.app import create_app
+    from apex_studio_tpu_torch.utils.media import save_video
+
+    ph = home / "preprocess"
+    saved = {k: os.environ.get(k) for k in ("APEX_HOME_DIR", "APEX_PREPROCESSOR_MODELS_PATH")}
+    os.environ.update({"APEX_HOME_DIR": str(ph), "APEX_PREPROCESSOR_MODELS_PATH": str(ph / "models")})
+    rows = []
+    try:
+        sizes = write_preprocessor_checkpoints(ph / "models")
+        clip, _ = disk_clip(8, seed=64)
+        clip_path = save_video(clip, ph / "clip.mp4", fps=16)
+        image = cv2_smooth(np.random.default_rng(65), (720, 1280))
+        image_path = ph / "image.png"
+        Image.fromarray(image).save(image_path)
+        flash_attention.launches = 0
+        base, stop = start_server(create_app())
+        try:
+            listed = [e["name"] for e in http(base, "GET", "/preprocessor/list")[1]]
+            served = {}
+            for name, path, params in (("canny", clip_path, {}),
+                                       ("depth_anything_v2", image_path,
+                                        {"encoder": "vitl", "detect_resolution": 518})):
+                t0 = time.perf_counter()
+                code, out = http(base, "POST", "/preprocessor/run", {"preprocessor_name": name,
+                                                                     "input_path": str(path), "params": params})
+                check(code == 200, f"/preprocessor/run {name} answered {code}: {out}")
+                st = wait_job(base, out["job_id"])
+                served[name] = {"status": st["status"], "seconds_post_to_complete": time.perf_counter() - t0,
+                                "result": Path(st.get("result_path") or "").name, "error": st.get("error")}
+        finally:
+            stop()
+        emit({"phase": "preprocess", "listed": listed, "served": served, "checkpoints_mib": sizes})
+        check(set(preprocessor_registry.names()) <= set(listed) and "openpose" in listed,
+              f"/preprocessor/list lists {listed}")
+        check(all(v["status"] == "complete" for v in served.values()), f"/preprocessor/run jobs: {served}")
+
+        for name, params in (("depth_anything_v2", {"encoder": "vitl", "detect_resolution": 518}),
+                             ("openpose", {"detect_resolution": 368})):
+            outs, secs = [], []
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                t0 = time.perf_counter()
+                outs.append(run_preprocessor(name, image, dict(params))[0])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            row = {"phase": "preprocess", "preprocessor": name, "params": params, "seconds": secs,
+                   "shape": list(outs[0].shape), "identical": bool(np.array_equal(*outs)),
+                   "nonzero_share": float((outs[0] > 0).mean()),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            emit(row)
+            check(row["shape"] == [720, 1280, 3] and outs[0].dtype == np.uint8, f"{name} output {row['shape']}")
+            check(row["identical"], f"two identical {name} runs differ")
+            rows.append(row)
+        rows.append({"card_vs_cpu": preprocess_card_vs_cpu()})
+        check(flash_attention.launches == 0, f"the preprocess path launched flash {flash_attention.launches} times")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        release()
+    return rows
+
+
 def torch_randn_like(z, seed: int):
     """Seeded normal values of ``z``'s shape on the card."""
     import torch
@@ -4849,7 +5295,7 @@ def main() -> int:
         ptxas = ptxas_report(log[-1].read_text() if log else "")
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_build_seconds": build_s,
-              "smem_bytes_a_block": {d: lib.apex_flash_attn_smem_bytes(d) for d in (64, 128)},
+              "smem_bytes_a_block": {d: lib.apex_flash_attn_smem_bytes(d) for d in (16, 32, 56, 64, 72, 96, 128)},
               **ptxas})
         check(bool(ptxas["functions"]), "the build log names no kernel")
         spilled = [f["name"] for f in ptxas["functions"] if f["spill_bytes"]]
@@ -4925,6 +5371,11 @@ def main() -> int:
         if "rife" in phases:
             timed("rife", phase_rife, home, hyv15_frames)
             del hyv15_frames
+        if "sam2" in phases:
+            new_paths, path_rows["sam2"], path_err["sam2"] = timed("sam2", phase_sam2, home)
+            paths.update(new_paths)
+        if "preprocess" in phases:
+            timed("preprocess", phase_preprocess, home)
         if len(paths) > 1:
             # a one-step request gives its one step
             emit({"phase": "steps", "median_seconds_per_step_after_the_first": {

@@ -93,6 +93,27 @@ CASES = [
     # and the CLIP image cross-attention over 257 keys at the clip's 32,760 queries
     ("multitalk_audio_cross_b21_sq1560_sk64_h40", 21, 1560, 64, 40, 128, None, False),
     ("multitalk_clip_cross_sq32760_sk257_h40", 1, 32760, 257, 40, 128, None, False),
+    # head dims other than 64 and 128, on the 64- and 128-wide templates with
+    # the columns past the head dim zero-filled by TMA: SAM2's Hiera-B+ at
+    # 1024² (head dim 56: stage 1's windows of 8, stage 3's q-pool, windows of
+    # 14 and global blocks, stage 4's windows of 7), its mask decoder (8 heads
+    # of 32 over its 10 tokens, of 16 between them and the 64 x 64 image), the
+    # other published trunks' global blocks (Hiera-L 72, Hiera-T/S 96), and a
+    # bias, a ragged Sk and causal at the new widths
+    ("sam2_window8_b1024_s64_h2_d56", 1024, 64, 64, 2, 56, None, False),
+    ("sam2_qpool3_sq4096_sk16384_h8_d56", 1, 4096, 16384, 8, 56, None, False),
+    ("sam2_window14_b25_s196_h8_d56", 25, 196, 196, 8, 56, None, False),
+    ("sam2_global_s4096_h8_d56", 1, 4096, 4096, 8, 56, None, False),
+    ("sam2_window7_b25_s49_h16_d56", 25, 49, 49, 16, 56, None, False),
+    ("sam2_decoder_self_s10_h8_d32", 1, 10, 10, 8, 32, None, False),
+    ("sam2_decoder_token_to_image_sq10_sk4096_h8_d16", 1, 10, 4096, 8, 16, None, False),
+    ("sam2_decoder_image_to_token_sq4096_sk10_h8_d16", 1, 4096, 10, 8, 16, None, False),
+    ("hiera_l_global_s4096_h8_d72", 1, 4096, 4096, 8, 72, None, False),
+    ("hiera_s_global_s4096_h4_d96", 1, 4096, 4096, 4, 96, None, False),
+    ("d56_key_padding_bias_b2", 2, 130, 257, 4, 56, [200, 77], False),
+    ("d16_ragged_sq129_sk257", 1, 129, 257, 3, 16, None, False),
+    ("d72_causal_s200", 1, 200, 200, 2, 72, None, True),
+    ("d96_fully_masked_row", 2, 64, 160, 2, 96, [50, 0], False),
 ]
 
 
@@ -140,12 +161,16 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.randn(1, 16, 2, 64, device=cuda).to(torch.float16)
     with pytest.raises(ValueError, match="bf16"):
         flash_attention(q, q, q)
-    q = q.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q[..., :32], q[..., :32], q[..., :32])
-    q72 = torch.randn(1, 16, 2, 72, device=cuda).to(torch.bfloat16)  # SigLIP so400m's heads
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q72, q72, q72)
+    # head dims that are no multiple of 8, or outside 16..128 (16..128 in
+    # steps of 8 run: SAM2's 56, 32 and 16 among them)
+    for d in (60, 8, 136):
+        qd = torch.randn(1, 16, 2, d, device=cuda).to(torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(qd, qd, qd)
+    # head dim 56 read from rows 60 columns (120 bytes) apart: no tensor map
+    wide = torch.randn(1, 16, 2, 60, device=cuda).to(torch.bfloat16)[..., :56]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(wide, wide, wide)
 
 
 @pytest.mark.cuda
@@ -242,6 +267,49 @@ def test_flash_kernel_hunyuanvideo_joint_attention_with_text_bias(cuda):
         assert torch.isfinite(out[:, rows].float()).all()
         assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v, bias=bias))
         assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k[:, keep], v[:, keep]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [56, 72, 96])
+def test_flash_kernel_reads_hiera_fused_qkv_views_in_f32(d, cuda):
+    """Hiera's attention: f32 q/k/v as views of one fused projection at the
+    published trunks' head dims, one launch on bf16 tiles, f32 out."""
+    g = torch.Generator(cuda).manual_seed(d)
+    qkv = torch.randn(2, 196, 3, 4, d, generator=g, device=cuda)
+    q, k, v = qkv.unbind(2)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1 and out.dtype == torch.float32
+    assert_agrees(out, flash_attention_reference(q, k, v))
+
+
+@pytest.mark.cuda
+def test_sam2_launches_the_kernel_per_attention(cuda):
+    """A small SAM2 image model on the card (Hiera head dim 16, decoder 32 and
+    16): one launch a Hiera block, 3 a two-way block and the final one; its
+    mask logits within 1e-2 rel L2 of the plain attention's (the kernel's bf16
+    rounding of q/k/v and P, as chip_smoke.py's ``SAM2_LOGITS_REL_L2``)."""
+    from apex_studio_tpu_torch.mask.sam2 import SAM2Config, SAM2ImageModel
+    from apex_studio_tpu_torch.ops.attention import attention_registry
+
+    torch.manual_seed(0)
+    cfg = SAM2Config(embed_dim=32, num_heads=2, stages=(1, 1, 2, 1), window_specs=(4, 4, 4, 4),
+                     global_att_blocks=(2,), img_size=128, d_model=128, decoder_heads=4, decoder_mlp_dim=256)
+    model = SAM2ImageModel(cfg).to(cuda).eval()
+    img = torch.rand(1, 128, 128, 3, device=cuda)
+    pts = torch.tensor([[[0.5, 0.5], [0.2, 0.3], [0.0, 0.0], [0.0, 0.0]]], device=cuda)
+    labels = torch.tensor([[1, 0, -1, -1]], device=cuda)
+    before = flash_attention.launches
+    with torch.no_grad():
+        masks = model.predict(img, pts, labels)[0]
+        assert flash_attention.launches == before + sum(cfg.stages) + 3 * cfg.decoder_depth + 1
+        attention_registry._entries["flash"] = flash_attention_reference
+        try:
+            plain = model.predict(img, pts, labels)[0]
+        finally:
+            attention_registry._entries["flash"] = flash_attention
+    rel = (torch.linalg.vector_norm(masks - plain) / torch.linalg.vector_norm(plain)).item()
+    assert torch.isfinite(masks).all() and rel <= 1e-2, rel
 
 
 @pytest.mark.cuda

@@ -2,7 +2,9 @@
 ``mask/segment.py``, on the same frames: masks, contours and shape bounds
 equal. Both run numpy and OpenCV on the host. The JAX side runs with its
 SAM2 predictor lookup answering "none configured", so it takes GrabCut (and
-fetches no checkpoint); the port raises where a SAM2 checkpoint is configured.
+fetches no checkpoint); the port finds none configured or on disk and takes
+GrabCut too, and raises where a configured SAM2 checkpoint is missing or
+cannot be loaded (tests/test_torch_sam2.py holds its SAM2 masks).
 
 Frames: eight 96 × 160 frames of a bright disk moving 3 px a frame over dark
 noise (the bench leg's clip at a fifth of its size).
@@ -14,7 +16,7 @@ import pytest
 from apex_studio_tpu.mask import predictor as jax_predictor
 from apex_studio_tpu.mask import segment as jax_segment
 from apex_studio_tpu_torch import mask as port_mask
-from apex_studio_tpu_torch.mask import segment
+from apex_studio_tpu_torch.mask import predictor
 
 
 def clip(n=8, h=96, w=160):
@@ -46,6 +48,9 @@ def no_sam2(monkeypatch, tmp_path):
     monkeypatch.delenv("APEX_SAM2_PATH", raising=False)
     monkeypatch.setenv("APEX_HOME_DIR", str(tmp_path / "home"))
     monkeypatch.delenv("APEX_PREPROCESSOR_MODELS_PATH", raising=False)
+    predictor.reset_sam2_predictor()
+    yield
+    predictor.reset_sam2_predictor()
 
 
 @pytest.mark.parametrize("prompt", list(PROMPTS))
@@ -93,13 +98,20 @@ def test_configured_sam2_raises(no_sam2, monkeypatch, tmp_path, where):
         ckpt = tmp_path / "home" / "preprocessor_models" / "sam2" / "sam2.1_hiera_base_plus.pt"
         ckpt.parent.mkdir(parents=True)
         ckpt.write_bytes(b"\0")
-    assert segment.sam2_checkpoint_configured() is not None
+    # a missing configured path, or a file that is no checkpoint: SAM2 is
+    # configured and fails, which raises instead of falling back to GrabCut
     for prompt in ("touch", "box"):
-        with pytest.raises(NotImplementedError, match="SAM2"):
-            port_mask.mask_from_points(FRAMES[0], **PROMPTS[prompt])
+        with pytest.raises(Exception) as err:
+            port_mask.mask_from_points(FRAMES[0], **PROMPTS[prompt], device="cpu")
+        assert not isinstance(err.value, AssertionError)
+        assert (where == "env") == isinstance(err.value, FileNotFoundError)
+        predictor.reset_sam2_predictor()
     # a lasso never took SAM2 in the JAX module either
     assert port_mask.mask_from_points(FRAMES[0], **PROMPTS["lasso"])[48, 40] == 1
 
 
 def test_no_sam2_configured_takes_grabcut(no_sam2):
-    assert segment.sam2_checkpoint_configured() is None
+    assert predictor.get_sam2_predictor("cpu") is None
+    status = predictor.mask_backend_status()
+    assert status["backend"] == "classical" and status["model_type"] == "sam2_base_plus"
+    assert status["error"] == f"sam2.1_hiera_base_plus.pt: {predictor.NO_CHECKPOINT}"

@@ -19,7 +19,8 @@ fp32, its tokenizer saved as ``tokenizer.json`` where the manifest names it.
 - Held against the JAX package: the route tables; one scripted sequence of
   non-engine requests through both apps (status codes and JSON bodies equal
   once ids, paths and times are normalised; the JAX preprocessor registry
-  emptied and its SAM2 lookup answering "none configured"); the resolver's
+  cut to the names the port registers and its SAM2 lookup answering "none
+  configured"); the resolver's
   ids over ``manifests/``; and one ``/engine/run`` of the tiny engine through
   each server, the JAX engine's weights carried into the port's and each
   engine in its server's warm pool under the runner's key: PNGs within one
@@ -428,17 +429,25 @@ def sample_video(tmp_path):
 
 class TestPreprocessorRoutes:
     def test_list_is_empty(self, port_server):
-        """No preprocessor is ported: every manifest is hidden, as the JAX route
-        hides manifests without an implementation."""
-        assert port_server.call("GET", "/preprocessor/list") == (200, [])
+        """The list holds the ported preprocessors (and manifest ids that
+        resolve to them) and nothing else (it was empty before any was
+        ported): manifests without an implementation stay hidden, as the JAX
+        route hides them."""
+        from apex_studio_tpu_torch.preprocess import preprocessor_registry
+
+        status, out = port_server.call("GET", "/preprocessor/list")
+        names = [e["name"] for e in out]
+        assert status == 200 and names[:len(preprocessor_registry.names())] == preprocessor_registry.names()
+        assert all(name in preprocessor_registry for name in names)
+        assert {"canny", "tile_simple", "depth_anything_v2", "openpose"} <= {e["name"] for e in out}
 
     def test_run_ends_with_the_registry_key_error(self, port_server, sample_image):
         status, out = port_server.call("POST", "/preprocessor/run", json={
-            "preprocessor_name": "canny", "input_path": str(sample_image)})
+            "preprocessor_name": "dwpose", "input_path": str(sample_image)})
         assert status == 200, out
         st = port_server.wait(out["job_id"])
         assert st["status"] == "error"
-        assert st["error"].startswith("KeyError: \"preprocessor: no entry named 'canny'")
+        assert st["error"].startswith("KeyError: \"preprocessor: no entry named 'dwpose'")
 
     def test_missing_params_rejected(self, port_server):
         assert port_server.call("POST", "/preprocessor/run", json={"input_path": "/x.png"})[0] == 400
@@ -656,7 +665,7 @@ def jax_app(resolver_paths):
 def jax_side(monkeypatch):
     """The JAX package's module state that the comparisons touch: its SAM2
     lookup answers "none configured" (nothing is fetched), its preprocessor
-    registry is empty (as the port's is), its WS cache, warm pool and
+    registry holds the names the port registers, its WS cache, warm pool and
     download-request map are reset."""
     from apex_studio_tpu.mask import predictor as jax_predictor
     from apex_studio_tpu.preprocess.base import preprocessor_registry as jax_preprocessors
@@ -665,7 +674,10 @@ def jax_side(monkeypatch):
     from apex_studio_tpu.server.ws import ws_manager as jax_ws
 
     monkeypatch.setattr(jax_predictor, "get_sam2_predictor", lambda: None)
-    monkeypatch.setattr(jax_preprocessors, "_entries", {})
+    from apex_studio_tpu_torch.preprocess import preprocessor_registry as port_preprocessors
+
+    monkeypatch.setattr(jax_preprocessors, "_entries",
+                        {k: v for k, v in jax_preprocessors._entries.items() if k in port_preprocessors})
 
     def reset():
         jax_ws._latest.clear()
@@ -820,7 +832,7 @@ def test_scripted_sequence_matches_the_jax_app(tmp_path, monkeypatch, port_home,
         assert port == ref
     statuses = {(m, p): s for m, p, s, _ in runs["port"]}
     assert statuses[("GET", "/preprocessor/list")] == 200 and statuses[("POST", "/mask/create")] == 400
-    assert runs["port"][-2][3]["error"].startswith("KeyError")
+    assert runs["port"][-2][3]["status"] == "complete"
     mask = next(body for _, path, _, body in runs["port"] if path == "/mask/create")
     assert mask["status"] == "success" and len(mask["contours"][0]) >= 6
 
