@@ -23,7 +23,17 @@ norm as ``weight_g`` / ``weight_v``), ``wan_s2v``, ``wan_multitalk`` and
 ``hunyuanvideo_avatar`` (the names their converters read: the reference's
 ``condition_embedder`` / ``audio_injector`` / ``audio_attn2`` levels, the
 patch, pose and FramePack embeddings as Conv3d weights, the causal audio
-convs as ``.conv.weight``).
+convs as ``.conv.weight``), and the preprocessors' published checkpoints:
+``depth_anything_v2``, ``openpose``, ``hed`` (``ControlNetHED.pth``, its
+``norm`` as ``[1, 3, 1, 1]``), ``teed`` (``7_model.pth``), ``lineart``
+(``sk_model.pth``, ``sk_model2.pth`` and the anime scribble generator),
+``lineart_anime`` (``netG.pth``'s nested U-Net blocks), ``manga_line``
+(``erika.pth``), ``mlsd`` (``mlsd_large_512_fp32.pth``), ``efficientnet``
+(timm's ``tf_efficientnet_b5``), ``normalbae`` (``scannet.pt``'s ``model``,
+its heads as Conv1d weights), ``dsine`` (``dsine.pt``'s ``model``) and
+``leres`` (``res101.pth``'s ``depth_model``, ``module.`` prefixed). PiDiNet
+has none: its converter folds the published pixel-difference weights into
+vanilla kernels, which is not invertible.
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
 through ``convert_keys`` and ``apply_state_dict``: how a model with merged
@@ -391,9 +401,129 @@ _OPENPOSE = [
 ]
 
 
+# The preprocessors' inference BatchNorms, kept as parameters: EfficientNet's
+# BNInf, and M-LSD's / Manga Line's ``bn_*`` leaves.
+_BN_STATS = (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"), ("var", "running_var"))
+
+_HED: Sequence[Tuple[str, str]] = ()
+
+_TEED = [
+    (r"^dblock_3\.", "dblock_3.denselayer1."),
+    (r"^(side_1|pre_dense_3)\.", r"\1.conv."),
+    (r"^up_block_(1|2)\.conv\.", r"up_block_\1.features.0."),
+    (r"^up_block_(1|2)\.deconv\.", r"up_block_\1.features.2."),
+    *[(rf"^up_block_3\.{ours}\.", f"up_block_3.features.{i}.")
+      for ours, i in (("conv_a", 0), ("deconv_a", 2), ("conv_b", 3), ("deconv_b", 5))],
+    (r"^block_cat\.dwconv(\d)\.", r"block_cat.DWconv\1."),
+]
+
+# the sk_model generator (model0..model4 Sequential indices)
+_LINEART = [
+    (r"^conv_in\.", "model0.1."), (r"^down1\.", "model1.0."), (r"^down2\.", "model1.3."),
+    (r"^res_blocks\.(\d+)\.conv1\.", r"model2.\1.conv_block.1."),
+    (r"^res_blocks\.(\d+)\.conv2\.", r"model2.\1.conv_block.5."),
+    (r"^up1\.", "model3.0."), (r"^up2\.", "model3.3."), (r"^conv_out\.", "model4.1."),
+]
+
+
+def _unet_prefix(depth: int) -> str:
+    """netG.pth's nested UnetSkipConnectionBlock prefix of a depth."""
+    return "model." + "".join("model.1." if d == 1 else "model.3." for d in range(1, depth + 1))
+
+
+_LINEART_ANIME = [
+    rule for depth in range(8) for rule in (
+        (rf"^downs\.{depth}\.", f"{_unet_prefix(depth)}model.{0 if depth == 0 else 1}."),
+        (rf"^ups\.{7 - depth}\.", f"{_unet_prefix(depth)}model.{5 if 0 < depth < 7 else 3}."))]
+
+_MANGA_LINE = [
+    *[(rf"^(block\d)\.(\d+)\.(conv1|residual)\.bn_{ours}$", rf"\1.model.\2.\3.model.0.{theirs}")
+      for ours, theirs in _BN_STATS],
+    (r"^(block\d)\.(\d+)\.(conv1|residual)\.(weight|bias)$", r"\1.model.\2.\3.model.2.\4"),
+    (r"^(block\d)\.(\d+)\.shortcut\.(weight|bias)$", r"\1.model.\2.shortcut.model.0.\3"),
+    *[(rf"^conv15\.bn_{ours}$", f"conv15.model.0.{theirs}") for ours, theirs in _BN_STATS],
+    (r"^conv15\.(weight|bias)$", r"conv15.model.2.\1"),
+]
+
+
+def _mlsd_rules():
+    """MobileV2_MLSD_Large's names: the trunk's ``backbone.features`` (the
+    first InvertedResidual has no expansion conv), the FPN blocks'
+    ``conv{c}.0`` / ``conv{c}.1`` Sequentials."""
+    def bn(src: str, dst: str):
+        return [(rf"^{src}\.bn_{ours}$", f"{dst}.{theirs}") for ours, theirs in _BN_STATS]
+
+    rules = [(r"^features\.0\.weight$", "backbone.features.0.0.weight"),
+             *bn(r"features\.0", "backbone.features.0.1")]
+    for idx in range(1, 14):
+        t, li = f"backbone.features.{idx}.conv", 0 if idx == 1 else 1
+        if idx > 1:
+            rules += [(rf"^features\.{idx}\.expand\.weight$", f"{t}.0.0.weight"),
+                      *bn(rf"features\.{idx}\.expand", f"{t}.0.1")]
+        rules += [(rf"^features\.{idx}\.dw\.weight$", f"{t}.{li}.0.weight"),
+                  *bn(rf"features\.{idx}\.dw", f"{t}.{li}.1"),
+                  (rf"^features\.{idx}\.pw\.weight$", f"{t}.{li + 1}.weight"),
+                  *bn(rf"features\.{idx}\.pw", f"{t}.{li + 2}")]
+    return rules + [(r"^(block\d+)\.(conv\d)\.(weight|bias)$", r"\1.\2.0.\3"),
+                    *[(rf"^(block\d+)\.(conv\d)\.bn_{ours}$", rf"\1.\2.1.{theirs}") for ours, theirs in _BN_STATS],
+                    (r"^block23\.conv3_(weight|bias)$", r"block23.conv3.\1")]
+
+
+_MLSD = _mlsd_rules()
+
+# timm's tf_efficientnet (the BNInf statistics under BatchNorm2d's names)
+_EFFICIENTNET = [(rf"(^|\.)(bn\d)\.{ours}$", rf"\1\2.{theirs}") for ours, theirs in _BN_STATS]
+
+_NORMALBAE = [
+    (r"^encoder\.", "encoder.original_model."), *_EFFICIENTNET,
+    (r"^conv2\.", "decoder.conv2."),
+    (r"^up(\d)\.conv_a\.", r"decoder.up\1._net.0."),
+    (r"^up(\d)\.conv_b\.", r"decoder.up\1._net.3."),
+    *[(rf"^up(\d)\.bn_{ab}\.{ours}$", rf"decoder.up\1._net.{i}.{theirs}")
+      for ab, i in (("a", 1), ("b", 4)) for ours, theirs in _BN_STATS],
+    (r"^out_conv_res8\.", "decoder.out_conv_res8."),
+    *[(rf"^out_conv_res(\d)\.c{c}\.", rf"decoder.out_conv_res\1.{2 * c}.") for c in range(4)],
+]
+
+_DSINE = [
+    (r"^encoder\.", "encoder.original_model."), *_EFFICIENTNET,
+    (r"^conv2\.", "decoder.conv2."),
+    *[(rf"^up(\d)\.conv_{ab}\.conv\.", rf"decoder.up\1._net.{i}.") for ab, i in (("a", 0), ("b", 3))],
+    *[(rf"^up(\d)\.gn_{ab}\.scale$", rf"decoder.up\1._net.{i}.weight") for ab, i in (("a", 1), ("b", 4))],
+    *[(rf"^up(\d)\.gn_{ab}\.bias$", rf"decoder.up\1._net.{i}.bias") for ab, i in (("a", 1), ("b", 4))],
+    *[(rf"^(normal_head|feature_head|hidden_head)\.c{c}\.", rf"decoder.\1.{2 * c}.") for c in range(3)],
+    *[(rf"^(prob_head|xy_head|angle_head|up_prob_head)\.c{c}\.", rf"\1.{2 * c}.") for c in range(3)],
+]
+
+# AdelaiDepth's DepthModel under DataParallel
+_LERES = [
+    (r"^decoder\.outconv\.conv1\.", "decoder.outconv.adapt_conv.0."),
+    (r"^decoder\.outconv\.bn\.", "decoder.outconv.adapt_conv.1."),
+    (r"^decoder\.outconv\.conv2\.", "decoder.outconv.adapt_conv.3."),
+    (r"\.down_conv\.", ".downsample.0."), (r"\.down_bn\.", ".downsample.1."),
+    (r"\.branch_conv1\.", ".conv_branch.1."), (r"\.branch_bn\.", ".conv_branch.2."),
+    (r"\.branch_conv2\.", ".conv_branch.4."),
+    (r"^(encoder|decoder)\.", r"module.\1_modules."),
+]
+
+
+def _hed_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """``norm`` as the published ``[1, 3, 1, 1]``."""
+    return value.reshape(1, 3, 1, 1) if key == "norm" else value
+
+
+def _normalbae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """The res4 / res2 / res1 heads' 1×1 convs as the published Conv1d
+    weights ``[out, in, 1]``."""
+    if re.match(r"^decoder\.out_conv_res[124]\.\d\.weight$", key):
+        return value.reshape(value.shape[0], value.shape[1], 1)
+    return value
+
+
 _LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
     "wan_vae": _wan_vae_layout, "wan": _wan_layout, "clip_vision": _clip_vision_layout,
-    "wan_humo": _wan_humo_layout, "wan_multitalk": _wan_humo_layout, "wan_s2v": _wan_s2v_layout}
+    "wan_humo": _wan_humo_layout, "wan_multitalk": _wan_humo_layout, "wan_s2v": _wan_s2v_layout,
+    "hed": _hed_layout, "normalbae": _normalbae_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
@@ -402,7 +532,9 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "hunyuanvideo": _HUNYUANVIDEO, "hunyuanvideo_vae": _HUNYUANVIDEO_VAE, "wan_humo": _WAN_HUMO,
     "wav2vec2": _WAV2VEC2, "wan_s2v": _WAN_S2V, "wan_multitalk": _WAN_MULTITALK,
     "hunyuanvideo_avatar": _HUNYUANVIDEO_AVATAR, "sam2": _SAM2, "sam2_video": _SAM2_VIDEO,
-    "depth_anything_v2": _DEPTH_ANYTHING_V2, "openpose": _OPENPOSE}
+    "depth_anything_v2": _DEPTH_ANYTHING_V2, "openpose": _OPENPOSE, "hed": _HED, "teed": _TEED,
+    "lineart": _LINEART, "lineart_anime": _LINEART_ANIME, "manga_line": _MANGA_LINE, "mlsd": _MLSD,
+    "efficientnet": _EFFICIENTNET, "normalbae": _NORMALBAE, "dsine": _DSINE, "leres": _LERES}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -14,7 +14,9 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
   not part of its state);
 - a 2-D ``..._kernel`` leaf is a raw ``[in, out]`` projection matrix kept
   outside a Linear (the Wan VAE attention's ``to_qkv_kernel`` and
-  ``proj_kernel``): it becomes ``..._weight`` ``[out, in]``;
+  ``proj_kernel``): it becomes ``..._weight`` ``[out, in]``; a 4-D one is a
+  conv kernel kept beside its module's others (M-LSD's ``conv3_kernel``):
+  HWIO becomes ``..._weight`` OIHW;
 - a 3-D ``...kernel_w`` is a causal 1-D conv kernel kept outside a Linear
   (Wan S2V's ``CausalConv1d``): [k, in, out] becomes ``Conv1d``'s
   [out, in, k] under the same name;
@@ -22,10 +24,19 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
   keeps spatially flipped in HWIO (RIFE's ``Deconv2x``): it becomes
   ``...weight`` in ``ConvTranspose2d``'s layout ``[in, out, kh, kw]``,
   unflipped; a port module whose class sets ``jax_w_flipped = False``
-  (Depth Anything's ``BlockUpsample``, whose JAX ``w`` is an unflipped HWIO
-  block kernel) gets the same layout without the flip;
+  (Depth Anything's ``BlockUpsample``, TEED's and the lineart generator's
+  ``_Deconv``, whose JAX ``w`` is an unflipped HWIO kernel that the JAX
+  module flips as it runs) gets the same layout without the flip, and one
+  that sets ``jax_w_torch_layout = True`` (the anime lineart U-Net's ``_Up``,
+  whose JAX ``w`` already is ``[in, out, kh, kw]`` for ``lax.conv_transpose``
+  with ``transpose_kernel``) takes it as it is;
+- grouped and depthwise conv kernels (HWIO with ``I = cin / groups``) become
+  torch's grouped OIHW by the same transpose;
 - every other parameter keeps its name and layout (learned tokens, PReLU
-  slopes, embedding tables, the FLUX.2 VAE's 1-D ``bn_mean`` / ``bn_var``).
+  slopes, embedding tables, the FLUX.2 VAE's 1-D ``bn_mean`` / ``bn_var``,
+  and the inference BatchNorms the preprocessors keep as parameters:
+  EfficientNet's ``BNInf`` ``scale`` / ``bias`` / ``mean`` / ``var``, LeReS'
+  ``running_mean`` / ``running_var``, M-LSD's and Manga Line's ``bn_*``).
 
 A fused projection (FLUX.2's ``to_qkv_mlp_proj``, its SwiGLU ``linear_in``)
 is one Linear on both sides and carries as any other.
@@ -70,6 +81,9 @@ def convert_jax_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         elif parts[-1].endswith("_kernel") and arr.ndim == 2:
             parts[-1] = parts[-1][: -len("kernel")] + "weight"
             arr = arr.T
+        elif parts[-1].endswith("_kernel") and arr.ndim == 4:
+            parts[-1] = parts[-1][: -len("kernel")] + "weight"
+            arr = arr.transpose(3, 2, 0, 1)
         elif parts[-1] == "kernel_w" and arr.ndim == 3:
             arr = arr.transpose(2, 1, 0)
         elif parts[-1] == "w" and arr.ndim == 4:
@@ -88,9 +102,13 @@ def load_from_jax(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Modul
     params = dict(module.named_parameters())
     converted = convert_jax_params(flat)
     for key in flat:
-        parent, _, leaf = key.rpartition(".")
-        if leaf == "w" and not getattr(_owner(module, f"{parent}.weight"), "jax_w_flipped", True):
-            converted[f"{parent}.weight"] = converted[f"{parent}.weight"][:, :, ::-1, ::-1]
+        parent, dot, leaf = key.rpartition(".")
+        weight = f"{parent}{dot}weight"
+        owner = _owner(module, weight) if leaf == "w" else None
+        if getattr(owner, "jax_w_torch_layout", False):
+            converted[weight] = np.asarray(flat[key])
+        elif not getattr(owner, "jax_w_flipped", True):
+            converted[weight] = converted[weight][:, :, ::-1, ::-1]
     scales = {name for name in converted if name.rpartition(".")[2] == "weight_scale"
               and isinstance(_owner(module, name), Linear)}
     unexpected = sorted(set(converted) - set(params) - scales)

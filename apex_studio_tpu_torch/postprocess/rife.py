@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_studio_tpu_torch.device import cudnn_deterministic
 from apex_studio_tpu_torch.postprocess.base import BasePostprocessor, postprocessor_registry
 from apex_studio_tpu_torch.utils import jax_resize
 from apex_studio_tpu_torch.utils.progress import safe_emit_progress
@@ -101,14 +102,8 @@ class Deconv2x(nn.Module):
         nn.init.normal_(self.weight, std=(1.0 / (cin * 16)) ** 0.5)
 
     def forward(self, x):
-        if not x.is_cuda:
+        with cudnn_deterministic():
             return F.conv_transpose2d(x, self.weight, self.bias, stride=2, padding=1)
-        saved = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            return F.conv_transpose2d(x, self.weight, self.bias, stride=2, padding=1)
-        finally:
-            torch.backends.cudnn.deterministic = saved
 
 
 def pixel_shuffle2(x: torch.Tensor) -> torch.Tensor:

@@ -83,6 +83,21 @@ def _lecun(*shape, fan_in: int) -> nn.Parameter:
     return nn.Parameter(t)
 
 
+def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                stride: int = 1, padding=0, dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """``lax.conv_general_dilated`` on NHWC with an OIHW ``weight`` (grouped:
+    ``[O, I / groups, kh, kw]``): ``padding`` is an int (the same on every
+    side) or ``((top, bottom), (left, right))`` of zeros, as JAX takes it."""
+    xc = x.permute(0, 3, 1, 2)
+    if not isinstance(padding, int):
+        (top, bottom), (left, right) = padding
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:
+            xc, padding = F.pad(xc, (left, right, top, bottom)), 0
+    return F.conv2d(xc, weight, bias, stride, padding, dilation, groups).permute(0, 2, 3, 1)
+
+
 class Conv(nn.Module):
     """NHWC conv; ``weight`` OIHW, optional bias."""
 
@@ -95,8 +110,7 @@ class Conv(nn.Module):
         self.padding = padding
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride, self.padding)
-        return y.permute(0, 2, 3, 1)
+        return conv2d_nhwc(x, self.weight, self.bias, self.stride, self.padding)
 
 
 class BlockUpsample(nn.Module):
@@ -376,22 +390,13 @@ class DepthAnythingV2Preprocessor(BasePreprocessor):
     _pending_encoder = "vits"
 
     def setup(self) -> None:
-        if self._model is not None:
-            return
-        from apex_studio_tpu_torch.device import resolve_device
-        from apex_studio_tpu_torch.engine.base import configure_float32_matmul
-        from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
-        from apex_studio_tpu_torch.preprocess.weights import load_preprocessor_weights
+        if self._model is None:
+            from apex_studio_tpu_torch.preprocess.weights import load_detector
 
-        configure_float32_matmul()
-        cfg = DAv2Config.from_name(self._pending_encoder)
-        sd = load_preprocessor_weights(f"depth_anything_v2_{cfg.encoder}",
-                                       filename=f"depth_anything_v2_{cfg.encoder}.pth")
-        dev = resolve_device(self.device)
-        with torch.device("meta"):
-            model = DepthAnythingV2(cfg)
-        apply_state_dict(model, convert_dav2_keys(sd), device=dev, strict=True)
-        self._model = model.eval().requires_grad_(False)
+            cfg = DAv2Config.from_name(self._pending_encoder)
+            stem = f"depth_anything_v2_{cfg.encoder}"
+            self._model = load_detector(lambda: DepthAnythingV2(cfg), stem, f"{stem}.pth", convert_dav2_keys,
+                                        self.device)
 
     def __call__(self, frames, progress_callback=None, device=None, **params):
         self._pending_encoder = params.pop("encoder", "vits")

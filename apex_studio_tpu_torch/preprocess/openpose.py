@@ -283,20 +283,11 @@ class OpenPosePreprocessor(BasePreprocessor):
         self._model = model
 
     def setup(self) -> None:
-        if self._model is not None:
-            return
-        from apex_studio_tpu_torch.device import resolve_device
-        from apex_studio_tpu_torch.engine.base import configure_float32_matmul
-        from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
-        from apex_studio_tpu_torch.preprocess.weights import load_preprocessor_weights
+        if self._model is None:
+            from apex_studio_tpu_torch.preprocess.weights import load_detector
 
-        configure_float32_matmul()
-        sd = load_preprocessor_weights("body_pose_model", filename="body_pose_model.pth")
-        dev = resolve_device(self.device)
-        with torch.device("meta"):
-            model = OpenPoseBody(OpenPoseConfig())
-        apply_state_dict(model, convert_openpose_keys(sd), device=dev, strict=True)
-        self._model = model.eval().requires_grad_(False)
+            self._model = load_detector(lambda: OpenPoseBody(OpenPoseConfig()), "body_pose_model",
+                                        "body_pose_model.pth", convert_openpose_keys, self.device)
 
     def maps(self, frame: np.ndarray, resolution: int = 368):
         """(paf, heat) at the frame's size, HWC f32 numpy."""

@@ -2,10 +2,13 @@
 ``apex_studio_tpu/preprocess/weights.py``).
 
 A detector's checkpoint is looked up in the preprocessor models dir by stem
-(``.safetensors``, ``.pth``, ``.pt``, ``.bin``) and loaded as a flat state
-dict of CPU tensors: safetensors natively, torch pickles through
-``torch.load(weights_only=True)``, trainer containers unwrapped as the JAX
-module unwraps them.
+(``.safetensors``, ``.pth``, ``.pt``, ``.bin``), then under its published
+file name (where the JAX module's download puts it, ``Annotators/7_model.pth``
+or ``scribble/anime_style/netG_A_latest.pth`` with their folders, or with
+the folders left out), and loaded as a flat state dict of CPU tensors:
+safetensors natively, torch pickles through ``torch.load(weights_only=True)``,
+trainer containers unwrapped as the JAX modules unwrap them (``model``:
+NormalBAE's ``scannet.pt`` and DSINE's ``dsine.pt``).
 
 Departure: nothing is fetched. The JAX module downloads a missing checkpoint
 from its published Hugging Face repository; here a missing checkpoint raises
@@ -30,21 +33,22 @@ def _load_any(path: Path) -> Dict[str, torch.Tensor]:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     # unwrap trainer containers: metric3d uses model_state_dict, leres'
     # res101.pth nests under depth_model, generic trainers use state_dict
-    for container in ("state_dict", "model_state_dict", "depth_model"):
+    for container in ("state_dict", "model_state_dict", "depth_model", "model"):
         if isinstance(sd, dict) and container in sd and isinstance(sd[container], dict):
             sd = sd[container]
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
 
 
-def find_local(stem: str, root: Optional[Path] = None) -> Optional[Path]:
+def find_local(stem: str, root: Optional[Path] = None, filename: Optional[str] = None) -> Optional[Path]:
+    """``<stem>.<ext>`` under ``root``, else the published ``filename`` there,
+    as published (folders included) or by its base name."""
     from apex_studio_tpu_torch.utils.defaults import get_preprocessor_models_path
 
     root = root or get_preprocessor_models_path()
-    for ext in _EXTS:
-        p = root / f"{stem}{ext}"
-        if p.exists():
-            return p
-    return None
+    candidates = [root / f"{stem}{ext}" for ext in _EXTS]
+    if filename:
+        candidates += [root / filename, root / Path(filename).name]
+    return next((p for p in candidates if p.is_file()), None)
 
 
 def load_preprocessor_weights(stem: str, filename: Optional[str] = None,
@@ -56,9 +60,27 @@ def load_preprocessor_weights(stem: str, filename: Optional[str] = None,
     from apex_studio_tpu_torch.utils.defaults import get_preprocessor_models_path
 
     root = root or get_preprocessor_models_path()
-    local = find_local(stem, root)
+    local = find_local(stem, root, filename)
     if local is None:
         raise FileNotFoundError(
             f"no checkpoint '{stem}.*' under {root}: place the published "
             f"{filename or stem + '.safetensors'} there (nothing is fetched)")
     return _load_any(local)
+
+
+def load_detector(build, stem: str, filename: str, convert, device=None):
+    """A detector's network on ``device`` (``None`` is the card), f32 with
+    products in full f32: ``build()`` on the ``meta`` device, then filled
+    strictly from ``convert`` of its checkpoint (``load_preprocessor_weights``:
+    a missing file raises, nothing is fetched)."""
+    from apex_studio_tpu_torch.device import resolve_device
+    from apex_studio_tpu_torch.engine.base import configure_float32_matmul
+    from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
+
+    configure_float32_matmul()
+    sd = load_preprocessor_weights(stem, filename=filename)
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = build()
+    apply_state_dict(model, convert(sd), device=dev, strict=True)
+    return model.eval().requires_grad_(False)

@@ -195,6 +195,16 @@ Phases, each printed as one JSON line:
              depth_anything_v2 (vitl, 518) and openpose (368) twice each on
              seeded checkpoints at the published names; Depth Anything vits
              and OpenPose f32 on the card against the CPU
+  preprocess_nets
+             the line, edge, normal and LeReS depth preprocessors (HED,
+             PiDiNet, TEED, Lineart, Lineart Anime, the anime scribble,
+             Manga Line, M-LSD, NormalBAE, DSINE, LeReS) on seeded
+             checkpoints at their published widths and file names: each of
+             the 13 manifest names twice on a 720x1280 image through
+             run_preprocessor (bit-identical, the JAX output's shape and
+             dtype, seconds and peak memory); hed on an 8-frame 480x832 clip
+             and dsine on the image through /preprocessor/run; the 11 nets'
+             f32 forwards on the card against the CPU; no flash launch
 The kernels phase holds the kernel at every shape of the table in PERF.md:
 Flux's, the tile edges, biases and causal cases, ZImage's S = 4224 and 4096
 at 30 heads and its 128-token caption block, and Qwen3's one-row decode
@@ -253,7 +263,7 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "rife,sam2,preprocess")
+                  "rife,sam2,preprocess,preprocess_nets")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -4673,6 +4683,215 @@ def phase_preprocess(home: Path):
     return rows
 
 
+# The line, edge, normal and LeReS depth preprocessors: (manifest name, the
+# net it runs, its params on the 720x1280 image; the manifests' defaults)
+PREPROCESS_NETS = (
+    ("hed", "hed", {}), ("scribble_hed", "hed", {}), ("pidi", "pidinet", {}), ("pidinet", "pidinet", {}),
+    ("teed", "teed", {}), ("lineart_realistic", "lineart", {}), ("lineart_anime", "lineart_anime", {}),
+    ("scribble_anime", "scribble_anime", {}), ("manga_line", "manga_line", {}), ("mlsd", "mlsd", {}),
+    ("normalbae", "normalbae", {}), ("dsine", "dsine", {}), ("leres", "leres", {}),
+)
+
+
+def preprocess_net_builds() -> dict:
+    """net → (the port module's constructor, the published family, the file(s) it is
+    written to, the container it is kept under, the card-vs-CPU input's shape
+    and range)."""
+    from apex_studio_tpu_torch.preprocess import (dsine, efficientnet, hed, leres, lineart_anime, lineart_model,
+                                                  manga_line, mlsd, normalbae, pidinet, teed)
+
+    return {
+        "hed": (hed.ControlNetHED, "hed", ("ControlNetHED.pth",), None, (1, 128, 192, 3), 255.0),
+        "pidinet": (pidinet.PiDiNet, None, ("table5_pidinet.pth",), None, (1, 128, 192, 3), 1.0),
+        "teed": (teed.TED, "teed", ("7_model.pth",), None, (1, 128, 192, 3), 255.0),
+        "lineart": (lineart_model.LineartGenerator, "lineart", ("sk_model.pth", "sk_model2.pth"), None,
+                    (1, 128, 192, 3), 1.0),
+        "scribble_anime": (lineart_model.LineartGenerator, "lineart",
+                           ("scribble/anime_style/netG_A_latest.pth",), None, None, None),
+        "lineart_anime": (lineart_anime.LineartAnimeGenerator, "lineart_anime", ("netG.pth",), None,
+                          (1, 256, 256, 3), 1.0),
+        "manga_line": (manga_line.MangaLineModel, "manga_line", ("erika.pth",), None, (1, 128, 128, 1), 255.0),
+        "mlsd": (mlsd.MLSDModel, "mlsd", ("mlsd_large_512_fp32.pth",), None, (1, 128, 128, 4), 1.0),
+        "efficientnet": (efficientnet.EfficientNetFeatures, "efficientnet", (), None, (1, 128, 192, 3), 1.0),
+        "normalbae": (normalbae.NNET, "normalbae", ("scannet.pt",), "model", (1, 128, 192, 3), 1.0),
+        "dsine": (dsine.DSINE, "dsine", ("dsine.pt",), "model", (1, 128, 192, 3), 1.0),
+        "leres": (leres.LeReSModel, "leres", ("res101.pth",), "depth_model", (1, 128, 192, 3), 1.0),
+    }
+
+
+def seeded_detector(build, seed: int):
+    """``build()`` on the CPU filled by ``seeded_like_tests`` (built on
+    ``meta`` first: its own initialisers would draw every weight twice), then
+    each inference BatchNorm's running mean redrawn as normal(0, 0.05), as the
+    CPU tests draw them (``tests/torch_port_helpers.py jax_build_bn``): a mean
+    near 1 shifts each BN's input down by one and M-LSD's stack of BN → ReLU6
+    collapses to a constant map."""
+    import torch
+
+    with torch.device("meta"):
+        module = build()
+    module = seeded_like_tests(module.to_empty(device="cpu"), seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.rpartition(".")[2] in ("mean", "bn_mean", "running_mean"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    return module
+
+
+def write_preprocess_net_checkpoints(models: Path) -> dict:
+    """Seeded checkpoints of the 11 nets at their published widths, key
+    names and file names under ``models``: ``loaders/export.py``'s names in
+    the published containers (``scannet.pt`` and ``dsine.pt`` under
+    ``model``, ``res101.pth`` under ``depth_model``); PiDiNet's raw
+    pixel-difference weights under ``table5_pidinet.pth``'s names
+    (``module.`` prefixed), which its converter folds. Returns the sizes in
+    MiB."""
+    import torch
+
+    from apex_studio_tpu_torch.loaders.export import published_state_dict
+    from apex_studio_tpu_torch.preprocess.pidinet import published_shapes
+
+    sizes = {}
+    for seed, (net, (build, family, files, container, _, _)) in enumerate(preprocess_net_builds().items(), 70):
+        if not files:
+            continue
+        if family is None:  # PiDiNet: raw weights, normal(0, 1/√fan_in)
+            g = torch.Generator().manual_seed(seed)
+            sd = {f"module.{k}": torch.randn(shape, generator=g) / math.sqrt(max(1, math.prod(shape[1:])))
+                  for k, shape in published_shapes().items()}
+        else:
+            sd = published_state_dict(family, seeded_detector(build, seed).state_dict())
+        for name in files:
+            path = models / name
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save({container: sd} if container else sd, path)
+            sizes[name] = path.stat().st_size / 2 ** 20
+        del sd
+    return sizes
+
+
+def preprocess_nets_card_vs_cpu() -> dict:
+    """The 11 nets (the EfficientNet-B5 trunk on its own, DSINE with its 5
+    refinements) at their published widths, seeded (``seeded_detector``),
+    f32 on the card (products in full f32, as the preprocessors set them)
+    against the same module on the CPU at a small input, within
+    ``F32_REL_L2`` on every output."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import configure_float32_matmul
+    from apex_studio_tpu_torch.preprocess.dsine import get_intrins_from_fov
+
+    configure_float32_matmul()
+    rng = np.random.default_rng(80)
+    out = {}
+    for seed, (net, (build, _, _, _, shape, scale)) in enumerate(preprocess_net_builds().items(), 81):
+        if shape is None:  # the anime scribble is the lineart generator with other weights
+            continue
+        cpu = seeded_detector(build, seed)
+        x = torch.from_numpy((rng.random(shape) * scale).astype(np.float32))
+        args = (x,)
+        if net == "dsine":
+            k = get_intrins_from_fov(60.0, shape[1], shape[2])
+            k[:2, 2] += 0.5
+            args = (x, torch.from_numpy(k)[None])
+        with torch.no_grad():
+            ref = cpu(*args)
+            card = cpu.cuda()(*(a.cuda() for a in args))
+        ref, card = ((t,) if isinstance(t, torch.Tensor) else tuple(t) for t in (ref, card))
+        out[net] = max(rel_l2(c.cpu(), r) for c, r in zip(card, ref))
+        del cpu, card
+    release()
+    emit({"phase": "preprocess_nets", "check": "f32_card_vs_cpu", "max_rel_l2": out, "tol": F32_REL_L2})
+    check(len(out) == 11 and all(e <= F32_REL_L2 for e in out.values()),
+          f"the preprocessors' f32 forwards on the card are too far from the CPU's: {out}")
+    return out
+
+
+def phase_preprocess_nets(home: Path):
+    """The line, edge, normal and LeReS depth preprocessors on the card, on
+    seeded checkpoints at their published widths and file names under the
+    preprocessor models dir: each of the 13 manifest names twice through
+    ``run_preprocessor`` on a 720x1280 image (bit-identical, the JAX
+    preprocessor's output shape and dtype: the frame's, uint8), with its
+    seconds and peak memory; ``hed`` on an 8-frame 480x832 clip and ``dsine``
+    on the image through ``/preprocessor/run``; the 11 nets' f32 forwards on
+    the card against the CPU. None of them attends: no flash launch."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+    from apex_studio_tpu_torch.preprocess import preprocessor_registry, run_preprocessor
+    from apex_studio_tpu_torch.server.app import create_app
+    from apex_studio_tpu_torch.utils.media import save_video
+
+    ph = home / "preprocess_nets"
+    saved = {k: os.environ.get(k) for k in ("APEX_HOME_DIR", "APEX_PREPROCESSOR_MODELS_PATH")}
+    os.environ.update({"APEX_HOME_DIR": str(ph), "APEX_PREPROCESSOR_MODELS_PATH": str(ph / "models")})
+    rows = []
+    try:
+        t0 = time.perf_counter()
+        sizes = write_preprocess_net_checkpoints(ph / "models")
+        write_s = time.perf_counter() - t0
+        image = cv2_smooth(np.random.default_rng(66), (720, 1280))
+        flash_attention.launches = 0
+        for name, net, params in PREPROCESS_NETS:
+            outs, secs = [], []
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                t0 = time.perf_counter()
+                outs.append(run_preprocessor(name, image, dict(params))[0])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            row = {"phase": "preprocess_nets", "preprocessor": name, "net": net, "params": params,
+                   "seconds": secs, "shape": list(outs[0].shape), "dtype": str(outs[0].dtype),
+                   "identical": bool(np.array_equal(*outs)), "distinct_values": int(len(np.unique(outs[0]))),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            emit(row)
+            check(row["shape"] == [720, 1280, 3] and outs[0].dtype == np.uint8, f"{name} output {row['shape']}")
+            check(row["identical"], f"two identical {name} runs differ")
+            rows.append(row)
+        release()
+
+        clip, _ = disk_clip(8, seed=67)
+        clip_path = save_video(clip, ph / "clip.mp4", fps=16)
+        image_path = ph / "image.png"
+        Image.fromarray(image).save(image_path)
+        base, stop = start_server(create_app())
+        try:
+            listed = [e["name"] for e in http(base, "GET", "/preprocessor/list")[1]]
+            served = {}
+            for name, path in (("hed", clip_path), ("dsine", image_path)):
+                t0 = time.perf_counter()
+                code, out = http(base, "POST", "/preprocessor/run", {"preprocessor_name": name,
+                                                                     "input_path": str(path), "params": {}})
+                check(code == 200, f"/preprocessor/run {name} answered {code}: {out}")
+                st = wait_job(base, out["job_id"])
+                served[name] = {"status": st["status"], "seconds_post_to_complete": time.perf_counter() - t0,
+                                "result": Path(st.get("result_path") or "").name, "error": st.get("error")}
+        finally:
+            stop()
+        emit({"phase": "preprocess_nets", "listed": listed, "served": served, "checkpoints_mib": sizes,
+              "checkpoint_write_seconds": write_s})
+        check({name for name, _, _ in PREPROCESS_NETS} <= set(listed)
+              and set(preprocessor_registry.names()) <= set(listed), f"/preprocessor/list lists {listed}")
+        check(all(v["status"] == "complete" for v in served.values()), f"/preprocessor/run jobs: {served}")
+        rows.append({"card_vs_cpu": preprocess_nets_card_vs_cpu()})
+        check(flash_attention.launches == 0,
+              f"the preprocess_nets path launched flash {flash_attention.launches} times")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        release()
+    return rows
+
+
 def torch_randn_like(z, seed: int):
     """Seeded normal values of ``z``'s shape on the card."""
     import torch
@@ -5376,6 +5595,8 @@ def main() -> int:
             paths.update(new_paths)
         if "preprocess" in phases:
             timed("preprocess", phase_preprocess, home)
+        if "preprocess_nets" in phases:
+            timed("preprocess_nets", phase_preprocess_nets, home)
         if len(paths) > 1:
             # a one-step request gives its one step
             emit({"phase": "steps", "median_seconds_per_step_after_the_first": {

@@ -47,11 +47,36 @@ def frame(h=96, w=128, seed=0):
     return f
 
 
+# the line, edge, normal and LeReS depth preprocessors' manifest names
+NETS = ["hed", "scribble_hed", "pidi", "pidinet", "teed", "lineart_realistic", "lineart_anime", "scribble_anime",
+        "manga_line", "mlsd", "normalbae", "dsine", "leres"]
+
+
 def test_registry_holds_the_ported_names():
     names = set(preprocessor_registry.names())
-    assert set(BASIC) | {"depth_anything_v2", "depth", "openpose", "pose"} == names
-    for alias in ("content_shuffle", "open_pose", "OpenposeDetector"):
+    assert set(BASIC) | {"depth_anything_v2", "depth", "openpose", "pose"} | (set(NETS) - {"pidi"}) == names
+    for alias in ("content_shuffle", "open_pose", "OpenposeDetector", "pidi", "softedge", "softedge_hed",
+                  "softedge_pidinet", "scribble_pidinet", "softedge_teed", "ted", "lineart_model", "lineart_coarse",
+                  "ScribbleAnimeDetector", "LineartAnimeDetector", "LineartMangaDetector", "lineart_manga",
+                  "MLSDdetector", "NormalBaeDetector", "DsineDetector", "LeresDetector"):
         assert alias in preprocessor_registry
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_registry_names_and_aliases_are_the_jax_ones(name):
+    """Each manifest name reaches one preprocessor under the same set of
+    registry keys as in the JAX package, and the registry lists its names in
+    the JAX registry's order."""
+    from apex_studio_tpu.preprocess.base import preprocessor_registry as jax_registry
+
+    def keys(registry):
+        cls = registry.get(name)
+        return {k for k, v in registry._entries.items() if getattr(v, "obj", v) is cls}
+
+    assert keys(preprocessor_registry) == keys(jax_registry)
+    assert preprocessor_registry.get(name).name == jax_registry.get(name).name
+    assert preprocessor_registry.get(name).params_schema == jax_registry.get(name).params_schema
+    assert [k for k in jax_registry.names() if k in preprocessor_registry] == preprocessor_registry.names()
 
 
 @pytest.mark.parametrize("name", BASIC)

@@ -440,6 +440,10 @@ class TestPreprocessorRoutes:
         assert status == 200 and names[:len(preprocessor_registry.names())] == preprocessor_registry.names()
         assert all(name in preprocessor_registry for name in names)
         assert {"canny", "tile_simple", "depth_anything_v2", "openpose"} <= {e["name"] for e in out}
+        # the line, edge, normal and LeReS depth preprocessors, ``pidi`` by
+        # its manifest (an alias of pidinet)
+        assert {"hed", "scribble_hed", "pidi", "pidinet", "teed", "lineart_realistic", "lineart_anime",
+                "scribble_anime", "manga_line", "mlsd", "normalbae", "dsine", "leres"} <= {e["name"] for e in out}
 
     def test_run_ends_with_the_registry_key_error(self, port_server, sample_image):
         status, out = port_server.call("POST", "/preprocessor/run", json={

@@ -130,3 +130,55 @@ def assert_published_round_trip(family, build, jax_model):
     for name, value in src.state_dict().items():
         assert torch.equal(dst.state_dict()[name], value), name
     assert set(jax_convert_keys(family, {k: v.numpy() for k, v in published.items()})) == set(jax_params(jax_model))
+
+
+def jax_build_bn(build, seed: int = 0):
+    """``jax_build``, then every inference BatchNorm's running mean (a 1-D
+    parameter named ``mean``, ``bn_mean`` or ``running_mean``) redrawn as
+    normal(0, 0.05): at ``jax_build``'s 1 + normal(0, 0.05) each BN shifts
+    its input down by about one, and a deep stack of BN → ReLU collapses to
+    a map that is constant over the image (M-LSD's does)."""
+    model = jax_build(build, seed)
+    rng = np.random.default_rng(seed + 1)
+    state = nnx.state(model, nnx.Param)
+    for path, var in nnx.to_flat_state(state):
+        if str(path[-1]) in ("mean", "bn_mean", "running_mean"):
+            shape = tuple(var.get_value().shape)
+            var.set_value(jax.numpy.asarray((0.05 * rng.normal(size=shape)).astype(np.float32)))
+    nnx.update(model, state)
+    return model
+
+
+def jax_assign(model, tree) -> None:
+    """Set a JAX module's parameters from a converted flat ``{path: array}``
+    tree, as the JAX preprocessors assign theirs, but strictly: every key
+    names a parameter of the same shape and every parameter is set."""
+    state = nnx.state(model, nnx.Param)
+    flat = {".".join(map(str, path)): var for path, var in nnx.to_flat_state(state)}
+    assert set(flat) == set(tree), (sorted(set(flat) ^ set(tree))[:8])
+    for name, var in flat.items():
+        value = np.asarray(tree[name], np.float32)
+        assert value.shape == tuple(var.get_value().shape), (name, value.shape, var.get_value().shape)
+        var.set_value(jax.numpy.asarray(value))
+    nnx.update(model, state)
+
+
+def assert_loads_as_jax(build, tree, jax_model, atol: float = 0.0) -> None:
+    """A port module built on ``meta`` and filled strictly from ``tree`` (the
+    port converter's output) holds exactly the parameters that ``jax_model``
+    (filled by the JAX converter from the same file) carries into it; within
+    ``atol`` where a converter computes (PiDiNet's fold sums each kernel, in
+    numpy's order on one side and torch's on the other)."""
+    from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
+
+    with torch.device("meta"):
+        port = build()
+    apply_state_dict(port, tree, device="cpu", strict=True)
+    ref = port_from_jax(build, jax_model)
+    got, want = port.state_dict(), ref.state_dict()
+    assert set(got) == set(want)
+    for name, value in want.items():
+        if atol:
+            assert float((got[name] - value).abs().max()) <= atol, name
+        else:
+            assert torch.equal(got[name], value), name
