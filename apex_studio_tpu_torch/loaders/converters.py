@@ -2,7 +2,8 @@
 (port of ``apex_studio_tpu/loaders/converters.py``, the families the ported
 paths load: Flux text-to-image's ``flux``, ``t5``, ``clip``,
 ``autoencoder_kl``; HunyuanVideo 1.5's ``hunyuanvideo15``,
-``hunyuanvideo15_vae``, ``qwen2``, ``siglip``, ``tae_vae``, and byT5 through
+``hunyuanvideo15_vae``, ``qwen2``, ``siglip`` (and ``siglip_pooled``, with
+the MAP head, for the Cosmos guardrail), ``tae_vae``, and byT5 through
 ``t5``; ZImage's ``zimage`` (base and control, the Comfy single-file names
 too) and ``qwen3``; QwenImage's ``qwenimage`` (DiT and ControlNet) and
 ``wan_vae``; Wan's ``wan`` DiT (its VACE keys too), UMT5 through ``t5``, and
@@ -429,6 +430,34 @@ converter_registry.add(
         ],
         strip_prefixes=(),
         drop=(r"^vision_model\.head", r"^text_model", r"^logit_"),
+    ),
+)
+
+converter_registry.add(
+    # The same vision tower with the MAP attention-pooling head kept
+    # (get_image_features): the Cosmos guardrail's frame embedding
+    # (reference postprocess/cosmos/guardrail.py:505).
+    "siglip_pooled",
+    KeyConverter(
+        renames=[
+            (r"^vision_model\.embeddings\.patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"^vision_model\.embeddings\.patch_embedding\.bias$", "patch_embedding.bias"),
+            (r"^vision_model\.embeddings\.position_embedding\.weight$", "position_embedding"),
+            (r"^vision_model\.post_layernorm\.", "post_layernorm."),
+            (r"^vision_model\.encoder\.layers\.", "layers."),
+            (r"^vision_model\.head\.attention\.in_proj_weight$", "head.in_proj_weight"),
+            (r"^vision_model\.head\.attention\.in_proj_bias$", "head.in_proj_bias"),
+            (r"^vision_model\.head\.attention\.out_proj\.", "head.out_proj."),
+            (r"^vision_model\.head\.mlp\.fc1\.", "head.fc1."),
+            (r"^vision_model\.head\.mlp\.fc2\.", "head.fc2."),
+            (r"^vision_model\.head\.layernorm\.", "head.layernorm."),
+            (r"^vision_model\.head\.probe$", "head.probe"),
+            (r"\.mlp\.fc1\.", ".fc1."),
+            (r"\.mlp\.fc2\.", ".fc2."),
+            (r"(q_proj|k_proj|v_proj|out_proj|fc1|fc2)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"^text_model", r"^logit_"),
     ),
 )
 

@@ -31,8 +31,13 @@ convs as ``.conv.weight``), and the preprocessors' published checkpoints:
 (``erika.pth``), ``mlsd`` (``mlsd_large_512_fp32.pth``), ``efficientnet``
 (timm's ``tf_efficientnet_b5``), ``normalbae`` (``scannet.pt``'s ``model``,
 its heads as Conv1d weights), ``dsine`` (``dsine.pt``'s ``model``) and
-``leres`` (``res101.pth``'s ``depth_model``, ``module.`` prefixed). PiDiNet
-has none: its converter folds the published pixel-difference weights into
+``leres`` (``res101.pth``'s ``depth_model``, ``module.`` prefixed), ``u2net``
+(``u2net.pth`` / ``u2netp.pth``'s rebnconv layers), ``isnet``
+(``isnetis.ckpt``'s ``state_dict``, ``net.`` prefixed), ``anime_face``
+(``Annotators/UNet.pth``'s ``en_block`` slices), ``gmflow``
+(``gmflow-*-mixdata.pth``'s ``model``) and ``metric3d``
+(``metric_depth_vit_*_800k.pth``'s ``model_state_dict``, ``depth_model.``
+prefixed, the blocks unchunked). PiDiNet has none: its converter folds the published pixel-difference weights into
 vanilla kernels, which is not invertible.
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
@@ -507,6 +512,77 @@ _LERES = [
 ]
 
 
+# U²-Net (u2net.pth, u2netp.pth): each RSU stage's rebnconv layers by depth
+_U2NET_DEPTHS = {"stage1": 7, "stage2": 6, "stage3": 5, "stage4": 4, "stage5": 4, "stage6": 4, "stage5d": 4,
+                 "stage4d": 4, "stage3d": 5, "stage2d": 6, "stage1d": 7}
+
+
+def _u2net_rules():
+    rules = []
+    for stage, depth in _U2NET_DEPTHS.items():
+        rules += [(rf"^{stage}\.bottom\.", f"{stage}.rebnconv{depth}."),
+                  *[(rf"^{stage}\.dec\.{j}\.", f"{stage}.rebnconv{depth - 1 - j}d.") for j in range(depth - 1)],
+                  *[(rf"^{stage}\.enc\.{i}\.", f"{stage}.rebnconv{i + 1}.") for i in range(depth - 1)]]
+    return rules + [(r"^(stage\w+)\.convin\.", r"\1.rebnconvin."),
+                    (r"^(stage\w+\.rebnconv\w+)\.(weight|bias)$", r"\1.conv_s1.\2"),
+                    *[(rf"^(stage\w+\.rebnconv\w+)\.bn_{ours}$", rf"\1.bn_s1.{theirs}") for ours, theirs in _BN_STATS],
+                    (r"^outconv_(weight|bias)$", r"outconv.\1")]
+
+
+_U2NET = _u2net_rules()
+# isnetis.ckpt's state_dict: ISNetDIS under the Lightning module's ``net.``
+_ISNET = _U2NET + [(r"^(conv_in|side1)_(weight|bias)$", r"\1.\2"), (r"^", "net.")]
+
+
+def _anime_face_rules():
+    """Annotators/UNet.pth: the MobileNetV2 trunk in ``en_block`` slices."""
+    def conv_bn(ours: str, conv: str, bn: str):
+        return [(rf"^{ours}\.weight$", f"{conv}.weight"),
+                *[(rf"^{ours}\.bn_{o}$", f"{bn}.{t}") for o, t in _BN_STATS]]
+
+    spans = {0: (0, 2), 1: (2, 4), 2: (4, 7), 3: (7, 14), 4: (14, 17)}
+    rules = []
+    for blk, (start, end) in spans.items():
+        for gi in range(start, end):
+            t, j = f"en_block{blk}.{gi - start}", rf"features\.{gi}"
+            if gi == 0:
+                rules += conv_bn(j, f"{t}.0", f"{t}.1")
+            elif gi == 1:
+                rules += conv_bn(rf"{j}\.dw", f"{t}.conv.0.0", f"{t}.conv.0.1")
+                rules += conv_bn(rf"{j}\.pw", f"{t}.conv.1", f"{t}.conv.2")
+            else:
+                rules += conv_bn(rf"{j}\.expand", f"{t}.conv.0.0", f"{t}.conv.0.1")
+                rules += conv_bn(rf"{j}\.dw", f"{t}.conv.1.0", f"{t}.conv.1.1")
+                rules += conv_bn(rf"{j}\.pw", f"{t}.conv.2", f"{t}.conv.3")
+    return rules + [(r"^de_block(\d)\.(weight|bias)$", r"de_block\1.1.\2")]
+
+
+_ANIME_FACE = _anime_face_rules()
+
+# UniMatch's flow model (gmflow-*-mixdata.pth's ``model``)
+_GMFLOW = [
+    (r"\.downsample\.(weight|bias)$", r".downsample.0.\1"),
+    (r"^backbone\.trident_weight$", "backbone.trident_conv.weight"),
+    (r"^layers\.", "transformer.layers."), (r"\.mlp([02])\.", r".mlp.\1."),
+    (r"^upsampler_conv1\.", "upsampler.0."), (r"^upsampler_conv2\.", "upsampler.2."),
+    (r"^refine\.mask_conv1\.", "refine.mask.0."), (r"^refine\.mask_conv2\.", "refine.mask.2."),
+]
+
+# Metric3D v2 (metric_depth_vit_*_800k.pth's ``model_state_dict``)
+_METRIC3D = [
+    (r"^encoder\.patch_embed\.", "encoder.patch_embed.proj."),
+    (r"^decoder\.depth_reg_conv1\.", "decoder.depth_regressor.0."),
+    (r"^decoder\.depth_reg_conv2\.", "decoder.depth_regressor.2."),
+    *[(rf"^decoder\.normal_conv{i + 1}\.", f"decoder.normal_predictor.{2 * i}.") for i in range(4)],
+    (r"^decoder\.update_block\.mask_conv1\.", "decoder.update_block.mask.0."),
+    (r"^decoder\.update_block\.mask_conv2\.", "decoder.update_block.mask.2."),
+    (r"\.read_0\.sample\.", ".read_0.sample.0."),
+    (r"\.res\.down_conv\.", ".res.downsample.0."), (r"\.res\.norm3\.", ".res.downsample.1."),
+    (r"(outputs(?:04|08|16)\.\d+)\.res\.", r"\1.0."), (r"(outputs(?:04|08|16)\.\d+)\.out\.", r"\1.1."),
+    (r"^", "depth_model."),
+]
+
+
 def _hed_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """``norm`` as the published ``[1, 3, 1, 1]``."""
     return value.reshape(1, 3, 1, 1) if key == "norm" else value
@@ -534,7 +610,8 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "hunyuanvideo_avatar": _HUNYUANVIDEO_AVATAR, "sam2": _SAM2, "sam2_video": _SAM2_VIDEO,
     "depth_anything_v2": _DEPTH_ANYTHING_V2, "openpose": _OPENPOSE, "hed": _HED, "teed": _TEED,
     "lineart": _LINEART, "lineart_anime": _LINEART_ANIME, "manga_line": _MANGA_LINE, "mlsd": _MLSD,
-    "efficientnet": _EFFICIENTNET, "normalbae": _NORMALBAE, "dsine": _DSINE, "leres": _LERES}
+    "efficientnet": _EFFICIENTNET, "normalbae": _NORMALBAE, "dsine": _DSINE, "leres": _LERES,
+    "u2net": _U2NET, "isnet": _ISNET, "anime_face": _ANIME_FACE, "gmflow": _GMFLOW, "metric3d": _METRIC3D}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -98,6 +98,20 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     return F.conv2d(xc, weight, bias, stride, padding, dilation, groups).permute(0, 2, 3, 1)
 
 
+def _bn_params(module: nn.Module, ch: int) -> None:
+    module.bn_scale = nn.Parameter(torch.ones(ch))
+    module.bn_bias = nn.Parameter(torch.zeros(ch))
+    module.bn_mean = nn.Parameter(torch.zeros(ch))
+    module.bn_var = nn.Parameter(torch.ones(ch))
+
+
+def _bn(module: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """Eval BatchNorm (eps 1e-5) with the running statistics as parameters
+    (M-LSD's and U²-Net's ``bn_*`` leaves), written as the JAX modules write it."""
+    y = (y - module.bn_mean) * torch.rsqrt(module.bn_var + 1e-5)
+    return y * module.bn_scale + module.bn_bias
+
+
 class Conv(nn.Module):
     """NHWC conv; ``weight`` OIHW, optional bias."""
 

@@ -24,34 +24,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_studio_tpu_torch.preprocess.base import BasePreprocessor, Frame, preprocessor_registry
-from apex_studio_tpu_torch.preprocess.depth_anything import _lecun, conv2d_nhwc
-
-
-def _bn_params(module: nn.Module, ch: int) -> None:
-    module.bn_scale = nn.Parameter(torch.ones(ch))
-    module.bn_bias = nn.Parameter(torch.zeros(ch))
-    module.bn_mean = nn.Parameter(torch.zeros(ch))
-    module.bn_var = nn.Parameter(torch.ones(ch))
-
-
-def _bn(module: nn.Module, y: torch.Tensor) -> torch.Tensor:
-    """Eval BatchNorm (eps 1e-5) written as the JAX module writes it."""
-    y = (y - module.bn_mean) * torch.rsqrt(module.bn_var + 1e-5)
-    return y * module.bn_scale + module.bn_bias
+from apex_studio_tpu_torch.preprocess.depth_anything import _bn, _bn_params, _lecun, conv2d_nhwc
 
 
 class _ConvBNReLU6(nn.Module):
     """ConvBNReLU (mbv2_mlsd_large.py:96): TFLite padding — stride 2 pads
-    (0,1,0,1) explicitly, stride 1 pads symmetrically; ReLU6."""
+    (0,1,0,1) explicitly, stride 1 pads symmetrically; ReLU6. ``tf_pad=False``
+    pads symmetrically at every stride (torchvision's MobileNetV2, the anime
+    face U-Net's trunk)."""
 
-    def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1, groups: int = 1):
+    def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1, groups: int = 1,
+                 tf_pad: bool = True):
         super().__init__()
         self.weight = _lecun(cout, cin // groups, k, k, fan_in=cin // groups * k * k)
         _bn_params(self, cout)
-        self.k, self.stride, self.groups = k, stride, groups
+        self.k, self.stride, self.groups, self.tf_pad = k, stride, groups, tf_pad
 
     def forward(self, x):
-        pad = ((0, 1), (0, 1)) if self.stride == 2 else (self.k - 1) // 2
+        pad = ((0, 1), (0, 1)) if self.stride == 2 and self.tf_pad else (self.k - 1) // 2
         y = conv2d_nhwc(x, self.weight, None, self.stride, pad, groups=self.groups)
         return torch.clamp(_bn(self, y), 0.0, 6.0)
 
@@ -71,11 +61,11 @@ class _ConvBN(nn.Module):
 class _InvertedResidual(nn.Module):
     """mbv2_mlsd_large.py:132 — pw-expand → dw → pw-linear, skip on s1."""
 
-    def __init__(self, cin: int, cout: int, stride: int, expand: int):
+    def __init__(self, cin: int, cout: int, stride: int, expand: int, tf_pad: bool = True):
         super().__init__()
         hidden = int(round(cin * expand))
         self.expand = None if expand == 1 else _ConvBNReLU6(cin, hidden, 1)
-        self.dw = _ConvBNReLU6(hidden, hidden, 3, stride, groups=hidden)
+        self.dw = _ConvBNReLU6(hidden, hidden, 3, stride, groups=hidden, tf_pad=tf_pad)
         self.pw = _ConvBN(hidden, cout)
         self.use_res = stride == 1 and cin == cout
 

@@ -8,7 +8,17 @@ or ``scribble/anime_style/netG_A_latest.pth`` with their folders, or with
 the folders left out), and loaded as a flat state dict of CPU tensors:
 safetensors natively, torch pickles through ``torch.load(weights_only=True)``,
 trainer containers unwrapped as the JAX modules unwrap them (``model``:
-NormalBAE's ``scannet.pt`` and DSINE's ``dsine.pt``).
+NormalBAE's ``scannet.pt``, DSINE's ``dsine.pt`` and GMFlow's files;
+``state_dict``: a Lightning checkpoint such as the anime matting net's
+``isnetis.ckpt``), and only the tensors kept.
+
+A Lightning checkpoint pickles its trainer's state beside the weights
+(``hyper_parameters`` as an ``AttributeDict`` or an ``argparse.Namespace``,
+loop and callback state), classes that ``weights_only`` refuses. Such a file
+is read again with each refused class replaced by an inert stand-in (an empty
+``OrderedDict`` that takes the pickled items and attributes): no code of the
+file's runs, and what the stand-ins hold is dropped with the other
+non-tensors.
 
 Departure: nothing is fetched. The JAX module downloads a missing checkpoint
 from its published Hugging Face repository; here a missing checkpoint raises
@@ -17,12 +27,36 @@ from its published Hugging Face repository; here a missing checkpoint raises
 
 from __future__ import annotations
 
+import collections
+import pickle
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
-_EXTS = (".safetensors", ".pth", ".pt", ".bin")
+_EXTS = (".safetensors", ".pth", ".pt", ".bin", ".ckpt")
+
+
+class _Inert:
+    """What a class that ``weights_only`` refuses unpickles as: an empty
+    ``OrderedDict``, which the restricted unpickler lets take the object's
+    items (SETITEMS) and attributes (BUILD)."""
+
+    def __new__(cls, *args, **kwargs):
+        return collections.OrderedDict()
+
+
+def _torch_load(path: Path):
+    """``torch.load(weights_only=True)``; a file that pickles other classes
+    (a trainer's state) is read again with each of them as ``_Inert``."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        refused = torch.serialization.get_unsafe_globals_in_checkpoint(str(path))
+        if not refused:
+            raise
+    with torch.serialization.safe_globals([(_Inert, name) for name in refused]):
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _load_any(path: Path) -> Dict[str, torch.Tensor]:
@@ -30,7 +64,7 @@ def _load_any(path: Path) -> Dict[str, torch.Tensor]:
         from apex_studio_tpu_torch.loaders.safetensors_io import load_safetensors
 
         return dict(load_safetensors(path))
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = _torch_load(path)
     # unwrap trainer containers: metric3d uses model_state_dict, leres'
     # res101.pth nests under depth_model, generic trainers use state_dict
     for container in ("state_dict", "model_state_dict", "depth_model", "model"):

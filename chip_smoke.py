@@ -205,6 +205,20 @@ Phases, each printed as one JSON line:
              dtype, seconds and peak memory); hed on an 8-frame 480x832 clip
              and dsine on the image through /preprocessor/run; the 11 nets'
              f32 forwards on the card against the CPU; no flash launch
+  preprocess_rest
+             background removal, anime segmentation, optical flow, Metric3D
+             and DensePose on seeded checkpoints at their published widths,
+             names and containers (u2net, u2netp, Annotators/UNet.pth, the
+             Lightning isnetis.ckpt, gmflow-scale1/2-mixdata.pth, Metric3D
+             small) and a scripted DensePose stand-in calling the shim's nms
+             and roi_align on the card over 1000 proposals: rembg,
+             anime_face_segment, metric3d (depth, normal) and densepose
+             twice each on a 720x1280 image, optical_flow / unimatch /
+             ptlflow on an 8-frame 480x832 clip at scale1 and scale2;
+             optical_flow and metric3d through /preprocessor/run; the nets'
+             f32 forwards against the CPU; Metric3D giant2 at full width on
+             the 616x1064 crop; cosmos.guardrail over 33 frames with SigLIP
+             so400m and its MAP head (bf16 against f32); no flash launch
 The kernels phase holds the kernel at every shape of the table in PERF.md:
 Flux's, the tile edges, biases and causal cases, ZImage's S = 4224 and 4096
 at 30 heads and its 128-token caption block, and Qwen3's one-row decode
@@ -263,7 +277,7 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "rife,sam2,preprocess,preprocess_nets")
+                  "rife,sam2,preprocess,preprocess_nets,preprocess_rest")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -4892,6 +4906,362 @@ def phase_preprocess_nets(home: Path):
     return rows
 
 
+# -- the rest of the preprocessors and the Cosmos guardrail --------------------------------
+
+# the seeded files of the preprocess_rest phase, each under its published name
+# (in the models dir) and container: (net, file, container)
+PREPROCESS_REST_FILES = (
+    ("u2net", "u2net.pth", None), ("u2netp", "u2netp.pth", None),
+    ("anime_face", "Annotators/UNet.pth", None), ("isnet", "isnetis.ckpt", "lightning"),
+    ("gmflow-scale1", "gmflow-scale1-mixdata.pth", "model"), ("gmflow-scale2", "gmflow-scale2-mixdata.pth", "model"),
+    ("metric3d", "metric_depth_vit_small_800k.pth", "model_state_dict"),
+)
+# (manifest name, params) twice each on the 720x1280 image; the JAX output's
+# channels (rembg's RGBA)
+PREPROCESS_REST_IMAGE = (("rembg", {}, 4), ("anime_face_segment", {}, 3), ("metric3d", {}, 3),
+                         ("metric3d_normal", {"output_type": "normal"}, 3), ("densepose", {}, 3))
+# (manifest name, variant, runs) on the 8-frame 480x832 clip
+PREPROCESS_REST_CLIP = (("optical_flow", "gmflow-scale1", 2), ("unimatch", "gmflow-scale2", 2),
+                        ("ptlflow", "gmflow-scale1", 1))
+# SigLIP so400m's pooled output in bf16 against f32 of the same synthetic
+# weights (27 layers and the MAP head in bf16)
+SIGLIP_POOLED_REL_L2 = 2e-2
+GUARDRAIL_FRAMES, GUARDRAIL_SAMPLE_EVERY = 33, 8
+
+DENSEPOSE_STAND_IN = '''"""A stand-in for the DensePose R50-FPN TorchScript export with its output
+contract (boxes, coarse and fine segmentation, u, v) and its detection ops:
+1000 proposals through torchvision::nms at 0.7, roi_align 7x7 over the kept
+ones on a stride-4 map, a second nms at 0.5 of the scored boxes keeping 16,
+roi_align 28x28 over those. Boxes come from a hash of their index, so two
+calls are equal."""
+
+import torch
+
+
+class DensePoseStandIn(torch.nn.Module):
+    def forward(self, img: torch.Tensor):
+        dev = img.device
+        h = img.shape[1]
+        w = img.shape[2]
+        x = img.unsqueeze(0).to(torch.float32) / 255.0
+        feat = torch.nn.functional.avg_pool2d(x, 4)
+        feat = torch.cat([feat, feat * feat, 1.0 - feat], dim=1).repeat(1, 10, 1, 1)
+        t = torch.arange(1000, device=dev, dtype=torch.float32)
+        r = [torch.frac(torch.abs(torch.sin(t * k) * 43758.5453)) for k in [12.9898, 78.233, 37.719, 4.581, 93.989]]
+        x0 = r[0] * float(w - 64)
+        y0 = r[1] * float(h - 64)
+        boxes = torch.stack([x0, y0, torch.clamp(x0 + 24.0 + r[2] * 240.0, max=float(w)),
+                             torch.clamp(y0 + 24.0 + r[3] * 360.0, max=float(h))], dim=1)
+        keep = torch.ops.torchvision.nms(boxes, r[4], 0.7)
+        props = boxes[keep]
+        rois = torch.cat([torch.zeros((props.shape[0], 1), device=dev), props], dim=1)
+        box_feats = torch.ops.torchvision.roi_align(feat, rois, 0.25, 7, 7, 0, True)
+        scores = box_feats.mean(dim=[1, 2, 3]) * r[4][keep]
+        dets = props[torch.ops.torchvision.nms(props, scores, 0.5)[:16]]
+        rois = torch.cat([torch.zeros((dets.shape[0], 1), device=dev), dets], dim=1)
+        pooled = torch.ops.torchvision.roi_align(feat, rois, 0.25, 28, 28, 2, True)
+        coarse = torch.stack([pooled[:, 0] - 0.3, pooled[:, 1]], dim=1)
+        return dets, coarse, 4.0 * pooled[:, :25], pooled[:, 1:26], pooled[:, 2:27]
+'''
+
+
+def preprocess_rest_builds() -> dict:
+    """net → (the port module's constructor, the published family, the
+    card-vs-CPU inputs' shapes, their range: uniform in [0, r), or normal
+    where None)."""
+    from apex_studio_tpu_torch.preprocess import anime_seg, metric3d, u2net, unimatch
+
+    def gmflow(variant):
+        return lambda: unimatch.GMFlow(unimatch.GMFLOW_CONFIGS[variant])
+
+    return {
+        "u2net": (u2net.U2Net, "u2net", [(1, 160, 160, 3)], None),
+        "u2netp": (lambda: u2net.U2Net(light=True), "u2net", [(1, 160, 160, 3)], None),
+        "anime_face": (anime_seg.AnimeFaceUNet, "anime_face", [(1, 128, 128, 3)], 1.0),
+        "isnet": (anime_seg.ISNetDIS, "isnet", [(1, 128, 128, 3)], 1.0),
+        "gmflow-scale1": (gmflow("gmflow-scale1"), "gmflow", [(1, 128, 128, 3)] * 2, 255.0),
+        "gmflow-scale2": (gmflow("gmflow-scale2"), "gmflow", [(1, 128, 128, 3)] * 2, 255.0),
+        "metric3d": (lambda: metric3d.Metric3DModel(metric3d.Metric3DConfig.small()), "metric3d",
+                     [(1, 112, 196, 3)], None),
+    }
+
+
+def write_preprocess_rest_checkpoints(models: Path) -> dict:
+    """The seeded nets (``seeded_detector``) at their published widths under
+    their published names and containers: ``isnetis.ckpt`` as Lightning
+    writes it (``state_dict`` beside trainer state that ``weights_only``
+    refuses, an ``argparse.Namespace``), GMFlow's under ``model``, Metric3D's
+    under ``model_state_dict``; and the DensePose stand-in as the export's
+    file. Returns the sizes in MiB."""
+    import argparse as _argparse
+
+    import torch
+
+    from apex_studio_tpu_torch.loaders.export import published_state_dict
+    from apex_studio_tpu_torch.preprocess.torch_shim import install_torchvision_ops
+
+    builds = preprocess_rest_builds()
+    sizes = {}
+    for seed, (net, name, container) in enumerate(PREPROCESS_REST_FILES, 90):
+        build, family = builds[net][:2]
+        sd = published_state_dict(family, seeded_detector(build, seed).state_dict())
+        if container == "lightning":
+            obj = {"state_dict": sd, "epoch": 11, "global_step": 50000, "pytorch-lightning_version": "1.9.4",
+                   "hyper_parameters": _argparse.Namespace(net_name="isnet_is", img_size=1024, lr=1e-4)}
+        else:
+            obj = {container: sd} if container else sd
+        path = models / name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(obj, path)
+        sizes[name] = path.stat().st_size / 2 ** 20
+        del sd, obj
+    check(install_torchvision_ops(), "torchvision::nms / roi_align are not available")
+    src = models.parent / "densepose_stand_in.py"
+    src.write_text(DENSEPOSE_STAND_IN)
+    sys.path.insert(0, str(src.parent))
+    try:
+        from densepose_stand_in import DensePoseStandIn
+    finally:
+        sys.path.remove(str(src.parent))
+    path = models / "densepose_r50_fpn_dl.torchscript"
+    torch.jit.save(torch.jit.script(DensePoseStandIn()), str(path))
+    sizes[path.name] = path.stat().st_size / 2 ** 20
+    return sizes
+
+
+def preprocess_rest_card_vs_cpu() -> dict:
+    """The phase's nets at their published widths, seeded, f32 on the card
+    (products in full f32) against the same module on the CPU at small
+    inputs: every output within ``F32_REL_L2``."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import configure_float32_matmul
+
+    configure_float32_matmul()
+    rng = np.random.default_rng(100)
+    out = {}
+    for seed, (net, (build, _, shapes, scale)) in enumerate(preprocess_rest_builds().items(), 101):
+        cpu = seeded_detector(build, seed)
+        xs = [torch.from_numpy((rng.normal(size=s) if scale is None else rng.random(s) * scale).astype(np.float32))
+              for s in shapes]
+        with torch.no_grad():
+            ref = cpu(*xs)
+            card = cpu.cuda()(*(x.cuda() for x in xs))
+        ref, card = ((t,) if isinstance(t, torch.Tensor) else tuple(t) for t in (ref, card))
+        out[net] = max(rel_l2(c.cpu(), r) for c, r in zip(card, ref))
+        del cpu, card
+    release()
+    emit({"phase": "preprocess_rest", "check": "f32_card_vs_cpu", "max_rel_l2": out, "tol": F32_REL_L2})
+    check(len(out) == 7 and all(e <= F32_REL_L2 for e in out.values()),
+          f"the nets' f32 forwards on the card are too far from the CPU's: {out}")
+    return out
+
+
+def metric3d_giant2() -> dict:
+    """Metric3D giant2 (ViT-g/14, 40 blocks of 1536, SwiGLU, pre-norm taps)
+    at full width on the 616x1064 crop, its weights filled on the card from
+    a seeded generator: one forward, its seconds and peak memory."""
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import configure_float32_matmul, materialize_random
+    from apex_studio_tpu_torch.preprocess.metric3d import Metric3DConfig, Metric3DModel
+
+    configure_float32_matmul()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = materialize_random(lambda: Metric3DModel(Metric3DConfig.giant2()), torch.device("cuda"), seed=104)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    x = torch.randn(1, 616, 1064, 3, generator=torch.Generator("cuda").manual_seed(105), device="cuda")
+    secs = []
+    with torch.no_grad():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            depth, conf, normal = model(x)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    row = {"phase": "preprocess_rest", "check": "metric3d_giant2", "parameters": sum(p.numel() for p in model.parameters()),
+           "fill_seconds": fill_s, "seconds": secs, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "shapes": [list(t.shape) for t in (depth, conf, normal)],
+           "finite": bool(all(torch.isfinite(t).all() for t in (depth, conf, normal)))}
+    emit(row)
+    check(row["shapes"] == [[1, 616, 1064, 1], [1, 616, 1064, 1], [1, 616, 1064, 4]] and row["finite"],
+          f"Metric3D giant2: {row}")
+    del model, depth, conf, normal
+    release()
+    return row
+
+
+def guardrail_check() -> dict:
+    """``cosmos.guardrail`` over 33 frames with SigLIP so400m and its MAP head
+    at the published widths (synthetic bf16, its f32 twin from the same
+    seed) and a seeded classifier in the reference's layout, twice with the
+    safe class favoured (the frames back, through OpenCV's Haar face
+    detector where it ships one; equal on both runs) and once with class 2
+    favoured (blocked: no frames); the pooled output in bf16 within
+    ``SIGLIP_POOLED_REL_L2`` of the f32 one."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.text_encoders.siglip import (SiglipVisionConfig, SiglipVisionEncoder,
+                                                                   preprocess_siglip_image)
+    from apex_studio_tpu_torch.postprocess.guardrail import CosmosGuardrailPostprocessor
+
+    cfg = SiglipVisionConfig(use_head=True)
+    f32 = materialize_random(lambda: SiglipVisionEncoder(cfg, dtype=torch.float32), torch.device("cuda"), seed=106)
+    with torch.device("meta"):
+        bf16 = SiglipVisionEncoder(cfg, dtype=torch.bfloat16)
+    bf16 = bf16.to_empty(device="cuda").eval().requires_grad_(False)
+    bf16.load_state_dict(f32.state_dict())
+
+    def classifier_state(favoured: int) -> dict:
+        torch.manual_seed(107)
+        seq = torch.nn.Sequential(torch.nn.Linear(1152, 512), torch.nn.BatchNorm1d(512), torch.nn.ReLU(),
+                                  torch.nn.Linear(512, 256), torch.nn.BatchNorm1d(256), torch.nn.ReLU(),
+                                  torch.nn.Linear(256, 7))
+        with torch.no_grad():
+            seq[6].bias[favoured] += 50.0
+        return {f"network.layers.{k}": v for k, v in seq.state_dict().items()}
+
+    cascade = getattr(getattr(cv2, "data", None), "haarcascades", None)
+    detector = Path(cascade) / "haarcascade_frontalface_default.xml" if cascade else None
+    frames, _ = disk_clip(GUARDRAIL_FRAMES, seed=108)
+    outs, secs = [], []
+    for favoured in (0, 0, 2):
+        t0 = time.perf_counter()
+        guard = CosmosGuardrailPostprocessor(encoder=bf16, classifier_state=classifier_state(favoured),
+                                             detector_path=detector, sample_every=GUARDRAIL_SAMPLE_EVERY)
+        outs.append(guard(frames))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    px = torch.from_numpy(preprocess_siglip_image(frames[0])).cuda()
+    with torch.no_grad():
+        err = rel_l2(bf16(px, pooled=True), f32(px, pooled=True))
+    row = {"phase": "preprocess_rest", "check": "cosmos_guardrail", "frames": len(frames),
+           "sampled": len(range(0, len(frames), GUARDRAIL_SAMPLE_EVERY)), "face_detector": str(detector),
+           "seconds": secs, "passed_frames": [len(o) for o in outs],
+           "identical": len(outs[0]) == len(outs[1]) and all(np.array_equal(a, b) for a, b in zip(*outs[:2])),
+           "pooled_bf16_vs_f32_rel_l2": err, "tol": SIGLIP_POOLED_REL_L2}
+    emit(row)
+    check(row["passed_frames"] == [len(frames), len(frames), 0] and row["identical"],
+          f"the guardrail runs: {row}")
+    check(err <= SIGLIP_POOLED_REL_L2, f"SigLIP's pooled output in bf16 is too far from f32: {err}")
+    del f32, bf16
+    release()
+    return row
+
+
+def phase_preprocess_rest(home: Path):
+    """Background removal, anime segmentation, optical flow, Metric3D and
+    DensePose on the card, on seeded checkpoints at their published widths,
+    names and containers under the preprocessor models dir
+    (``write_preprocess_rest_checkpoints``): rembg, anime_face_segment,
+    metric3d (depth and normal) and densepose twice each through
+    ``run_preprocessor`` on a 720x1280 image (bit-identical, the JAX output's
+    shape and dtype), optical_flow and unimatch (scale1, scale2) twice and
+    ptlflow once on an 8-frame 480x832 clip; optical_flow and metric3d
+    through ``/preprocessor/run``; the nets' f32 forwards against the CPU;
+    Metric3D giant2 once at full width; the Cosmos guardrail with SigLIP
+    so400m. None of them reaches the flash kernel: 0 launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+    from apex_studio_tpu_torch.preprocess import preprocessor_registry, run_preprocessor
+    from apex_studio_tpu_torch.server.app import create_app
+    from apex_studio_tpu_torch.utils.media import save_video
+
+    ph = home / "preprocess_rest"
+    saved = {k: os.environ.get(k) for k in ("APEX_HOME_DIR", "APEX_PREPROCESSOR_MODELS_PATH")}
+    os.environ.update({"APEX_HOME_DIR": str(ph), "APEX_PREPROCESSOR_MODELS_PATH": str(ph / "models")})
+    rows = []
+    try:
+        t0 = time.perf_counter()
+        sizes = write_preprocess_rest_checkpoints(ph / "models")
+        write_s = time.perf_counter() - t0
+        image = cv2_smooth(np.random.default_rng(109), (720, 1280))
+        clip, _ = disk_clip(8, seed=110)
+        flash_attention.launches = 0
+        for name, params, channels in PREPROCESS_REST_IMAGE:
+            outs, secs = [], []
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                t0 = time.perf_counter()
+                outs.append(run_preprocessor(name, image, dict(params))[0])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            row = {"phase": "preprocess_rest", "preprocessor": name, "params": params, "seconds": secs,
+                   "shape": list(outs[0].shape), "dtype": str(outs[0].dtype),
+                   "identical": bool(np.array_equal(*outs)), "distinct_values": int(len(np.unique(outs[0]))),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            emit(row)
+            check(row["shape"] == [720, 1280, channels] and outs[0].dtype == np.uint8, f"{name} output {row['shape']}")
+            check(row["identical"], f"two identical {name} runs differ")
+            check(row["distinct_values"] > 1, f"{name} gave a constant frame")
+            rows.append(row)
+        for name, variant, runs in PREPROCESS_REST_CLIP:
+            outs, secs = [], []
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                outs.append(run_preprocessor(name, clip, {"variant": variant}))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            row = {"phase": "preprocess_rest", "preprocessor": name, "variant": variant, "frames": len(clip),
+                   "seconds": secs, "shape": [len(outs[0])] + list(outs[0][0].shape),
+                   "identical": all(all(np.array_equal(a, b) for a, b in zip(outs[0], o)) for o in outs[1:]),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            emit(row)
+            check(row["shape"] == [8, 480, 832, 3] and outs[0][0].dtype == np.uint8, f"{name} output {row['shape']}")
+            check(row["identical"], f"two identical {name} runs differ")
+            rows.append(row)
+        release()
+
+        clip_path = save_video(clip, ph / "clip.mp4", fps=16)
+        image_path = ph / "image.png"
+        Image.fromarray(image).save(image_path)
+        base, stop = start_server(create_app())
+        try:
+            listed = [e["name"] for e in http(base, "GET", "/preprocessor/list")[1]]
+            served = {}
+            for name, path in (("optical_flow", clip_path), ("metric3d", image_path)):
+                t0 = time.perf_counter()
+                code, out = http(base, "POST", "/preprocessor/run", {"preprocessor_name": name,
+                                                                     "input_path": str(path), "params": {}})
+                check(code == 200, f"/preprocessor/run {name} answered {code}: {out}")
+                st = wait_job(base, out["job_id"])
+                served[name] = {"status": st["status"], "seconds_post_to_complete": time.perf_counter() - t0,
+                                "result": Path(st.get("result_path") or "").name, "error": st.get("error")}
+        finally:
+            stop()
+        emit({"phase": "preprocess_rest", "listed": listed, "served": served, "checkpoints_mib": sizes,
+              "checkpoint_write_seconds": write_s})
+        check({"rembg", "anime_face_segment", "optical_flow", "unimatch", "ptlflow", "metric3d", "densepose"}
+              <= set(listed) and set(preprocessor_registry.names()) <= set(listed),
+              f"/preprocessor/list lists {listed}")
+        check(all(v["status"] == "complete" for v in served.values()), f"/preprocessor/run jobs: {served}")
+        rows.append({"card_vs_cpu": preprocess_rest_card_vs_cpu()})
+        rows.append(metric3d_giant2())
+        rows.append(guardrail_check())
+        check(flash_attention.launches == 0,
+              f"the preprocess_rest path launched flash {flash_attention.launches} times")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        release()
+    return rows
+
+
 def torch_randn_like(z, seed: int):
     """Seeded normal values of ``z``'s shape on the card."""
     import torch
@@ -5597,6 +5967,8 @@ def main() -> int:
             timed("preprocess", phase_preprocess, home)
         if "preprocess_nets" in phases:
             timed("preprocess_nets", phase_preprocess_nets, home)
+        if "preprocess_rest" in phases:
+            timed("preprocess_rest", phase_preprocess_rest, home)
         if len(paths) > 1:
             # a one-step request gives its one step
             emit({"phase": "steps", "median_seconds_per_step_after_the_first": {

@@ -50,19 +50,24 @@ def frame(h=96, w=128, seed=0):
 # the line, edge, normal and LeReS depth preprocessors' manifest names
 NETS = ["hed", "scribble_hed", "pidi", "pidinet", "teed", "lineart_realistic", "lineart_anime", "scribble_anime",
         "manga_line", "mlsd", "normalbae", "dsine", "leres"]
+# background removal, anime segmentation, optical flow, Metric3D, DensePose
+REST = ["rembg", "anime_face_segment", "optical_flow", "unimatch", "ptlflow", "metric3d", "densepose"]
 
 
 def test_registry_holds_the_ported_names():
     names = set(preprocessor_registry.names())
-    assert set(BASIC) | {"depth_anything_v2", "depth", "openpose", "pose"} | (set(NETS) - {"pidi"}) == names
+    assert set(BASIC) | {"depth_anything_v2", "depth", "openpose", "pose"} | (set(NETS) - {"pidi"}) | (
+        set(REST) - {"unimatch", "ptlflow"}) == names
     for alias in ("content_shuffle", "open_pose", "OpenposeDetector", "pidi", "softedge", "softedge_hed",
                   "softedge_pidinet", "scribble_pidinet", "softedge_teed", "ted", "lineart_model", "lineart_coarse",
                   "ScribbleAnimeDetector", "LineartAnimeDetector", "LineartMangaDetector", "lineart_manga",
-                  "MLSDdetector", "NormalBaeDetector", "DsineDetector", "LeresDetector"):
+                  "MLSDdetector", "NormalBaeDetector", "DsineDetector", "LeresDetector", "background_removal",
+                  "u2net", "AnimeFaceSegmentor", "unimatch", "UnimatchDetector", "flow", "ptlflow", "PTLFlowDetector",
+                  "Metric3DDetector", "metric3d_normal", "DenseposeDetector"):
         assert alias in preprocessor_registry
 
 
-@pytest.mark.parametrize("name", NETS)
+@pytest.mark.parametrize("name", NETS + REST)
 def test_registry_names_and_aliases_are_the_jax_ones(name):
     """Each manifest name reaches one preprocessor under the same set of
     registry keys as in the JAX package, and the registry lists its names in
