@@ -17,7 +17,8 @@ from apex_studio_tpu_torch.manifest.loader import load_manifest
 _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.engine.hunyuanvideo15",
                   "apex_studio_tpu_torch.engine.zimage", "apex_studio_tpu_torch.engine.qwenimage",
                   "apex_studio_tpu_torch.engine.wan", "apex_studio_tpu_torch.engine.flux2",
-                  "apex_studio_tpu_torch.engine.hunyuanvideo", "apex_studio_tpu_torch.engine.hunyuanvideo_avatar")
+                  "apex_studio_tpu_torch.engine.hunyuanvideo", "apex_studio_tpu_torch.engine.hunyuanvideo_avatar",
+                  "apex_studio_tpu_torch.engine.skyreels")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

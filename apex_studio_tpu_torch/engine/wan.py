@@ -467,6 +467,9 @@ class WanI2VEngine(WanShared):
         safe_emit_progress(progress_callback, 0.25, "Image conditioning ready")
 
         noise_c = self.transformer.cfg.in_channels - condition.shape[1]
+        if noise_c <= 0:  # JAX fails in get_latents on the negative channel count
+            raise ValueError(f"the DiT takes {self.transformer.cfg.in_channels} input channels, no more than the "
+                             f"{condition.shape[1]} condition channels: the manifest names a t2v config")
         x = self.get_latents((1, noise_c, lat_t, lat_h, lat_w), seed=seed)
         safe_emit_progress(progress_callback, 0.3, "Initialized latent noise")
 

@@ -6,7 +6,8 @@ paths load: Flux text-to-image's ``flux``, ``t5``, ``clip``,
 the MAP head, for the Cosmos guardrail), ``tae_vae``, and byT5 through
 ``t5``; ZImage's ``zimage`` (base and control, the Comfy single-file names
 too) and ``qwen3``; QwenImage's ``qwenimage`` (DiT and ControlNet) and
-``wan_vae``; Wan's ``wan`` DiT (its VACE keys too), UMT5 through ``t5``, and
+``wan_vae``; Wan's ``wan`` DiT (its VACE keys too) and SkyReels V2's
+``skyreels`` (the same with the fps embedding), UMT5 through ``t5``, and
 the Wan 2.1 i2v image encoder's ``clip_vision``; FLUX.2's ``flux2`` and
 ``flux2_control`` DiTs (diffusers naming), ``flux2_vae`` (``AutoencoderKLFlux2``
 with its BatchNorm running statistics) and the ``llama`` text towers
@@ -568,6 +569,37 @@ converter_registry.add(
             (r"^(vace_)?patch_embedding\.weight$", r"\1patch_embedding.kernel"),
             (r"(to_q|to_k|to_v|to_out|add_k_proj|add_v_proj|time_proj|fc1|fc2|img_ff1|img_ff2|proj_in|proj_out|"
              r"time_embedder_linear_\d|text_embedder_linear_\d)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope\.", r"\.freqs"),
+    ),
+)
+
+converter_registry.add(
+    # SkyReels V2: the Wan DiT's layout plus the fps embedding and its
+    # projection (reference transformer/skyreels/base/model.py:102)
+    "skyreels",
+    KeyConverter(
+        renames=[
+            (r"^condition_embedder\.time_embedder\.linear_(\d)\.", r"time_embedder_linear_\1."),
+            (r"^condition_embedder\.time_proj\.", "time_proj."),
+            (r"^condition_embedder\.text_embedder\.linear_(\d)\.", r"text_embedder_linear_\1."),
+            (r"^condition_embedder\.fps_embedding\.weight$", "fps_embedding"),
+            (r"^condition_embedder\.fps_projection\.0\.", "fps_projection_1."),
+            (r"^condition_embedder\.fps_projection\.2\.", "fps_projection_2."),
+            (r"^condition_embedder\.image_embedder\.norm1\.weight$", "img_norm1"),
+            (r"^condition_embedder\.image_embedder\.norm1\.bias$", "img_norm1_bias"),
+            (r"^condition_embedder\.image_embedder\.norm2\.weight$", "img_norm2"),
+            (r"^condition_embedder\.image_embedder\.norm2\.bias$", "img_norm2_bias"),
+            (r"^condition_embedder\.image_embedder\.ff\.net\.0\.proj\.", "img_ff1."),
+            (r"^condition_embedder\.image_embedder\.ff\.net\.2\.", "img_ff2."),
+            (r"\.to_out\.0\.", ".to_out."),
+            (r"\.norm2\.weight$", ".norm2_weight"),
+            (r"\.norm2\.bias$", ".norm2_bias"),
+            (r"\.ffn\.net\.0\.proj\.", ".ffn.fc1."),
+            (r"\.ffn\.net\.2\.", ".ffn.fc2."),
+            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"(to_q|to_k|to_v|to_out|add_k_proj|add_v_proj|time_proj|fc1|fc2|img_ff1|img_ff2|proj_out|"
+             r"fps_projection_\d|time_embedder_linear_\d|text_embedder_linear_\d)\.weight$", r"\1.kernel"),
         ],
         drop=(r"^rope\.", r"\.freqs"),
     ),

@@ -9,7 +9,9 @@ single-file names of the Comfy-Org Z-Image files, control keys included),
 ``wan_vae`` (diffusers' ``AutoencoderKLWan``, with its ``[C, 1, 1(, 1)]`` RMS
 gammas and 1×1-conv attention weights), ``wan`` (diffusers'
 ``WanTransformer3DModel`` and its VACE keys, ``patch_embedding`` and
-``vace_patch_embedding`` as their Conv3d weights), ``clip_vision``
+``vace_patch_embedding`` as their Conv3d weights), ``skyreels`` (SkyReels
+V2's: Wan's with ``condition_embedder.fps_embedding`` /
+``fps_projection``), ``clip_vision``
 (transformers' ``CLIPVisionModel``, the patch embedding as its Conv2d weight),
 ``flux2`` (diffusers' ``Flux2Transformer2DModel``, its control variant's chain
 too), ``flux2_vae`` (``AutoencoderKLFlux2``, the running statistics as
@@ -173,6 +175,12 @@ _WAN = (
     (r"\.norm2_(weight|bias)$", r".norm2.\1"),
     (r"\.ffn\.fc1\.", ".ffn.net.0.proj."),
     (r"\.ffn\.fc2\.", ".ffn.net.2."),
+)
+_SKYREELS = (
+    (r"^fps_embedding$", "condition_embedder.fps_embedding.weight"),
+    (r"^fps_projection_1\.", "condition_embedder.fps_projection.0."),
+    (r"^fps_projection_2\.", "condition_embedder.fps_projection.2."),
+    *_WAN,
 )
 _CLIP_VISION = (
     (r"^class_embedding$", "vision_model.embeddings.class_embedding"),
@@ -597,14 +605,16 @@ def _normalbae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
 
 
 _LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
-    "wan_vae": _wan_vae_layout, "wan": _wan_layout, "clip_vision": _clip_vision_layout,
+    "wan_vae": _wan_vae_layout, "wan": _wan_layout, "skyreels": _wan_layout,
+    "clip_vision": _clip_vision_layout,
     "wan_humo": _wan_humo_layout, "wan_multitalk": _wan_humo_layout, "wan_s2v": _wan_s2v_layout,
     "hed": _hed_layout, "normalbae": _normalbae_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
     "zimage": _ZIMAGE, "qwen3": _QWEN3, "rife": _RIFE, "qwenimage": _QWENIMAGE, "wan_vae": _WAN_VAE,
-    "wan": _WAN, "clip_vision": _CLIP_VISION, "flux2": _FLUX2, "flux2_vae": _FLUX2_VAE, "llama": _LLAMA,
+    "wan": _WAN, "skyreels": _SKYREELS, "clip_vision": _CLIP_VISION, "flux2": _FLUX2, "flux2_vae": _FLUX2_VAE,
+    "llama": _LLAMA,
     "hunyuanvideo": _HUNYUANVIDEO, "hunyuanvideo_vae": _HUNYUANVIDEO_VAE, "wan_humo": _WAN_HUMO,
     "wav2vec2": _WAV2VEC2, "wan_s2v": _WAN_S2V, "wan_multitalk": _WAN_MULTITALK,
     "hunyuanvideo_avatar": _HUNYUANVIDEO_AVATAR, "sam2": _SAM2, "sam2_video": _SAM2_VIDEO,

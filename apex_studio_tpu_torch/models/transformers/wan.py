@@ -1,9 +1,12 @@
 """Wan 2.1 / 2.2 video DiT, port of ``apex_studio_tpu/models/transformers/wan.py``:
-the base ``WanTransformer3DModel`` and its block-causal (Self-Forcing), VACE
-and Fun / Phantom variants (the Recam and Holocine variants are not ported).
+the base ``WanTransformer3DModel`` (also SkyReels V2's DiT, ``skyreels.base``)
+and its block-causal (Self-Forcing), VACE and Fun / Phantom variants (the
+Recam and Holocine variants are not ported).
 
 - blocks: an f32 layer norm without affine, modulated by a learned
-  ``scale_shift_table`` plus the per-sample time projection [B, 6, dim];
+  ``scale_shift_table`` plus the per-sample time projection [B, 6, dim], or
+  with per-frame timesteps ``t`` [B, T_lat] (SkyReels' diffusion forcing)
+  each frame's projection over its h·w tokens, [B, N, 6, dim];
   self-attention with 3-D RoPE (t/h/w = d−4⌊d/6⌋ / 2⌊d/6⌋ / 2⌊d/6⌋ rotary
   dims, θ = 10000); cross-attention over the UMT5 features after the affine
   ``norm2`` (plus CLIP image features through ``add_k/v_proj`` when
@@ -16,6 +19,8 @@ and Fun / Phantom variants (the Recam and Holocine variants are not ported).
   fastest, as published checkpoints lay them out
 - RoPE tables are built from integer (t, h, w) ids in float64 numpy, cast to
   f32, and kept per grid
+- SkyReels (``inject_sample_info``): a 2-row fps embedding (row 0 for 16 fps,
+  1 otherwise) whose 6·dim projection is added to every frame's ``temb6``
 - causal: a preallocated ``[L, B, S_max, H, D]`` K/V cache written in place
   at ``cache_pos`` (JAX writes a copy with ``dynamic_update_slice`` and
   donates it; the contents are the same); each block's queries attend over
@@ -57,7 +62,7 @@ class WanConfig:
     num_layers: int = 40
     cross_attn_norm: bool = True
     eps: float = 1e-6
-    inject_sample_info: bool = False        # SkyReels' fps embedding: not ported
+    inject_sample_info: bool = False        # SkyReels' fps embedding
     image_dim: Optional[int] = None         # 1280 for Wan 2.1 i2v (CLIP features)
     added_kv_proj_dim: Optional[int] = None  # set for the i2v cross-attn image K/V
     rope_max_seq_len: int = 1024
@@ -151,10 +156,16 @@ class WanTransformerBlock(nn.Module):
         self.eps = cfg.eps
 
     def forward(self, x, context, temb6, rope_cos, rope_sin, context_image=None):
-        # temb6 [B, 6, dim] f32; the sum with the table is cast to the activations' dtype
-        mods = (self.scale_shift_table + temb6).to(x.dtype)
-        shift_msa, scale_msa, gate_msa = mods[:, 0:1], mods[:, 1:2], mods[:, 2:3]
-        c_shift, c_scale, c_gate = mods[:, 3:4], mods[:, 4:5], mods[:, 5:6]
+        # temb6 [B, 6, dim] f32, or [B, N, 6, dim] a token (diffusion forcing);
+        # the sum with the table is cast to the activations' dtype
+        if temb6.ndim == 4:
+            mods = (self.scale_shift_table[:, :, None] + temb6.transpose(1, 2)).to(x.dtype)
+            shift_msa, scale_msa, gate_msa = mods[:, 0], mods[:, 1], mods[:, 2]
+            c_shift, c_scale, c_gate = mods[:, 3], mods[:, 4], mods[:, 5]
+        else:
+            mods = (self.scale_shift_table + temb6).to(x.dtype)
+            shift_msa, scale_msa, gate_msa = mods[:, 0:1], mods[:, 1:2], mods[:, 2:3]
+            c_shift, c_scale, c_gate = mods[:, 3:4], mods[:, 4:5], mods[:, 5:6]
 
         norm_x = layer_norm(x, eps=self.eps) * (1 + scale_msa) + shift_msa
         x = x + self.attn1(norm_x, rope_cos=rope_cos, rope_sin=rope_sin) * gate_msa
@@ -173,8 +184,6 @@ class WanTransformer3DModel(nn.Module):
 
     def __init__(self, cfg: WanConfig, *, dtype=torch.bfloat16):
         super().__init__()
-        if cfg.inject_sample_info:
-            raise NotImplementedError("the SkyReels fps embedding (inject_sample_info) is not ported")
         self.cfg = cfg
         self.dtype = dtype
         d = cfg.dim
@@ -185,6 +194,10 @@ class WanTransformer3DModel(nn.Module):
         self.time_proj = Linear(d, 6 * d, dtype=dtype)
         self.text_embedder_linear_1 = Linear(cfg.text_dim, d, dtype=dtype)
         self.text_embedder_linear_2 = Linear(d, d, dtype=dtype)
+        if cfg.inject_sample_info:
+            self.fps_embedding = nn.Parameter(torch.empty(2, d, dtype=torch.float32))
+            self.fps_projection_1 = Linear(d, d, dtype=dtype)
+            self.fps_projection_2 = Linear(d, 6 * d, dtype=dtype)
         if cfg.image_dim is not None:
             self.img_norm1 = nn.Parameter(torch.ones(cfg.image_dim, dtype=torch.float32))
             self.img_norm1_bias = nn.Parameter(torch.zeros(cfg.image_dim, dtype=torch.float32))
@@ -229,16 +242,28 @@ class WanTransformer3DModel(nn.Module):
 
     # -- forward ---------------------------------------------------------------------
 
-    def _prepare_cond(self, x, t, context, context_image):
-        """(tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin)."""
+    def _prepare_cond(self, x, t, context, context_image, fps_index=None):
+        """(tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin). With
+        per-frame timesteps ``t`` [B, T_lat], ``temb`` is [B, N, dim] and
+        ``temb6`` [B, N, 6, dim]: each frame's over its h·w tokens."""
         cfg = self.cfg
-        _, _, tt, hh, ww = x.shape
+        b, _, tt, hh, ww = x.shape
         pt, ph, pw = cfg.patch_size
-        if t.ndim != 1:
-            raise NotImplementedError("per-frame timesteps (diffusion forcing) are not ported")
-        t_freq = timestep_embedding(t.float(), cfg.freq_dim, flip_sin_to_cos=True)
+        per_frame = t.ndim == 2  # diffusion forcing (SkyReels df)
+        t_freq = timestep_embedding(t.reshape(-1).float(), cfg.freq_dim, flip_sin_to_cos=True)
         temb = self.time_embedder_linear_2(F.silu(self.time_embedder_linear_1(t_freq.to(self.dtype))))
         temb6 = self.time_proj(F.silu(temb)).float().reshape(-1, 6, cfg.dim)
+        if cfg.inject_sample_info and fps_index is not None:
+            fps_emb = self.fps_embedding[fps_index].to(self.dtype)
+            fps6 = self.fps_projection_2(F.silu(self.fps_projection_1(fps_emb))).float().reshape(b, 6, cfg.dim)
+            temb6 = temb6 + (fps6.repeat_interleave(temb6.shape[0] // b, dim=0) if per_frame else fps6)
+        if per_frame:
+            f_lat, hw = t.shape[1], (hh // ph) * (ww // pw)
+            if f_lat != tt // pt:
+                raise ValueError(f"{f_lat} per-frame timesteps for {tt // pt} latent frames")
+            temb = temb.reshape(b, f_lat, 1, cfg.dim).expand(b, f_lat, hw, cfg.dim).reshape(b, -1, cfg.dim)
+            temb6 = temb6.reshape(b, f_lat, 1, 6, cfg.dim).expand(b, f_lat, hw, 6, cfg.dim).reshape(
+                b, -1, 6, cfg.dim)
 
         ctx = self.text_embedder_linear_2(
             F.gelu(self.text_embedder_linear_1(context.to(self.dtype)), approximate="tanh"))
@@ -253,24 +278,37 @@ class WanTransformer3DModel(nn.Module):
         return tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin
 
     def _finalize(self, tokens, temb, tt, hh, ww):
-        # the final modulated norm; the table's order is (shift, scale)
-        table = self.scale_shift_table + temb.float()[:, None, :]
-        shift, scale = table[:, 0:1].to(tokens.dtype), table[:, 1:2].to(tokens.dtype)
+        # the final modulated norm; the table's order is (shift, scale); a
+        # per-token temb [B, N, dim] under per-frame timesteps
+        if temb.ndim == 3:
+            table = self.scale_shift_table[:, :, None] + temb.float()[:, None]   # [B, 2, N, dim]
+            shift, scale = table[:, 0].to(tokens.dtype), table[:, 1].to(tokens.dtype)
+        else:
+            table = self.scale_shift_table + temb.float()[:, None, :]
+            shift, scale = table[:, 0:1].to(tokens.dtype), table[:, 1:2].to(tokens.dtype)
         tokens = layer_norm(tokens, eps=self.cfg.eps) * (1 + scale) + shift
         return self.unpatchify(self.proj_out(tokens), tt, hh, ww)
 
     def forward(
         self,
         x: torch.Tensor,                # [B, C, T, H, W] latents
-        t: torch.Tensor,                # [B] timesteps (0..1000)
+        t: torch.Tensor,                # [B] or [B, T_lat] timesteps (0..1000)
         context: torch.Tensor,          # [B, L, text_dim] UMT5 features
         context_image: Optional[torch.Tensor] = None,  # [B, Li, image_dim] CLIP
+        fps_index: Optional[torch.Tensor] = None,      # [B] int 0 | 1 (SkyReels)
     ) -> torch.Tensor:
         _, _, tt, hh, ww = x.shape
-        tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin = self._prepare_cond(x, t, context, context_image)
+        tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin = self._prepare_cond(x, t, context, context_image,
+                                                                                  fps_index)
         for blk in self.blocks:
             tokens = blk(tokens, ctx, temb6, rope_cos, rope_sin, context_image=ctx_img)
         return self._finalize(tokens, temb, tt, hh, ww)
+
+
+# SkyReels V2 is this architecture with inject_sample_info and per-frame
+# (diffusion-forcing) timesteps (reference transformer/skyreels/base/model.py:362).
+transformer_registry.add("skyreels.base", WanTransformer3DModel,
+                         aliases=("skyreels", "SkyReelsTransformer3DModel"))
 
 
 # -- causal / autoregressive variant ---------------------------------------------------

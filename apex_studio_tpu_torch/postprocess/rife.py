@@ -41,7 +41,7 @@ from torch import nn
 
 from apex_studio_tpu_torch.device import cudnn_deterministic
 from apex_studio_tpu_torch.postprocess.base import BasePostprocessor, postprocessor_registry
-from apex_studio_tpu_torch.utils import jax_resize
+from apex_studio_tpu_torch.utils.jax_resize import resize as resize_like_jax
 from apex_studio_tpu_torch.utils.progress import safe_emit_progress
 
 logger = logging.getLogger("apex.postprocess.rife")
@@ -114,7 +114,7 @@ def pixel_shuffle2(x: torch.Tensor) -> torch.Tensor:
 def resize_half_pixel(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """``jax.image.resize(x, (B, h, w, C), "bilinear")`` on NCHW: a spatial
     axis whose size does not change is left as it is."""
-    return jax_resize.resize(x, (*x.shape[:2], h, w), "bilinear")
+    return resize_like_jax(x, (*x.shape[:2], h, w), "bilinear")
 
 
 def flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

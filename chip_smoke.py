@@ -52,7 +52,7 @@ Phases, each printed as one JSON line:
   qwenimage  QwenImage Edit 2509 at 1024x1024 from its manifest, full width and
              depth, the 20B DiT int4-resident: a 2-block DiT and ControlNet at
              full width on the card (bf16) against the CPU (f32); the bench
-             leg's edit request ("make the sky purple", 4 of its 8 steps, true CFG off)
+             leg's edit request ("make the sky purple", 2 of its 8 steps, true CFG off)
              three times (60 launches a step, requests 1 and 3 identical, the
              repeated prompt a disk-cache hit); one Wan VAE decode against
              float64; the resident Linears at QwenImage's shapes and the int4
@@ -63,19 +63,19 @@ Phases, each printed as one JSON line:
              both 14B experts int4-resident (UMT5-XXL int8): a 2-block DiT at
              full width on the card (bf16) against the CPU (f32); the fused
              UniPC step against the host step over 30 steps; the bench leg's
-             t2v request at one 480x832 frame three times (5 of its 30 steps, CFG 4,
+             t2v request at one 480x832 frame three times (3 of its 30 steps, CFG 4,
              one expert: 160 launches a step, requests 1 and 3 identical, the
-             repeated prompt a disk-cache hit); t2v at 81 frames (3 steps, the
-             expert switch at boundary 0.875) with one decode tile against
-             float64; the resident Linears at Wan's shapes and the int4 step
-             split; the t2i manifest's 1024x1024 request (5 steps, both
+             repeated prompt a disk-cache hit); t2v at 81 frames (2 steps at
+             shift 3, the expert switch at boundary 0.875) with one decode tile
+             against float64; the resident Linears at Wan's shapes and the int4
+             step split; the t2i manifest's 1024x1024 request (3 steps, both
              experts, the step split the boundary implies); i2v at 81 frames
-             (3 steps, 36-channel DiT, the VAE encode at T = 81); one bf16 t2i
-             request (4 steps, no Linear quantized); the point mask and its
+             (2 steps, 36-channel DiT, the VAE encode at T = 81); one bf16 t2i
+             request (2 steps, no Linear quantized); the point mask and its
              tracking on eight 480x832 frames
   wan_edit   the Wan editing engines from their manifests at 480x832, full
-             width, the requests' DiTs cut to 20 of their 40 blocks (VACE
-             hints at 0, 5, 10, 15), the 14B DiTs int4-resident (UMT5-XXL int8, CLIP
+             width, the requests' DiTs cut to 5 of their 40 blocks (a VACE
+             hint at 0), the 14B DiTs int4-resident (UMT5-XXL int8, CLIP
              ViT-H bf16), with the published configs the manifests lack
              written into the run's home: 2-block VACE, Fun and causal DiTs
              at full width and the CLIP vision tower on the card against the
@@ -88,7 +88,7 @@ Phases, each printed as one JSON line:
              0.875), fun_vace, phantom (two subject references) and
              fun_control at 33 frames (1 step); SVI as two 33-frame segments
              (1 step each)
-  wan_causal the Self-Forcing manifest (1.3B causal DiT bf16, 15 of its 30
+  wan_causal the Self-Forcing manifest (1.3B causal DiT bf16, 8 of its 30
              blocks) at its defaults: 81 frames as 7 blocks of 3 latent
              frames, 4 steps and a commit each (30 launches a forward, each
              block against the whole
@@ -116,11 +116,11 @@ Phases, each printed as one JSON line:
              widths, the 32B DiT int4 and Mistral-Small 3.2 int8 (their text
              and VAE configs written where the manifests name them): a 1 + 1
              block DiT and a 2-layer Mistral at full width on the card (bf16)
-             against the CPU (f32); t2i of 4 steps, (A, 0), (B, 1), (A, 0) (56
+             against the CPU (f32); t2i of 2 steps, (A, 0), (B, 1), (A, 0) (56
              launches a step, 1 and 3 identical); a VAE decode against
              float64; edit with one reference image (8704 tokens); the
              resident Linears at FLUX.2's shapes and the int4 step split;
-             Turbo at 8 steps with a rank-16 LoRA written at the manifest's
+             Turbo at 4 of its 8 steps with a rank-16 LoRA written at the manifest's
              source; the control DiT (60 launches a step) with a control
              image, an inpaint image and a mask
   hyv        HunyuanVideo (the original) from its t2v and i2v manifests at
@@ -132,10 +132,11 @@ Phases, each printed as one JSON line:
              and a VAE decode against float64; t2v at 33 frames twice (one
              seed, frames bit-identical), at 81 frames (the decode in tiles),
              i2v token_replace at 33 frames (the I2V config written; the first
-             latent frame pinned); 1 step each, 62 launches a forward; the W8A8
-             Linears at the 81-frame shapes and the step split
+             latent frame pinned); 1 step each, the requests' DiT 10 + 20 of
+             its 20 + 40 blocks (32 launches a forward); the W8A8 Linears at
+             the 81-frame shapes and the step split
   humo       HuMo 17B from its manifest at the WanHuMoConfig widths (the
-             requests' DiT cut to 20 of its 40 blocks), the DiT int4 and
+             requests' DiT cut to 10 of its 40 blocks), the DiT int4 and
              UMT5-XXL int8, a 13-layer wav2vec2 of base widths (configs
              written), a seeded 16 kHz WAV: the kernel at the path's
              shapes (self over 39,000 and 14,040 tokens, text cross over 512,
@@ -153,8 +154,9 @@ Phases, each printed as one JSON line:
              2-block DiT against f32; one 480x832 request of two 80-frame
              chunks with a pose video and CFG (the second chunk's motion
              buffer re-encoded from the first's frames), then two identical
-             32-frame requests seeded with the image; 2 steps, 92 launches a
-             forward and the encoder's 24 a request
+             32-frame requests seeded with the image; 1 step, the requests'
+             DiT 20 of its 40 blocks (45 launches a forward: the 5 injectors
+             of the kept blocks) and the encoder's 24 a request
   multitalk  Wan 2.1 MultiTalk from its manifest (the Wan2.1-I2V-14B-480P,
              CLIP ViT-H and chinese-wav2vec2-base configs written; DiT int4,
              CLIP bf16): the kernel at the path's shapes (self over 32,760,
@@ -162,7 +164,8 @@ Phases, each printed as one JSON line:
              64 tokens, the encoder's f32 attention); the 2-block DiT with two
              speakers against f32; 81 frames with two speakers and a negative
              prompt (3 forwards a step), then two identical one-speaker
-             33-frame requests; 2 steps, 160 launches a forward
+             33-frame requests; 1 step, the requests' DiT 20 of its 40 blocks
+             (80 launches a forward)
   avatar     HunyuanVideo Avatar from its manifest at the family defaults'
              widths, synthetic int8 weights: the kernel at the path's shapes
              (the joint attention over 35,072 tokens and the refiner, each
@@ -219,6 +222,26 @@ Phases, each printed as one JSON line:
              f32 forwards against the CPU; Metric3D giant2 at full width on
              the 616x1064 crop; cosmos.guardrail over 33 frames with SigLIP
              so400m and its MAP head (bf16 against f32); no flash launch
+  skyreels   SkyReels V2 from its three manifests (df, t2v, i2v) at the DF
+             14B transformer config (Wan 2.1 14B widths with the fps
+             embedding; the DiT int4, UMT5-XXL int8): the kernel at the
+             path's new shapes (self over 10,200, 6120 and 2040 tokens, the
+             window's text cross); a 2-block DiT with per-frame timesteps
+             against f32; df at 544x960 and CFG 6.0, 33 frames in windows of
+             17, 2 steps, ar_step 1 (10 rows, 1600 launches) twice
+             (bit-identical) and 17 frames with an image prefix (the prefix
+             latent unchanged); t2v of one frame at 24 and 16 fps (the frames
+             differ); i2v of 9 frames on the 36-channel twin of the config
+  preprocess_pose
+             the last preprocessors: the transformers delegates at published
+             widths written with save_pretrained (DPT-Large, ZoeDepth
+             NYU-KITTI, Depth Anything large, SegFormer-B4, OneFormer Swin-T)
+             twice each at the manifests' defaults on a 720x1280 image, midas
+             and oneformer through /preprocessor/run; NLF-L from a seeded
+             nlf_l_multi.safetensors against the CPU and its estimator twice;
+             dwpose, pose2d, face2d, animalpose and dwpose_nlf on scripted
+             cv2.dnn nets; the gated stubs; /preprocessor/list; no flash
+             launch
 The kernels phase holds the kernel at every shape of the table in PERF.md:
 Flux's, the tile edges, biases and causal cases, ZImage's S = 4224 and 4096
 at 30 heads and its 128-token caption block, and Qwen3's one-row decode
@@ -232,7 +255,7 @@ rows with a [1, Sk] bias at its first and last block and with a window and a
 sink), and the Flux editing paths' (FLUX.2 at 48 heads over 4608 and 8704
 tokens, Kontext over 8704 and DreamOmni2 over 12,800 at 24); the timing phase
 times each beside its bound and the library call. The hyv, humo, s2v,
-multitalk, avatar and sam2 phases hold and time the kernel at their own
+multitalk, avatar, skyreels and sam2 phases hold and time the kernel at their own
 shapes (``path_kernel_rows``); the kernels phase also holds it at head dims
 16, 32, 56, 72 and 96 (ragged, with a bias, on fused-qkv views in bf16 and
 f32).
@@ -277,7 +300,7 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "rife,sam2,preprocess,preprocess_nets,preprocess_rest")
+                  "skyreels,rife,sam2,preprocess,preprocess_nets,preprocess_rest,preprocess_pose")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -338,8 +361,9 @@ QWENIMAGE_MANIFEST = REPO / "manifests" / "image" / "qwenimage.yml"
 # 1024x1024: 128x128 latents packed 2x2 into 4096 tokens of 24 heads of 128;
 # 60 DiT blocks and 5 ControlNet blocks, one joint launch each
 QWENIMAGE_TOKENS, QWENIMAGE_HEADS, QWENIMAGE_LAYERS, QWENIMAGE_CN_LAYERS = 4096, 24, 60, 5
-# the bench leg's edit request runs 4 of its 8 steps: a cut of depth
-QWENIMAGE_EDIT_PROMPT, QWENIMAGE_EDIT_STEPS = "make the sky purple", 4
+# the bench leg's edit request runs 2 of its 8 steps: a cut that keeps the
+# whole script inside its limit
+QWENIMAGE_EDIT_PROMPT, QWENIMAGE_EDIT_STEPS = "make the sky purple", 2
 # rows, in, out and calls a forward of the edit request's resident Linears: the
 # image stream (4096 noise + 4096 condition rows) q/k/v/out, MLP in and out, and
 # the two 6·d modulations on one row (the text stream's q/k/v/out are added at
@@ -353,11 +377,16 @@ WAN_I2V_MANIFEST = REPO / "manifests" / "video" / "wan2.2-a14b-image-to-video.ym
 # 8x-downscaled latents, 4x in time): one 480x832 frame 1x30x52, a 1024² image
 # 1x64x64, 81 frames at 480x832 21x30x52
 WAN_HEADS, WAN_LAYERS, WAN_TEXT_TOKENS = 40, 40, 512
-# the bench leg's and the t2i request's steps in this run: 5 of their 30, a
-# cut of depth that keeps the whole script inside its time limit (the
-# seconds per step and every check are read as at 30; the t2i schedule still
-# crosses the expert boundary)
-WAN_SMOKE_STEPS = 5
+# the bench leg's and the t2i request's steps in this run: 3 of their 30, a
+# cut that keeps the whole script inside its
+# time limit (the seconds per step and every check are read as at 30; the
+# t2i schedule at shift 5 still crosses the expert boundary: t = 999, 909 |
+# 714)
+# the 81-frame t2v and i2v requests: 2 steps at shift 3 (t = 999 | 750), one
+# step an expert across the boundary at 0.875, where the manifests' shift 12
+# needs 3 (999, 959 | 856) (a cut of steps)
+WAN_CLIP_STEPS, WAN_CLIP_SHIFT = 2, 3.0
+WAN_SMOKE_STEPS = 3
 WAN_TOKENS = {"frame": 1560, "t2i": 4096, "clip": 32760}
 # the bench leg's prompts (bench_e2e.py PROMPT, NEG)
 WAN_PROMPT = ("A cinematic photograph of a lighthouse on a rocky coast at golden "
@@ -402,10 +431,10 @@ WAN_CAUSAL_MANIFEST = REPO / "manifests" / "video" / "wan-causal-self-forcing.ym
 # VACE at 81 frames plus one reference frame: 22 latent frames of 1560 tokens;
 # a Self-Forcing block: 3 latent frames; 257 CLIP tokens (16 x 16 patches + class)
 WAN_EDIT_TOKENS = {"vace": 22 * 1560, "causal_block": 3 * 1560}
-# the Self-Forcing requests' DiT has 15 of its published 30 blocks (a cut of
+# the Self-Forcing requests' DiT has 8 of its published 30 blocks (a cut of
 # depth that keeps the whole script inside its limit; the 2-block
 # full-width check stays)
-VACE_LAYERS, CAUSAL_LAYERS, CAUSAL_HEADS, CLIP_TOKENS = 8, 15, 12, 257
+VACE_LAYERS, CAUSAL_LAYERS, CAUSAL_HEADS, CLIP_TOKENS = 8, 8, 12, 257
 # CLIP ViT-H in f32 on the card (TF32 off) against the CPU through 31 layers:
 # the same sums in another order. In bf16, the manifests' precision, its
 # penultimate states read 1.0% from f32 on the card: twice that is the limit
@@ -425,10 +454,10 @@ WAN_VACE_TRANSFORMER = dict(_WAN14B, _class_name="WanVACETransformer3DModel", va
 WAN_FUN_CONTROL_TRANSFORMER = dict(_WAN14B, in_channels=32)
 # gdhe17/Self-Forcing (Wan-AI/Wan2.1-T2V-1.3B's DiT): dim 1536, 30 layers
 SELF_FORCING_TRANSFORMER = dict(_WAN14B, num_attention_heads=12, ffn_dim=8960, num_layers=30)
-# the Wan editing requests' 14B DiTs have 20 of the published 40 blocks (a cut
-# of depth that keeps the whole script inside its limit; the 2-block
-# full-width checks stay); VACE keeps a hint every fifth block
-EDIT_LAYERS = 20
+# the Wan editing requests' 14B DiTs have 5 of the published 40 blocks (a
+# cut of depth that keeps the whole script inside its limit; the 2-block
+# full-width checks stay); VACE keeps a hint every fifth block (the first)
+EDIT_LAYERS = 5
 EDIT_VACE_LAYERS = len(range(0, EDIT_LAYERS, 5))
 
 
@@ -480,9 +509,16 @@ HYV_I2V_TRANSFORMER = {"_class_name": "HunyuanVideoTransformer3DModel", "in_chan
                        "image_condition_type": "token_replace"}
 # (rows, in, out): W8A8 Linear calls a forward at 81 frames, the dual blocks'
 # 75,600-row image stream reckoned at the single blocks' 75,856 rows
-HYV_LINEAR_CALLS = {(75856, 3072, 3072): 80 + 120, (75856, 3072, 12288): 20 + 40, (75856, 12288, 3072): 20,
-                    (75856, 15360, 3072): 40, (256, 3072, 3072): 80, (256, 3072, 12288): 20,
-                    (256, 12288, 3072): 20}
+# the hyv requests' DiT has 10 + 20 of the published 20 + 40 blocks (a cut of
+# depth that keeps the whole script inside its limit; the 1 + 1-block
+# full-width check stays)
+HYV_DUAL, HYV_SINGLE = 10, 20
+HYV_T2V_TRANSFORMER = dict(HYV_I2V_TRANSFORMER, num_layers=HYV_DUAL, num_single_layers=HYV_SINGLE,
+                           image_condition_type=None)
+HYV_REQUEST_LAUNCHES = HYV_DUAL + HYV_SINGLE + 2
+HYV_LINEAR_CALLS = {(75856, 3072, 3072): 4 * HYV_DUAL + 3 * HYV_SINGLE, (75856, 3072, 12288): HYV_DUAL + HYV_SINGLE,
+                    (75856, 12288, 3072): HYV_DUAL, (75856, 15360, 3072): HYV_SINGLE, (256, 3072, 3072): 4 * HYV_DUAL,
+                    (256, 3072, 12288): HYV_DUAL, (256, 12288, 3072): HYV_DUAL}
 HUMO_MANIFEST = REPO / "manifests" / "video" / "humo-17b.yml"
 # HuMo at 480x832: 1560 tokens a latent frame; 97 frames are 25 latent frames
 # (the last one the reference's), 33 are 9; 16 audio tokens a latent frame;
@@ -491,7 +527,7 @@ HUMO_TOKENS = {97: 25 * 1560, 33: 9 * 1560}
 # the requests' DiT has 20 of the published 40 blocks (a cut of depth that
 # keeps the whole script inside its limit; the full-width check runs on 2
 # blocks)
-HUMO_LAYERS = 20
+HUMO_LAYERS = 10  # of the published 40: a cut of depth
 HUMO_TRANSFORMER = {"num_layers": HUMO_LAYERS}
 HUMO_AUDIO_TOKENS, HUMO_STEPS, HUMO_LAUNCHES_PER_FORWARD = 16, 2, 3 * HUMO_LAYERS
 # the TA pair runs one step (TIA keeps two to cross step_change): a cut of depth
@@ -536,16 +572,24 @@ WAV2VEC2_BASE = dict(HUMO_WAV2VEC2, num_hidden_layers=12)
 # the motion (32,760); 4 audio tokens a frame and a padding token
 S2V_FRAMES = 20
 S2V_TOKENS = {"chunk": S2V_FRAMES * 1560 + 1560 + 1560 + 390 + 4 * 7 * 13, "first_chunk": (S2V_FRAMES + 1) * 1560}
-S2V_AUDIO_TOKENS, S2V_INJECT_LAYERS = 4 + 1, 12
-# a forward: self and text cross-attention in each block, the audio injector's after 12 of them
-S2V_LAUNCHES_PER_FORWARD = 2 * 40 + S2V_INJECT_LAYERS
+# the S2V and MultiTalk requests' DiTs have 20 of the published 40 blocks (a cut
+# of depth that keeps the whole script inside its limit; the
+# 2-block full-width checks stay): S2V keeps the audio injectors of the
+# blocks it keeps
+AUDIO_VIDEO_LAYERS = 20
+S2V_REQUEST_TRANSFORMER = dict(WAN_S2V_TRANSFORMER, num_layers=AUDIO_VIDEO_LAYERS, audio_inject_layers=[
+    i for i in WAN_S2V_TRANSFORMER["audio_inject_layers"] if i < AUDIO_VIDEO_LAYERS])
+S2V_AUDIO_TOKENS, S2V_INJECT_LAYERS = 4 + 1, len(S2V_REQUEST_TRANSFORMER["audio_inject_layers"])
+# a forward: self and text cross-attention in each block, the audio injector's after 5 of them
+S2V_LAUNCHES_PER_FORWARD = 2 * AUDIO_VIDEO_LAYERS + S2V_INJECT_LAYERS
 # the 10 s clip's wav2vec2 frames (50 Hz) behind the two 80-frame chunks at 16 fps
 S2V_AUDIO_SECONDS, S2V_W2V_FRAMES = 10.0, 499
 # MultiTalk at 480x832 and 81 frames: 21 latent frames of 1560 tokens; 32 audio
 # tokens a speaker and frame; 257 CLIP tokens; a forward makes self, text,
 # CLIP and audio cross-attention launches in each of the 40 blocks
 MULTITALK_TOKENS, MULTITALK_AUDIO_TOKENS = 21 * 1560, 2 * 32
-MULTITALK_LAUNCHES_PER_FORWARD = 4 * 40
+MULTITALK_LAUNCHES_PER_FORWARD = 4 * AUDIO_VIDEO_LAYERS
+MULTITALK_REQUEST_TRANSFORMER = dict(WAN21_I2V_TRANSFORMER, num_layers=AUDIO_VIDEO_LAYERS)
 # 3.2 s of each speaker's voice: 80 video frames at 25 fps, the wav2vec2 states resampled to them
 MULTITALK_AUDIO_SECONDS, MULTITALK_W2V_FRAMES = 3.2, 80
 # the Avatar at 512x512: one window of 33 latent frames of 32 x 32 tokens, the
@@ -553,6 +597,28 @@ MULTITALK_AUDIO_SECONDS, MULTITALK_W2V_FRAMES = 3.2, 80
 # HunyuanVideo DiT's 62 launches
 AVATAR_TOKENS = 1024 + 33 * 1024 + HYV_TEXT_TOKENS
 AUDIO_VIDEO_STEPS = 1
+# SkyReels V2 (Skywork/SkyReels-V2-DF-14B-540P transformer/config.json): Wan 2.1
+# 14B's widths with the fps embedding; the three manifests name this DF
+# config, whose 16 input channels the i2v engine's 20 condition channels do
+# not fit (ROADMAP Queue 3): the i2v request's home gets the 36-channel twin
+SKYREELS_MANIFESTS = {kind: REPO / "manifests" / "video" / f"skyreels-v2-{kind}-14b.yml"
+                      for kind in ("df", "t2v", "i2v")}
+SKYREELS_TRANSFORMER = dict(_WAN14B, _class_name="SkyReelsTransformer3DModel", inject_sample_info=True)
+SKYREELS_I2V_TRANSFORMER = dict(SKYREELS_TRANSFORMER, in_channels=36)
+# 544x960: latents 68x120, 34x60 = 2040 tokens a latent frame; diffusion
+# forcing's window of base_num_frames 17 (5 latent frames), 9-frame i2v
+SKYREELS_FRAME_TOKENS = 34 * 60
+SKYREELS_TOKENS = {"df_window": 5 * SKYREELS_FRAME_TOKENS, "i2v": 3 * SKYREELS_FRAME_TOKENS,
+                   "t2v": SKYREELS_FRAME_TOKENS}
+# df at the manifest's 544x960 and CFG 6.0: 33 frames (9 latent) in windows of
+# 17 (5 latent), 2 steps, ar_step 1: 10 rows of 2 forwards (the manifest's
+# ar_step 5 makes 18 rows of the same clip), 40 self + 40 text-cross launches each
+SKYREELS_DF = dict(height=544, width=960, num_frames=33, base_num_frames=17, num_inference_steps=2, ar_step=1,
+                   guidance_scale=6.0, fps=24)
+SKYREELS_DF_ROWS, SKYREELS_LAUNCHES_PER_FORWARD = 10, 2 * WAN_LAYERS
+# the image-prefix request: 17 frames, the window the whole clip, its first
+# latent frame done from the start: 5 rows
+SKYREELS_PREFIX_FRAMES, SKYREELS_PREFIX_ROWS = 17, 5
 # facebookresearch/sam2, sam2/configs/sam2.1/sam2.1_hiera_b+.yaml (the default
 # MASK_MODEL, sam2_base_plus): Hiera-B+ (embed 112, 2 heads doubling at each
 # stage: head dim 56 throughout), stages 2-3-16-3, windows 8-4-14-7, global
@@ -2602,12 +2668,12 @@ def phase_wan(home: Path, kernel_rows=()):
     """Wan 2.2 A14B from its three manifests, full width and depth, both 14B
     experts int4-resident unless a request says otherwise (UMT5-XXL int8, the
     Wan VAE bf16): the 2-block card-vs-CPU check and the fused UniPC step; the
-    bench leg's request three times (t2v at one 480x832 frame, 5 of its 30 steps, one
-    expert); t2v at 81 frames (3 steps, the expert switch) with one decode
-    tile against float64; the resident Linears at Wan's shapes and the int4
-    step split; the t2i manifest's 1024² request (5 steps, the expert
-    switch); i2v at 81 frames (3 steps); one bf16 t2i request (4 steps); the
-    point mask."""
+    bench leg's request three times (t2v at one 480x832 frame, 3 of its 30 steps, one
+    expert); t2v at 81 frames (2 steps at shift 3, the expert switch) with
+    one decode tile against float64; the resident Linears at Wan's shapes and
+    the int4 step split; the t2i manifest's 1024² request (3 steps, the
+    expert switch); i2v at 81 frames (2 steps at shift 3); one bf16 t2i
+    request (2 steps); the point mask."""
     import numpy as np
 
     from apex_studio_tpu_torch.quantize.residency import count_resident
@@ -2637,7 +2703,8 @@ def phase_wan(home: Path, kernel_rows=()):
     check(rows[0]["tokens"] == WAN_TOKENS["frame"], f"the bench leg's frame gave {rows[0]['tokens']} tokens")
     check(count_resident(engine.transformer) > 0, "no weight of the Wan DiT is resident")
     # t2v at 81 frames on the same engine, with the manifest's expert switch
-    clip_kw = dict(leg, num_frames=81, num_inference_steps=3, boundary_ratio=0.875, guidance_scale_2=3.0, seed=0)
+    clip_kw = dict(leg, num_frames=81, num_inference_steps=WAN_CLIP_STEPS, shift=WAN_CLIP_SHIFT, boundary_ratio=0.875,
+                   guidance_scale_2=3.0, seed=0)
     paths["wan_t2v_81_frames"], _ = wan_drive("wan_t2v", engine, "t2v", "int4", [clip_kw])
     z = engine.wan_smoke["decoded"][-1]
     check(paths["wan_t2v_81_frames"][0]["tokens"] == WAN_TOKENS["clip"], "the 81-frame clip's tokens")
@@ -2677,8 +2744,9 @@ def phase_wan(home: Path, kernel_rows=()):
     os.environ["APEX_MEMORY_FALLBACK"] = "off"
     try:
         engine = wan_engine("wan_t2i_bf16", WAN_T2I_MANIFEST, "t2i", home)
+        # 2 steps at shift 5 (t = 999 | 833): both experts
         paths["wan_t2i_bf16"], _ = wan_drive("wan_t2i_bf16", engine, "t2i", "bf16",
-                                             [dict(t2i_kw, num_inference_steps=4)])
+                                             [dict(t2i_kw, num_inference_steps=2)])
     finally:
         if saved is None:
             del os.environ["APEX_MEMORY_FALLBACK"]
@@ -2896,7 +2964,7 @@ def edit_engine(label, manifest, model_type, home, weights, configs=None, weight
     return engine
 
 
-_STEP = re.compile(r"(?:Denoising|Causal) step (\d+)/(\d+)")
+_STEP = re.compile(r"(?:(?:Denoising|Causal) step|DF row) (\d+)/(\d+)")
 
 
 def edit_drive(label, engine, kw, launches_per_forward, expected_forwards, frames_expected, latent_t_expected,
@@ -2947,8 +3015,8 @@ def edit_drive(label, engine, kw, launches_per_forward, expected_forwards, frame
         "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
         "seconds_before_denoise": before - start,
         "stages": {m: t - start for m, t in first.items() if not _STEP.fullmatch(m)},
-        "seconds_decode": (first.get("Completed pipeline", first.get("Completed causal pipeline", start)) - denoise_end
-                           if denoise_end else None),
+        "seconds_decode": (first.get("Completed pipeline", first.get("Completed causal pipeline", first.get(
+            "Completed diffusion-forcing pipeline", start))) - denoise_end if denoise_end else None),
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "forwards_by_expert": dict(seen["forwards"]), "forwards_expected": expected_forwards,
         "flash_launches": launches,
@@ -3265,6 +3333,9 @@ FLUX_FILL_MANIFEST = REPO / "manifests" / "image" / "flux-dev-fill.yml"
 FLUX_CONTROL_MANIFEST = REPO / "manifests" / "image" / "flux-dev-control.yml"
 FLUX2_MANIFEST = REPO / "manifests" / "image" / "flux2-dev.yml"
 FLUX2_TURBO_MANIFEST = REPO / "manifests" / "image" / "flux2-dev-turbo.yml"
+# t2i at 2 steps and Turbo at 4 of its 8: cuts of steps that keep the whole
+# script inside its limit
+FLUX2_STEPS, FLUX2_TURBO_STEPS = 2, 4
 # black-forest-labs/FLUX.1-Fill-dev and FLUX.1-Canny-dev transformer/config.json: Flux Dev's widths, 384
 # input channels (noise 64 + masked-image latents 64 + 8x8 mask bits packed 2x2, 256) and 128 (noise +
 # control-image latents)
@@ -3555,11 +3626,11 @@ def phase_flux2(home: Path, kernel_rows=()):
     Flux2Config defaults: 8 + 48 blocks, 48 heads of 128), the 32B DiT
     int4-resident and Mistral-Small 3.2 int8, both resident through the run,
     with the text tower's and the VAE's configs written where the manifests
-    name them: the 2-block card-vs-CPU checks; t2i of 4 steps, (A, 0), (B, 1),
+    name them: the 2-block card-vs-CPU checks; t2i of 2 steps, (A, 0), (B, 1),
     (A, 0) (56 launches a step, 1 and 3 identical, 2 not); one VAE decode
     against float64; edit with one 1024² reference image (2 steps, S = 8704);
-    the resident Linears at FLUX.2's shapes and the step split; Turbo at its
-    8 steps with a rank-16 LoRA written at the manifest's LoRA source; the
+    the resident Linears at FLUX.2's shapes and the step split; Turbo at 4
+    of its 8 steps with a rank-16 LoRA written at the manifest's LoRA source; the
     control DiT (4 chain blocks, 60 launches a step) with a control image,
     an inpaint image and a mask (2 steps)."""
     import numpy as np
@@ -3578,7 +3649,7 @@ def phase_flux2(home: Path, kernel_rows=()):
     paths = {}
     engine = image_engine("flux2_t2i", FLUX2_MANIFEST, "ti2i", home, "int4", configs)
     rows, frames = image_drive("flux2_t2i", engine, [dict(prompt=PROMPT_A, seed=0), dict(prompt=PROMPT_B, seed=1),
-                                                     dict(prompt=PROMPT_A, seed=0)], 4, FLUX2_LAYERS)
+                                                     dict(prompt=PROMPT_A, seed=0)], FLUX2_STEPS, FLUX2_LAYERS)
     tf, te = engine.transformer, engine.text_encoder.model
     bits = {m.weight_bits for m in tf.modules() if getattr(m, "weight_scale", None) is not None}
     same, differ = bool(np.array_equal(frames[0], frames[2])), not np.array_equal(frames[0], frames[1])
@@ -3619,7 +3690,8 @@ def phase_flux2(home: Path, kernel_rows=()):
     source = yaml.safe_load(FLUX2_TURBO_MANIFEST.read_text())["spec"]["loras"][0]["source"]
     adapters = write_flux2_lora(get_lora_path() / source)
     engine = image_engine("flux2_turbo", FLUX2_TURBO_MANIFEST, "ti2i", home, "int4", configs)
-    paths["flux2_turbo"] = image_drive("flux2_turbo", engine, [dict(prompt=PROMPT_B, seed=4)], 8, FLUX2_LAYERS)[0]
+    paths["flux2_turbo"] = image_drive("flux2_turbo", engine, [dict(prompt=PROMPT_B, seed=4)], FLUX2_TURBO_STEPS,
+                                       FLUX2_LAYERS)[0]
     merged = [(r["scale"], r["applied"], len(r["skipped"])) for r in engine.lora_results]
     emit({"phase": "flux2_turbo", "lora_rank": FLUX2_LORA_RANK, "loras": merged, "adapters_written": adapters})
     check(merged == [(1.0, adapters, 0)], f"Turbo LoRA merge: {merged}, expected {adapters} applied")
@@ -3820,12 +3892,13 @@ def hyv_vae_precision(vae) -> None:
             check(all(branches.values()), f"a chunked branch of the HunyuanVideo VAE did not run: {branches}")
 
 
-def hyv_engine(label, manifest, model_type, home):
+def hyv_engine(label, manifest, model_type, home, transformer=None):
     """A HunyuanVideo engine on the card as ``image_engine`` builds it, with
-    synthetic int8 weights (as the HunyuanVideo 1.5 phase) and, for i2v, the
-    I2V transformer config written; observed (``observe``) and with each
-    decode's choice of whole or tiled read (``engine.decoded_whole``)."""
-    configs = [("transformer", HYV_I2V_TRANSFORMER)] if model_type == "i2v" else []
+    synthetic int8 weights (as the HunyuanVideo 1.5 phase) and the
+    ``transformer`` config written where the manifest names it; observed
+    (``observe``) and with each decode's choice of whole or tiled read
+    (``engine.decoded_whole``)."""
+    configs = [("transformer", transformer)] if transformer else []
     engine = image_engine(label, manifest, model_type, home, "int8", configs)
     whole, engine.decoded_whole = engine._decode_whole, []
 
@@ -3845,8 +3918,9 @@ def phase_hyv(home: Path):
     f32 / float64; t2v at 33 frames twice with one seed (bit-identical), i2v
     token_replace at 33 frames from a seeded image (the first latent frame
     pinned to the image latent), both decoded whole; t2v at 81 frames
-    (75,856 tokens), decoded in tiles; 1 step each, 62 launches a forward;
-    the resident Linears at the 81-frame shapes and the step split."""
+    (75,856 tokens), decoded in tiles; 1 step each, the requests' DiT at
+    ``HYV_DUAL`` + ``HYV_SINGLE`` of its blocks (32 launches a forward); the
+    resident Linears at the 81-frame shapes and the step split."""
     import numpy as np
     import torch
 
@@ -3856,10 +3930,10 @@ def phase_hyv(home: Path):
     hyv_reference()
     (height, width), paths = HYV_SIZE, {}
     base = dict(prompt=HYV_PROMPT, height=height, width=width, num_inference_steps=HYV_STEPS, guidance_scale=6.0)
-    engine = hyv_engine("hyv_t2v", HYV_T2V_MANIFEST, "t2v", home)
+    engine = hyv_engine("hyv_t2v", HYV_T2V_MANIFEST, "t2v", home, HYV_T2V_TRANSFORMER)
     rows, latents = [], []
     for _ in range(2):  # edit_drive clears the decoded latents before each request
-        rows.append(edit_drive("hyv", engine, dict(base, num_frames=33, seed=42), HYV_LAUNCHES_PER_FORWARD,
+        rows.append(edit_drive("hyv", engine, dict(base, num_frames=33, seed=42), HYV_REQUEST_LAUNCHES,
                                {"transformer": HYV_STEPS}, 33, 9))
         latents.append(engine.wan_smoke["decoded"][-1])
     tf, vae = engine.transformer, engine.vae
@@ -3869,10 +3943,10 @@ def phase_hyv(home: Path):
           "vae_compute_dtype": str(vae.decoder.conv_in.dtype)})
     check(same, "HunyuanVideo t2v requests 1 and 2 (same prompt and seed) differ")
     check(engine.decoded_whole == [True, True], f"the 33-frame decodes were not whole: {engine.decoded_whole}")
-    check(tf.cfg.dim == 3072 and len(tf.single_transformer_blocks) == 40 and count_resident(tf) > 0,
+    check(tf.cfg.dim == 3072 and len(tf.single_transformer_blocks) == HYV_SINGLE and count_resident(tf) > 0,
           "the HunyuanVideo DiT's widths or residency")
     hyv_vae_precision(vae)
-    long_row, frames = edit_drive("hyv_81f", engine, dict(base, num_frames=81, seed=7), HYV_LAUNCHES_PER_FORWARD,
+    long_row, frames = edit_drive("hyv_81f", engine, dict(base, num_frames=81, seed=7), HYV_REQUEST_LAUNCHES,
                                   {"transformer": HYV_STEPS}, 81, 21)
     tiled = engine.decoded_whole[-1] is False
     emit({"phase": "hyv_81f", "decode": "tiled" if tiled else "whole", "tokens": HYV_TOKENS[81]})
@@ -3882,9 +3956,10 @@ def phase_hyv(home: Path):
     release()
 
     image = cv2_smooth(np.random.default_rng(17), HYV_SIZE)
-    engine = hyv_engine("hyv_i2v", HYV_I2V_MANIFEST, "i2v", home)
+    engine = hyv_engine("hyv_i2v", HYV_I2V_MANIFEST, "i2v", home,
+                        dict(HYV_I2V_TRANSFORMER, num_layers=HYV_DUAL, num_single_layers=HYV_SINGLE))
     i2v_row, frames = edit_drive("hyv_i2v", engine, dict(base, num_frames=33, seed=42, image=image),
-                                 HYV_LAUNCHES_PER_FORWARD, {"transformer": HYV_STEPS}, 33, 9)
+                                 HYV_REQUEST_LAUNCHES, {"transformer": HYV_STEPS}, 33, 9)
     px, _ = engine._image_pixels(image, height, width)
     first = engine.encode_video_latents(px[None, :, None]).float()
     pinned = bool(torch.equal(engine.wan_smoke["decoded"][-1][:, :, :1], first))
@@ -3900,15 +3975,15 @@ def phase_hyv(home: Path):
     linear_rows = residency_timing(list(HYV_LINEAR_CALLS), phase="hyv")
     step = long_row["median_seconds_per_step_after_the_first"]
     queued = {r["case"]: r["queued_ms"] for r in kernel_rows}
-    attention_s = (60 * queued[f"hyv_joint_81f_s{HYV_TOKENS[81]}_bias_h24"]
+    attention_s = ((HYV_DUAL + HYV_SINGLE) * queued[f"hyv_joint_81f_s{HYV_TOKENS[81]}_bias_h24"]
                    + 2 * queued[f"hyv_refiner_s{HYV_TEXT_TOKENS}_bias_h24"]) / 1e3
     linear_s = sum(HYV_LINEAR_CALLS[(r["rows"], r["in"], r["out"])] * r["w8a8_ms"] for r in linear_rows) / 1e3
     emit({"phase": "hyv", "step_breakdown_81_frames": {
         "seconds_per_step": step, "attention_seconds": attention_s, "w8a8_linear_seconds": linear_s,
         "other_seconds": step - attention_s - linear_s, "attention_share": attention_s / step,
         "w8a8_linear_share": linear_s / step,
-        "reckoning": "queued kernel ms x 60 joint + 2 refiner launches; queued W8A8 ms x calls by shape (the "
-                     "dual blocks' 75,600-row image stream at the single blocks' 75,856 rows)"}})
+        "reckoning": f"queued kernel ms x {HYV_DUAL + HYV_SINGLE} joint + 2 refiner launches; queued W8A8 ms x "
+                     "calls by shape (the dual blocks' 75,600-row image stream at the single blocks' 75,856 rows)"}})
     return paths, kernel_rows, kernel_err
 
 
@@ -4191,16 +4266,17 @@ def phase_s2v(home: Path):
     kernel at the path's shapes; the 2-block DiT against f32; one request at
     480x832 of two 80-frame chunks from a 10 s seeded WAV, a reference image
     and a 16-frame pose video (reverse-padded to 160), a negative prompt (2
-    forwards a step), 2 steps a chunk: the first chunk's motion dropped, the
+    forwards a step), 1 step a chunk: the first chunk's motion dropped, the
     second's motion buffer re-encoded from the first's last 73 frames; then
     two identical 32-frame requests of one chunk seeded with the image
-    (``init_first_frame``), without CFG."""
+    (``init_first_frame``), without CFG; the requests' DiT
+    ``AUDIO_VIDEO_LAYERS`` of its 40 blocks."""
     import numpy as np
 
     kernel_rows, kernel_err = path_kernel_rows("s2v", s2v_kernel_inputs())
     s2v_reference()
     engine = observe_decodes(edit_engine("s2v", WAN_S2V_MANIFEST, "s2v", home, "int4",
-                                         {"transformer": WAN_S2V_TRANSFORMER, "audio_encoder": WAV2VEC2_LARGE}))
+                                         {"transformer": S2V_REQUEST_TRANSFORMER, "audio_encoder": WAV2VEC2_LARGE}))
     wav = home / "s2v" / "voice.wav"
     write_humo_audio(wav, S2V_AUDIO_SECONDS, 39)
     rng = np.random.default_rng(40)
@@ -4220,8 +4296,9 @@ def phase_s2v(home: Path):
     emit({"phase": "s2v", "dit_bits": dit_bits(tf), "dit_parameters": sum(p.numel() for p in tf.parameters()),
           "framepack": tf.frame_packer is not None, "inject_layers": sorted(tf.audio_inject_map),
           "tokens": S2V_TOKENS, "audio_encoder_layers": engine.helpers["audio_encoder"].cfg.num_hidden_layers})
-    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == 40 and tf.frame_packer is not None
-          and len(tf.injector) == S2V_INJECT_LAYERS, "the S2V DiT's widths, bits or audio layers")
+    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == AUDIO_VIDEO_LAYERS
+          and tf.frame_packer is not None and len(tf.injector) == S2V_INJECT_LAYERS,
+          "the S2V DiT's widths, bits or audio layers")
     del engine, tf
     release()
     return {"s2v": [main_row], "s2v_pair": pair}, kernel_rows, kernel_err
@@ -4233,14 +4310,15 @@ def phase_multitalk(home: Path):
     configs written; the DiT int4, UMT5-XXL int8, CLIP bf16): the kernel at
     the path's shapes; one request at 480x832 and 81 frames with two
     speakers' seeded 3.2 s voices (L-RoPE routing over the chunked
-    ``ref_attn_maps``) and a negative prompt (3 forwards a step), 2 steps;
-    then two identical one-speaker requests of 33 frames (2 forwards a step)."""
+    ``ref_attn_maps``) and a negative prompt (3 forwards a step), 1 step;
+    then two identical one-speaker requests of 33 frames (2 forwards a step);
+    the requests' DiT ``AUDIO_VIDEO_LAYERS`` of its 40 blocks."""
     import numpy as np
 
     kernel_rows, kernel_err = path_kernel_rows("multitalk", multitalk_kernel_inputs())
     multitalk_reference()
     engine = observe_decodes(edit_engine("multitalk", WAN_MULTITALK_MANIFEST, "multitalk", home, "int4",
-                                         {"transformer": WAN21_I2V_TRANSFORMER, "image_encoder": CLIP_VISION_H,
+                                         {"transformer": MULTITALK_REQUEST_TRANSFORMER, "image_encoder": CLIP_VISION_H,
                                           "audio_encoder": WAV2VEC2_BASE}, {"helper": "bf16"}))
     voices = [home / "multitalk" / f"voice_{i}.wav" for i in (1, 2)]
     for i, path in enumerate(voices):
@@ -4261,7 +4339,8 @@ def phase_multitalk(home: Path):
     emit({"phase": "multitalk", "dit_bits": dit_bits(tf), "dit_parameters": sum(p.numel() for p in tf.parameters()),
           "in_channels": tf.cfg.in_channels, "added_kv_proj_dim": tf.cfg.added_kv_proj_dim,
           "clip_dtype": str(engine.helpers["image_encoder"].dtype)})
-    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == 40 and tf.cfg.in_channels == 36
+    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == AUDIO_VIDEO_LAYERS
+          and tf.cfg.in_channels == 36
           and tf.cfg.added_kv_proj_dim == 5120, "the MultiTalk DiT's widths or bits")
     del engine, tf
     release()
@@ -4303,6 +4382,119 @@ def phase_avatar(home: Path):
     del engine, tf
     release()
     return {"avatar": [main_row], "avatar_pair": pair}, kernel_rows, kernel_err
+
+
+# -- SkyReels V2 -------------------------------------------------------------------------------
+
+
+def skyreels_kernel_inputs():
+    """(case, q, k, v, None) at the SkyReels path's new shapes (40 heads of
+    128, unmasked): self-attention over the df window (10,200 tokens), the
+    9-frame i2v clip (6120) and one t2v frame (2040), and the window's text
+    cross-attention over the 512 UMT5 rows."""
+    for i, (kind, s) in enumerate(SKYREELS_TOKENS.items()):
+        yield (f"skyreels_self_{kind}_s{s}_h40", *qkv(1, s, s, WAN_HEADS, 128, 130 + i), None)
+    s = SKYREELS_TOKENS["df_window"]
+    yield (f"skyreels_cross_df_window_sq{s}_sk{WAN_TEXT_TOKENS}_h40",
+           *qkv(1, s, WAN_TEXT_TOKENS, WAN_HEADS, 128, 133), None)
+
+
+def skyreels_reference():
+    """The SkyReels DiT at full width (Wan 2.1 14B's, the fps embedding) with
+    2 blocks on the card in bf16 (flash kernel) against the same weights on
+    the CPU in f32: two latent frames of 17x30 tokens at per-frame timesteps
+    (999, 500) with the 24-fps row, within BF16_REL_L2."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers.wan import WanConfig, WanTransformer3DModel
+
+    rng = np.random.default_rng(134)
+    x = torch.from_numpy(rng.normal(size=(1, 16, 2, 34, 60)).astype(np.float32))
+    ctx = torch.from_numpy(rng.normal(size=(1, WAN_TEXT_TOKENS, 4096)).astype(np.float32))
+    ctx[:, 40:] = 0.0
+    cfg = WanConfig.from_dict(dict(SKYREELS_TRANSFORMER, num_layers=2))
+    card_vs_cpu("skyreels dim 5120, fps embedding, per-frame timesteps, 2 blocks",
+                lambda dt: WanTransformer3DModel(cfg, dtype=dt),
+                lambda m, x_, t_, c_, f_: m(x_, t_, c_, fps_index=f_),
+                (x, torch.tensor([[999.0, 500.0]]), ctx, torch.tensor([1])), BF16_REL_L2, 135, phase="skyreels",
+                tokens=2 * 17 * 30)
+
+
+def skyreels_engine(kind, home, transformer_cfg):
+    """A SkyReels engine from its manifest (``SKYREELS_MANIFESTS``), observed
+    as the Wan editing engines are (``edit_engine``): the DiT int4, UMT5-XXL
+    int8, the configs the manifest names written into the request's home."""
+    return edit_engine(f"skyreels_{kind}", SKYREELS_MANIFESTS[kind], kind, home, "int4",
+                       {"transformer": transformer_cfg})
+
+
+def phase_skyreels(home: Path):
+    """SkyReels V2 from its three manifests at the published widths (the DF
+    14B transformer config written; the DiT int4, UMT5-XXL int8, the Wan
+    VAE): the kernel at the path's new shapes; the 2-block DiT against f32;
+    df at 544x960 and CFG 6.0, 33 frames in windows of 17 (10 rows, 20
+    forwards, 1600 launches), twice with one seed (bit-identical), then 17
+    frames once with an image prefix (its latent frame is the image's
+    encode, never updated; 5 rows); t2v of one frame, 2 steps, at 24 and at 16 fps (the outputs
+    differ); i2v of 9 frames, 1 step, on the 36-channel twin of the config."""
+    import numpy as np
+    import torch
+
+    kernel_rows, kernel_err = path_kernel_rows("skyreels", skyreels_kernel_inputs())
+    skyreels_reference()
+    paths = {}
+    engine = skyreels_engine("df", home, SKYREELS_TRANSFORMER)
+    df = dict(SKYREELS_DF, prompt=WAN_PROMPT, negative_prompt=WAN_NEG, seed=0)
+    forwards = {"transformer": 2 * SKYREELS_DF_ROWS}
+    paths["skyreels_df"] = identical_pair("skyreels_df", engine, df, SKYREELS_LAUNCHES_PER_FORWARD, forwards, 33, 9)
+    image = cv2_smooth(np.random.default_rng(136), (544, 960))
+    row, _ = edit_drive("skyreels_df_prefix", engine,
+                        dict(df, image=image, seed=1, num_frames=SKYREELS_PREFIX_FRAMES),
+                        SKYREELS_LAUNCHES_PER_FORWARD, {"transformer": 2 * SKYREELS_PREFIX_ROWS},
+                        SKYREELS_PREFIX_FRAMES, 5)
+    paths["skyreels_df_prefix"] = [row]
+    import cv2
+
+    from apex_studio_tpu_torch.engine.wan import _pixels, _resized
+
+    z = engine.wan_smoke["decoded"][-1]
+    z0 = engine.encode_video_latents(_pixels(_resized([image], 960, 544, cv2.INTER_LANCZOS4)))
+    tf = engine.transformer
+    prefix = {"phase": "skyreels", "prefix_frame_is_the_image_latent": bool(torch.equal(z[:, :, :1], z0.float())),
+              "dit_bits": dit_bits(tf), "dit_parameters": sum(p.numel() for p in tf.parameters()),
+              "inject_sample_info": tf.cfg.inject_sample_info, "window_tokens": SKYREELS_TOKENS["df_window"]}
+    emit(prefix)
+    check(prefix["prefix_frame_is_the_image_latent"], "the df prefix frame is not the image's latent")
+    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == 40 and tf.cfg.inject_sample_info,
+          "the SkyReels DiT's widths, depth or bits")
+    del engine, tf, z, z0
+    release()
+
+    engine = skyreels_engine("t2v", home, SKYREELS_TRANSFORMER)
+    t2v = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEG, height=544, width=960, num_frames=1,
+               num_inference_steps=2, guidance_scale=6.0, seed=0)
+    rows, frames = [], []
+    for fps in (24, 16):
+        row, out = edit_drive("skyreels_t2v", engine, dict(t2v, fps=fps), SKYREELS_LAUNCHES_PER_FORWARD,
+                              {"transformer": 4}, 1, 1)
+        rows.append(row)
+        frames.append(out[0])
+    paths["skyreels_t2v"] = rows
+    differ = not np.array_equal(frames[0], frames[1])
+    emit({"phase": "skyreels", "t2v_fps_24_and_16_differ": differ})
+    check(differ, "the t2v frames at 24 and 16 fps are identical: the fps row is not applied")
+    del engine
+    release()
+
+    engine = skyreels_engine("i2v", home, SKYREELS_I2V_TRANSFORMER)
+    row, _ = edit_drive("skyreels_i2v", engine, dict(t2v, image=image, num_frames=9, num_inference_steps=1, fps=24),
+                        SKYREELS_LAUNCHES_PER_FORWARD, {"transformer": 2}, 9, 3)
+    paths["skyreels_i2v"] = [row]
+    check(engine.transformer.cfg.in_channels == 36, "the i2v DiT's input channels")
+    del engine
+    release()
+    return paths, kernel_rows, kernel_err
 
 
 # -- SAM2 point masks and tracking; the preprocessors ------------------------------------
@@ -5262,6 +5454,366 @@ def phase_preprocess_rest(home: Path):
     return rows
 
 
+# -- the Hugging Face delegates, DWPose / pose2d and NLF -----------------------------------
+
+# the transformers delegates' published models (the Hub ids their classes
+# name, written under the preprocessor models dir as folders: zoe and
+# zoe_depth_anything share one, midas and normal_midas another)
+HF_DELEGATES = (("midas", "Intel/dpt-large"), ("normal_midas", "Intel/dpt-large"),
+                ("zoe", "Intel/zoedepth-nyu-kitti"), ("depth_anything", "LiheYoung/depth-anything-large-hf"),
+                ("zoe_depth_anything", "Intel/zoedepth-nyu-kitti"),
+                ("segmentation", "nvidia/segformer-b4-finetuned-ade-512-512"),
+                ("oneformer", "shi-labs/oneformer_ade20k_swin_tiny"))
+POSE_NAMES = ("dwpose", "pose2d", "face2d", "animalpose", "dwpose_nlf")
+GATED_NAMES = ("mediapipe_face", "diffusion_edge", "mesh_graphormer")
+# two people's DWPose boxes on the 720x1280 image, as (x, y, w, h, score)
+NLF_BOXES = ((300.0, 120.0, 260.0, 560.0, 0.9), (760.0, 100.0, 240.0, 580.0, 0.8))
+
+
+def manifest_defaults(name: str) -> dict:
+    """A preprocessor manifest's parameter defaults."""
+    import yaml
+
+    doc = yaml.safe_load((REPO / "manifests" / "preprocessor" / f"{name}.yml").read_text())
+    return {p["name"]: p["default"] for p in doc.get("parameters", []) if "default" in p}
+
+
+def write_byte_clip_tokenizer(path: Path) -> None:
+    """A byte-level CLIP tokenizer (every byte a token, no merges) written as
+    vocab.json / merges.txt and its tokenizer_config.json: OneFormer's
+    task-text tokenizer, made here as the engines' byte-level tokenizers are
+    (GPT-2's printable map of the 256 bytes)."""
+    keep = [*range(ord("!"), ord("~") + 1), *range(ord("¡"), ord("¬") + 1), *range(ord("®"), ord("ÿ") + 1)]
+    chars = [chr(b) if b in keep else chr(256 + sum(1 for c in range(b) if c not in keep)) for b in range(256)]
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": 256 + i for i, c in enumerate(chars)})
+    vocab.update({"<|startoftext|>": 512, "<|endoftext|>": 513})
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\n")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "CLIPTokenizer", "bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+        "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>", "model_max_length": 77}))
+
+
+def write_hf_delegates(models: Path) -> dict:
+    """The delegates' models at their published widths (from ``transformers``'
+    config classes, torch's seeded initialisers, built on the card) saved
+    with their processors (the PIL variants under ``transformers`` 5) by
+    ``save_pretrained`` under ``models/<Hub id>``:
+    DPT-Large; ZoeDepth NYU-KITTI (BEiT-L/384, the two bin configurations);
+    Depth Anything large (DINOv2-L/14 at 518); SegFormer-B4 on ADE20K's 150
+    classes; OneFormer ADE20K Swin-Tiny (its text encoder over the byte-level
+    CLIP tokenizer's 514 tokens) with that tokenizer and a 150-class info
+    file. Returns {Hub id: (parameters, MiB)}."""
+    import torch
+    import transformers as T
+
+    def processor(name):  # the PIL variant where transformers has one (5.x; its default wants torchvision)
+        return getattr(T, name + "Pil", None) or getattr(T, name)
+
+    imagenet = dict(image_mean=[0.485, 0.456, 0.406], image_std=[0.229, 0.224, 0.225])
+    large = dict(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096)
+    neck = dict(neck_hidden_sizes=[256, 512, 1024, 1024], fusion_hidden_size=256)
+    out = {}
+
+    def save(hub_id, build, processor):
+        path = models / hub_id
+        torch.manual_seed(len(out) + 140)
+        with torch.device("cuda"):
+            model = build()
+        model.eval().save_pretrained(path)
+        if isinstance(processor, dict):  # a config written as the published file holds it
+            (path / "preprocessor_config.json").write_text(json.dumps(processor))
+        else:
+            processor.save_pretrained(path)
+        out[hub_id] = (sum(p.numel() for p in model.parameters()),
+                       sum(f.stat().st_size for f in path.iterdir() if f.is_file()) / 2 ** 20)
+        del model
+        release()
+
+    save("Intel/dpt-large", lambda: T.DPTForDepthEstimation(T.DPTConfig(
+        **large, **neck, image_size=384, patch_size=16, backbone_out_indices=[5, 11, 17, 23])),
+         processor("DPTImageProcessor")(size={"height": 384, "width": 384}))
+    beit = T.BeitConfig(**large, image_size=384, patch_size=16, use_relative_position_bias=True,
+                        reshape_hidden_states=False, out_indices=[6, 12, 18, 24])
+    bins = [{"n_bins": 64, "min_depth": 1e-3, "max_depth": 10.0, "name": "nyu"},
+            {"n_bins": 64, "min_depth": 1e-3, "max_depth": 80.0, "name": "kitti"}]
+    save("Intel/zoedepth-nyu-kitti", lambda: T.ZoeDepthForDepthEstimation(T.ZoeDepthConfig(
+        backbone_config=beit, **neck, bottleneck_features=256, num_attractors=[16, 8, 4, 1], bin_embedding_dim=128,
+        num_relative_features=32, bin_configurations=bins, num_patch_transformer_layers=4,
+        patch_transformer_hidden_size=128, patch_transformer_intermediate_size=1024,
+        patch_transformer_num_attention_heads=4)), processor("ZoeDepthImageProcessor")())
+    dino = T.Dinov2Config(**large, image_size=518, patch_size=14, out_indices=[5, 12, 18, 24],
+                          reshape_hidden_states=False)
+    save("LiheYoung/depth-anything-large-hf", lambda: T.DepthAnythingForDepthEstimation(T.DepthAnythingConfig(
+        backbone_config=dino, reassemble_hidden_size=1024, head_hidden_size=32, patch_size=14, **neck)),
+         processor("DPTImageProcessor")(size={"height": 518, "width": 518}, keep_aspect_ratio=True,
+                                        ensure_multiple_of=14, resample=3, **imagenet))
+    save("nvidia/segformer-b4-finetuned-ade-512-512", lambda: T.SegformerForSemanticSegmentation(T.SegformerConfig(
+        depths=[3, 8, 27, 3], hidden_sizes=[64, 128, 320, 512], num_attention_heads=[1, 2, 5, 8],
+        decoder_hidden_size=768, num_labels=150)),
+         # nvidia/segformer-b4-finetuned-ade-512-512's preprocessor_config.json: transformers 5
+         # builds no SegFormer processor without torchvision (the port reads the file itself)
+         {"image_processor_type": "SegformerImageProcessor", "do_resize": True,
+          "size": {"height": 512, "width": 512}, "resample": 2, "do_rescale": True, "rescale_factor": 1 / 255,
+          "do_normalize": True, "do_reduce_labels": True, **imagenet})
+    hub = "shi-labs/oneformer_ade20k_swin_tiny"
+    write_byte_clip_tokenizer(models / hub)
+    info = models / hub / "ade20k_panoptic.json"
+    info.write_text(json.dumps({str(i): {"name": f"class_{i}", "isthing": int(i < 100)} for i in range(150)}))
+    save(hub, lambda: T.OneFormerForUniversalSegmentation(T.OneFormerConfig(num_labels=150, text_encoder_vocab_size=514)),
+         processor("OneFormerImageProcessor")(size={"shortest_edge": 512, "longest_edge": 2048}, num_labels=150,
+                                              repo_path=None, class_info_file=str(info), num_text=134))
+    return out
+
+
+class ScriptedYOLOX:
+    """A stand-in for ``cv2.dnn``'s YOLOX-L net (the script writes no ONNX
+    file: it would need the ``onnx`` package): a seeded raw head output
+    [1, 8400, 85] with two people and one animal above the threshold."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        pred = np.zeros((1, 8400, 85), np.float32)
+        pred[0, :, :2] = rng.uniform(-0.5, 0.5, (8400, 2))
+        pred[0, :, 2:4] = rng.uniform(-1, 1, (8400, 2))
+        pred[0, :, 4:] = rng.uniform(0, 0.2, (8400, 81))
+        for gy, gx, cls, size in ((9, 6, 0, 6.5), (10, 13, 0, 5.0), (8, 10, 15, 4.0)):
+            a = 80 * 80 + 40 * 40 + gy * 20 + gx  # the stride-32 grid
+            pred[0, a, 2:4] = np.log([size * 0.6, size])
+            pred[0, a, 4], pred[0, a, 5 + cls] = 0.95, 0.9
+        self.pred = pred
+
+    def setInput(self, blob):
+        check(tuple(blob.shape) == (1, 3, 640, 640), f"the detector's input {blob.shape}")
+
+    def forward(self):
+        return self.pred.copy()
+
+
+class ScriptedSimCC:
+    """A stand-in for ``cv2.dnn``'s RTMPose net: seeded SimCC outputs
+    [1, 133, 576] / [1, 133, 768], drawn anew by the same seed each call."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def setInput(self, blob):
+        check(tuple(blob.shape) == (1, 3, 384, 288), f"the pose net's input {blob.shape}")
+
+    def getUnconnectedOutLayersNames(self):
+        return ("simcc_x", "simcc_y")
+
+    def forward(self, names):
+        import numpy as np
+
+        rng = np.random.default_rng(self.seed)
+        return [rng.uniform(0, 1, (1, 133, 576)).astype(np.float32),
+                rng.uniform(0, 1, (1, 133, 768)).astype(np.float32)]
+
+
+def scripted_dwpose_runner():
+    """The port's ``DWPoseRunner`` (its YOLOX decode, NMS, crop affine and
+    SimCC decode on the host) over the scripted nets."""
+    from apex_studio_tpu_torch.preprocess.dwpose import DWPoseRunner
+
+    runner = DWPoseRunner.__new__(DWPoseRunner)
+    runner.det, runner.pose = ScriptedYOLOX(150), ScriptedSimCC(151)
+    return runner
+
+
+def write_nlf_checkpoint(models: Path):
+    """The NLF crop model at the ``NLFConfig`` defaults (EfficientNetV2-L, a
+    384 crop, 1048 points), seeded (``seeded_detector``, the canonical points
+    a body-sized cloud), written as ``nlf_l_multi.safetensors`` under the
+    published names (``nlf_published_state_dict``). Returns the CPU module."""
+    import torch
+
+    from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
+    from apex_studio_tpu_torch.preprocess import nlf
+
+    model = seeded_detector(lambda: nlf.NLFCropModel(nlf.NLFConfig()), 152)
+    g = torch.Generator().manual_seed(153)
+    with torch.no_grad():
+        model.canonical.copy_(torch.randn(model.canonical.shape, generator=g) * torch.tensor([0.3, 0.5, 0.15]))
+    save_safetensors(models / "nlf_l_multi.safetensors",
+                     {k: v.contiguous() for k, v in nlf.nlf_published_state_dict(model).items()})
+    return model
+
+
+def nlf_card_vs_cpu(cpu_model, image) -> dict:
+    """The NLF estimator loaded by ``load_nlf`` from the written file onto the
+    card: its crop model's f32 outputs (absolute joints, uncertainties) on
+    the two boxes' crops against the seeded module on the CPU within
+    F32_REL_L2; ``estimate`` twice, bit-identical."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.preprocess import nlf
+    from apex_studio_tpu_torch.preprocess.weights import find_local
+
+    boxes = np.array(NLF_BOXES, np.float32)
+    t0 = time.perf_counter()
+    est = nlf.load_nlf(find_local("nlf_l_multi"))
+    load_s = time.perf_counter() - t0
+    k = nlf.intrinsics_from_fov(*image.shape[:2])
+    with torch.no_grad():
+        crops, new_k, _ = nlf.extract_crops((torch.as_tensor(image).float() / 255.0) ** 2.2, boxes, k, 384)
+        w, b = cpu_model.field_weights()
+        t0 = time.perf_counter()
+        ref = cpu_model(crops, w, b, torch.as_tensor(new_k))
+        cpu_s = time.perf_counter() - t0
+        wc, bc = est._weights()
+        card = est.model(crops.cuda(), wc, bc, torch.as_tensor(new_k).cuda())
+    errs = [rel_l2(c.cpu(), r) for c, r in zip(card, ref)]
+    outs, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(est.estimate(image, boxes))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    row = {"phase": "preprocess_pose", "check": "nlf_f32_card_vs_cpu", "parameters": sum(
+        p.numel() for p in est.model.parameters()), "load_seconds": load_s, "cpu_forward_seconds": cpu_s,
+           "rel_l2_abs_joints_and_uncertainty": errs, "tol": F32_REL_L2, "estimate_seconds": secs,
+           "people_kept": len(outs[0]), "estimate_identical": len(outs[0]) == len(outs[1]) and all(
+               np.array_equal(a, b) for a, b in zip(*outs)),
+           "parameters_on_card": all(p.device.type == "cuda" for p in est.model.parameters())}
+    emit(row)
+    check(max(errs) <= F32_REL_L2, f"NLF's crop model on the card is {errs} from the CPU")
+    check(row["estimate_identical"] and row["parameters_on_card"], f"the NLF estimator: {row}")
+    del est
+    release()
+    return row
+
+
+def phase_preprocess_pose(home: Path):
+    """The last preprocessors on the card: the transformers delegates at
+    their published widths (``write_hf_delegates``) twice each through their
+    preprocessor on a 720x1280 image at the manifests' defaults
+    (bit-identical, every parameter on the card), midas and oneformer also
+    through ``/preprocessor/run``; the NLF crop model at the NLFConfig
+    defaults from a seeded ``nlf_l_multi.safetensors`` against the CPU and
+    its estimator twice; dwpose, pose2d, face2d, animalpose and dwpose_nlf
+    (through its NLF branch) twice each on the scripted DWPose nets; the
+    gated stubs raising; ``/preprocessor/list`` answering the registry's 54
+    names and every manifest's. None of them reaches the flash kernel: 0
+    launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+    from apex_studio_tpu_torch.preprocess import preprocessor_registry
+    from apex_studio_tpu_torch.server.app import create_app
+
+    ph = home / "preprocess_pose"
+    saved = {k: os.environ.get(k) for k in ("APEX_HOME_DIR", "APEX_PREPROCESSOR_MODELS_PATH", "HF_HUB_OFFLINE")}
+    os.environ.update({"APEX_HOME_DIR": str(ph), "APEX_PREPROCESSOR_MODELS_PATH": str(ph / "models"),
+                       "HF_HUB_OFFLINE": "1"})
+    rows = []
+    try:
+        t0 = time.perf_counter()
+        sizes = write_hf_delegates(ph / "models")
+        nlf_cpu = write_nlf_checkpoint(ph / "models")
+        write_s = time.perf_counter() - t0
+        image = cv2_smooth(np.random.default_rng(154), (720, 1280))
+        flash_attention.launches = 0
+        for name, hub in HF_DELEGATES:
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            proc, params = preprocessor_registry.get(name)(), manifest_defaults(name)
+            outs, secs = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                outs.append(proc(image, device=None, **params)[0])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            row = {"phase": "preprocess_pose", "preprocessor": name, "model": hub, "params": params,
+                   "seconds": secs, "shape": list(outs[0].shape), "identical": bool(np.array_equal(*outs)),
+                   "distinct_values": int(len(np.unique(outs[0]))),
+                   "parameters_on_card": all(p.device.type == "cuda" for p in proc._model.parameters()),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            emit(row)
+            check(row["shape"] == [720, 1280, 3] and outs[0].dtype == np.uint8, f"{name} output {row['shape']}")
+            check(row["identical"] and row["parameters_on_card"], f"{name}: {row}")
+            rows.append(row)
+            del proc
+        rows.append(nlf_card_vs_cpu(nlf_cpu, image))
+        del nlf_cpu
+
+        from apex_studio_tpu_torch.preprocess import pose2d
+
+        for name in POSE_NAMES:
+            release()
+            proc = preprocessor_registry.get(name)(runner=scripted_dwpose_runner())
+            outs, secs = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                outs.append(proc(image, device=None, **manifest_defaults(name))[0])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            row = {"phase": "preprocess_pose", "preprocessor": name, "runner": "scripted cv2.dnn nets",
+                   "seconds": secs, "shape": list(outs[0].shape), "identical": bool(np.array_equal(*outs)),
+                   "drawn_pixels": int(np.any(outs[0] != 0, axis=-1).sum())}
+            if name == "dwpose_nlf":
+                row["nlf_branch"] = isinstance(proc, pose2d.DWPoseNLFPreprocessor) and proc._nlf is not None
+                row["nlf_on_card"] = row["nlf_branch"] and proc._nlf.device.type == "cuda"
+                check(row["nlf_on_card"], "dwpose_nlf did not take its NLF branch on the card")
+            emit(row)
+            check(outs[0].dtype == np.uint8 and row["identical"] and row["drawn_pixels"] > 0, f"{name}: {row}")
+            rows.append(row)
+        gated = {}
+        for name in GATED_NAMES:
+            try:
+                preprocessor_registry.get(name)()(image, device=None)
+                gated[name] = "ran"
+            except RuntimeError as e:
+                gated[name] = str(e)
+        check(all("requires the optional" in v for v in gated.values()), f"the gated stubs: {gated}")
+        release()
+
+        image_path = ph / "image.png"
+        Image.fromarray(image).save(image_path)
+        base, stop = start_server(create_app())
+        try:
+            listed = [e["name"] for e in http(base, "GET", "/preprocessor/list")[1]]
+            served = {}
+            for name in ("midas", "oneformer"):
+                t0 = time.perf_counter()
+                code, out = http(base, "POST", "/preprocessor/run", {"preprocessor_name": name,
+                                                                     "input_path": str(image_path), "params": {}})
+                check(code == 200, f"/preprocessor/run {name} answered {code}: {out}")
+                st = wait_job(base, out["job_id"])
+                served[name] = {"status": st["status"], "seconds_post_to_complete": time.perf_counter() - t0,
+                                "result": Path(st.get("result_path") or "").name, "error": st.get("error")}
+        finally:
+            stop()
+        emit({"phase": "preprocess_pose", "listed": listed, "served": served, "gated": gated,
+              "models": {k: {"parameters": n, "mib": mib} for k, (n, mib) in sizes.items()},
+              "write_seconds": write_s, "flash_launches": flash_attention.launches})
+        # the registry's 54 names (the JAX registry's, tests/test_torch_preprocess_hf.py), then the
+        # manifest ids that are aliases: every one of the 57 manifests listed
+        from apex_studio_tpu_torch.preprocess.manifests import load_preprocessor_manifests
+
+        names = preprocessor_registry.names()
+        check(len(names) == 54 and listed[:54] == names and set(load_preprocessor_manifests()) <= set(listed),
+              f"/preprocessor/list lists {listed}")
+        check(all(v["status"] == "complete" for v in served.values()), f"/preprocessor/run jobs: {served}")
+        check(flash_attention.launches == 0,
+              f"the preprocess_pose path launched flash {flash_attention.launches} times")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        release()
+    return rows
+
+
 def torch_randn_like(z, seed: int):
     """Seeded normal values of ``z``'s shape on the card."""
     import torch
@@ -5950,7 +6502,7 @@ def main() -> int:
             release()
         path_rows, path_err = {}, {}
         for name, phase in (("hyv", phase_hyv), ("humo", phase_humo), ("s2v", phase_s2v),
-                            ("multitalk", phase_multitalk), ("avatar", phase_avatar)):
+                            ("multitalk", phase_multitalk), ("avatar", phase_avatar), ("skyreels", phase_skyreels)):
             if name in phases:
                 new_paths, path_rows[name], path_err[name] = timed(name, phase, home)
                 paths.update(new_paths)
@@ -5969,6 +6521,8 @@ def main() -> int:
             timed("preprocess_nets", phase_preprocess_nets, home)
         if "preprocess_rest" in phases:
             timed("preprocess_rest", phase_preprocess_rest, home)
+        if "preprocess_pose" in phases:
+            timed("preprocess_pose", phase_preprocess_pose, home)
         if len(paths) > 1:
             # a one-step request gives its one step
             emit({"phase": "steps", "median_seconds_per_step_after_the_first": {

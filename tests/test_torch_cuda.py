@@ -401,6 +401,25 @@ def test_flash_kernel_audio_video_self_attention_row_subsets(s, h, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [10200, 6120, 2040], ids=["skyreels_df_window", "skyreels_i2v_9_frames",
+                                                          "skyreels_t2v_frame"])
+def test_flash_kernel_skyreels_self_attention(s, cuda):
+    """SkyReels V2 at 544x960 (34 x 60 tokens a latent frame, 40 heads of
+    128): diffusion forcing's 5-frame window (10,200 tokens), a 9-frame i2v
+    clip and one t2v frame; the whole output against the plain version, the
+    window's over its first, last and one interior-edge 128-row subset."""
+    g = torch.Generator(cuda).manual_seed(s)
+    q, k, v = (torch.randn(1, s, 40, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    subsets = ((slice(0, 128), slice(s - (s % 128 or 128), s), slice(s // 256 * 128 - 64, s // 256 * 128 + 64))
+               if s > 8192 else (slice(0, s),))
+    for rows in subsets:
+        assert torch.isfinite(out[:, rows].float()).all()
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("frames,heads", [(499, 16), (80, 12)], ids=["s2v_wav2vec2_large", "multitalk_wav2vec2"])
 def test_flash_kernel_audio_encoder_f32_shapes(frames, heads, cuda):
     """The audio encoders' f32 self-attention, head dim 64: wav2vec2-large

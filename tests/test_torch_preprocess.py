@@ -52,12 +52,16 @@ NETS = ["hed", "scribble_hed", "pidi", "pidinet", "teed", "lineart_realistic", "
         "manga_line", "mlsd", "normalbae", "dsine", "leres"]
 # background removal, anime segmentation, optical flow, Metric3D, DensePose
 REST = ["rembg", "anime_face_segment", "optical_flow", "unimatch", "ptlflow", "metric3d", "densepose"]
+# the Hugging Face delegates, the gated stubs and the DWPose family
+LAST = ["dwpose", "midas", "normal_midas", "zoe", "depth_anything", "zoe_depth_anything", "segmentation",
+        "mediapipe_face", "oneformer", "diffusion_edge", "mesh_graphormer", "pose2d", "face2d", "animalpose",
+        "dwpose_nlf"]
 
 
 def test_registry_holds_the_ported_names():
     names = set(preprocessor_registry.names())
     assert set(BASIC) | {"depth_anything_v2", "depth", "openpose", "pose"} | (set(NETS) - {"pidi"}) | (
-        set(REST) - {"unimatch", "ptlflow"}) == names
+        set(REST) - {"unimatch", "ptlflow"}) | set(LAST) == names
     for alias in ("content_shuffle", "open_pose", "OpenposeDetector", "pidi", "softedge", "softedge_hed",
                   "softedge_pidinet", "scribble_pidinet", "softedge_teed", "ted", "lineart_model", "lineart_coarse",
                   "ScribbleAnimeDetector", "LineartAnimeDetector", "LineartMangaDetector", "lineart_manga",

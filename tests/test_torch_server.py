@@ -447,11 +447,11 @@ class TestPreprocessorRoutes:
 
     def test_run_ends_with_the_registry_key_error(self, port_server, sample_image):
         status, out = port_server.call("POST", "/preprocessor/run", json={
-            "preprocessor_name": "dwpose", "input_path": str(sample_image)})
+            "preprocessor_name": "no_such_preprocessor", "input_path": str(sample_image)})
         assert status == 200, out
         st = port_server.wait(out["job_id"])
         assert st["status"] == "error"
-        assert st["error"].startswith("KeyError: \"preprocessor: no entry named 'dwpose'")
+        assert st["error"].startswith("KeyError: \"preprocessor: no entry named 'no_such_preprocessor'")
 
     def test_missing_params_rejected(self, port_server):
         assert port_server.call("POST", "/preprocessor/run", json={"input_path": "/x.png"})[0] == 400

@@ -114,5 +114,8 @@ def test_registry_and_unported_options():
     assert transformer_registry.get("wan.base") is wan.WanTransformer3DModel
     assert transformer_registry.get("wan") is wan.WanTransformer3DModel
     assert wan.WanConfig().rope_axes_dims == (44, 42, 42) and wan.WanConfig().dim == 5120
-    with pytest.raises(NotImplementedError, match="inject_sample_info"):
-        wan.WanTransformer3DModel(wan.WanConfig(**TINY, inject_sample_info=True), dtype=torch.float32)
+    # SkyReels' options, ported since: the fps embedding and its projection (held
+    # against JAX in tests/test_torch_skyreels.py); the DiT registered as skyreels
+    model = wan.WanTransformer3DModel(wan.WanConfig(**TINY, inject_sample_info=True), dtype=torch.float32)
+    assert tuple(model.fps_embedding.shape) == (2, 64) and tuple(model.fps_projection_2.weight.shape) == (6 * 64, 64)
+    assert transformer_registry.get("skyreels.base") is wan.WanTransformer3DModel
