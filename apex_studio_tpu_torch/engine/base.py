@@ -418,15 +418,10 @@ class BaseEngine:
         if spec is None:
             raise KeyError(f"manifest has no helper component named {name!r}")
         base = spec.get("base") or ""
-        if "CLIPVision" in base:
-            family = "clip_vision"
-        elif "siglip" in base.lower():
-            family = "siglip"
-        elif "Wav2Vec2" in base:
-            # the JAX engine derives "wav2vec2model", which names no converter
-            family = "wav2vec2"
-        else:
-            family = base.split(".")[0].lower()
+        family = _HELPER_FAMILIES.get(base)
+        if family is None:
+            raise KeyError(f"helper {name!r}: no ported family for base {base!r} "
+                           f"(known: {', '.join(sorted(_HELPER_FAMILIES))})")
         model = self._instantiate_family(_registry("text_encoder"), spec, family)
         self.helpers[name] = model
         return model
@@ -630,6 +625,13 @@ class BaseEngine:
 
     def run(self, **kwargs: Any):  # pragma: no cover - interface
         raise NotImplementedError
+
+
+# a helper's manifest ``base`` → its converter family (the JAX engine picks
+# by substrings of ``base`` and derives "wav2vec2model" for wav2vec2, which
+# names no converter)
+_HELPER_FAMILIES = {"CLIPVisionModel": "clip_vision", "SiglipVisionModel": "siglip", "Wav2Vec2Model": "wav2vec2",
+                    "LynxResampler": "lynx_resampler", "lynx_resampler": "lynx_resampler"}
 
 
 def _registry(kind: str):

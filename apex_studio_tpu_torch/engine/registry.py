@@ -18,7 +18,7 @@ _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.e
                   "apex_studio_tpu_torch.engine.zimage", "apex_studio_tpu_torch.engine.qwenimage",
                   "apex_studio_tpu_torch.engine.wan", "apex_studio_tpu_torch.engine.flux2",
                   "apex_studio_tpu_torch.engine.hunyuanvideo", "apex_studio_tpu_torch.engine.hunyuanvideo_avatar",
-                  "apex_studio_tpu_torch.engine.skyreels")
+                  "apex_studio_tpu_torch.engine.skyreels", "apex_studio_tpu_torch.engine.lucy")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

@@ -6,8 +6,9 @@ Fun-Control, Fun, Stable Video Infinity, the block-causal Self-Forcing
 engine, and the audio-driven engines on wav2vec2: HuMo (text + audio +
 reference images, its windows driving the DiT's per-frame audio
 cross-attention), S2V (chunk-autoregressive speech-to-video with a motion
-buffer) and MultiTalk / InfiniteTalk (one or two speakers, L-RoPE routing).
-The other Wan model types (Recam, Holocine, ATI, Animate, …) are not ported.
+buffer) and MultiTalk / InfiniteTalk (one or two speakers, L-RoPE routing);
+and ReCamMaster, HoloCine, ATI, Apex-FramePack, Wan 2.2 Animate, Lynx /
+Lynx-lite and SCAIL. Ovi and MoVA are not ported.
 
 - UMT5 features of 512 tokens with the padding zeroed, no cross-attention
   mask (Wan's conditioning convention); encoded before the DiT loads and the
@@ -469,7 +470,9 @@ class WanI2VEngine(WanShared):
         noise_c = self.transformer.cfg.in_channels - condition.shape[1]
         if noise_c <= 0:  # JAX fails in get_latents on the negative channel count
             raise ValueError(f"the DiT takes {self.transformer.cfg.in_channels} input channels, no more than the "
-                             f"{condition.shape[1]} condition channels: the manifest names a t2v config")
+                             f"{condition.shape[1]} condition channels: the manifest names a t2v config (Wan 2.2 "
+                             f"TI2V-5B's DiT takes its 48 latent channels alone; its image conditioning replaces "
+                             f"the first latent frame, which this engine does not do)")
         x = self.get_latents((1, noise_c, lat_t, lat_h, lat_w), seed=seed)
         safe_emit_progress(progress_callback, 0.3, "Initialized latent noise")
 
@@ -1767,3 +1770,583 @@ class WanMultiTalkEngine(WanShared):
             full.transpose(0, 2, 1, 3, 4).reshape(b * t, c, h, w))))
         safe_emit_progress(progress_callback, 1.0, "Completed pipeline")
         return frames
+
+
+# -- ReCamMaster, HoloCine, ATI, Apex-FramePack ----------------------------------------
+
+
+def _frames_of(media) -> Optional[List[np.ndarray]]:
+    """A video input (a path or frames) as HWC arrays; None stays None."""
+    if media is None:
+        return None
+    if _is_path(media):
+        from apex_studio_tpu_torch.preprocess.base import load_frames
+
+        return load_frames(media)
+    return [np.asarray(f) for f in media]
+
+
+@register_engine("wan", "recam")
+class WanRecamEngine(_HostLoop):
+    """ReCamMaster: a source video re-rendered along a new camera path. The
+    noise and the source's latents are concatenated in time; the relative
+    camera poses (``models/camera.py``) condition every block; only the
+    target half's velocity steps the latents."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        video: Any = None,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        camera: Any = "orbit",
+        camera_extrinsics: Any = None,
+        cam_type: Any = 1,
+        height: int = 480,
+        width: int = 832,
+        num_frames: Optional[int] = None,
+        duration: Optional[float] = None,
+        fps: int = 16,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        timesteps: Optional[List[float]] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        import cv2
+
+        from apex_studio_tpu_torch.models.camera import WanRecamCameraEmbedder
+
+        safe_emit_progress(progress_callback, 0.0, "Starting ReCam pipeline")
+        self.load_components(return_latents)
+        if video is None:
+            raise ValueError("recam requires a source video")
+        num_frames, lat_f, lat_h, lat_w = self._lat_geometry(height, width, num_frames, duration, fps)
+        context = self.encode_prompt(prompt or "")
+        neg_context = self.encode_prompt(negative_prompt or "")
+
+        frames = _resized(_frames_of(video), width, height, cv2.INTER_AREA)
+        frames += [frames[-1]] * (num_frames - len(frames))
+        source = self.encode_video_latents(_pixels(frames[:num_frames]))
+        t_scale = self.vae.cfg.temporal_scale
+        cam_spec = camera_extrinsics if camera_extrinsics is not None else camera
+        cam = WanRecamCameraEmbedder(cam_type=cam_type, temporal_scale=t_scale)(cam_spec, num_frames, cam_type)
+        cam = torch.from_numpy(np.ascontiguousarray(cam)).to(self.device)
+        safe_emit_progress(progress_callback, 0.3, "Camera + source encoded")
+
+        x = self.get_latents((1, self.transformer.cfg.in_channels, lat_f, lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps)
+        src = source.to(self.transformer.dtype)
+        x = self._host_loop(
+            x, ts, lambda xi, t, c: self.transformer(torch.cat([xi, src], dim=2), t, c, cam_emb=cam)[:, :, :lat_f],
+            guidance_scale, context, neg_context, progress_callback)
+        return self._finish(x, progress_callback, return_latents)
+
+
+@register_engine("wan", "holocine")
+class WanHolocineEngine(_HostLoop):
+    """HoloCine joint multi-shot generation: every shot denoises in one
+    latent sequence. The prompt ``[global caption] G [per shot caption] S1
+    [shot cut] S2 …`` is encoded part by part and the real tokens
+    concatenated; a cross-attention bias [1, 1, S, 512] (−1e4 off, 0 on)
+    routes each video token to the global span, its shot's span and the
+    UMT5 padding; a learned embedding per shot tags the tokens (the
+    ``wan.holocine`` DiT). ``shot_mask_type`` adds the shot ids as one more
+    input channel."""
+
+    def prepare_multishot_inputs(self, global_caption: str, shot_captions: List[str], num_frames: int,
+                                 custom_shot_cut_frames: Optional[List[int]] = None):
+        num_shots = len(shot_captions)
+        if "This scene contains" not in global_caption:
+            global_caption = global_caption.strip() + f" This scene contains {num_shots} shots."
+        prompt = f"[global caption] {global_caption} [per shot caption] " + " [shot cut] ".join(shot_captions)
+        if custom_shot_cut_frames:
+            cuts = sorted({int(f) for f in custom_shot_cut_frames})
+        else:
+            step = num_frames / num_shots
+            cuts = [round(i * step) for i in range(1, num_shots)]
+        return prompt, [f for f in cuts if 0 < f < num_frames]
+
+    @staticmethod
+    def _shot_indices(shot_cut_frames: List[int], num_frames: int, t_scale: int = 4) -> np.ndarray:
+        """Each latent frame's shot id."""
+        lat_f = (num_frames - 1) // t_scale + 1
+        cuts = [0]
+        for f in sorted(shot_cut_frames):
+            if f > 0:
+                li = (f - 1) // t_scale + 1
+                if li < lat_f:
+                    cuts.append(li)
+        cuts = sorted(set(cuts)) + [lat_f]
+        ids = np.zeros(lat_f, np.int64)
+        for i in range(len(cuts) - 1):
+            ids[cuts[i]:cuts[i + 1]] = i
+        return ids
+
+    def _encode_segmented(self, prompt: str, max_len: int = 512):
+        """Each caption part encoded alone, the real tokens concatenated (cut
+        at ``max_len``, zero-padded): ([1, max_len, 4096], spans) or, for a
+        plain prompt, (``encode_prompt``, None)."""
+        import re
+
+        gm, pm = re.search(r"\[global caption\]", prompt), re.search(r"\[per shot caption\]", prompt)
+        if gm is None:
+            return self.encode_prompt(prompt, max_len), None
+        parts = [("global", prompt[gm.start():(pm.start() if pm else len(prompt))]
+                  .replace("[global caption]", "").strip())]
+        if pm:
+            body = prompt[pm.start():].replace("[per shot caption]", "", 1)
+            parts += [(i, shot.strip()) for i, shot in enumerate(body.split("[shot cut]"))]
+        embs, positions, cur = [], {"global": None, "shots": []}, 0
+        for pid, text in parts:
+            hidden, mask = self.text_encoder.encode([text], max_sequence_length=max_len, use_chat_template=False)
+            n = int(mask.sum())
+            embs.append(hidden[0, :n].float())
+            span = (cur, cur + n - 1)
+            if pid == "global":
+                positions["global"] = span
+            else:
+                positions["shots"].append(span)
+            cur += n
+        full = torch.cat(embs, dim=0)[:max_len]
+        ctx = torch.zeros(1, max_len, full.shape[-1], dtype=torch.float32, device=full.device)
+        ctx[0, :full.shape[0]] = full
+        positions["used"] = full.shape[0]
+        return ctx.to(self.device), positions
+
+    @staticmethod
+    def _ctx_bias(shot_ids_tok: np.ndarray, positions, max_len: int) -> np.ndarray:
+        """[1, 1, S, L] additive bias: 0 where allowed, −1e4 elsewhere; the
+        UMT5 padding stays attendable."""
+        allow = np.zeros((shot_ids_tok.shape[0], max_len), bool)
+        g0, g1 = positions["global"]
+        allow[:, g0:g1 + 1] = True
+        for sid, (s0, s1) in enumerate(positions["shots"]):
+            allow[shot_ids_tok == sid, s0:s1 + 1] = True
+        allow[:, positions["used"]:] = True
+        return np.where(allow, 0.0, -1e4).astype(np.float32)[None, None]
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        global_caption: Optional[str] = None,
+        shots: Optional[List[str]] = None,
+        shot_captions: Optional[List[str]] = None,
+        shot_cut_frames: Optional[List[int]] = None,
+        negative_prompt: Optional[str] = None,
+        height: int = 480,
+        width: int = 832,
+        duration: Optional[float] = None,
+        num_frames: Optional[int] = None,
+        fps: int = 15,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        shot_mask_type: Optional[str] = None,
+        seed: Optional[int] = None,
+        timesteps: Optional[List[float]] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        safe_emit_progress(progress_callback, 0.0, "Starting HoloCine pipeline")
+        self.load_components(return_latents)
+        z_ch = getattr(self.vae.cfg, "z_dim", 16)
+        want = z_ch + (shot_mask_type is not None)
+        if self.transformer.cfg.in_channels != want:
+            # JAX fails in the patch embedding on the channel count
+            raise ValueError(f"HoloCine's DiT takes {self.transformer.cfg.in_channels} input channels, the engine "
+                             f"feeds {want} ({z_ch} latent channels"
+                             f"{' + the shot mask' if shot_mask_type is not None else ''}): the manifest names "
+                             f"an i2v config, and HoloCine has no image input")
+        captions = shot_captions or shots
+        num_frames, lat_f, lat_h, lat_w = self._lat_geometry(height, width, num_frames, duration, fps)
+        t_scale = self.vae.cfg.temporal_scale
+        ph = self.transformer.cfg.patch_size[-1]
+        hw_tok = (lat_h // ph) * (lat_w // ph)
+        if captions:
+            prompt, auto_cuts = self.prepare_multishot_inputs(prompt or global_caption or "", list(captions),
+                                                              num_frames, shot_cut_frames)
+            shot_cut_frames = shot_cut_frames or auto_cuts
+        ctx, positions = self._encode_segmented(prompt or "")
+        neg_ctx = self.encode_prompt(negative_prompt or "")
+
+        shot_ids_lat = (self._shot_indices(shot_cut_frames or [], num_frames, t_scale)
+                        if positions is not None else np.zeros(lat_f, np.int64))
+        shot_ids_tok = np.repeat(shot_ids_lat, hw_tok)
+        bias = None
+        if positions is not None and positions.get("global") is not None:
+            bias = torch.from_numpy(self._ctx_bias(shot_ids_tok, positions, ctx.shape[1])).to(self.device)
+        shot_ids = torch.from_numpy(shot_ids_tok)[None].to(self.device)
+        mask_ch = None
+        if shot_mask_type is not None:
+            ids = shot_ids_lat.astype(np.float32)
+            if shot_mask_type == "normalized":
+                ids = ids / 20.0 if shot_ids_lat.max() > 0 else ids * 0.0
+            elif shot_mask_type == "alternating":
+                ids = ids % 2
+            mask_ch = torch.from_numpy(ids).to(self.device)[None, None, :, None, None].expand(
+                1, 1, lat_f, lat_h, lat_w).to(self.transformer.dtype)
+        safe_emit_progress(progress_callback, 0.2, "Shots encoded")
+
+        x = self.get_latents((1, z_ch, lat_f, lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps)
+
+        def forward(xi, t, c):
+            x_in = xi if mask_ch is None else torch.cat([xi, mask_ch], dim=1)
+            return self.transformer(x_in, t, c, ctx_bias=bias, shot_ids=shot_ids)
+
+        x = self._host_loop(x, ts, forward, guidance_scale, ctx, neg_ctx, progress_callback)
+        return self._finish(x, progress_callback, return_latents)
+
+
+@register_engine("wan", "ati")
+class WanATIEngine(WanI2VEngine):
+    """ATI ("Any Trajectory Instruction"): Wan i2v whose condition latent has
+    the point tracks painted into it before the denoise
+    (``models/trajectory.py``)."""
+
+    _pending_trajectory: Any = None
+    _trajectory_quant_multi: int = 8
+
+    @torch.inference_mode()
+    def build_condition(self, image: np.ndarray, num_frames: int, height: int, width: int) -> torch.Tensor:
+        from apex_studio_tpu_torch.models.trajectory import patch_motion, prepare_tracks
+
+        cond = super().build_condition(image, num_frames, height, width)
+        if self._pending_trajectory is None:
+            return cond
+        tracks = prepare_tracks(self._pending_trajectory, width, height, quant_multi=self._trajectory_quant_multi)
+        z_dim = self.vae.cfg.z_dim
+        painted = patch_motion(torch.from_numpy(tracks), cond[0], vae_divide=(cond.shape[1] - z_dim, z_dim),
+                               frames_per_latent=self.vae.cfg.temporal_scale)
+        return painted[None].to(cond.dtype)
+
+    def run(self, trajectory: Any = None, quant_multi: int = 8, **kwargs: Any):
+        self._pending_trajectory, self._trajectory_quant_multi = trajectory, quant_multi
+        try:
+            return super().run(**kwargs)
+        finally:
+            self._pending_trajectory = None
+
+
+@register_engine("wan", "apex_framepack")
+class WanApexFramepackEngine(_HostLoop):
+    """Long video by sections with compressed context: the two anchor latent
+    frames first, then windows of ``num_indices`` back to front, each
+    denoised on the packed past and future context
+    (``models/transformers/wan_framepack.py``); each section's noise has the
+    seed ``seed + 1 + section``."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        height: int = 480,
+        width: int = 832,
+        duration: Any = 16,
+        fps: int = 16,
+        num_frames: Optional[int] = None,
+        num_inference_steps: int = 30,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        timesteps: Optional[List[float]] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        safe_emit_progress(progress_callback, 0.0, "Starting framepack pipeline")
+        self.load_components(return_latents)
+        num_frames, lat_f, lat_h, lat_w = self._lat_geometry(height, width, num_frames, float(duration), fps)
+        context = self.encode_prompt(prompt or "")
+        neg_context = self.encode_prompt(negative_prompt or "")
+        safe_emit_progress(progress_callback, 0.1, "Prompts encoded")
+
+        tf = self.transformer
+        c = tf.cfg.in_channels
+        x = self.get_latents((1, c, lat_f, lat_h, lat_w), seed=seed)
+        schedule = tf.framepack_schedule
+        denoised = np.zeros(lat_f, bool)
+        n_sections = schedule.num_sections(lat_f)
+        dt = tf.dtype
+        section = 0
+        while not denoised.all():
+            past, future, target = schedule.get_inference_inputs(lat_f, denoised)
+            lc = []
+            if past is not None:
+                lc.append((x[:, :, past].to(dt), past, 1))
+            if future is not None:
+                lc += [(x[:, :, idx].to(dt), idx, factor) for idx, factor in schedule.split_future(future)]
+            x_t = self.get_latents((1, c, len(target), lat_h, lat_w),
+                                   seed=None if seed is None else seed + 1 + section)
+            ts, _ = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps)
+            cb = make_mapped_progress(progress_callback, 0.15 + 0.75 * section / n_sections,
+                                      0.15 + 0.75 * (section + 1) / n_sections)
+            x_t = self._host_loop(x_t, ts, lambda xi, t, ctx: tf(xi, t, ctx, latent_context=lc, indices=target),
+                                  guidance_scale, context, neg_context, cb)
+            x[:, :, torch.as_tensor(target, device=x.device)] = x_t.to(x.dtype)
+            denoised[target] = True
+            section += 1
+        return self._finish(x, progress_callback, return_latents)
+
+
+# -- Wan 2.2 Animate, Lynx, SCAIL ---------------------------------------------------------
+
+
+def _reflect_pad(frames: List[np.ndarray], n: int) -> List[np.ndarray]:
+    """``frames`` walked forth and back (the end frames once a turn) up to ``n``."""
+    out, idx, flip = [], 0, False
+    while len(out) < n and frames:
+        out.append(frames[idx])
+        idx = idx - 1 if flip else idx + 1
+        if idx in (0, len(frames) - 1):
+            flip = not flip
+    return out
+
+
+@register_engine("wan", "animate")
+class WanAnimateEngine(_HostLoop):
+    """Character animation and replacement: each segment of
+    ``segment_frame_length`` frames denoises latents whose slot 0 is the
+    reference image's encode (4-channel mask of ones); the condition carries
+    [4-channel i2v mask | latents] for the reference slot and the segment:
+    the previous segment's last ``prev_segment_conditioning_frames`` frames
+    (animate) or the background video under the subject mask (replace). Pose
+    latents ride the patch embedding, the face video (resampled to
+    ``4·lat_t − 3`` frames at the motion encoder's size) the face adapters.
+    The inputs are reflect-padded to whole segments; each segment decodes
+    ``x[:, :, 1:]`` and the next starts from its tail; seed ``seed + segment``."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        image: Any = None,
+        pose_video: Any = None,
+        face_video: Any = None,
+        background_video: Any = None,
+        mask_video: Any = None,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        height: int = 720,
+        width: int = 1280,
+        segment_frame_length: int = 77,
+        num_inference_steps: int = 20,
+        mode: str = "animate",
+        prev_segment_conditioning_frames: int = 1,
+        guidance_scale: float = 1.0,
+        seed: Optional[int] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        import cv2
+
+        safe_emit_progress(progress_callback, 0.0, "Starting animate pipeline")
+        self.load_components(return_latents=False)
+        if image is None:
+            raise ValueError("animate requires a reference character image")
+        if mode == "animate" and (pose_video is None or face_video is None):
+            raise ValueError("animate mode requires pose and face videos")
+        if mode == "replace" and (background_video is None or mask_video is None):
+            raise ValueError("replace mode requires background and mask videos")
+        t_scale, s_scale = self.vae.cfg.temporal_scale, self.vae.cfg.spatial_scale
+        segment_frame_length = max(1, segment_frame_length - (segment_frame_length - 1) % t_scale)
+        height -= height % (s_scale * 2)
+        width -= width % (s_scale * 2)
+        prev = prev_segment_conditioning_frames
+
+        pose_frames, face_frames = _frames_of(pose_video) or [], _frames_of(face_video) or []
+        bg_frames, msk_frames = _frames_of(background_video), _frames_of(mask_video)
+        cond_len = len(pose_frames) if pose_frames else len(bg_frames or [])
+        eff = segment_frame_length - prev
+        total = cond_len + (-(cond_len - prev)) % eff
+        num_segments = max(1, total // eff)
+        pose_frames = _reflect_pad(pose_frames, total) if pose_frames else None
+        face_frames = _reflect_pad(face_frames, total) if face_frames else None
+        bg_frames = _reflect_pad(bg_frames, total) if bg_frames else None
+        msk_frames = _reflect_pad(msk_frames, total) if msk_frames else None
+
+        context = self.encode_prompt(prompt or "")
+        use_cfg = guidance_scale > 1.0 and negative_prompt is not None
+        neg_context = self.encode_prompt(negative_prompt) if use_cfg else context
+
+        img = self.load_image_input(image)
+        clip_feats = (WanI2VEngine.encode_image_clip(self, img) if self.transformer.cfg.image_dim is not None
+                      else None)
+        ref_lat = self.encode_video_latents(_pixels(_resized([img], width, height, cv2.INTER_LANCZOS4)))
+        lat_h, lat_w = ref_lat.shape[-2:]
+        ref_mask = torch.zeros(1, t_scale, 1, lat_h, lat_w, device=self.device)
+        ref_mask[:, :, 0] = 1.0
+        ref_cond = torch.cat([ref_mask, ref_lat], dim=1)
+        lat_t = (segment_frame_length - 1) // t_scale + 1
+        z_dim = self.vae.cfg.z_dim
+        face_size = self.transformer.cfg.motion_encoder_size
+        dt = self.transformer.dtype
+        safe_emit_progress(progress_callback, 0.15, "Reference encoded")
+
+        outs, prev_tail, start = [], None, 0
+        cb = make_mapped_progress(progress_callback, 0.2, 0.95)
+        for seg in range(num_segments):
+            seg_cb = make_mapped_progress(cb, seg / num_segments, (seg + 1) / num_segments)
+            end = start + segment_frame_length
+            mask = np.zeros((1, 1, segment_frame_length, lat_h, lat_w), np.float32)
+            if mode == "replace":
+                cond_video = _pixels(_resized(bg_frames[start:end], width, height, cv2.INTER_LANCZOS4))
+                m = np.stack([cv2.resize(cv2.cvtColor(np.asarray(f), cv2.COLOR_RGB2GRAY) if np.asarray(f).ndim == 3
+                                         else np.asarray(f), (lat_w, lat_h)) for f in msk_frames[start:end]])
+                mask[:] = (m > 127).astype(np.float32)[None, None]
+            else:
+                head = prev_tail if prev_tail is not None else torch.zeros(1, 3, prev, height, width)
+                cond_video = torch.cat([head.cpu(), torch.zeros(1, 3, segment_frame_length - head.shape[2],
+                                                                height, width)], dim=2)
+            seg_lat = self.encode_video_latents(cond_video)
+            mask[:, :, :prev if seg > 0 else 0] = 1.0
+            seg_cond = torch.cat([torch.from_numpy(_packed_frame_mask(mask, t_scale)).to(self.device), seg_lat], dim=1)
+            condition = torch.cat([ref_cond, seg_cond], dim=2).to(dt)
+
+            pose_lat = (self.encode_video_latents(_pixels(_resized(pose_frames[start:end], width, height,
+                                                                   cv2.INTER_LANCZOS4)))
+                        if pose_frames is not None else None)
+            face_px = None
+            if face_frames is not None:
+                # the causal stride-4 face encoder maps 4·lat_t − 3 frames to lat_t
+                seg_faces = face_frames[start:end]
+                idx = np.clip(np.round(np.linspace(0, len(seg_faces) - 1, 4 * lat_t - 3)).astype(int), 0,
+                              len(seg_faces) - 1)
+                face_px = _pixels([cv2.resize(np.asarray(seg_faces[i]), (face_size, face_size)) for i in idx])
+                face_px = face_px.to(self.device)
+
+            x = self.get_latents((1, z_dim, lat_t + 1, lat_h, lat_w), seed=None if seed is None else seed + seg)
+            ts, _ = self.get_timesteps(self.scheduler, num_inference_steps)
+            x = self._host_loop(
+                x, ts, lambda xi, t, c: self.transformer(torch.cat([xi, condition], dim=1), t, c, clip_feats,
+                                                         pose_lat, face_px),
+                guidance_scale if use_cfg else 1.0, context, neg_context, seg_cb)
+            video = self.decode_video_tensor(x[:, :, 1:], self.VAE_TILE, self.VAE_TILE_THRESHOLD)
+            prev_tail = video[:, :, -prev:]
+            outs.append((video if seg == 0 else video[:, :, prev:]).float().cpu())
+            start += eff
+
+        full = torch.cat(outs, dim=2)[:, :, :cond_len]
+        b, c, t, h, w = full.shape
+        frames = self.tensor_to_frames(full.transpose(1, 2).reshape(b * t, c, h, w))
+        safe_emit_progress(progress_callback, 1.0, "Completed animate pipeline")
+        return frames
+
+
+@register_engine("wan", "lynx", "lynx_lite")
+class WanLynxEngine(_HostLoop):
+    """Face-ID personalised t2v: ArcFace embeddings (``face_embeds``) become
+    identity tokens through the perceiver resampler (the ``resampler``
+    helper), or come as ``face_token_embeds``; every block's cross-attention
+    also attends to them, scaled by ``ip_scale``."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        face_embeds: Any = None,
+        face_token_embeds: Any = None,
+        ip_scale: float = 1.0,
+        height: int = 480,
+        width: int = 832,
+        duration: Optional[float] = None,
+        fps: int = 16,
+        num_frames: Optional[int] = None,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        safe_emit_progress(progress_callback, 0.0, "Starting Lynx pipeline")
+        self.load_components(return_latents)
+        s_scale = self.vae.cfg.spatial_scale
+        height -= height % (s_scale * 2)
+        width -= width % (s_scale * 2)
+        num_frames, lat_t, lat_h, lat_w = self._lat_geometry(height, width, num_frames, duration, fps)
+        context = self.encode_prompt(prompt or "")
+        use_cfg = guidance_scale > 1.0
+        neg_context = self.encode_prompt(negative_prompt or "") if use_cfg else context
+
+        ip_tokens = None
+        if face_token_embeds is not None:
+            ip_tokens = torch.as_tensor(np.asarray(face_token_embeds, np.float32), device=self.device)
+            if ip_tokens.ndim == 2:
+                ip_tokens = ip_tokens[None]
+        elif face_embeds is not None:
+            embeds = np.asarray(face_embeds, np.float32)
+            if embeds.ndim == 1:
+                embeds = embeds[None]
+            ip_tokens = self.load_helper("resampler")(torch.from_numpy(embeds)[None].to(self.device))
+        safe_emit_progress(progress_callback, 0.2, "Identity tokens ready")
+
+        x = self.get_latents((1, self.transformer.cfg.in_channels, lat_t, lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps)
+        x = self._host_loop(x, ts, lambda xi, t, c: self.transformer(xi, t, c, ip_tokens=ip_tokens, ip_scale=ip_scale),
+                            guidance_scale, context, neg_context, progress_callback)
+        return self._finish(x, progress_callback, return_latents)
+
+
+@register_engine("wan", "scail")
+class WanScailEngine(_HostLoop):
+    """SCAIL pose-driven character video: the reference image (CLIP features
+    and its latents) and the pose video's latents at half resolution join
+    the noise in one attention sequence (``models/transformers/wan_scail.py``);
+    CFG over the text."""
+
+    @torch.inference_mode()
+    def run(
+        self,
+        image: Any = None,
+        pose_video: Any = None,
+        prompt: Optional[str] = None,
+        negative_prompt: Optional[str] = None,
+        height: int = 480,
+        width: int = 832,
+        num_frames: Optional[int] = None,
+        num_inference_steps: int = 40,
+        guidance_scale: float = 5.0,
+        seed: Optional[int] = None,
+        return_latents: bool = False,
+        progress_callback: Optional[Callable] = None,
+        **_: Any,
+    ):
+        import cv2
+
+        safe_emit_progress(progress_callback, 0.0, "Starting SCAIL pipeline")
+        self.load_components(return_latents=False)
+        if image is None or pose_video is None:
+            raise ValueError("scail requires a reference image and a pose video")
+        t_scale, s_scale = self.vae.cfg.temporal_scale, self.vae.cfg.spatial_scale
+        _, ph, pw = self.transformer.cfg.patch_size
+        # the pose runs at half resolution: the pixels divide 2·scale·patch
+        height -= height % (s_scale * ph * 2)
+        width -= width % (s_scale * pw * 2)
+        pose_frames = _frames_of(pose_video)
+        if num_frames is None:
+            num_frames = len(pose_frames)
+        num_frames = max(1, num_frames - (num_frames - 1) % t_scale)
+        pose_frames = (pose_frames + [pose_frames[-1]] * (num_frames - len(pose_frames)))[:num_frames]
+        lat_t, lat_h, lat_w = (num_frames - 1) // t_scale + 1, height // s_scale, width // s_scale
+
+        context = self.encode_prompt(prompt or "")
+        use_cfg = guidance_scale > 1.0
+        neg_context = self.encode_prompt(negative_prompt or "") if use_cfg else context
+        img = self.load_image_input(image)
+        clip_feats = WanI2VEngine.encode_image_clip(self, img)
+        ref_lat = self.encode_video_latents(_pixels(_resized([img], width, height, cv2.INTER_LANCZOS4)))
+        pose_lat = self.encode_video_latents(_pixels(_resized(pose_frames, width // 2, height // 2,
+                                                              cv2.INTER_LANCZOS4)))
+        safe_emit_progress(progress_callback, 0.25, "Conditioning encoded")
+
+        x = self.get_latents((1, self.vae.cfg.z_dim, lat_t, lat_h, lat_w), seed=seed)
+        ts, _ = self.get_timesteps(self.scheduler, num_inference_steps)
+        x = self._host_loop(x, ts, lambda xi, t, c: self.transformer(xi, t, c, pose_lat, ref_lat, clip_feats),
+                            guidance_scale, context, neg_context, progress_callback)
+        return self._finish(x, progress_callback, return_latents)

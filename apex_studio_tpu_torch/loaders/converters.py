@@ -15,7 +15,10 @@ with its BatchNorm running statistics) and the ``llama`` text towers
 FramePack's, diffusers naming) and ``hunyuanvideo_vae``; HuMo's ``wan_humo``
 and ``wav2vec2``; the audio-driven DiTs' ``wan_s2v``, ``wan_multitalk`` and
 ``hunyuanvideo_avatar``, whose audio encoders load through ``wav2vec2``;
-SAM2's ``sam2`` (the image model) and ``sam2_video`` (the memory bank)).
+SAM2's ``sam2`` (the image model) and ``sam2_video`` (the memory bank);
+the last Wan DiTs' ``wan_animate``, ``wan_lynx`` and ``wan_scail``, Lynx's
+``lynx_resampler``, and ReCamMaster's, Apex-FramePack's and HoloCine's extra
+keys in ``wan``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -567,6 +570,12 @@ converter_registry.add(
             (r"\.ffn\.net\.0\.proj\.", ".ffn.fc1."),
             (r"\.ffn\.net\.2\.", ".ffn.fc2."),
             (r"^(vace_)?patch_embedding\.weight$", r"\1patch_embedding.kernel"),
+            # ReCamMaster's per-block camera encoder, Apex-FramePack's packer
+            # (Conv3d weights flattened into its Linears) and HoloCine's shot
+            # table: the JAX table has none of them (ROADMAP Queue 3)
+            (r"\.cam_encoder\.weight$", ".cam_encoder.kernel"),
+            (r"^latent_embed_packer\.embedders\.(\d+)\.weight$", r"latent_embed_packer.embedders.\1.kernel"),
+            (r"^shot_embedding\.weight$", "shot_embedding"),
             (r"(to_q|to_k|to_v|to_out|add_k_proj|add_v_proj|time_proj|fc1|fc2|img_ff1|img_ff2|proj_in|proj_out|"
              r"time_embedder_linear_\d|text_embedder_linear_\d)\.weight$", r"\1.kernel"),
         ],
@@ -1004,5 +1013,118 @@ converter_registry.add(
         ],
         drop=(r"no_mem_pos_enc", r"no_obj_ptr", r"obj_ptr_tpos_proj",
               r"\.freqs", r"rotary"),
+    ),
+)
+
+
+converter_registry.add(
+    # Wan 2.2 Animate (reference transformer/wan/animate/model.py:946): the
+    # motion encoder's equalized-lr weights keep their names and published
+    # layouts ([O, I, k, k] convs, [out, in] linears), the face encoder's
+    # causal convs load as ``kernel_w`` [out, in, k], the face adapters' affine
+    # pre-norms are dropped (the adapters normalise without affine, as in JAX)
+    "wan_animate",
+    KeyConverter(
+        renames=[
+            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"^pose_patch_embedding\.weight$", "pose_patch_embedding.kernel"),
+            (r"^condition_embedder\.time_embedder\.linear_(\d)\.", r"time_embedder_linear_\1."),
+            (r"^condition_embedder\.time_proj\.", "time_proj."),
+            (r"^condition_embedder\.text_embedder\.linear_(\d)\.", r"text_embedder_linear_\1."),
+            (r"^condition_embedder\.image_embedder\.norm1\.weight$", "img_norm1"),
+            (r"^condition_embedder\.image_embedder\.norm1\.bias$", "img_norm1_bias"),
+            (r"^condition_embedder\.image_embedder\.norm2\.weight$", "img_norm2"),
+            (r"^condition_embedder\.image_embedder\.norm2\.bias$", "img_norm2_bias"),
+            (r"^condition_embedder\.image_embedder\.ff\.net\.0\.proj\.", "img_ff1."),
+            (r"^condition_embedder\.image_embedder\.ff\.net\.2\.", "img_ff2."),
+            (r"^motion_encoder\.conv_in\.act_fn\.bias$", "motion_encoder.conv_in.act_bias"),
+            (r"(res_blocks\.\d+\.conv\d(_skip)?)\.act_fn\.bias$", r"\1.act_bias"),
+            (r"^face_encoder\.(conv1_local|conv2|conv3)\.weight$", r"face_encoder.\1.kernel_w"),
+            (r"^face_encoder\.out_proj\.weight$", "face_encoder.out_proj.kernel"),
+            (r"\.attn([12])\.to_out\.0\.", r".attn\1.to_out."),
+            (r"^blocks\.(\d+)\.norm2\.(weight|bias)$", r"blocks.\1.norm2_\2"),
+            (r"\.ffn\.net\.0\.proj\.", ".ffn.fc1."),
+            (r"\.ffn\.net\.2\.", ".ffn.fc2."),
+            (r"^scale_shift_table$", "norm_out_scale_shift"),
+            (r"(to_q|to_k|to_v|to_out|add_k_proj|add_v_proj|fc1|fc2|img_ff1|img_ff2|time_embedder_linear_\d|"
+             r"text_embedder_linear_\d|time_proj|proj_out)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^face_adapter\.\d+\.pre_norm_(q|kv)\.", r"^rope\.", r"blur_kernel"),
+    ),
+)
+
+converter_registry.add(
+    # Lynx (reference transformer/wan/lynx/model.py:522): the IP adapter's
+    # projections and registers live under ``attn2.processor``
+    "wan_lynx",
+    KeyConverter(
+        renames=[
+            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"^condition_embedder\.time_embedder\.linear_(\d)\.", r"time_embedder_linear_\1."),
+            (r"^condition_embedder\.time_proj\.", "time_proj."),
+            (r"^condition_embedder\.text_embedder\.linear_(\d)\.", r"text_embedder_linear_\1."),
+            (r"\.attn2\.processor\.(to_k_ip|to_v_ip)\.", r".\1."),
+            (r"\.attn2\.processor\.registers$", ".registers"),
+            (r"\.attn(\d)\.to_out\.0\.", r".attn\1.to_out."),
+            (r"\.norm2\.(weight|bias)$", r".norm2_\1"),
+            (r"\.ffn\.net\.0\.proj\.", ".ffn.fc1."),
+            (r"\.ffn\.net\.2\.", ".ffn.fc2."),
+            (r"^scale_shift_table$", "norm_out_scale_shift"),
+            (r"(to_q|to_k|to_v|to_out|to_k_ip|to_v_ip|fc1|fc2|time_embedder_linear_\d|text_embedder_linear_\d|"
+             r"time_proj|proj_out)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope\.",),
+    ),
+)
+
+converter_registry.add(
+    # Lynx's perceiver resampler: ``layers.N.0`` the attention, ``layers.N.1``
+    # the feed-forward (its leading LayerNorm dropped, as in JAX)
+    "lynx_resampler",
+    KeyConverter(
+        renames=[
+            (r"^layers\.(\d+)\.0\.", r"attn_layers.\1."),
+            (r"^layers\.(\d+)\.1\.1\.", r"ff_layers.\1.fc1."),
+            (r"^layers\.(\d+)\.1\.3\.", r"ff_layers.\1.fc2."),
+            (r"(to_q|to_kv|to_out|proj_in|proj_out|fc1|fc2)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"^layers\.\d+\.1\.0\.", r"^pos_emb"),
+    ),
+)
+
+converter_registry.add(
+    # SCAIL (reference transformer/wan/scail/model.py:1017): the original Wan
+    # q/k/v/o naming, the i2v cross-attention's k_img / v_img
+    "wan_scail",
+    KeyConverter(
+        renames=[
+            (r"^patch_embedding(_pose)?\.weight$", r"patch_embedding\1.kernel"),
+            (r"^text_embedding\.0\.", "text_embedding_1."),
+            (r"^text_embedding\.2\.", "text_embedding_2."),
+            (r"^time_embedding\.0\.", "time_embedding_1."),
+            (r"^time_embedding\.2\.", "time_embedding_2."),
+            (r"^time_projection\.1\.", "time_projection."),
+            (r"^img_emb\.proj\.0\.", "img_norm_in."),
+            (r"^img_emb\.proj\.1\.", "img_linear_1."),
+            (r"^img_emb\.proj\.3\.", "img_linear_2."),
+            (r"^img_emb\.proj\.4\.", "img_norm_out."),
+            (r"\.self_attn\.([qkvo])\.", r".to_\1."),
+            (r"\.self_attn\.norm_([qk])\.", r".norm_\1."),
+            (r"\.cross_attn\.([qkvo])\.", r".c_to_\1."),
+            (r"\.cross_attn\.norm_([qk])\.", r".c_norm_\1."),
+            (r"\.cross_attn\.(k_img|v_img|norm_k_img)\.", r".\1."),
+            (r"\.norm3\.(weight|bias)$", r".norm3_\1"),
+            (r"\.ffn\.0\.", ".ffn.fc1."),
+            (r"\.ffn\.2\.", ".ffn.fc2."),
+            (r"^head\.modulation$", "head_norm_mod"),
+            (r"^head\.head\.weight$", "head.kernel"),
+            (r"^head\.head\.bias$", "head.bias"),
+            # anchored at a dot: the JAX rule also renames ``norm_k_img.weight``
+            # (ROADMAP Queue 3)
+            (r"(^|\.)(to_q|to_k|to_v|to_o|c_to_q|c_to_k|c_to_v|c_to_o|k_img|v_img|fc1|fc2|img_linear_\d|"
+             r"text_embedding_\d|time_embedding_\d|time_projection)\.weight$", r"\1\2.kernel"),
+        ],
+        drop=(r"^freqs", r"^head\.norm\."),
     ),
 )

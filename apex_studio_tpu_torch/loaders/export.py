@@ -9,7 +9,12 @@ single-file names of the Comfy-Org Z-Image files, control keys included),
 ``wan_vae`` (diffusers' ``AutoencoderKLWan``, with its ``[C, 1, 1(, 1)]`` RMS
 gammas and 1×1-conv attention weights), ``wan`` (diffusers'
 ``WanTransformer3DModel`` and its VACE keys, ``patch_embedding`` and
-``vace_patch_embedding`` as their Conv3d weights), ``skyreels`` (SkyReels
+``vace_patch_embedding`` as their Conv3d weights; ReCamMaster's
+``cam_encoder``, Apex-FramePack's packer embedders as Conv3d weights and
+HoloCine's ``shot_embedding.weight``), ``wan_animate``, ``wan_lynx`` and
+``wan_scail`` (the names their converters read, the patch embeddings as
+Conv3d weights), ``lynx_resampler`` (the perceiver's ``layers.N.0`` /
+``layers.N.1.{1,3}``), ``skyreels`` (SkyReels
 V2's: Wan's with ``condition_embedder.fps_embedding`` /
 ``fps_projection``), ``clip_vision``
 (transformers' ``CLIPVisionModel``, the patch embedding as its Conv2d weight),
@@ -175,6 +180,7 @@ _WAN = (
     (r"\.norm2_(weight|bias)$", r".norm2.\1"),
     (r"\.ffn\.fc1\.", ".ffn.net.0.proj."),
     (r"\.ffn\.fc2\.", ".ffn.net.2."),
+    (r"^shot_embedding$", "shot_embedding.weight"),
 )
 _SKYREELS = (
     (r"^fps_embedding$", "condition_embedder.fps_embedding.weight"),
@@ -302,6 +308,55 @@ _WAN_MULTITALK = (
     (r"\.ffn\.fc2\.", ".ffn.net.2."),
     (r"^norm_out_scale_shift$", "scale_shift_table"),
 )
+_WAN_ANIMATE = (
+    (r"^(time|text)_embedder_linear_(\d)\.", r"condition_embedder.\1_embedder.linear_\2."),
+    (r"^time_proj\.", "condition_embedder.time_proj."),
+    (r"^img_norm([12])$", r"condition_embedder.image_embedder.norm\1.weight"),
+    (r"^img_norm([12])_bias$", r"condition_embedder.image_embedder.norm\1.bias"),
+    (r"^img_ff1\.", "condition_embedder.image_embedder.ff.net.0.proj."),
+    (r"^img_ff2\.", "condition_embedder.image_embedder.ff.net.2."),
+    (r"\.act_bias$", ".act_fn.bias"),
+    (r"^face_encoder\.(conv1_local|conv2|conv3)\.kernel_w$", r"face_encoder.\1.weight"),
+    (r"\.(attn[12])\.to_out\.", r".\1.to_out.0."),
+    (r"^(blocks\.\d+)\.norm2_(weight|bias)$", r"\1.norm2.\2"),
+    (r"\.ffn\.fc1\.", ".ffn.net.0.proj."),
+    (r"\.ffn\.fc2\.", ".ffn.net.2."),
+    (r"^norm_out_scale_shift$", "scale_shift_table"),
+)
+_WAN_LYNX = (
+    (r"^(time|text)_embedder_linear_(\d)\.", r"condition_embedder.\1_embedder.linear_\2."),
+    (r"^time_proj\.", "condition_embedder.time_proj."),
+    (r"^(blocks\.\d+)\.(to_k_ip|to_v_ip)\.", r"\1.attn2.processor.\2."),
+    (r"^(blocks\.\d+)\.registers$", r"\1.attn2.processor.registers"),
+    (r"\.(attn[12])\.to_out\.", r".\1.to_out.0."),
+    (r"^(blocks\.\d+)\.norm2_(weight|bias)$", r"\1.norm2.\2"),
+    (r"\.ffn\.fc1\.", ".ffn.net.0.proj."),
+    (r"\.ffn\.fc2\.", ".ffn.net.2."),
+    (r"^norm_out_scale_shift$", "scale_shift_table"),
+)
+_LYNX_RESAMPLER = (
+    (r"^attn_layers\.(\d+)\.", r"layers.\1.0."),
+    (r"^ff_layers\.(\d+)\.fc1\.", r"layers.\1.1.1."),
+    (r"^ff_layers\.(\d+)\.fc2\.", r"layers.\1.1.3."),
+)
+_WAN_SCAIL = (
+    (r"^(text|time)_embedding_([12])\.", lambda m: f"{m.group(1)}_embedding.{2 * int(m.group(2)) - 2}."),
+    (r"^time_projection\.", "time_projection.1."),
+    (r"^img_norm_in\.", "img_emb.proj.0."),
+    (r"^img_linear_1\.", "img_emb.proj.1."),
+    (r"^img_linear_2\.", "img_emb.proj.3."),
+    (r"^img_norm_out\.", "img_emb.proj.4."),
+    (r"^(blocks\.\d+)\.(k_img|v_img|norm_k_img)\.", r"\1.cross_attn.\2."),
+    (r"^(blocks\.\d+)\.c_to_([qkvo])\.", r"\1.cross_attn.\2."),
+    (r"^(blocks\.\d+)\.c_norm_([qk])\.", r"\1.cross_attn.norm_\2."),
+    (r"^(blocks\.\d+)\.to_([qkvo])\.", r"\1.self_attn.\2."),
+    (r"^(blocks\.\d+)\.norm_([qk])\.", r"\1.self_attn.norm_\2."),
+    (r"\.norm3_(weight|bias)$", r".norm3.\1"),
+    (r"\.ffn\.fc1\.", ".ffn.0."),
+    (r"\.ffn\.fc2\.", ".ffn.2."),
+    (r"^head_norm_mod$", "head.modulation"),
+    (r"^head\.(weight|bias)$", r"head.head.\1"),
+)
 _WAV2VEC2 = (
     (r"^conv_layers\.", "feature_extractor.conv_layers."),
     (r"^fp_layer_norm\.", "feature_projection.layer_norm."),
@@ -327,12 +382,22 @@ def _wan_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     return value
 
 
+_FRAMEPACK_KERNELS = {"1": (1, 2, 2), "2": (2, 4, 4), "4": (4, 8, 8), "8": (8, 16, 16)}
+
+
 def _wan_layout(key: str, value: torch.Tensor) -> torch.Tensor:
-    """``patch_embedding.weight`` (and VACE's ``vace_patch_embedding.weight``)
-    as the published Conv3d weight ``[O, C, 1, 2, 2]`` (every published Wan
-    DiT patches (1, 2, 2))."""
-    if key in ("patch_embedding.weight", "vace_patch_embedding.weight"):
+    """``patch_embedding.weight`` (VACE's ``vace_patch_embedding.weight``,
+    Animate's ``pose_patch_embedding.weight``, SCAIL's
+    ``patch_embedding_pose.weight``) as the published Conv3d weight
+    ``[O, C, 1, 2, 2]`` (every published Wan DiT patches (1, 2, 2)), and
+    Apex-FramePack's packer embedders as Conv3d weights of their factor's
+    kernel ``(f, 2f, 2f)``."""
+    if key in ("patch_embedding.weight", "vace_patch_embedding.weight", "pose_patch_embedding.weight",
+               "patch_embedding_pose.weight"):
         return value.reshape(value.shape[0], -1, 1, 2, 2)
+    m = re.fullmatch(r"latent_embed_packer\.embedders\.(\d+)\.weight", key)
+    if m:
+        return value.reshape(value.shape[0], -1, *_FRAMEPACK_KERNELS[m.group(1)])
     return value
 
 
@@ -608,6 +673,7 @@ _LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
     "wan_vae": _wan_vae_layout, "wan": _wan_layout, "skyreels": _wan_layout,
     "clip_vision": _clip_vision_layout,
     "wan_humo": _wan_humo_layout, "wan_multitalk": _wan_humo_layout, "wan_s2v": _wan_s2v_layout,
+    "wan_animate": _wan_layout, "wan_lynx": _wan_layout, "wan_scail": _wan_layout,
     "hed": _hed_layout, "normalbae": _normalbae_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
@@ -617,6 +683,7 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "llama": _LLAMA,
     "hunyuanvideo": _HUNYUANVIDEO, "hunyuanvideo_vae": _HUNYUANVIDEO_VAE, "wan_humo": _WAN_HUMO,
     "wav2vec2": _WAV2VEC2, "wan_s2v": _WAN_S2V, "wan_multitalk": _WAN_MULTITALK,
+    "wan_animate": _WAN_ANIMATE, "wan_lynx": _WAN_LYNX, "lynx_resampler": _LYNX_RESAMPLER, "wan_scail": _WAN_SCAIL,
     "hunyuanvideo_avatar": _HUNYUANVIDEO_AVATAR, "sam2": _SAM2, "sam2_video": _SAM2_VIDEO,
     "depth_anything_v2": _DEPTH_ANYTHING_V2, "openpose": _OPENPOSE, "hed": _HED, "teed": _TEED,
     "lineart": _LINEART, "lineart_anime": _LINEART_ANIME, "manga_line": _MANGA_LINE, "mlsd": _MLSD,

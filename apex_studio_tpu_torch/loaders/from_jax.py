@@ -30,6 +30,10 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
   that sets ``jax_w_torch_layout = True`` (the anime lineart U-Net's ``_Up``,
   whose JAX ``w`` already is ``[in, out, kh, kw]`` for ``lax.conv_transpose``
   with ``transpose_kernel``) takes it as it is;
+- a ``...weight`` that the JAX module keeps in its own layout under a torch
+  name (Wan Animate's equalized-lr motion encoder) follows its port class:
+  ``jax_weight_hwio`` (``MotionConv``) takes HWIO to OIHW and
+  ``jax_weight_in_out`` (``MotionLinear``) ``[in, out]`` to ``[out, in]``;
 - grouped and depthwise conv kernels (HWIO with ``I = cin / groups``) become
   torch's grouped OIHW by the same transpose;
 - every other parameter keeps its name and layout (learned tokens, PReLU
@@ -110,6 +114,12 @@ def load_from_jax(module: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.Modul
             converted[weight] = np.asarray(flat[key])
         elif not getattr(owner, "jax_w_flipped", True):
             converted[weight] = converted[weight][:, :, ::-1, ::-1]
+        if leaf == "weight":
+            owner = _owner(module, key)
+            if getattr(owner, "jax_weight_hwio", False):
+                converted[key] = np.asarray(flat[key]).transpose(3, 2, 0, 1)
+            elif getattr(owner, "jax_weight_in_out", False):
+                converted[key] = np.asarray(flat[key]).T
     scales = {name for name in converted if name.rpartition(".")[2] == "weight_scale"
               and isinstance(_owner(module, name), Linear)}
     unexpected = sorted(set(converted) - set(params) - scales)

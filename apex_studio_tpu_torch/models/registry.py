@@ -15,7 +15,10 @@ llava-llama-3); ``hunyuanvideo.base`` and ``hunyuanvideo.framepack`` (the
 original HunyuanVideo DiT and FramePack's) and ``AutoencoderKLHunyuanVideo``
 (its VAE); ``wan.humo`` (HuMo's DiT) and ``Wav2Vec2Model`` (its audio
 encoder, in the text-encoder registry as in JAX); ``wan.s2v``, ``wan.multitalk``
-and ``hunyuanvideo.avatar`` (the audio-driven DiTs).
+and ``hunyuanvideo.avatar`` (the audio-driven DiTs); ``wan.recam``,
+``wan.holocine``, ``wan.apex_framepack``, ``wan.animate``, ``wan.lynx`` and
+``wan.scail`` (the rest of the Wan family) and ``LynxResampler`` (Lynx's
+identity resampler, in the text-encoder registry as in JAX).
 """
 
 import importlib
@@ -52,6 +55,10 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.transformers.wan_s2v",
     "apex_studio_tpu_torch.models.transformers.wan_multitalk",
     "apex_studio_tpu_torch.models.transformers.hunyuanvideo_avatar",
+    "apex_studio_tpu_torch.models.transformers.wan_framepack",
+    "apex_studio_tpu_torch.models.transformers.wan_animate",
+    "apex_studio_tpu_torch.models.transformers.wan_lynx",
+    "apex_studio_tpu_torch.models.transformers.wan_scail",
 )
 
 

@@ -1,7 +1,7 @@
 """Wan 2.1 / 2.2 video DiT, port of ``apex_studio_tpu/models/transformers/wan.py``:
 the base ``WanTransformer3DModel`` (also SkyReels V2's DiT, ``skyreels.base``)
-and its block-causal (Self-Forcing), VACE and Fun / Phantom variants (the
-Recam and Holocine variants are not ported).
+and its block-causal (Self-Forcing), VACE, Fun / Phantom, ReCamMaster and
+HoloCine variants.
 
 - blocks: an f32 layer norm without affine, modulated by a learned
   ``scale_shift_table`` plus the per-sample time projection [B, 6, dim], or
@@ -29,6 +29,15 @@ Recam and Holocine variants are not ported).
   whose per-block hints are added into the main stream at ``vace_layers``
 - Fun / Phantom: subject-reference latents appended in time (RoPE over
   T + T_ref frames) and sliced off before the output projection
+- ReCamMaster: the target and source clips concatenated in time; each
+  block's 12 → dim ``cam_encoder`` embeds the per-latent-frame relative
+  camera poses, each pose repeated over consecutive frames of the joint clip
+  (JAX's ``jnp.repeat``) and over the h·w grid, and adds them to the tokens
+- HoloCine: a learned ``shot_embedding`` row added to each token by its shot
+  id, and a per-query cross-attention bias ``ctx_bias`` [B, 1, S, L] that
+  routes each token to its shot's caption span; that bias goes to the plain
+  route (the kernel takes a key-only bias), in query-row chunks of
+  ``BIAS_ROWS`` so its f32 scores stay small
 """
 
 from __future__ import annotations
@@ -47,6 +56,10 @@ from apex_studio_tpu_torch.ops.attention import attention as attention_op
 from apex_studio_tpu_torch.ops.embeddings import timestep_embedding
 from apex_studio_tpu_torch.ops.norms import layer_norm
 from apex_studio_tpu_torch.ops.rope import apply_rope, precompute_axial_freqs
+
+# query rows a chunk of a per-query-biased attention: 40 heads x 4096 rows x
+# 512 text keys of f32 scores are 0.34 GB
+BIAS_ROWS = 4096
 
 
 @dataclasses.dataclass
@@ -123,7 +136,7 @@ class WanAttention(nn.Module):
         b, s, _ = x.shape
         return x.reshape(b, s, self.heads, self.head_dim)
 
-    def forward(self, x, context=None, rope_cos=None, rope_sin=None, context_image=None):
+    def forward(self, x, context=None, rope_cos=None, rope_sin=None, context_image=None, ctx_bias=None):
         ctx = x if context is None else context
         q = self._heads(self.norm_q(self.to_q(x)))
         k = self._heads(self.norm_k(self.to_k(ctx)))
@@ -131,13 +144,21 @@ class WanAttention(nn.Module):
         if rope_cos is not None:
             q = apply_rope(q, rope_cos, rope_sin)
             k = apply_rope(k, rope_cos, rope_sin)
-        out = attention_op(q, k, v)
+        out = attention_op(q, k, v) if ctx_bias is None else biased_attention(q, k, v, ctx_bias)
         if context_image is not None and self.add_k_proj is not None:
             k_img = self._heads(self.norm_added_k(self.add_k_proj(context_image)))
             v_img = self._heads(self.add_v_proj(context_image))
             out = out + attention_op(q, k_img, v_img)
         b, s = q.shape[:2]
         return self.to_out(out.reshape(b, s, -1))
+
+
+def biased_attention(q, k, v, bias):
+    """Attention under a per-query additive bias [B, 1, S, Sk], which takes
+    the plain route (the kernel takes a key-only bias), in chunks of
+    ``BIAS_ROWS`` query rows: each row's softmax is whole in its chunk."""
+    return torch.cat([attention_op(q[:, i:i + BIAS_ROWS], k, v, bias=bias[:, :, i:i + BIAS_ROWS])
+                      for i in range(0, q.shape[1], BIAS_ROWS)], dim=1)
 
 
 class WanTransformerBlock(nn.Module):
@@ -155,7 +176,7 @@ class WanTransformerBlock(nn.Module):
         self.scale_shift_table = nn.Parameter(torch.empty(1, 6, d, dtype=torch.float32))
         self.eps = cfg.eps
 
-    def forward(self, x, context, temb6, rope_cos, rope_sin, context_image=None):
+    def forward(self, x, context, temb6, rope_cos, rope_sin, context_image=None, ctx_bias=None):
         # temb6 [B, 6, dim] f32, or [B, N, 6, dim] a token (diffusion forcing);
         # the sum with the table is cast to the activations' dtype
         if temb6.ndim == 4:
@@ -172,7 +193,7 @@ class WanTransformerBlock(nn.Module):
 
         norm_x = (layer_norm(x, self.norm2_weight, self.norm2_bias, self.eps)
                   if self.norm2_weight is not None else x)
-        x = x + self.attn2(norm_x, context=context, context_image=context_image)
+        x = x + self.attn2(norm_x, context=context, context_image=context_image, ctx_bias=ctx_bias)
 
         norm_x = layer_norm(x, eps=self.eps) * (1 + c_scale) + c_shift
         return x + self.ffn(norm_x) * c_gate
@@ -296,12 +317,16 @@ class WanTransformer3DModel(nn.Module):
         context: torch.Tensor,          # [B, L, text_dim] UMT5 features
         context_image: Optional[torch.Tensor] = None,  # [B, Li, image_dim] CLIP
         fps_index: Optional[torch.Tensor] = None,      # [B] int 0 | 1 (SkyReels)
+        ctx_bias: Optional[torch.Tensor] = None,       # [B, 1, S, L] cross-attention bias (HoloCine)
+        shot_ids: Optional[torch.Tensor] = None,       # [B, S] each token's shot (HoloCine)
     ) -> torch.Tensor:
         _, _, tt, hh, ww = x.shape
         tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin = self._prepare_cond(x, t, context, context_image,
                                                                                   fps_index)
+        if shot_ids is not None and getattr(self, "shot_embedding", None) is not None:
+            tokens = tokens + self.shot_embedding[shot_ids].to(tokens.dtype)
         for blk in self.blocks:
-            tokens = blk(tokens, ctx, temb6, rope_cos, rope_sin, context_image=ctx_img)
+            tokens = blk(tokens, ctx, temb6, rope_cos, rope_sin, context_image=ctx_img, ctx_bias=ctx_bias)
         return self._finalize(tokens, temb, tt, hh, ww)
 
 
@@ -503,3 +528,63 @@ class WanFunTransformer3DModel(WanTransformer3DModel):
         pt, ph, pw = self.cfg.patch_size
         tokens = tokens[:, :(tt // pt) * (hh // ph) * (ww // pw)]
         return self._finalize(tokens, temb, tt, hh, ww)
+
+
+# -- ReCamMaster variant ----------------------------------------------------------------
+
+
+class WanRecamBlock(WanTransformerBlock):
+    """A Wan block with a camera-pose encoder (12 → dim) whose embedding is
+    added to the tokens before the block."""
+
+    def __init__(self, cfg: WanConfig, *, dtype):
+        super().__init__(cfg, dtype=dtype)
+        self.cam_encoder = Linear(12, cfg.dim, dtype=dtype)
+
+    def forward(self, x, context, temb6, rope_cos, rope_sin, context_image=None, cam_tokens=None):
+        if cam_tokens is not None:
+            x = x + cam_tokens.to(x.dtype)
+        return super().forward(x, context, temb6, rope_cos, rope_sin, context_image=context_image)
+
+
+@transformer_registry.register("wan.recam", aliases=("wan_recam", "WanRecamTransformer3DModel"))
+class WanRecamTransformer3DModel(WanTransformer3DModel):
+    """ReCamMaster: the target clip and the source clip concatenated in time;
+    per-block camera encodings of the relative 3×4 extrinsics (12 values a
+    latent frame), each repeated over ``T / F_cam`` consecutive latent frames
+    and over the spatial grid, added before every block."""
+
+    def __init__(self, cfg: WanConfig, *, dtype=torch.bfloat16):
+        super().__init__(cfg, dtype=dtype)
+        self.blocks = nn.ModuleList([WanRecamBlock(cfg, dtype=dtype) for _ in range(cfg.num_layers)])
+
+    def forward(self, x, t, context, cam_emb=None, context_image=None, fps_index=None):
+        _, _, tt, hh, ww = x.shape
+        pt, ph, pw = self.cfg.patch_size
+        tokens, temb, temb6, ctx, ctx_img, rope_cos, rope_sin = self._prepare_cond(x, t, context, context_image,
+                                                                                  fps_index)
+        hw = (hh // ph) * (ww // pw)
+        for blk in self.blocks:
+            cam_tokens = None
+            if cam_emb is not None:
+                ce = blk.cam_encoder(cam_emb.to(self.dtype))
+                ce = ce.repeat_interleave((tt // pt) // ce.shape[1], dim=1)  # target + source halves
+                cam_tokens = ce.repeat_interleave(hw, dim=1)
+            tokens = blk(tokens, ctx, temb6, rope_cos, rope_sin, context_image=ctx_img, cam_tokens=cam_tokens)
+        return self._finalize(tokens, temb, tt, hh, ww)
+
+
+# -- HoloCine joint multi-shot variant -------------------------------------------------
+
+
+@transformer_registry.register("wan.holocine", aliases=("holocine",))
+class WanHolocineTransformer3DModel(WanTransformer3DModel):
+    """HoloCine's multi-shot DiT: the base architecture plus a learned
+    per-shot token embedding (20 rows) added after the patch embedding by
+    ``shot_ids``; the per-query cross-attention bias that routes each token
+    to its shot's caption span is built by the engine (``ctx_bias``)."""
+
+    def __init__(self, cfg: WanConfig, *, dtype=torch.bfloat16):
+        super().__init__(cfg, dtype=dtype)
+        n_shots = int(getattr(cfg, "max_shots", 0) or 20)
+        self.shot_embedding = nn.Parameter(torch.empty(n_shots, cfg.dim, dtype=torch.float32))

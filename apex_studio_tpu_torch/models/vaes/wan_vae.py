@@ -23,7 +23,14 @@ the JAX module's full-sequence ones:
 - Wan 2.2's ``is_residual`` blocks add avg-pool / duplicate shortcuts and a
   ``patch_size`` pixel patchify before the encoder;
 - latents are normalised per channel, ``(raw − mean)/std``, after encode and
-  undone before decode.
+  undone before decode;
+- a clip of more than ``ENCODE_WHOLE_MAX_PIXELS`` (T·H·W) encodes in time
+  chunks, frame 0 alone and then ``ENCODE_CHUNK_LATENT`` latent frames at a
+  time, each causal conv carrying its last ``2·pt`` input frames (zeros
+  before the first chunk) and each ``downsample3d`` its last frame into the
+  next chunk: the same sums as the whole encode (its windows stay on the
+  whole clip's stride-2 grid), with the activations of one chunk. The
+  departure (the JAX module encodes whole) is in ROADMAP Queue 3.
 
 Parameters are f32; convolutions and projections compute in the ``dtype`` the
 module is built with (bf16 for the published manifests, whose ``fp32`` is
@@ -42,6 +49,11 @@ from torch import nn
 
 from apex_studio_tpu_torch.models.registry import vae_registry
 from apex_studio_tpu_torch.models.vaes.hunyuanvideo15_vae import RMSNormCh as WanRMSNormCh
+
+# the largest clip (T·H·W) the encoder runs whole: 81 frames at 480x832, whose
+# encode peaked at 61.73 GiB on an 80 GB card; larger clips encode in chunks
+ENCODE_WHOLE_MAX_PIXELS = 81 * 480 * 832
+ENCODE_CHUNK_LATENT = 2  # latent frames a chunk after the first frame
 
 
 @dataclasses.dataclass
@@ -89,20 +101,30 @@ def _triple(v):
 class CausalConv3d(nn.Module):
     """Conv3d with causal (front, zero) time padding; NCDHW, weight OIDHW."""
 
+    stream = False  # a chunked encode: the previous chunk's frames replace the zero padding
+
     def __init__(self, cin: int, cout: int, kernel=3, stride=1, padding=1, *, dtype):
         super().__init__()
         kernel, self.stride, self.pad = _triple(kernel), _triple(stride), _triple(padding)
         self.weight = nn.Parameter(torch.empty(cout, cin, *kernel, dtype=torch.float32))
         self.bias = nn.Parameter(torch.empty(cout, dtype=torch.float32))
         self.dtype = dtype
+        self._prev = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pt, ph, pw = self.pad
         w = self.weight.to(self.dtype)
-        if x.shape[2] == 1 and self.stride[0] == 1 and w.shape[2] == 2 * pt + 1:
+        prev = self._prev if self.stream else None
+        if self.stream and pt:
+            full = (F.pad(x.to(self.dtype), (0, 0, 0, 0, 2 * pt, 0)) if prev is None
+                    else torch.cat([prev, x.to(self.dtype)], dim=2))
+            self._prev = full[:, :, -2 * pt:]
+        if prev is None and x.shape[2] == 1 and self.stride[0] == 1 and w.shape[2] == 2 * pt + 1:
             # one frame after 2·pt zero frames: only the last time tap sees it
             y = F.conv2d(x[:, :, 0].to(self.dtype), w[:, :, -1], stride=self.stride[1:],
                          padding=(ph, pw))[:, :, None]
+        elif prev is not None and pt:
+            y = F.conv3d(full, w, stride=self.stride, padding=(0, ph, pw))
         else:
             y = F.conv3d(F.pad(x.to(self.dtype), (0, 0, 0, 0, 2 * pt, 0)), w, stride=self.stride,
                          padding=(0, ph, pw))
@@ -131,9 +153,12 @@ class Conv2dSame(nn.Module):
 
 
 class WanResample(nn.Module):
+    stream = False  # a chunked encode: downsample3d carries its last frame
+
     def __init__(self, dim: int, mode: str, *, dtype, upsample_out_dim: Optional[int] = None):
         super().__init__()
         self.mode = mode
+        self._prev = None
         time_conv = None
         if mode in ("upsample2d", "upsample3d"):
             out_dim = upsample_out_dim if upsample_out_dim is not None else dim // 2
@@ -160,6 +185,12 @@ class WanResample(nn.Module):
             return self.resample_conv(x)
         if self.mode.startswith("downsample"):
             x = self.resample_conv(x)
+            if self.mode == "downsample3d" and self.stream and self._prev is not None:
+                # the stride-2 windows continue from the previous chunk's last frame
+                prev, self._prev = self._prev, x[:, :, -1:]
+                return self.time_conv(torch.cat([prev, x], dim=2))
+            if self.mode == "downsample3d" and self.stream:
+                self._prev = x[:, :, -1:]
             if self.mode == "downsample3d" and x.shape[2] > 1:
                 x = torch.cat([x[:, :, :1], self.time_conv(x)], dim=2)
         return x
@@ -405,11 +436,30 @@ class AutoencoderKLWan(nn.Module):
         std = torch.tensor(self.cfg.latents_std, dtype=torch.float32, device=device).reshape(1, -1, 1, 1, 1)
         return mean, std
 
+    def encode_chunked(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder over time chunks (frame 0, then ``ENCODE_CHUNK_LATENT``
+        latent frames at a time) with each causal conv's and downsample's
+        frames carried: the whole encode's result."""
+        mods = [m for m in self.encoder.modules() if isinstance(m, (CausalConv3d, WanResample))]
+        step = ENCODE_CHUNK_LATENT * self.cfg.temporal_scale
+        bounds = [0, 1] + list(range(1 + step, x.shape[2], step)) + [x.shape[2]]
+        for m in mods:
+            m.stream, m._prev = True, None
+        try:
+            out = [self.encoder(x[:, :, a:b]) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+        finally:
+            for m in mods:
+                m.stream, m._prev = False, None
+        return torch.cat(out, dim=2)
+
     def encode(self, video: torch.Tensor, sample: bool = False, noise=None) -> torch.Tensor:
-        """[B,3,T,H,W] in [-1, 1] → model-space latents [B,z,T',H/s,W/s]."""
+        """[B,3,T,H,W] in [-1, 1] → model-space latents [B,z,T',H/s,W/s];
+        in time chunks above ``ENCODE_WHOLE_MAX_PIXELS``."""
+        t, h, w = video.shape[2:]
+        chunked = t * h * w > ENCODE_WHOLE_MAX_PIXELS and (t - 1) % self.cfg.temporal_scale == 0
         if self.cfg.patch_size:
             video = patchify(video, self.cfg.patch_size)
-        mean, logvar = self.quant_conv(self.encoder(video)).chunk(2, dim=1)
+        mean, logvar = self.quant_conv(self.encode_chunked(video) if chunked else self.encoder(video)).chunk(2, dim=1)
         z = mean
         if sample and noise is not None:
             z = mean + torch.exp(0.5 * logvar.clamp(-30.0, 20.0)) * noise

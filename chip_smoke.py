@@ -32,8 +32,9 @@ Phases, each printed as one JSON line:
              device time by kernel class, by W8A8 pass, and the idle share
   bf16       one request of 4 steps with synthetic bf16 weights
   int4       one request of 2 steps with the DiT packed int4 (encoders int8)
-  hyv15      HunyuanVideo 1.5 i2v at 720x1280 from its manifest, full width and
-             depth, synthetic int8 weights: the kernel at the path's shapes
+  hyv15      HunyuanVideo 1.5 i2v at 720x1280 from its manifest, full width,
+             the requests' DiT at 18 of its 54 blocks (40 launches a CFG
+             step), synthetic int8 weights: the kernel at the path's shapes
              (113,457 and 34,257 tokens on query-row subsets, the refiner's 1000
              with a bias) timed beside its bound and the library call; two
              identical 33-frame requests (tiled decode, frames and latents
@@ -59,18 +60,19 @@ Phases, each printed as one JSON line:
              step split; edit_plus with two condition images, t2i with true
              CFG (120 a step), the ControlNet at scales 1 and 0 (65 a step)
              and one bf16 edit, each of 2 steps
-  wan        Wan 2.2 A14B from its three manifests, full width and depth,
-             both 14B experts int4-resident (UMT5-XXL int8): a 2-block DiT at
+  wan        Wan 2.2 A14B from its three manifests, full width, the requests'
+             experts at 10 of their 40 blocks, both 14B experts int4-resident
+             (UMT5-XXL int8): a 2-block DiT at
              full width on the card (bf16) against the CPU (f32); the fused
              UniPC step against the host step over 30 steps; the bench leg's
              t2v request at one 480x832 frame three times (3 of its 30 steps, CFG 4,
-             one expert: 160 launches a step, requests 1 and 3 identical, the
+             one expert: 40 launches a step, requests 1 and 3 identical, the
              repeated prompt a disk-cache hit); t2v at 81 frames (2 steps at
              shift 3, the expert switch at boundary 0.875) with one decode tile
              against float64; the resident Linears at Wan's shapes and the int4
              step split; the t2i manifest's 1024x1024 request (3 steps, both
              experts, the step split the boundary implies); i2v at 81 frames
-             (2 steps, 36-channel DiT, the VAE encode at T = 81); one bf16 t2i
+             (2 steps, the 36-channel DiT, the VAE encode at T = 81); one bf16 t2i
              request (2 steps, no Linear quantized); the point mask and its
              tracking on eight 480x832 frames
   wan_edit   the Wan editing engines from their manifests at 480x832, full
@@ -132,11 +134,11 @@ Phases, each printed as one JSON line:
              and a VAE decode against float64; t2v at 33 frames twice (one
              seed, frames bit-identical), at 81 frames (the decode in tiles),
              i2v token_replace at 33 frames (the I2V config written; the first
-             latent frame pinned); 1 step each, the requests' DiT 10 + 20 of
-             its 20 + 40 blocks (32 launches a forward); the W8A8 Linears at
+             latent frame pinned); 1 step each, the requests' DiT 5 + 10 of
+             its 20 + 40 blocks (17 launches a forward); the W8A8 Linears at
              the 81-frame shapes and the step split
   humo       HuMo 17B from its manifest at the WanHuMoConfig widths (the
-             requests' DiT cut to 10 of its 40 blocks), the DiT int4 and
+             requests' DiT cut to 5 of its 40 blocks), the DiT int4 and
              UMT5-XXL int8, a 13-layer wav2vec2 of base widths (configs
              written), a seeded 16 kHz WAV: the kernel at the path's
              shapes (self over 39,000 and 14,040 tokens, text cross over 512,
@@ -155,7 +157,7 @@ Phases, each printed as one JSON line:
              chunks with a pose video and CFG (the second chunk's motion
              buffer re-encoded from the first's frames), then two identical
              32-frame requests seeded with the image; 1 step, the requests'
-             DiT 20 of its 40 blocks (45 launches a forward: the 5 injectors
+             DiT 5 of its 40 blocks (12 launches a forward: the 2 injectors
              of the kept blocks) and the encoder's 24 a request
   multitalk  Wan 2.1 MultiTalk from its manifest (the Wan2.1-I2V-14B-480P,
              CLIP ViT-H and chinese-wav2vec2-base configs written; DiT int4,
@@ -164,8 +166,8 @@ Phases, each printed as one JSON line:
              64 tokens, the encoder's f32 attention); the 2-block DiT with two
              speakers against f32; 81 frames with two speakers and a negative
              prompt (3 forwards a step), then two identical one-speaker
-             33-frame requests; 1 step, the requests' DiT 20 of its 40 blocks
-             (80 launches a forward)
+             33-frame requests; 1 step, the requests' DiT 5 of its 40 blocks
+             (20 launches a forward)
   avatar     HunyuanVideo Avatar from its manifest at the family defaults'
              widths, synthetic int8 weights: the kernel at the path's shapes
              (the joint attention over 35,072 tokens and the refiner, each
@@ -173,8 +175,8 @@ Phases, each printed as one JSON line:
              against f32; the manifest's defaults (512x512, 125 frames, one
              window of 33 latent frames) with a negative prompt and zero
              Whisper features (no encoder files), then two identical 33-frame
-             requests in windows of 9 latent frames; 2 steps, 62 launches a
-             forward
+             requests in windows of 9 latent frames; 1 step, the requests'
+             DiT 10 + 20 of its 20 + 40 blocks (32 launches a forward)
   prompt_extension
              PromptExtender on the synthetic int8 Qwen3-4B, greedy, 32 new
              tokens (36 launches a token); each decode step's logits against
@@ -228,10 +230,38 @@ Phases, each printed as one JSON line:
              path's new shapes (self over 10,200, 6120 and 2040 tokens, the
              window's text cross); a 2-block DiT with per-frame timesteps
              against f32; df at 544x960 and CFG 6.0, 33 frames in windows of
-             17, 2 steps, ar_step 1 (10 rows, 1600 launches) twice
+             17, 2 steps, ar_step 1 (10 rows, 200 launches: the requests' DiT
+             5 of its 40 blocks) twice
              (bit-identical) and 17 frames with an image prefix (the prefix
              latent unchanged); t2v of one frame at 24 and 16 fps (the frames
              differ); i2v of 9 frames on the 36-channel twin of the config
+  wan_5b     Wan 2.2 TI2V-5B t2v and Lucy Edit at the published 5B widths and
+             full depth (dim 3072, 24 heads of 128, FFN 14,336, 30 blocks),
+             bf16 as the manifests say, on the Wan 2.2 VAE (z 48, 16x, patch
+             2, residual; its config written where both manifests name a
+             VAE): the kernel at TI2V's default 704x1280 x 121 frames (27,280
+             tokens, 24 heads) and Lucy's 81 frames (8190); t2v at 704x1280,
+             17 frames, 2 steps, CFG 5, twice with one seed (bit-identical)
+             and once with another; Lucy at 480x832 on a 17-frame source and
+             on its negative (the frames differ); 60 launches a forward
+  wan_more   the 14B engines from their manifests (ReCam, ATI, SCAIL, HoloCine
+             on the config its engine implies, Apex-FramePack, Animate, Lynx,
+             Lynx-lite) at full width, the DiTs int4 at 5 of their 40 blocks,
+             UMT5-XXL int8, CLIP ViT-H and Lynx's resampler unquantized, one
+             home for all (the shared prompts' encodes read from the disk
+             cache): the kernel at the new shapes (ReCam's 65,520, Animate's
+             75,600 and its face cross, Lynx's IP cross and f32 perceiver,
+             SCAIL's 42,510 and its two cross, FramePack's longest 81-frame
+             window) and HoloCine's biased plain route timed; 2-block DiTs of
+             ReCam, FramePack, Animate, Lynx and SCAIL at full width against
+             f32; 2 steps at 480x832 and 17 frames: two cameras, a trajectory
+             against none (the painted condition against the CPU's), two pose
+             videos, two shot splits (one twice, bit-identical), FramePack
+             over 45 frames (three sections, 1x / 2x / 4x future context),
+             Animate at 720x1280 with its 77-frame segment (the VAE encode in
+             time chunks), two chained 17-frame segments twice
+             (bit-identical) and replace mode, Lynx at ip_scale 1 and 0 and
+             Lynx-lite; the frames differ where the conditioning does
   preprocess_pose
              the last preprocessors: the transformers delegates at published
              widths written with save_pretrained (DPT-Large, ZoeDepth
@@ -255,8 +285,8 @@ rows with a [1, Sk] bias at its first and last block and with a window and a
 sink), and the Flux editing paths' (FLUX.2 at 48 heads over 4608 and 8704
 tokens, Kontext over 8704 and DreamOmni2 over 12,800 at 24); the timing phase
 times each beside its bound and the library call. The hyv, humo, s2v,
-multitalk, avatar, skyreels and sam2 phases hold and time the kernel at their own
-shapes (``path_kernel_rows``); the kernels phase also holds it at head dims
+multitalk, avatar, skyreels, wan_5b, wan_more and sam2 phases hold and time the
+kernel at their own shapes (``path_kernel_rows``); the kernels phase also holds it at head dims
 16, 32, 56, 72 and 96 (ragged, with a bias, on fused-qkv views in bf16 and
 f32).
 Then a ``wall`` line, a ``kernels`` line, the card and, last,
@@ -300,7 +330,7 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "skyreels,rife,sam2,preprocess,preprocess_nets,preprocess_rest,preprocess_pose")
+                  "skyreels,wan_5b,wan_more,rife,sam2,preprocess,preprocess_nets,preprocess_rest,preprocess_pose")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -324,12 +354,16 @@ HYV15_MLLM_TOKENS, HYV15_HEADS, HYV15_STEPS = 1000, 16, 1
 # (a cut of depth that keeps the whole script inside its time limit)
 HYV15_LONG_STEPS = 1
 HYV15_SIZE, HYV15_FRAMES, HYV15_SCALES = (720, 1280), (33, 33, 121), (4, 16)  # VAE time, space
-HYV15_LAUNCHES_PER_STEP = 2 * (54 + 2)  # CFG: two forwards of 54 joint + 2 refiner attentions
+# the requests' DiT has 18 of its published 54 blocks (a cut of depth that keeps
+# the whole script inside its limit; the kernel rows at the 121-frame shape stay)
+HYV15_LAYERS = 18
+HYV15_LAUNCHES_PER_STEP = 2 * (HYV15_LAYERS + 2)  # CFG: two forwards of the blocks' joint + 2 refiner attentions
 # rows, in, out and calls a CFG step of the DiT's resident Linears at 121 frames
-# (111,600 image rows, 1,857 context rows, adaLN on one row)
-HYV15_LINEAR_CALLS = {(111600, 2048, 2048): 432, (111600, 2048, 8192): 108, (111600, 8192, 2048): 108,
-                      (1857, 2048, 2048): 432, (1857, 2048, 8192): 108, (1857, 8192, 2048): 108,
-                      (1, 2048, 12288): 216}
+# (111,600 image rows, 1,857 context rows, adaLN on one row): 8, 2, 2 and 4 a block
+HYV15_LINEAR_CALLS = {(111600, 2048, 2048): 8 * HYV15_LAYERS, (111600, 2048, 8192): 2 * HYV15_LAYERS,
+                      (111600, 8192, 2048): 2 * HYV15_LAYERS, (1857, 2048, 2048): 8 * HYV15_LAYERS,
+                      (1857, 2048, 8192): 2 * HYV15_LAYERS, (1857, 8192, 2048): 2 * HYV15_LAYERS,
+                      (1, 2048, 12288): 4 * HYV15_LAYERS}
 HYV15_PROMPT = 'A lighthouse keeper walks along the pier at dusk, a sign reads "NORTH LIGHT"'
 HYV15_T2V_MANIFEST = REPO / "manifests" / "video" / "hunyuanvideo-1.5-t2v.yml"
 ZIMAGE_MANIFEST = REPO / "manifests" / "image" / "zimage-turbo.yml"
@@ -386,6 +420,10 @@ WAN_HEADS, WAN_LAYERS, WAN_TEXT_TOKENS = 40, 40, 512
 # step an expert across the boundary at 0.875, where the manifests' shift 12
 # needs 3 (999, 959 | 856) (a cut of steps)
 WAN_CLIP_STEPS, WAN_CLIP_SHIFT = 2, 3.0
+# the wan phase's experts have 10 of the published 40 blocks (a cut of depth
+# that keeps the whole script inside its limit; the 2-block full-width check
+# and the kernel rows at Wan's shapes stay)
+WAN_REQUEST_LAYERS = 10
 WAN_SMOKE_STEPS = 3
 WAN_TOKENS = {"frame": 1560, "t2i": 4096, "clip": 32760}
 # the bench leg's prompts (bench_e2e.py PROMPT, NEG)
@@ -396,11 +434,13 @@ WAN_NEG = "blurry, low quality, watermark"
 # leg's 1560 tokens: self-attention q/k/v/out and cross-attention q/out, the FFN
 # in and out; the cross-attention K/V and the text embedder's second Linear over
 # the 512 text rows, its first from 4096; time_proj on one row
-WAN_LINEAR_CALLS = {(1560, 5120, 5120): 240, (1560, 5120, 13824): 40, (1560, 13824, 5120): 40,
-                    (512, 5120, 5120): 81, (512, 4096, 5120): 1, (1, 5120, 30720): 1}
+WAN_LINEAR_CALLS = {(1560, 5120, 5120): 6 * WAN_REQUEST_LAYERS, (1560, 5120, 13824): WAN_REQUEST_LAYERS,
+                    (1560, 13824, 5120): WAN_REQUEST_LAYERS, (512, 5120, 5120): 2 * WAN_REQUEST_LAYERS + 1,
+                    (512, 4096, 5120): 1, (1, 5120, 30720): 1}
 # the same at the 81-frame clip's 32,760 tokens
-WAN_CLIP_LINEAR_CALLS = {(32760, 5120, 5120): 240, (32760, 5120, 13824): 40, (32760, 13824, 5120): 40,
-                         (512, 5120, 5120): 81, (512, 4096, 5120): 1, (1, 5120, 30720): 1}
+WAN_CLIP_LINEAR_CALLS = {(32760, 5120, 5120): 6 * WAN_REQUEST_LAYERS, (32760, 5120, 13824): WAN_REQUEST_LAYERS,
+                         (32760, 13824, 5120): WAN_REQUEST_LAYERS, (512, 5120, 5120): 2 * WAN_REQUEST_LAYERS + 1,
+                         (512, 4096, 5120): 1, (1, 5120, 30720): 1}
 # the fused UniPC step against the host step, both f32 on the same velocities:
 # the same linear combination summed in another order, a few f32 ulps a step
 WAN_UNIPC_REL_L2 = 1e-5
@@ -488,7 +528,11 @@ HYV_I2V_MANIFEST = REPO / "manifests" / "video" / "hunyuanvideo-i2v.yml"
 # limit
 HYV_HEADS, HYV_TEXT_TOKENS, HYV_STEPS, HYV_SIZE = 24, 256, 1, (720, 1280)
 HYV_TOKENS = {33: 9 * 45 * 80 + HYV_TEXT_TOKENS, 81: 21 * 45 * 80 + HYV_TEXT_TOKENS}
-HYV_LAUNCHES_PER_FORWARD = 20 + 40 + 2
+# the Avatar requests' DiT has 10 + 20 of its 20 + 40 blocks (a cut of depth
+# that keeps the whole script inside its limit; its 10 audio adapters stay,
+# those after the kept dual blocks 1, 3, …, 9 run; the 1 + 1-block check stays)
+AVATAR_DUAL, AVATAR_SINGLE = 10, 20
+HYV_LAUNCHES_PER_FORWARD = AVATAR_DUAL + AVATAR_SINGLE + 2
 # The HunyuanVideo 1 + 1-block DiT's bf16 forward against f32 at its full
 # width with the synthetic weights read 0.94-1.014% on an H100 (plain and
 # token_replace); on the CPU the port's bf16 forward reads 0.98% and the JAX
@@ -509,10 +553,10 @@ HYV_I2V_TRANSFORMER = {"_class_name": "HunyuanVideoTransformer3DModel", "in_chan
                        "image_condition_type": "token_replace"}
 # (rows, in, out): W8A8 Linear calls a forward at 81 frames, the dual blocks'
 # 75,600-row image stream reckoned at the single blocks' 75,856 rows
-# the hyv requests' DiT has 10 + 20 of the published 20 + 40 blocks (a cut of
+# the hyv requests' DiT has 5 + 10 of the published 20 + 40 blocks (a cut of
 # depth that keeps the whole script inside its limit; the 1 + 1-block
 # full-width check stays)
-HYV_DUAL, HYV_SINGLE = 10, 20
+HYV_DUAL, HYV_SINGLE = 5, 10
 HYV_T2V_TRANSFORMER = dict(HYV_I2V_TRANSFORMER, num_layers=HYV_DUAL, num_single_layers=HYV_SINGLE,
                            image_condition_type=None)
 HYV_REQUEST_LAUNCHES = HYV_DUAL + HYV_SINGLE + 2
@@ -527,7 +571,7 @@ HUMO_TOKENS = {97: 25 * 1560, 33: 9 * 1560}
 # the requests' DiT has 20 of the published 40 blocks (a cut of depth that
 # keeps the whole script inside its limit; the full-width check runs on 2
 # blocks)
-HUMO_LAYERS = 10  # of the published 40: a cut of depth
+HUMO_LAYERS = 5  # of the published 40: a cut of depth
 HUMO_TRANSFORMER = {"num_layers": HUMO_LAYERS}
 HUMO_AUDIO_TOKENS, HUMO_STEPS, HUMO_LAUNCHES_PER_FORWARD = 16, 2, 3 * HUMO_LAYERS
 # the TA pair runs one step (TIA keeps two to cross step_change): a cut of depth
@@ -572,11 +616,11 @@ WAV2VEC2_BASE = dict(HUMO_WAV2VEC2, num_hidden_layers=12)
 # the motion (32,760); 4 audio tokens a frame and a padding token
 S2V_FRAMES = 20
 S2V_TOKENS = {"chunk": S2V_FRAMES * 1560 + 1560 + 1560 + 390 + 4 * 7 * 13, "first_chunk": (S2V_FRAMES + 1) * 1560}
-# the S2V and MultiTalk requests' DiTs have 20 of the published 40 blocks (a cut
+# the S2V and MultiTalk requests' DiTs have 5 of the published 40 blocks (a cut
 # of depth that keeps the whole script inside its limit; the
 # 2-block full-width checks stay): S2V keeps the audio injectors of the
-# blocks it keeps
-AUDIO_VIDEO_LAYERS = 20
+# blocks it keeps (0, 4)
+AUDIO_VIDEO_LAYERS = 5
 S2V_REQUEST_TRANSFORMER = dict(WAN_S2V_TRANSFORMER, num_layers=AUDIO_VIDEO_LAYERS, audio_inject_layers=[
     i for i in WAN_S2V_TRANSFORMER["audio_inject_layers"] if i < AUDIO_VIDEO_LAYERS])
 S2V_AUDIO_TOKENS, S2V_INJECT_LAYERS = 4 + 1, len(S2V_REQUEST_TRANSFORMER["audio_inject_layers"])
@@ -594,7 +638,7 @@ MULTITALK_REQUEST_TRANSFORMER = dict(WAN21_I2V_TRANSFORMER, num_layers=AUDIO_VID
 MULTITALK_AUDIO_SECONDS, MULTITALK_W2V_FRAMES = 3.2, 80
 # the Avatar at 512x512: one window of 33 latent frames of 32 x 32 tokens, the
 # reference frame's 1024 in front and the 256 text slots; a forward makes the
-# HunyuanVideo DiT's 62 launches
+# HunyuanVideo DiT's launches (HYV_LAUNCHES_PER_FORWARD)
 AVATAR_TOKENS = 1024 + 33 * 1024 + HYV_TEXT_TOKENS
 AUDIO_VIDEO_STEPS = 1
 # SkyReels V2 (Skywork/SkyReels-V2-DF-14B-540P transformer/config.json): Wan 2.1
@@ -615,7 +659,10 @@ SKYREELS_TOKENS = {"df_window": 5 * SKYREELS_FRAME_TOKENS, "i2v": 3 * SKYREELS_F
 # ar_step 5 makes 18 rows of the same clip), 40 self + 40 text-cross launches each
 SKYREELS_DF = dict(height=544, width=960, num_frames=33, base_num_frames=17, num_inference_steps=2, ar_step=1,
                    guidance_scale=6.0, fps=24)
-SKYREELS_DF_ROWS, SKYREELS_LAUNCHES_PER_FORWARD = 10, 2 * WAN_LAYERS
+# the requests' DiT has 5 of the published 40 blocks (a cut of depth that
+# keeps the whole script inside its limit; the 2-block full-width check stays)
+SKYREELS_LAYERS = 5
+SKYREELS_DF_ROWS, SKYREELS_LAUNCHES_PER_FORWARD = 10, 2 * SKYREELS_LAYERS
 # the image-prefix request: 17 frames, the window the whole clip, its first
 # latent frame done from the start: 5 rows
 SKYREELS_PREFIX_FRAMES, SKYREELS_PREFIX_ROWS = 17, 5
@@ -1621,7 +1668,7 @@ def write_byt5_config(home: Path, manifest: Path = HYV15_MANIFEST) -> None:
 
 def phase_hyv15(home: Path):
     """HunyuanVideo 1.5 i2v through ``UniversalEngine`` from its manifest at
-    full width and depth, synthetic int8 weights: two identical 33-frame
+    full width, ``HYV15_LAYERS`` of its 54 blocks, synthetic int8 weights: two identical 33-frame
     requests decoded through the tiled path, one preview through the TAE,
     then one request at 121 frames (latents returned)."""
     import numpy as np
@@ -1636,6 +1683,7 @@ def phase_hyv15(home: Path):
     os.environ["APEX_SYNTHETIC_WEIGHTS"] = "int8"
     os.environ["APEX_HOME_DIR"] = str(home / label)
     write_byt5_config(home / label)
+    write_manifest_config(home / label, HYV15_MANIFEST, "transformer", {"num_layers": HYV15_LAYERS})
     engine = UniversalEngine(HYV15_MANIFEST, device="cuda")
     tok = make_tokenizer()
     for spec in engine.component_specs.values():
@@ -1754,7 +1802,7 @@ def phase_hyv15(home: Path):
     step = rows[2]["median_seconds_per_step_after_the_first"]
     joint = next(r for r in kernel_rows if r["case"] == "hyv15_joint_121f")
     refiner = next(r for r in kernel_rows if r["case"] == "hyv15_refiner")
-    attention_s = (2 * 54 * joint["queued_ms"] + 2 * 2 * refiner["queued_ms"]) / 1e3
+    attention_s = (2 * HYV15_LAYERS * joint["queued_ms"] + 2 * 2 * refiner["queued_ms"]) / 1e3
     linear_s = sum(HYV15_LINEAR_CALLS[(r["rows"], r["in"], r["out"])] * r["w8a8_ms"] for r in linear_rows) / 1e3
     emit({"phase": label, "step_breakdown_121_frames": {
         "seconds_per_step": step, "attention_seconds": attention_s, "w8a8_linear_seconds": linear_s,
@@ -1778,6 +1826,7 @@ def hyv15_t2v_request(home: Path):
     os.environ["APEX_SYNTHETIC_WEIGHTS"] = "int8"
     os.environ["APEX_HOME_DIR"] = str(home / label)
     write_byt5_config(home / label, HYV15_T2V_MANIFEST)
+    write_manifest_config(home / label, HYV15_T2V_MANIFEST, "transformer", {"num_layers": HYV15_LAYERS})
     engine = UniversalEngine(HYV15_T2V_MANIFEST, device="cuda")
     tok = make_tokenizer()
     for spec in engine.component_specs.values():
@@ -2462,21 +2511,23 @@ def wan_unipc_check():
           f"the fused UniPC step is {worst} from the host step (limit {WAN_UNIPC_REL_L2})")
 
 
-def write_wan_configs(home: Path, i2v: bool = False) -> None:
+def write_wan_configs(home: Path, i2v: bool = False, layers: int = None) -> None:
     """UMT5-XXL's published ``config.json`` where the Wan manifests name it
     (without it T5Config's defaults build T5-XXL: a shared relative bias and
     a 32,128-token vocabulary); with ``i2v``, the A14B I2V transformer's (36
-    input channels) where the i2v manifest names both experts' configs."""
+    input channels) where the i2v manifest names both experts' configs; with
+    ``layers``, the experts' configs (T2V's or I2V's) at that depth."""
     root = home / "components" / "Wan-AI" / "Wan2.2-T2V-A14B-Diffusers"
     files = {"text_encoder": UMT5_XXL}
-    if i2v:
-        files.update({"transformer": WAN_I2V_TRANSFORMER, "transformer_2": WAN_I2V_TRANSFORMER})
+    if i2v or layers:
+        cfg = dict(WAN_I2V_TRANSFORMER if i2v else _WAN14B, num_layers=layers or WAN_LAYERS)
+        files.update({"transformer": cfg, "transformer_2": cfg})
     for sub, cfg in files.items():
         (root / sub).mkdir(parents=True, exist_ok=True)
         (root / sub / "config.json").write_text(json.dumps(cfg))
 
 
-def wan_engine(label, manifest, model_type, home):
+def wan_engine(label, manifest, model_type, home, layers=None):
     """A Wan engine on the card with the byte-level tokenizer, its own
     ``APEX_HOME_DIR`` and the configs above, observed: the components each
     request builds, each expert's forwards and the latents each decode gets
@@ -2484,7 +2535,7 @@ def wan_engine(label, manifest, model_type, home):
     from apex_studio_tpu_torch.engine import UniversalEngine
 
     os.environ["APEX_HOME_DIR"] = str(home / label)
-    write_wan_configs(home / label, i2v=model_type == "i2v")
+    write_wan_configs(home / label, i2v=model_type == "i2v", layers=layers)
     engine = UniversalEngine(manifest, model_type=model_type, device="cuda")
     engine._spec_for_type("text_encoder")["tokenizer"] = make_tokenizer()
     return observe(engine)
@@ -2572,7 +2623,7 @@ def wan_drive(label, engine, model_type, weights, requests):
         torch.cuda.synchronize()
         total, launches = time.perf_counter() - t0, flash_attention.launches
         want_forwards = wan_expected_forwards(engine, kw)
-        want_launches = 2 * WAN_LAYERS * sum(want_forwards.values())
+        want_launches = 2 * len(engine.transformer.blocks) * sum(want_forwards.values())
         step_t = [stamps[f"Denoising step {j}/{steps}"] for j in range(1, steps + 1)]
         start = stamps.get("Timesteps computed; starting denoise", stamps.get("Initialized latent noise"))
         per_step = [b - a for a, b in zip([start] + step_t[:-1], step_t)]
@@ -2615,12 +2666,12 @@ def wan_drive(label, engine, model_type, weights, requests):
 
 def wan_step_breakdown(kind, step_s, calls, linear_rows, kernel_rows) -> dict:
     """A CFG step of ``step_s`` seconds at the ``kind`` token count split
-    into attention (queued kernel ms x 80 self + 80 cross launches), the
+    into attention (queued kernel ms x the self and cross launches), the
     ``_w4`` Linears (queued ms x two forwards' ``calls`` by shape) and the
     rest (by difference)."""
     s = WAN_TOKENS[kind]
     queued = {r["case"]: r["queued_ms"] for r in kernel_rows}
-    attention_s = 2 * WAN_LAYERS * (queued[f"wan_self_{kind}_s{s}_h40"]
+    attention_s = 2 * WAN_REQUEST_LAYERS * (queued[f"wan_self_{kind}_s{s}_h40"]
                                     + queued[f"wan_cross_{kind}_sq{s}_sk{WAN_TEXT_TOKENS}_h40"]) / 1e3
     by = {key: 2 * sum(calls.get((r["rows"], r["in"], r["out"]), 0) * r[key] for r in linear_rows) / 1e3
           for key in ("w4_ms", "bf16_ms")}
@@ -2628,7 +2679,8 @@ def wan_step_breakdown(kind, step_s, calls, linear_rows, kernel_rows) -> dict:
             "w4_linear_seconds": by["w4_ms"], "bf16_linear_seconds_same_calls": by["bf16_ms"],
             "other_seconds": step_s - attention_s - by["w4_ms"], "attention_share": attention_s / step_s,
             "w4_linear_share": by["w4_ms"] / step_s,
-            "reckoning": f"a CFG step at {s} tokens: queued kernel ms x 80 self + 80 cross launches; queued "
+            "reckoning": f"a CFG step at {s} tokens: queued kernel ms x {2 * WAN_REQUEST_LAYERS} self + "
+                         f"{2 * WAN_REQUEST_LAYERS} cross launches; queued "
                          f"ms x calls of the blocks' Linears ({s} rows), the cross-attention K/V and the text "
                          "embedder (512 rows) and time_proj (1 row); other = the rest"}
 
@@ -2665,7 +2717,8 @@ def wan_point_mask() -> dict:
 
 
 def phase_wan(home: Path, kernel_rows=()):
-    """Wan 2.2 A14B from its three manifests, full width and depth, both 14B
+    """Wan 2.2 A14B from its three manifests, full width, ``WAN_REQUEST_LAYERS``
+    of the experts' 40 blocks, both 14B
     experts int4-resident unless a request says otherwise (UMT5-XXL int8, the
     Wan VAE bf16): the 2-block card-vs-CPU check and the fused UniPC step; the
     bench leg's request three times (t2v at one 480x832 frame, 3 of its 30 steps, one
@@ -2683,7 +2736,7 @@ def phase_wan(home: Path, kernel_rows=()):
     paths = {}
     leg = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEG, height=480, width=832, num_frames=1,
                num_inference_steps=WAN_SMOKE_STEPS, guidance_scale=4.0, boundary_ratio=None)
-    engine = wan_engine("wan_t2v", WAN_T2V_MANIFEST, "t2v", home)
+    engine = wan_engine("wan_t2v", WAN_T2V_MANIFEST, "t2v", home, WAN_REQUEST_LAYERS)
     rows, frames = wan_drive("wan_t2v", engine, "t2v", "int4",
                              [dict(leg, seed=0), dict(leg, seed=1), dict(leg, seed=0)])
     paths["wan_t2v_frame"] = rows
@@ -2699,7 +2752,8 @@ def phase_wan(home: Path, kernel_rows=()):
     check(differ, "wan requests 1 and 2 (other seed) are identical")
     check(not any(r["components_built"] for r in rows[1:]),
           f"a repeated request built components again: {[r['components_built'] for r in rows[1:]]}")
-    check(rows[0]["flash_launches_per_step"] == 4 * WAN_LAYERS, "a CFG step did not make 160 launches")
+    check(rows[0]["flash_launches_per_step"] == 4 * WAN_REQUEST_LAYERS,
+          f"a CFG step did not make {4 * WAN_REQUEST_LAYERS} launches")
     check(rows[0]["tokens"] == WAN_TOKENS["frame"], f"the bench leg's frame gave {rows[0]['tokens']} tokens")
     check(count_resident(engine.transformer) > 0, "no weight of the Wan DiT is resident")
     # t2v at 81 frames on the same engine, with the manifest's expert switch
@@ -2725,13 +2779,13 @@ def phase_wan(home: Path, kernel_rows=()):
     t2i_kw = dict(prompt=PROMPT_A, negative_prompt=WAN_NEG, height=1024, width=1024,
                   num_inference_steps=WAN_SMOKE_STEPS,
                   guidance_scale=4.0, guidance_scale_2=3.0, boundary_ratio=0.875, seed=0)
-    engine = wan_engine("wan_t2i", WAN_T2I_MANIFEST, "t2i", home)
+    engine = wan_engine("wan_t2i", WAN_T2I_MANIFEST, "t2i", home, WAN_REQUEST_LAYERS)
     paths["wan_t2i"], _ = wan_drive("wan_t2i", engine, "t2i", "int4", [t2i_kw])
     check(paths["wan_t2i"][0]["tokens"] == WAN_TOKENS["t2i"], "the t2i request's tokens")
     del engine, _
     release()
     i2v_kw = dict(clip_kw, image=cv2_smooth(np.random.default_rng(6), (480, 832)), prompt=PROMPT_B)
-    engine = wan_engine("wan_i2v", WAN_I2V_MANIFEST, "i2v", home)
+    engine = wan_engine("wan_i2v", WAN_I2V_MANIFEST, "i2v", home, WAN_REQUEST_LAYERS)
     paths["wan_i2v_81_frames"], _ = wan_drive("wan_i2v", engine, "i2v", "int4", [i2v_kw])
     check(engine.transformer.cfg.in_channels == 36,
           f"the i2v DiT takes {engine.transformer.cfg.in_channels} channels, expected 36")
@@ -2743,7 +2797,7 @@ def phase_wan(home: Path, kernel_rows=()):
     saved = os.environ.get("APEX_MEMORY_FALLBACK")
     os.environ["APEX_MEMORY_FALLBACK"] = "off"
     try:
-        engine = wan_engine("wan_t2i_bf16", WAN_T2I_MANIFEST, "t2i", home)
+        engine = wan_engine("wan_t2i_bf16", WAN_T2I_MANIFEST, "t2i", home, WAN_REQUEST_LAYERS)
         # 2 steps at shift 5 (t = 999 | 833): both experts
         paths["wan_t2i_bf16"], _ = wan_drive("wan_t2i_bf16", engine, "t2i", "bf16",
                                              [dict(t2i_kw, num_inference_steps=2)])
@@ -3919,7 +3973,7 @@ def phase_hyv(home: Path):
     token_replace at 33 frames from a seeded image (the first latent frame
     pinned to the image latent), both decoded whole; t2v at 81 frames
     (75,856 tokens), decoded in tiles; 1 step each, the requests' DiT at
-    ``HYV_DUAL`` + ``HYV_SINGLE`` of its blocks (32 launches a forward); the
+    ``HYV_DUAL`` + ``HYV_SINGLE`` of its blocks (17 launches a forward); the
     resident Linears at the 81-frame shapes and the step split."""
     import numpy as np
     import torch
@@ -4360,7 +4414,8 @@ def phase_avatar(home: Path):
 
     kernel_rows, kernel_err = path_kernel_rows("avatar", avatar_kernel_inputs())
     avatar_reference()
-    engine = hyv_engine("avatar", HYV_AVATAR_MANIFEST, "avatar", home)
+    engine = hyv_engine("avatar", HYV_AVATAR_MANIFEST, "avatar", home,
+                        {"num_layers": AVATAR_DUAL, "num_single_layers": AVATAR_SINGLE})
     wav = home / "avatar" / "voice.wav"
     wav.parent.mkdir(parents=True, exist_ok=True)
     write_humo_audio(wav, 5.0, 44)
@@ -4376,7 +4431,7 @@ def phase_avatar(home: Path):
     emit({"phase": "avatar", "dit_bits": dit_bits(tf), "dit_parameters": sum(p.numel() for p in tf.parameters()),
           "whisper_files": str(engine.whisper_files()), "audio_features": list(zero.shape),
           "audio_features_zero": not zero.any(), "decoded_whole": engine.decoded_whole})
-    check(dit_bits(tf) == [8] and tf.cfg.dim == 3072 and len(tf.single_transformer_blocks) == 40
+    check(dit_bits(tf) == [8] and tf.cfg.dim == 3072 and len(tf.single_transformer_blocks) == AVATAR_SINGLE
           and len(tf.audio_adapter_blocks) == 10, "the Avatar DiT's widths or bits")
     check(engine.whisper_files() is None and not zero.any(), "the Avatar's audio features without Whisper files")
     del engine, tf
@@ -4426,7 +4481,7 @@ def skyreels_engine(kind, home, transformer_cfg):
     as the Wan editing engines are (``edit_engine``): the DiT int4, UMT5-XXL
     int8, the configs the manifest names written into the request's home."""
     return edit_engine(f"skyreels_{kind}", SKYREELS_MANIFESTS[kind], kind, home, "int4",
-                       {"transformer": transformer_cfg})
+                       {"transformer": dict(transformer_cfg, num_layers=SKYREELS_LAYERS)})
 
 
 def phase_skyreels(home: Path):
@@ -4434,7 +4489,7 @@ def phase_skyreels(home: Path):
     14B transformer config written; the DiT int4, UMT5-XXL int8, the Wan
     VAE): the kernel at the path's new shapes; the 2-block DiT against f32;
     df at 544x960 and CFG 6.0, 33 frames in windows of 17 (10 rows, 20
-    forwards, 1600 launches), twice with one seed (bit-identical), then 17
+    forwards, 200 launches at the requests' 5 blocks), twice with one seed (bit-identical), then 17
     frames once with an image prefix (its latent frame is the image's
     encode, never updated; 5 rows); t2v of one frame, 2 steps, at 24 and at 16 fps (the outputs
     differ); i2v of 9 frames, 1 step, on the 36-channel twin of the config."""
@@ -4466,7 +4521,7 @@ def phase_skyreels(home: Path):
               "inject_sample_info": tf.cfg.inject_sample_info, "window_tokens": SKYREELS_TOKENS["df_window"]}
     emit(prefix)
     check(prefix["prefix_frame_is_the_image_latent"], "the df prefix frame is not the image's latent")
-    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == 40 and tf.cfg.inject_sample_info,
+    check(dit_bits(tf) == [4] and tf.cfg.dim == 5120 and len(tf.blocks) == SKYREELS_LAYERS and tf.cfg.inject_sample_info,
           "the SkyReels DiT's widths, depth or bits")
     del engine, tf, z, z0
     release()
@@ -4495,6 +4550,466 @@ def phase_skyreels(home: Path):
     del engine
     release()
     return paths, kernel_rows, kernel_err
+
+
+# -- the rest of the Wan family: TI2V-5B, Lucy, ReCam, ATI, HoloCine, FramePack, Animate, Lynx, SCAIL ------------
+
+
+WAN_5B_MANIFEST = REPO / "manifests" / "video" / "wan2.2-ti2v-5b.yml"
+LUCY_MANIFEST = REPO / "manifests" / "video" / "lucy-edit-dev.yml"
+WAN_MORE_MANIFESTS = {t: REPO / "manifests" / "video" / f for t, f in (
+    ("recam", "wan-2.1-14b-recam.yml"), ("ati", "wan-2.1-14b-ati.yml"), ("scail", "wan-2.1-14b-scail.yml"),
+    ("holocine", "wan-holocine.yml"), ("apex_framepack", "wan-apex-framepack.yml"),
+    ("animate", "wan2.2-animate-14b.yml"), ("lynx", "wan-lynx-14b.yml"), ("lynx_lite", "wan-lynx-lite-14b.yml"))}
+# Wan-AI/Wan2.2-TI2V-5B-Diffusers transformer/config.json: dim 3072 (24 heads of
+# 128), FFN 14,336, 30 blocks, 48 latent channels in and out
+WAN_5B_TRANSFORMER = dict(_WAN14B, num_attention_heads=24, in_channels=48, out_channels=48, ffn_dim=14336,
+                          num_layers=30)
+# decart-ai/Lucy-Edit-Dev transformer/config.json: the 5B DiT on 48 noise + 48 source channels
+LUCY_TRANSFORMER = dict(WAN_5B_TRANSFORMER, in_channels=96)
+# Wan-AI/Wan2.2-TI2V-5B-Diffusers vae/config.json without its 48 latent means and
+# stds (the latents are then not normalised, which random weights do not need);
+# neither package reads decoder_base_dim: both build the decoder at base_dim
+# (ROADMAP Queue 3)
+WAN22_VAE = {"_class_name": "AutoencoderKLWan", "base_dim": 160, "decoder_base_dim": 256, "z_dim": 48,
+             "dim_mult": [1, 2, 4, 4], "num_res_blocks": 2, "attn_scales": [], "temperal_downsample": [False, True, True],
+             "dropout": 0.0, "is_residual": True, "in_channels": 12, "out_channels": 12, "patch_size": 2,
+             "scale_factor_spatial": 16, "scale_factor_temporal": 4}
+# Wan-AI/Wan2.2-Animate-14B-Diffusers transformer/config.json: the Wan 2.1 I2V
+# widths with the motion encoder (512² faces, style 512, motion 20), the face
+# encoder (4 heads of 1024) and a face adapter after every 5th block
+WAN_ANIMATE_TRANSFORMER = dict(WAN21_I2V_TRANSFORMER, _class_name="WanAnimateTransformer3DModel",
+                               motion_encoder_size=512, motion_style_dim=512, motion_dim=20, motion_encoder_dim=512,
+                               face_encoder_hidden_dim=1024, face_encoder_num_heads=4, inject_face_latents_blocks=5)
+# ByteDance/lynx resampler/config.json: a perceiver of depth 8, 16 heads of 64, 8
+# queries, ArcFace's 512 in, 2048 out
+LYNX_RESAMPLER = {"dim": 1024, "depth": 8, "dim_head": 64, "heads": 16, "num_queries": 8, "embedding_dim": 512,
+                  "output_dim": 2048, "ff_mult": 4}
+LYNX_IP_TOKENS = 8 + 16  # the resampled identity tokens and the registers
+# tokens: TI2V-5B at its default 704x1280 x 121 frames (16x VAE, patch 2: 22 x 40
+# a latent frame) and 17 frames; Lucy at 480x832 x 81 (15 x 26); the 14B DiTs at
+# 480x832 (30 x 52 = 1560 a latent frame); Animate at 720x1280 (45 x 80 = 3600)
+WAN_MORE_TOKENS = {"wan5b_121": 31 * 880, "wan5b_17": 5 * 880, "lucy_81": 21 * 390, "recam_81": 2 * 21 * 1560,
+                   "animate_77": 21 * 3600, "scail_81": 1560 + 21 * 1560 + 21 * 390, "clip81": 21 * 1560}
+WAN_5B_STEPS, WAN_MORE_STEPS = 2, 2
+WAN_MORE_FRAMES = 17
+# flash launches a forward of the requests' DiTs (EDIT_LAYERS blocks; 30 for the
+# 5B): self + text cross a block, + the CLIP image cross (ATI, SCAIL, Animate),
+# + the IP cross (Lynx), + Animate's face adapter at block 0; HoloCine's
+# cross-attention carries a per-query bias and takes the plain route
+WAN_MORE_LAUNCHES = {"wan5b": 2 * 30, "recam": 2 * EDIT_LAYERS, "ati": 3 * EDIT_LAYERS, "scail": 3 * EDIT_LAYERS,
+                     "holocine": EDIT_LAYERS, "apex_framepack": 2 * EDIT_LAYERS,
+                     "animate": 3 * EDIT_LAYERS + len(range(0, EDIT_LAYERS, 5)), "lynx": 3 * EDIT_LAYERS}
+
+
+def framepack_window_tokens(lat_f: int, lat_h: int, lat_w: int) -> int:
+    """The longest FramePack sequence (a section and its packed past and
+    future context) over a clip of ``lat_f`` latent frames."""
+    import numpy as np
+
+    from apex_studio_tpu_torch.models.transformers.wan_framepack import FramepackSchedule, WanFramepackConfig
+
+    cfg = WanFramepackConfig()
+    kernels = {str(f): k for f, k in cfg.framepack_compressors}
+    sched, done, longest = FramepackSchedule(cfg.num_indices, cfg.context_buckets), np.zeros(lat_f, bool), 0
+    while not done.all():
+        past, future, target = sched.get_inference_inputs(lat_f, done)
+        parts = [(len(target), 1)] + ([(len(past), 1)] if past is not None else [])
+        parts += [(len(i), f) for i, f in sched.split_future(future)] if future is not None else []
+        n = 0
+        for frames, f in parts:
+            kt, kh, kw = kernels[str(f)]
+            n += -(-frames // kt) * -(-lat_h // kh) * -(-lat_w // kw)
+        longest = max(longest, n)
+        done[target] = True
+    return longest
+
+
+def wan_more_kernel_inputs():
+    """(case, q, k, v, None) at the new launch shapes: TI2V-5B's self- and
+    text cross-attention at 24 heads (its default 121 frames) and Lucy's
+    81-frame self-attention; ReCam's joint clip, Animate's 720p segment and
+    its face cross (the 21 latent frames as the batch, 5 face keys), Lynx's
+    IP cross (8 + 16 keys) and its f32 perceiver (16 heads of 64, 8 queries
+    over 1 + 8 keys), SCAIL's three streams with its CLIP and text cross, and
+    FramePack's longest 81-frame window, at 40 heads."""
+    t = WAN_MORE_TOKENS
+    fp = framepack_window_tokens(21, 60, 104)
+    yield ("wan5b_self_s%d_h24" % t["wan5b_121"], *qkv(1, t["wan5b_121"], t["wan5b_121"], 24, 128, 170), None)
+    yield ("wan5b_cross_sq%d_sk%d_h24" % (t["wan5b_121"], WAN_TEXT_TOKENS),
+           *qkv(1, t["wan5b_121"], WAN_TEXT_TOKENS, 24, 128, 171), None)
+    yield ("lucy_self_s%d_h24" % t["lucy_81"], *qkv(1, t["lucy_81"], t["lucy_81"], 24, 128, 172), None)
+    yield ("recam_self_s%d_h40" % t["recam_81"], *qkv(1, t["recam_81"], t["recam_81"], WAN_HEADS, 128, 173), None)
+    yield ("animate_self_s%d_h40" % t["animate_77"], *qkv(1, t["animate_77"], t["animate_77"], WAN_HEADS, 128, 174),
+           None)
+    yield ("animate_face_cross_b21_sq3600_sk5_h40", *qkv(21, 3600, 5, WAN_HEADS, 128, 175), None)
+    yield ("lynx_ip_cross_sq%d_sk%d_h40" % (t["clip81"], LYNX_IP_TOKENS),
+           *qkv(1, t["clip81"], LYNX_IP_TOKENS, WAN_HEADS, 128, 176), None)
+    q, k, v = qkv(1, 8, 9, 16, 64, 177)
+    yield ("lynx_resampler_f32_sq8_sk9_h16_d64", q.float(), k.float(), v.float(), None)
+    yield ("scail_self_s%d_h40" % t["scail_81"], *qkv(1, t["scail_81"], t["scail_81"], WAN_HEADS, 128, 178), None)
+    yield ("scail_clip_cross_sq%d_sk%d_h40" % (t["scail_81"], CLIP_TOKENS),
+           *qkv(1, t["scail_81"], CLIP_TOKENS, WAN_HEADS, 128, 179), None)
+    yield ("scail_text_cross_sq%d_sk%d_h40" % (t["scail_81"], WAN_TEXT_TOKENS),
+           *qkv(1, t["scail_81"], WAN_TEXT_TOKENS, WAN_HEADS, 128, 180), None)
+    yield ("framepack_window_s%d_h40" % fp, *qkv(1, fp, fp, WAN_HEADS, 128, 181), None)
+
+
+def holocine_plain_timing() -> dict:
+    """HoloCine's text cross-attention under its per-query shot bias at 81
+    frames (32,760 queries, 512 keys, 40 heads) on the plain route in
+    ``BIAS_ROWS`` chunks, as the DiT runs it, against
+    ``scaled_dot_product_attention`` with the bias as its mask; the bound is
+    the kernel's (no kernel launches here)."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_studio_tpu_torch.models.transformers.wan import BIAS_ROWS, biased_attention
+
+    s = WAN_TOKENS["clip"]
+    q, k, v = qkv(1, s, WAN_TEXT_TOKENS, WAN_HEADS, 128, 182)
+    shot = torch.arange(s, device="cuda") >= s // 2  # two shots: the second half of the clip
+    cols = torch.arange(WAN_TEXT_TOKENS, device="cuda")
+    allow = (cols < 40) | ((cols >= 40) & (cols < 80) & ~shot[:, None]) | ((cols >= 80) & (cols < 120) & shot[:, None])
+    allow |= cols >= 120  # the padding stays attendable
+    bias = torch.where(allow, 0.0, -1e4)[None, None].float()
+    out = biased_attention(q, k, v, bias)
+    ref = flash_reference_rows(q, k, v, bias)
+    agree = agreement(out[:, :128], ref)
+    mask = bias.to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row = {"phase": "timing", "path": "wan_more", "case": "holocine_cross_bias_plain_sq%d_sk%d_h40" % (
+        s, WAN_TEXT_TOKENS), "route": f"plain, {BIAS_ROWS}-row chunks",
+        "plain_ms": time_ms(lambda: biased_attention(q, k, v, bias), reps=5, warmup=1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=5),
+        **attention_bound(q, k, None), "first_128_rows_vs_f32": agree}
+    emit(row)
+    check(agree["within"], f"HoloCine's biased plain route disagrees with the f32 reference: {agree}")
+    return row
+
+
+def flash_reference_rows(q, k, v, bias, rows: int = 128):
+    """f32 softmax attention of the first ``rows`` queries under a per-query
+    bias [1, 1, S, Sk]."""
+    import torch
+
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, :rows].float(), k.float()) * q.shape[-1] ** -0.5
+    p = torch.softmax(s + bias[:, :, :rows].float(), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def wan_more_reference():
+    """The new DiTs at full width with 2 blocks, card (bf16, kernel) against
+    CPU (f32, plain versions) within BF16_REL_L2, over a 16 x 32 latent grid
+    (128 tokens a frame) and 512 text rows of which 40 are real: ReCam (a
+    target and a source frame, one camera pose), FramePack (one section frame
+    after two past anchors), Animate (the reference slot and one frame, one
+    512² face, a pose frame, 257 CLIP tokens), Lynx (8 + 16 identity keys)
+    and SCAIL (reference, video and half-size pose streams)."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers import wan, wan_animate, wan_framepack, wan_lynx, wan_scail
+
+    rng = np.random.default_rng(183)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    ctx = tensor(1, WAN_TEXT_TOKENS, 4096)
+    ctx[:, 40:] = 0.0
+    t = torch.tensor([731.0])
+    two = dict(num_layers=2)
+    card_vs_cpu("wan.recam dim 5120, 2 blocks, target + source frame", lambda dt: wan.WanRecamTransformer3DModel(
+        wan.WanConfig.from_dict(dict(_WAN14B, **two)), dtype=dt),
+        lambda m, x, t_, c, cam: m(x, t_, c, cam_emb=cam), (tensor(1, 16, 2, 16, 32), t, ctx, tensor(1, 1, 12)),
+        BF16_REL_L2, 184, phase="wan_more")
+    card_vs_cpu("wan.apex_framepack dim 5120, 2 blocks, a section frame after the anchors",
+                lambda dt: wan_framepack.WanApexFramepackTransformer3DModel(
+                    wan_framepack.WanFramepackConfig.from_dict(dict(_WAN14B, **two)), dtype=dt),
+                lambda m, x, t_, c, lat: m(x, t_, c, latent_context=[(lat, np.array([0, 1]), 1)],
+                                           indices=np.array([2])),
+                (tensor(1, 16, 1, 16, 32), t, ctx, tensor(1, 16, 2, 16, 32)), BF16_REL_L2, 185, phase="wan_more")
+    face = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 1, 512, 512)).astype(np.float32))
+    card_vs_cpu("wan.animate dim 5120, 2 blocks, a face adapter, one 512² face",
+                lambda dt: wan_animate.WanAnimateTransformer3DModel(
+                    wan_animate.WanAnimateConfig.from_dict(dict(WAN_ANIMATE_TRANSFORMER, **two)), dtype=dt),
+                lambda m, x, t_, c, clip, pose, f: m(x, t_, c, clip, pose, f),
+                (tensor(1, 36, 2, 16, 32), t, ctx, tensor(1, CLIP_TOKENS, 1280), tensor(1, 16, 1, 16, 32), face),
+                BF16_REL_L2, 186, phase="wan_more")
+    card_vs_cpu("wan.lynx dim 5120, 2 blocks, 8 + 16 identity keys", lambda dt: wan_lynx.WanLynxTransformer3DModel(
+        wan_lynx.WanLynxConfig.from_dict(dict(_WAN14B, **two)), dtype=dt),
+        lambda m, x, t_, c, ip: m(x, t_, c, ip_tokens=ip, ip_scale=1.0),
+        (tensor(1, 16, 2, 16, 32), t, ctx, tensor(1, 8, 2048)), BF16_REL_L2, 187, phase="wan_more")
+    card_vs_cpu("wan.scail dim 5120, 2 blocks, reference + video + pose", lambda dt: wan_scail.SCAILModel(
+        wan_scail.WanScailConfig.from_dict(dict(WAN21_I2V_TRANSFORMER, **two)), dtype=dt),
+        lambda m, x, t_, c, pose, ref, clip: m(x, t_, c, pose, ref, clip),
+        (tensor(1, 16, 2, 16, 32), t, ctx, tensor(1, 16, 2, 8, 16), tensor(1, 16, 1, 16, 32),
+         tensor(1, CLIP_TOKENS, 1280)), BF16_REL_L2, 188, phase="wan_more")
+
+
+def wan_5b_requests(home: Path):
+    """TI2V-5B t2v and Lucy Edit at the published 5B widths and full depth
+    (30 blocks), bf16 as the manifests say (UMT5-XXL too), the Wan 2.2 VAE
+    (z 48, 16x, patch 2, residual) written where both manifests name a VAE:
+    t2v at 704x1280, 17 frames, 2 steps, CFG 5, twice with one seed
+    (bit-identical) and once with another (different); Lucy at 480x832 on a
+    17-frame source and on its negative (different frames)."""
+    import numpy as np
+
+    paths = {}
+    engine = edit_engine("wan_5b", WAN_5B_MANIFEST, "t2v", home, "bf16",
+                         {"transformer": WAN_5B_TRANSFORMER, "vae": WAN22_VAE})
+    kw = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEG, height=704, width=1280, num_frames=WAN_MORE_FRAMES,
+              num_inference_steps=WAN_5B_STEPS, guidance_scale=5.0, seed=0)
+    forwards = {"transformer": 2 * WAN_5B_STEPS}
+    rows = identical_pair("wan_5b_t2v", engine, kw, WAN_MORE_LAUNCHES["wan5b"], forwards, WAN_MORE_FRAMES, 5)
+    row, other = edit_drive("wan_5b_t2v", engine, dict(kw, seed=1), WAN_MORE_LAUNCHES["wan5b"], forwards,
+                            WAN_MORE_FRAMES, 5)
+    first = engine.wan_smoke["decoded"][-1]
+    tf, vae = engine.transformer, engine.vae
+    facts = {"phase": "wan_5b", "dit_dim": tf.cfg.dim, "dit_blocks": len(tf.blocks), "heads": tf.cfg.num_attention_heads,
+             "in_channels": tf.cfg.in_channels, "dit_parameters": sum(p.numel() for p in tf.parameters()),
+             "dit_dtype": str(tf.dtype), "dit_bits": dit_bits(tf), "vae_z": vae.cfg.z_dim,
+             "vae_spatial_scale": vae.cfg.spatial_scale, "vae_patch_size": vae.cfg.patch_size,
+             "latents": list(first.shape), "tokens": WAN_MORE_TOKENS["wan5b_17"]}
+    emit(facts)
+    check(tf.cfg.dim == 3072 and len(tf.blocks) == 30 and tf.cfg.num_attention_heads == 24 and not dit_bits(tf)
+          and tf.cfg.in_channels == 48 and vae.cfg.z_dim == 48 and vae.cfg.spatial_scale == 16,
+          f"the TI2V-5B DiT's or VAE's widths: {facts}")
+    paths["wan_5b_t2v_704x1280"] = rows + [row]
+    del engine, tf, vae, first
+    release()
+
+    engine = edit_engine("lucy", LUCY_MANIFEST, "edit", home, "bf16",
+                         {"transformer": LUCY_TRANSFORMER, "vae": WAN22_VAE})
+    src, _ = disk_clip(WAN_MORE_FRAMES, seed=190)
+    lucy_kw = dict(prompt="make the sky purple", negative_prompt=WAN_NEG, height=480, width=832,
+                   num_frames=WAN_MORE_FRAMES, num_inference_steps=WAN_5B_STEPS, guidance_scale=5.0, seed=0)
+    rows, frames = [], []
+    for video in (src, [255 - f for f in src]):
+        row, out = edit_drive("lucy_edit", engine, dict(lucy_kw, video=video), WAN_MORE_LAUNCHES["wan5b"], forwards,
+                              WAN_MORE_FRAMES, 5)
+        rows.append(row)
+        frames.append(out)
+    differ = not np.array_equal(frames[0][8], frames[1][8])
+    emit({"phase": "wan_5b", "lucy_sources_differ_frames_differ": differ,
+          "lucy_in_channels": engine.transformer.cfg.in_channels, "tokens": 5 * 390})
+    check(differ, "Lucy's frames do not change with its source video")
+    check(engine.transformer.cfg.in_channels == 96 and engine.vae.cfg.z_dim == 48, "Lucy's DiT or VAE")
+    paths["lucy_edit_480x832"] = rows
+    del engine, frames
+    release()
+    return paths
+
+
+def phase_wan_5b(home: Path):
+    """TI2V-5B and Lucy: the kernel at their shapes (part of
+    ``wan_more_kernel_inputs``), then ``wan_5b_requests``."""
+    rows, err = path_kernel_rows("wan_5b", (c for c in wan_more_kernel_inputs()
+                                            if c[0].startswith(("wan5b", "lucy"))))
+    return wan_5b_requests(home), rows, err
+
+
+def write_wan_more_manifests(root: Path) -> dict:
+    """HoloCine's manifest as its engine implies it (the ``wan.holocine`` DiT
+    on the T2V 14B config: its repository manifest names the Wan 2.1 I2V
+    config, which the engine cannot feed) and Lynx-lite's at the requests'
+    depth (its inline config replaces the config file, so the cut goes
+    there); the others as they are."""
+    import yaml
+
+    out = dict(WAN_MORE_MANIFESTS)
+    doc = yaml.safe_load(WAN_MORE_MANIFESTS["holocine"].read_text())
+    tf = next(c for c in doc["spec"]["components"] if c["type"] == "transformer")
+    tf["base"], tf["config_path"] = "wan.holocine", "Wan-AI/Wan2.1-T2V-14B-Diffusers/transformer/config.json"
+    out["holocine"] = root / "wan-holocine-t2v.yml"
+    out["holocine"].write_text(yaml.safe_dump(doc))
+    doc = yaml.safe_load(WAN_MORE_MANIFESTS["lynx_lite"].read_text())
+    tf = next(c for c in doc["spec"]["components"] if c["type"] == "transformer")
+    tf["config"] = dict(tf["config"], num_layers=EDIT_LAYERS)
+    out["lynx_lite"] = root / "wan-lynx-lite-cut.yml"
+    out["lynx_lite"].write_text(yaml.safe_dump(doc))
+    return out
+
+
+def wan_more_engine(model_type: str, home: Path, manifests: dict):
+    """A ``wan_more`` engine: every one under one home (the UMT5-XXL encodes
+    of the shared prompts are built once and then read from the disk cache),
+    the DiTs int4 at ``EDIT_LAYERS`` blocks, UMT5-XXL int8, the helpers (CLIP
+    ViT-H, Lynx's resampler) unquantized."""
+    configs = {"transformer": edit_depth({"ati": WAN21_I2V_TRANSFORMER, "scail": WAN21_I2V_TRANSFORMER,
+                                          "animate": WAN_ANIMATE_TRANSFORMER}.get(model_type, _WAN14B)),
+               "image_encoder": CLIP_VISION_H, "resampler": LYNX_RESAMPLER}
+    return edit_engine("wan_more", manifests[model_type], model_type, home, "int4", configs, {"helper": "bf16"})
+
+
+def differ_pair(label, engine, kws, launches, forwards, frames_expected, latent_t, what, extra=0):
+    """Requests ``kws`` through ``edit_drive``: the first two's middle frames
+    must differ (``what`` the conditioning that differs). Returns the rows."""
+    import numpy as np
+
+    rows, frames = [], []
+    for kw in kws:
+        row, out = edit_drive(label, engine, kw, launches, forwards, frames_expected, latent_t, extra)
+        rows.append(row)
+        frames.append(out[len(out) // 2])
+    differ = not np.array_equal(frames[0], frames[1])
+    emit({"phase": label, f"{what}_differ_frames_differ": differ})
+    check(differ, f"{label}: the frames do not change with {what}")
+    return rows
+
+
+def wan_more_requests(home: Path):
+    """The 14B engines from their manifests at full width (dim 5120, 40
+    heads, FFN 13,824), the DiTs int4 at 5 of their 40 blocks, 2 steps with
+    CFG 5 at 480x832 and 17 frames unless said: ReCam under two cameras, ATI
+    with a trajectory and without (the painted condition against the CPU's
+    ``patch_motion``), SCAIL with two pose videos, HoloCine twice with one
+    shot split (bit-identical) and once with another, FramePack over 45
+    frames (three sections, the last with 1x, 2x and 4x future context),
+    Animate at the manifest's 720x1280 with its 77-frame segment, then two
+    17-frame segments chained (twice, bit-identical) and replace mode once
+    (guidance 1, its default), Lynx at ip_scale 1 and 0, Lynx-lite once."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.trajectory import patch_motion, prepare_tracks
+
+    paths = {}
+    root = home / "wan_more"
+    root.mkdir(parents=True, exist_ok=True)
+    manifests = write_wan_more_manifests(root)
+    base = dict(prompt=WAN_PROMPT, negative_prompt=WAN_NEG, height=480, width=832, num_frames=WAN_MORE_FRAMES,
+                num_inference_steps=WAN_MORE_STEPS, guidance_scale=5.0, seed=0)
+    cfg_fwd = {"transformer": 2 * WAN_MORE_STEPS}
+    clip, _ = disk_clip(WAN_MORE_FRAMES, seed=191)
+    L = WAN_MORE_LAUNCHES
+
+    engine = wan_more_engine("recam", home, manifests)
+    paths["wan_recam"] = differ_pair("wan_recam", engine, [dict(base, video=clip, camera=c) for c in ("orbit", "pan_left")],
+                                     L["recam"], cfg_fwd, WAN_MORE_FRAMES, 5, "the camera")
+    check(len(engine.transformer.blocks) == EDIT_LAYERS and engine.transformer.cfg.dim == 5120
+          and dit_bits(engine.transformer) == [4], "the ReCam DiT's widths, depth or bits")
+    del engine
+    release()
+
+    engine = wan_more_engine("ati", home, manifests)
+    rng = np.random.default_rng(192)
+    tracks = np.concatenate([rng.uniform(0, 8 * 480, size=(WAN_MORE_FRAMES, 6, 2)),
+                             np.full((WAN_MORE_FRAMES, 6, 1), 8.0)], -1).astype(np.float32)
+    ati = dict(base, image=clip[0])
+    paths["wan_ati"] = differ_pair("wan_ati", engine, [dict(ati, trajectory=tracks), ati], L["ati"], cfg_fwd,
+                                   WAN_MORE_FRAMES, 5, "the trajectory")
+    plain = engine.build_condition(clip[0], WAN_MORE_FRAMES, 480, 832)
+    engine._pending_trajectory = tracks
+    try:
+        painted = engine.build_condition(clip[0], WAN_MORE_FRAMES, 480, 832).float().cpu()
+    finally:
+        engine._pending_trajectory = None
+    cpu = patch_motion(torch.from_numpy(prepare_tracks(tracks, 832, 480)), plain[0].float().cpu(), vae_divide=(4, 16))
+    row = {"phase": "wan_more", "check": "ati_painted_condition_vs_cpu", "rel_l2": rel_l2(painted[0], cpu),
+           "tol_rel_l2": 1e-5, "painted_mask_mean": float(painted[0, 0, 1:].mean())}
+    emit(row)
+    check(row["rel_l2"] <= 1e-5, f"ATI's painted condition on the card is {row['rel_l2']} from the CPU's")
+    del engine, plain, painted, cpu
+    release()
+
+    engine = wan_more_engine("scail", home, manifests)
+    other, _ = disk_clip(WAN_MORE_FRAMES, seed=193)
+    scail = dict(base, image=clip[0])
+    paths["wan_scail"] = differ_pair("wan_scail", engine, [dict(scail, pose_video=p) for p in (clip, other)],
+                                     L["scail"], cfg_fwd, WAN_MORE_FRAMES, 5, "the pose video")
+    del engine
+    release()
+
+    engine = wan_more_engine("holocine", home, manifests)
+    holo = dict(base, prompt="a quiet harbour at dawn", shot_captions=["fishing boats leave the pier",
+                                                                      "a gull lands on a mooring post"])
+    rows, frames = [], []
+    for kw in (holo, holo, dict(holo, shot_cut_frames=[4])):
+        row, out = edit_drive("wan_holocine", engine, kw, L["holocine"], cfg_fwd, WAN_MORE_FRAMES, 5)
+        rows.append(row)
+        frames.append(np.stack(out))
+    same, differ = bool(np.array_equal(frames[0], frames[1])), not np.array_equal(frames[0], frames[2])
+    emit({"phase": "wan_holocine", "requests_identical_frames": same, "the_shot_split_differ_frames_differ": differ})
+    check(same, "wan_holocine: two requests with the same inputs and seed differ")
+    check(differ, "wan_holocine: the frames do not change with the shot split")
+    paths["wan_holocine"] = rows
+    check(engine.transformer.shot_embedding.shape[0] == 20, "HoloCine's shot table")
+    del engine
+    release()
+
+    from apex_studio_tpu_torch.models.transformers.wan_framepack import FramepackSchedule, WanFramepackConfig
+
+    engine = wan_more_engine("apex_framepack", home, manifests)
+    fp_cfg = WanFramepackConfig()
+    sections = FramepackSchedule(fp_cfg.num_indices, fp_cfg.context_buckets).num_sections(12)
+    row, _ = edit_drive("wan_framepack", engine, dict(base, num_frames=45, guidance_scale=5.0), L["apex_framepack"],
+                        {"transformer": 2 * WAN_MORE_STEPS * sections}, 45, 12)
+    check(sections == 3, f"FramePack's plan over 12 latent frames has {sections} sections")
+    paths["wan_framepack_45_frames"] = [row]
+    del engine
+    release()
+
+    engine = wan_more_engine("animate", home, manifests)
+    decode = engine.decode_video_tensor
+
+    def observed(z, *a):
+        engine.wan_smoke["decoded"].append(z.detach().clone())
+        return decode(z, *a)
+
+    engine.decode_video_tensor = observed
+    pose, _ = disk_clip(77, 720, 1280, seed=194)
+    faces, _ = disk_clip(77, 512, 512, seed=195)
+    ref_image = cv2_smooth(np.random.default_rng(196), (720, 1280))
+    full = dict(image=ref_image, pose_video=pose, face_video=faces, prompt=WAN_PROMPT, height=720, width=1280,
+                segment_frame_length=77, num_inference_steps=WAN_MORE_STEPS, guidance_scale=1.0, seed=0)
+    row, _ = edit_drive("wan_animate_720p", engine, full, L["animate"], {"transformer": WAN_MORE_STEPS}, 77, 20)
+    paths["wan_animate_720p_77_frames"] = [row]
+    del pose, faces
+    short_pose, _ = disk_clip(33, seed=197)
+    short_faces, _ = disk_clip(33, 512, 512, seed=198)
+    short = dict(full, image=clip[0], pose_video=short_pose, face_video=short_faces, height=480, width=832,
+                 segment_frame_length=17)
+    paths["wan_animate_two_segments"] = identical_pair("wan_animate_two_segments", engine, short, L["animate"],
+                                                       {"transformer": 2 * WAN_MORE_STEPS}, 33, [5, 5])
+    masks = [np.where(f[..., 0] > 150, 255, 0).astype(np.uint8) for f in clip]
+    row, _ = edit_drive("wan_animate_replace", engine, dict(short, mode="replace", pose_video=clip, face_video=clip,
+                                                           background_video=clip[::-1], mask_video=masks),
+                        L["animate"], {"transformer": WAN_MORE_STEPS}, WAN_MORE_FRAMES, 5)
+    paths["wan_animate_replace"] = [row]
+    del engine
+    release()
+
+    face_embeds = np.random.default_rng(199).normal(size=512).astype(np.float32)
+    engine = wan_more_engine("lynx", home, manifests)
+    lynx = dict(base, face_embeds=face_embeds)
+    paths["wan_lynx"] = differ_pair("wan_lynx", engine, [dict(lynx, ip_scale=1.0), dict(lynx, ip_scale=0.0)],
+                                    L["lynx"], cfg_fwd, WAN_MORE_FRAMES, 5, "ip_scale", extra=LYNX_RESAMPLER["depth"])
+    check(engine.transformer.blocks[0].registers.shape[1] == 16, "Lynx's registers")
+    del engine
+    release()
+    engine = wan_more_engine("lynx_lite", home, manifests)
+    row, _ = edit_drive("wan_lynx_lite", engine, lynx, L["lynx"], cfg_fwd, WAN_MORE_FRAMES, 5,
+                        LYNX_RESAMPLER["depth"])
+    check(engine.transformer.blocks[0].registers is None and len(engine.transformer.blocks) == EDIT_LAYERS,
+          "Lynx-lite's registers or depth")
+    paths["wan_lynx_lite"] = [row]
+    del engine
+    release()
+    return paths
+
+
+def phase_wan_more(home: Path):
+    """The 14B engines: the kernel at their new shapes, HoloCine's biased
+    plain route timed, the 2-block full-width DiTs against f32, then
+    ``wan_more_requests``."""
+    rows, err = path_kernel_rows("wan_more", (c for c in wan_more_kernel_inputs()
+                                              if not c[0].startswith(("wan5b", "lucy"))))
+    holocine_plain_timing()
+    wan_more_reference()
+    return wan_more_requests(home), rows, err
 
 
 # -- SAM2 point masks and tracking; the preprocessors ------------------------------------
@@ -6502,7 +7017,8 @@ def main() -> int:
             release()
         path_rows, path_err = {}, {}
         for name, phase in (("hyv", phase_hyv), ("humo", phase_humo), ("s2v", phase_s2v),
-                            ("multitalk", phase_multitalk), ("avatar", phase_avatar), ("skyreels", phase_skyreels)):
+                            ("multitalk", phase_multitalk), ("avatar", phase_avatar), ("skyreels", phase_skyreels),
+                            ("wan_5b", phase_wan_5b), ("wan_more", phase_wan_more)):
             if name in phases:
                 new_paths, path_rows[name], path_err[name] = timed(name, phase, home)
                 paths.update(new_paths)

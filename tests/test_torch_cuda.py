@@ -717,3 +717,79 @@ def test_flux2_dits_launch_the_kernel_per_block(cuda):
         out = ctrl(x, seq, t, gd, grid_hw=(9, 11), control_context=torch.randn(1, 99, 36, generator=g).to(cuda))
         assert flash_attention.launches == before + 2 + 3 + 2
         assert out.shape == x.shape and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,dtype", [(21, 3600, 5, 40, torch.bfloat16), (1, 32760, 24, 40, torch.bfloat16),
+                                             (1, 8, 9, 16, torch.float32), (1, 4400, 4400, 24, torch.bfloat16)],
+                         ids=["animate_face_cross", "lynx_ip_cross", "lynx_perceiver_f32", "wan5b_self_24_heads"])
+def test_flash_kernel_wan_rest_shapes(b, sq, sk, h, dtype, cuda):
+    """The last Wan engines' new launch shapes: Animate's face adapter (the
+    21 latent frames of a 77-frame 720p segment as the batch, 3600 queries
+    over 5 face keys), Lynx's IP cross-attention (8 identity + 16 register
+    keys) and its f32 perceiver (16 heads of 64, bf16 tiles, f32 out), and
+    TI2V-5B's self-attention at 24 heads over its 17-frame 704x1280 clip
+    (4400 tokens); against the plain version (the IP cross over its first,
+    last and an interior 128-row subset)."""
+    d = 64 if dtype == torch.float32 else 128
+    g = torch.Generator(cuda).manual_seed(sq + sk)
+    q, k, v = (torch.randn(b, n, h, d, generator=g, device=cuda).to(dtype) for n in (sq, sk, sk))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    subsets = ((slice(0, 128), slice(sq - (sq % 128 or 128), sq), slice(sq // 256 * 128 - 64, sq // 256 * 128 + 64))
+               if sq > 8192 else (slice(0, sq),))
+    for rows in subsets:
+        assert torch.isfinite(out[:, rows].float()).all()
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v))
+
+
+@pytest.mark.cuda
+def test_wan_rest_dits_launch_the_kernel_per_attention(cuda):
+    """Small Animate, Lynx, SCAIL and HoloCine DiTs (head dim 128) in bf16 on
+    the card: Animate three a block (self, text, CLIP) and its face adapters
+    after blocks 0 and 2; Lynx three a block (self, text, IP) and its resampler one a
+    layer in f32; SCAIL three a block; HoloCine one a block (its per-query
+    biased cross-attention takes the plain route); outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import wan, wan_animate, wan_lynx, wan_scail
+
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    small = dict(num_attention_heads=2, num_layers=3, ffn_dim=256, text_dim=64)
+    t = torch.tensor([500.0], device=cuda)
+    animate = materialize_random(lambda: wan_animate.WanAnimateTransformer3DModel(wan_animate.WanAnimateConfig(
+        **dict(small, num_layers=4), image_dim=32, motion_encoder_size=32, motion_style_dim=16, motion_dim=4, motion_encoder_dim=16,
+        face_encoder_hidden_dim=8, face_encoder_num_heads=2, inject_face_latents_blocks=2)), cuda, seed=0)
+    lynx = materialize_random(lambda: wan_lynx.WanLynxTransformer3DModel(wan_lynx.WanLynxConfig(
+        **small, ip_cross_attention_dim=32, ip_registers=4)), cuda, seed=1)
+    resampler = materialize_random(lambda: wan_lynx.LynxResampler(wan_lynx.LynxResampler.Config(
+        dim=64, depth=2, dim_head=64, heads=2, num_queries=8, embedding_dim=16, output_dim=32)), cuda, seed=2)
+    scail = materialize_random(lambda: wan_scail.SCAILModel(wan_scail.WanScailConfig(
+        dim=256, num_heads=2, num_layers=3, ffn_dim=256, text_dim=64, text_len=16, image_dim=32)), cuda, seed=3)
+    holo = materialize_random(lambda: wan.WanHolocineTransformer3DModel(wan.WanConfig(**small)), cuda, seed=4)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        out = animate(rand(1, 36, 3, 16, 16), t, rand(1, 20, 64), rand(1, 5, 32), rand(1, 16, 2, 16, 16),
+                      rand(1, 3, 5, 32, 32).clamp(-1, 1))
+        assert flash_attention.launches == before + 3 * 4 + 2  # adapters after blocks 0 and 2
+        assert out.shape == (1, 16, 3, 16, 16) and torch.isfinite(out.float()).all()
+        before = flash_attention.launches
+        ip = resampler(rand(1, 1, 16))
+        out = lynx(rand(1, 16, 3, 16, 16), t, rand(1, 20, 64), ip_tokens=ip, ip_scale=1.0)
+        assert flash_attention.launches == before + 2 + 3 * 3
+        assert ip.dtype == torch.float32 and out.shape == (1, 16, 3, 16, 16) and torch.isfinite(out.float()).all()
+        before = flash_attention.launches
+        out = scail(rand(1, 16, 2, 16, 16), t, rand(1, 20, 64), rand(1, 16, 2, 8, 8), rand(1, 16, 1, 16, 16),
+                    rand(1, 5, 32))
+        assert flash_attention.launches == before + 3 * 3
+        assert out.shape == (1, 16, 2, 16, 16) and torch.isfinite(out.float()).all()
+        before = flash_attention.launches
+        bias = torch.where(torch.rand(1, 1, 192, 20, generator=g) > 0.5, 0.0, -1e4).to(cuda)
+        out = holo(rand(1, 16, 3, 16, 16), t, rand(1, 20, 64), ctx_bias=bias,
+                   shot_ids=torch.tensor([[0] * 128 + [1] * 64], device=cuda))
+        assert flash_attention.launches == before + 3
+        assert out.shape == (1, 16, 3, 16, 16) and torch.isfinite(out.float()).all()
