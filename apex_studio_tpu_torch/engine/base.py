@@ -227,6 +227,12 @@ class BaseEngine:
             return
         self.release_text_encoders(names)
 
+    def load_missing(self, *ctypes: str) -> None:
+        """Load each component type the engine does not hold yet."""
+        for ctype in ctypes:
+            if getattr(self, ctype) is None:
+                self.load_component_by_type(ctype)
+
     def load_component_by_type(self, ctype: str, progress: Optional[ProgressCallback] = None):
         spec = self._spec_for_type(ctype)
         if spec is None:
@@ -632,6 +638,17 @@ class BaseEngine:
 # names no converter)
 _HELPER_FAMILIES = {"CLIPVisionModel": "clip_vision", "SiglipVisionModel": "siglip", "Wav2Vec2Model": "wav2vec2",
                     "LynxResampler": "lynx_resampler", "lynx_resampler": "lynx_resampler"}
+
+
+def dynamic_shift_mu(scheduler, image_seq_len: int) -> float:
+    """The flow-match shift ``mu`` for ``image_seq_len`` tokens from the
+    scheduler's config (the Flux family's defaults where it is silent)."""
+    from apex_studio_tpu_torch.schedulers.base import compute_dynamic_shift_mu
+
+    sc = scheduler.config
+    return compute_dynamic_shift_mu(image_seq_len, sc.get("base_image_seq_len", 256),
+                                    sc.get("max_image_seq_len", 4096), sc.get("base_shift", 0.5),
+                                    sc.get("max_shift", 1.15))
 
 
 def _registry(kind: str):

@@ -35,7 +35,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from apex_studio_tpu_torch.engine.base import BaseEngine
+from apex_studio_tpu_torch.engine.base import BaseEngine, dynamic_shift_mu
 from apex_studio_tpu_torch.engine.fused import build_euler_step, cfg_combine
 from apex_studio_tpu_torch.engine.registry import register_engine
 from apex_studio_tpu_torch.utils.progress import make_mapped_progress, safe_emit_progress
@@ -424,8 +424,6 @@ class HunyuanVideoFramepackEngine(HunyuanVideoShared):
         progress_callback: Optional[Callable] = None,
         **_: Any,
     ):
-        from apex_studio_tpu_torch.schedulers.base import compute_dynamic_shift_mu
-
         safe_emit_progress(progress_callback, 0.0, "Starting framepack pipeline")
         self.load_components()
         if image is None:
@@ -467,12 +465,7 @@ class HunyuanVideoFramepackEngine(HunyuanVideoShared):
 
         for k in range(n_sections):
             x = self.get_latents((1, lat_c, latent_window_size, lat_h, lat_w), seed=None if seed is None else seed + k)
-            mu = compute_dynamic_shift_mu(
-                latent_window_size * lat_h * lat_w / cfg_t.patch_size ** 2,
-                self.scheduler.config.get("base_image_seq_len", 256),
-                self.scheduler.config.get("max_image_seq_len", 4096),
-                self.scheduler.config.get("base_shift", 0.5),
-                self.scheduler.config.get("max_shift", 1.15))
+            mu = dynamic_shift_mu(self.scheduler, latent_window_size * lat_h * lat_w / cfg_t.patch_size ** 2)
             ts, _ = self.get_timesteps(self.scheduler, num_inference_steps,
                                        sigmas=np.linspace(1.0, 0.0, num_inference_steps + 1)[:-1],
                                        mu=min(mu, math.log(7.0)))

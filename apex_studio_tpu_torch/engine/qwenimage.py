@@ -33,10 +33,9 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
-from apex_studio_tpu_torch.engine.base import BaseEngine
+from apex_studio_tpu_torch.engine.base import BaseEngine, dynamic_shift_mu
 from apex_studio_tpu_torch.engine.fused import build_euler_step, cfg_combine
 from apex_studio_tpu_torch.engine.registry import register_engine
-from apex_studio_tpu_torch.schedulers.base import compute_dynamic_shift_mu
 from apex_studio_tpu_torch.utils.progress import make_mapped_progress, safe_emit_progress
 
 logger = logging.getLogger("apex.engine.qwenimage")
@@ -119,16 +118,8 @@ class QwenImageT2IEngine(BaseEngine):
     def _timesteps(self, n_tokens: int, num_inference_steps: int, sigmas, timesteps):
         if sigmas is None:
             sigmas = np.linspace(1.0, 1.0 / num_inference_steps, num_inference_steps)
-        sc = self.scheduler.config
-        mu = compute_dynamic_shift_mu(
-            n_tokens,
-            sc.get("base_image_seq_len", 256),
-            sc.get("max_image_seq_len", 4096),
-            sc.get("base_shift", 0.5),
-            sc.get("max_shift", 1.15),
-        )
         ts, n = self.get_timesteps(self.scheduler, num_inference_steps, timesteps=timesteps,
-                                   sigmas=sigmas, mu=mu)
+                                   sigmas=sigmas, mu=dynamic_shift_mu(self.scheduler, n_tokens))
         self.scheduler.set_begin_index(0)
         return ts, n
 

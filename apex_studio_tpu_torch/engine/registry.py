@@ -2,9 +2,11 @@
 ``apex_studio_tpu/engine/registry.py``). Ported: ``("flux", "t2i" | "kontext" |
 "fill" | "control" | "dreamomni2")``, ``("flux2", "ti2i" | "klein" | "t2i" |
 "control")``, ``("hunyuanvideo15", "t2v" | "i2v")``, ``("hunyuanvideo", "t2v" | "i2v" | "framepack" | "avatar")``, ``("zimage", "t2i" | "control")``,
-``("qwenimage", "t2i" | "edit" | "edit_plus" | "controlnet")`` and
+``("qwenimage", "t2i" | "edit" | "edit_plus" | "controlnet")``,
 ``("wan", "t2v" | "t2i" | "i2v" | "fflf" | "inp" | "v2v" | "svi" | "vace" |
-"fun_vace" | "phantom" | "fun_control" | "fun" | "causal" | "humo" | "s2v" | "multitalk")``."""
+"fun_vace" | "phantom" | "fun_control" | "fun" | "causal" | "humo" | "s2v" | "multitalk")``,
+``("chroma", "t2i")``, ``("ovis", "t2i")``, ``("fibo", "ti2i" | "t2i")``,
+``("hidream", "t2i" | "edit")`` and ``("hunyuanimage", "t2i")``."""
 
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.e
                   "apex_studio_tpu_torch.engine.zimage", "apex_studio_tpu_torch.engine.qwenimage",
                   "apex_studio_tpu_torch.engine.wan", "apex_studio_tpu_torch.engine.flux2",
                   "apex_studio_tpu_torch.engine.hunyuanvideo", "apex_studio_tpu_torch.engine.hunyuanvideo_avatar",
-                  "apex_studio_tpu_torch.engine.skyreels", "apex_studio_tpu_torch.engine.lucy")
+                  "apex_studio_tpu_torch.engine.skyreels", "apex_studio_tpu_torch.engine.lucy",
+                  "apex_studio_tpu_torch.engine.chroma", "apex_studio_tpu_torch.engine.ovis",
+                  "apex_studio_tpu_torch.engine.fibo", "apex_studio_tpu_torch.engine.hidream",
+                  "apex_studio_tpu_torch.engine.hunyuanimage")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

@@ -22,10 +22,9 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
-from apex_studio_tpu_torch.engine.base import BaseEngine
+from apex_studio_tpu_torch.engine.base import BaseEngine, dynamic_shift_mu
 from apex_studio_tpu_torch.engine.fused import build_euler_step
 from apex_studio_tpu_torch.engine.registry import register_engine
-from apex_studio_tpu_torch.schedulers.base import compute_dynamic_shift_mu
 from apex_studio_tpu_torch.utils.progress import make_mapped_progress, safe_emit_progress
 
 logger = logging.getLogger("apex.engine.zimage")
@@ -125,14 +124,7 @@ class ZImageT2IEngine(BaseEngine):
         safe_emit_progress(progress_callback, 0.32, "Initialized latent noise")
 
         image_seq_len = (lat_h // cfg_t.patch_size) * (lat_w // cfg_t.patch_size)
-        sc = self.scheduler.config
-        mu = compute_dynamic_shift_mu(
-            image_seq_len,
-            sc.get("base_image_seq_len", 256),
-            sc.get("max_image_seq_len", 4096),
-            sc.get("base_shift", 0.5),
-            sc.get("max_shift", 1.15),
-        )
+        mu = dynamic_shift_mu(self.scheduler, image_seq_len)
         ts, num_inference_steps = self.get_timesteps(
             self.scheduler, num_inference_steps, timesteps=timesteps, sigmas=sigmas, mu=mu)
         safe_emit_progress(progress_callback, 0.40, "Timesteps computed; starting denoise")

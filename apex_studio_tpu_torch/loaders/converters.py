@@ -18,7 +18,10 @@ and ``wav2vec2``; the audio-driven DiTs' ``wan_s2v``, ``wan_multitalk`` and
 SAM2's ``sam2`` (the image model) and ``sam2_video`` (the memory bank);
 the last Wan DiTs' ``wan_animate``, ``wan_lynx`` and ``wan_scail``, Lynx's
 ``lynx_resampler``, and ReCamMaster's, Apex-FramePack's and HoloCine's extra
-keys in ``wan``).
+keys in ``wan``); the other image families' ``chroma``, ``ovis``, ``fibo``,
+``hidream`` (the MoE gate as a raw matrix), ``hunyuanimage`` and
+``hunyuanimage_vae``, their text encoders through ``t5``, ``clip``,
+``llama``, ``qwen2`` and ``qwen3``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -1126,5 +1129,151 @@ converter_registry.add(
              r"text_embedding_\d|time_embedding_\d|time_projection)\.weight$", r"\1\2.kernel"),
         ],
         drop=(r"^freqs", r"^head\.norm\."),
+    ),
+)
+
+converter_registry.add(
+    # Chroma (reference transformer/chroma/base/model.py; diffusers layout)
+    "chroma",
+    KeyConverter(
+        renames=[
+            (r"^distilled_guidance_layer\.layers\.(\d+)\.linear_1\.", r"distilled_guidance_layer.layers_1.\1."),
+            (r"^distilled_guidance_layer\.layers\.(\d+)\.linear_2\.", r"distilled_guidance_layer.layers_2.\1."),
+            (r"\.attn\.to_out\.0\.", ".attn.to_out."),
+            (r"(single_transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"\.ff(_context)?\.net\.0\.proj\.", r".ff\1.fc1."),
+            (r"\.ff(_context)?\.net\.2\.", r".ff\1.fc2."),
+            (r"(x_embedder|context_embedder|to_q|to_k|to_v|to_out|to_add_out|add_q_proj|add_k_proj|add_v_proj|fc1|"
+             r"fc2|proj_mlp|proj_out|in_proj|out_proj|linear_1|linear_2|layers_1\.\d+|layers_2\.\d+)\.weight$",
+             r"\1.kernel"),
+        ],
+        drop=(r"^pos_embed", r"mod_proj"),
+    ),
+)
+
+converter_registry.add(
+    # HiDream-I1 (reference transformer/hidream/base/model.py, diffusers
+    # layout); the MoE gate is a raw [experts, dim] matrix
+    "hidream",
+    KeyConverter(
+        renames=[
+            (r"^x_embedder\.proj\.", "x_embedder."),
+            (r"^t_embedder\.timestep_embedder\.linear_1\.", "t_in_1."),
+            (r"^t_embedder\.timestep_embedder\.linear_2\.", "t_in_2."),
+            (r"^p_embedder\.pooled_embedder\.linear_1\.", "p_in_1."),
+            (r"^p_embedder\.pooled_embedder\.linear_2\.", "p_in_2."),
+            (r"^caption_projection\.(\d+)\.linear\.", r"caption_projection.\1."),
+            (r"^(double|single)_stream_blocks\.(\d+)\.block\.", r"\1_stream_blocks.\2."),
+            (r"^final_layer\.adaLN_modulation\.1\.", "final_adaln."),
+            (r"\.adaLN_modulation\.1\.", ".adaln."),
+            (r"^final_layer\.linear\.", "proj_out."),
+            (r"\.ff_i\.gate\.weight$", ".ff_i.gate_weight"),
+            (r"(to_q|to_k|to_v|to_out|to_q_t|to_k_t|to_v_t|to_out_t|w1|w2|w3|x_embedder|t_in_\d|p_in_\d|"
+             r"caption_projection\.\d+|adaln|final_adaln|proj_out)\.weight$", r"\1.kernel"),
+        ],
+    ),
+)
+
+converter_registry.add(
+    # HunyuanImage 2.1 (reference transformer/hunyuanimage/base/model.py):
+    # HunyuanVideo's layout with time_guidance_embed, the meanflow
+    # timestep_embedder_r and the byT5 projection context_embedder_2
+    "hunyuanimage",
+    KeyConverter(
+        renames=[
+            (r"^x_embedder\.proj\.weight$", "x_embedder.kernel"),
+            (r"^x_embedder\.proj\.bias$", "x_embedder.bias"),
+            (r"^time_guidance_embed\.timestep_embedder\.linear_(\d)\.", r"time_linear_\1."),
+            (r"^time_guidance_embed\.timestep_embedder_r\.linear_(\d)\.", r"time_r_linear_\1."),
+            (r"^time_guidance_embed\.guidance_embedder\.linear_(\d)\.", r"guidance_linear_\1."),
+            (r"^context_embedder\.time_text_embed\.timestep_embedder\.linear_(\d)\.",
+             r"context_embedder.timestep_linear_\1."),
+            (r"^context_embedder\.time_text_embed\.text_embedder\.linear_(\d)\.", r"context_embedder.text_linear_\1."),
+            (r"^context_embedder\.token_refiner\.refiner_blocks\.", "context_embedder.refiner_blocks."),
+            (r"(refiner_blocks\.\d+)\.attn\.to_out\.0\.", r"\1.to_out."),
+            (r"(refiner_blocks\.\d+)\.attn\.", r"\1."),
+            (r"(refiner_blocks\.\d+)\.ff\.net\.0\.proj\.", r"\1.ff_in."),
+            (r"(refiner_blocks\.\d+)\.ff\.net\.2\.", r"\1.ff_out."),
+            (r"(refiner_blocks\.\d+)\.norm_out\.linear\.", r"\1.ada_linear."),
+            (r"^context_embedder_2\.norm\.", "byt5_norm."),
+            (r"^context_embedder_2\.linear_(\d)\.", r"byt5_linear_\1."),
+            (r"\.norm1\.linear\.", ".norm1_linear."),
+            (r"\.norm1_context\.linear\.", ".norm1_context_linear."),
+            (r"\.norm\.linear\.", ".norm_linear."),
+            (r"\.attn\.to_out\.0\.", ".to_out."),
+            (r"(transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"(single_transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"\.ff(_context)?\.net\.0\.proj\.", r".ff\1.fc1."),
+            (r"\.ff(_context)?\.net\.2\.", r".ff\1.fc2."),
+            (r"^norm_out\.linear\.", "norm_out_linear."),
+            (r"(to_q|to_k|to_v|to_out|to_add_out|add_q_proj|add_k_proj|add_v_proj|fc1|fc2|ff_in|ff_out|ada_linear|"
+             r"proj_in|proj_mlp|proj_out|norm1_linear|norm1_context_linear|norm_linear|norm_out_linear|"
+             r"time_linear_\d|time_r_linear_\d|timestep_linear_\d|text_linear_\d|guidance_linear_\d|"
+             r"byt5_linear_\d)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope\.",),
+    ),
+)
+
+converter_registry.add(
+    # HunyuanImage 2.1's 32x VAE (reference vae/hunyuanimage/model.py)
+    "hunyuanimage_vae",
+    KeyConverter(
+        renames=[
+            (r"\.attentions\.0\.norm\.", ".attentions.0.group_norm."),
+            (r"\.attentions\.0\.proj\.", ".attentions.0.to_out."),
+            (r"(conv|conv1|conv2|conv_shortcut|conv_in|conv_out)\.weight$", r"\1.kernel"),
+            (r"(to_q|to_k|to_v|to_out)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+    ),
+)
+
+converter_registry.add(
+    # Ovis-Image (reference transformer/ovis/base/model.py): Flux's layout
+    # with fused-SwiGLU feed-forwards and a context RMSNorm
+    "ovis",
+    KeyConverter(
+        renames=[
+            (r"^timestep_embedder\.linear_(\d)\.", r"timestep_linear_\1."),
+            (r"\.norm1\.linear\.", ".norm1_linear."),
+            (r"\.norm1_context\.linear\.", ".norm1_context_linear."),
+            (r"\.norm\.linear\.", ".norm_linear."),
+            (r"\.attn\.to_out\.0\.", ".attn.to_out."),
+            # dual blocks keep their attention under .attn, single blocks hold the projections
+            (r"(single_transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"\.ff(_context)?\.net\.0\.proj\.", r".ff\1.fc1."),
+            (r"\.ff(_context)?\.net\.2\.", r".ff\1.fc2."),
+            (r"^norm_out\.linear\.", "norm_out_linear."),
+            (r"(to_q|to_k|to_v|to_out|to_add_out|add_q_proj|add_k_proj|add_v_proj|fc1|fc2|proj_mlp|proj_out|"
+             r"x_embedder|context_embedder|norm1_linear|norm1_context_linear|norm_linear|norm_out_linear|"
+             r"timestep_linear_\d)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^pos_embed\.",),
+    ),
+)
+
+converter_registry.add(
+    # Bria FIBO (reference transformer/fibo/base/model.py): Flux's layout with
+    # one caption projection a block
+    "fibo",
+    KeyConverter(
+        renames=[
+            (r"^time_embed\.timestep_embedder\.linear_(\d)\.", r"time_linear_\1."),
+            (r"^caption_projection\.(\d+)\.linear\.", r"caption_projection.\1."),
+            (r"\.norm1\.linear\.", ".norm1_linear."),
+            (r"\.norm1_context\.linear\.", ".norm1_context_linear."),
+            (r"\.norm\.linear\.", ".norm_linear."),
+            (r"\.attn\.to_out\.0\.", ".attn.to_out."),
+            (r"(single_transformer_blocks\.\d+)\.attn\.", r"\1."),
+            (r"\.ff(_context)?\.net\.0\.proj\.", r".ff\1.fc1."),
+            (r"\.ff(_context)?\.net\.2\.", r".ff\1.fc2."),
+            (r"^norm_out\.linear\.", "norm_out_linear."),
+            (r"(to_q|to_k|to_v|to_out|to_add_out|add_q_proj|add_k_proj|add_v_proj|fc1|fc2|proj_mlp|proj_out|"
+             r"x_embedder|context_embedder|norm1_linear|norm1_context_linear|norm_linear|norm_out_linear|"
+             r"time_linear_\d)\.weight$", r"\1.kernel"),
+            (r"(caption_projection\.\d+)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^pos_embed\.",),
     ),
 )

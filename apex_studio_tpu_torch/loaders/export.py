@@ -44,7 +44,12 @@ its heads as Conv1d weights), ``dsine`` (``dsine.pt``'s ``model``) and
 (``Annotators/UNet.pth``'s ``en_block`` slices), ``gmflow``
 (``gmflow-*-mixdata.pth``'s ``model``) and ``metric3d``
 (``metric_depth_vit_*_800k.pth``'s ``model_state_dict``, ``depth_model.``
-prefixed, the blocks unchunked). PiDiNet has none: its converter folds the published pixel-difference weights into
+prefixed, the blocks unchunked); the other image families' ``chroma``,
+``ovis`` and ``fibo`` (diffusers' Flux block names under each family's own
+heads), ``hidream`` (diffusers' ``HiDreamImageTransformer2DModel``, the MoE
+gate as ``ff_i.gate.weight``), ``hunyuanimage`` (diffusers'
+``HunyuanImageTransformer2DModel``) and ``hunyuanimage_vae``
+(``AutoencoderKLHunyuanImage``). PiDiNet has none: its converter folds the published pixel-difference weights into
 vanilla kernels, which is not invertible.
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
@@ -656,6 +661,43 @@ _METRIC3D = [
 ]
 
 
+# the other image families: Flux's block names with each family's own heads
+_CHROMA = (
+    (r"^distilled_guidance_layer\.layers_([12])\.(\d+)\.", r"distilled_guidance_layer.layers.\2.linear_\1."),
+    *_FLUX,
+)
+_OVIS = ((r"^timestep_linear_(\d)\.", r"timestep_embedder.linear_\1."), *_FLUX)
+_FIBO = (
+    (r"^time_linear_(\d)\.", r"time_embed.timestep_embedder.linear_\1."),
+    (r"^caption_projection\.(\d+)\.", r"caption_projection.\1.linear."),
+    *_FLUX,
+)
+_HIDREAM = (
+    (r"^x_embedder\.", "x_embedder.proj."),
+    (r"^t_in_(\d)\.", r"t_embedder.timestep_embedder.linear_\1."),
+    (r"^p_in_(\d)\.", r"p_embedder.pooled_embedder.linear_\1."),
+    (r"^caption_projection\.(\d+)\.", r"caption_projection.\1.linear."),
+    (r"^(double|single)_stream_blocks\.(\d+)\.", r"\1_stream_blocks.\2.block."),
+    (r"^final_adaln\.", "final_layer.adaLN_modulation.1."),
+    (r"\.adaln\.", ".adaLN_modulation.1."),
+    (r"^proj_out\.", "final_layer.linear."),
+    (r"\.ff_i\.gate_weight$", ".ff_i.gate.weight"),
+)
+_HUNYUANIMAGE = (
+    _HUNYUANVIDEO[0],
+    (r"^time_linear_(\d)\.", r"time_guidance_embed.timestep_embedder.linear_\1."),
+    (r"^time_r_linear_(\d)\.", r"time_guidance_embed.timestep_embedder_r.linear_\1."),
+    (r"^guidance_linear_(\d)\.", r"time_guidance_embed.guidance_embedder.linear_\1."),
+    (r"^byt5_norm\.", "context_embedder_2.norm."),
+    (r"^byt5_linear_(\d)\.", r"context_embedder_2.linear_\1."),
+    *_HUNYUANVIDEO[3:],
+)
+_HUNYUANIMAGE_VAE = (
+    (r"\.attentions\.0\.group_norm\.", ".attentions.0.norm."),
+    (r"\.attentions\.0\.to_out\.", ".attentions.0.proj."),
+)
+
+
 def _hed_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """``norm`` as the published ``[1, 3, 1, 1]``."""
     return value.reshape(1, 3, 1, 1) if key == "norm" else value
@@ -688,7 +730,9 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "depth_anything_v2": _DEPTH_ANYTHING_V2, "openpose": _OPENPOSE, "hed": _HED, "teed": _TEED,
     "lineart": _LINEART, "lineart_anime": _LINEART_ANIME, "manga_line": _MANGA_LINE, "mlsd": _MLSD,
     "efficientnet": _EFFICIENTNET, "normalbae": _NORMALBAE, "dsine": _DSINE, "leres": _LERES,
-    "u2net": _U2NET, "isnet": _ISNET, "anime_face": _ANIME_FACE, "gmflow": _GMFLOW, "metric3d": _METRIC3D}
+    "u2net": _U2NET, "isnet": _ISNET, "anime_face": _ANIME_FACE, "gmflow": _GMFLOW, "metric3d": _METRIC3D,
+    "chroma": _CHROMA, "ovis": _OVIS, "fibo": _FIBO, "hidream": _HIDREAM, "hunyuanimage": _HUNYUANIMAGE,
+    "hunyuanimage_vae": _HUNYUANIMAGE_VAE}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

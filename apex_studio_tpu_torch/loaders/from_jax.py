@@ -38,7 +38,8 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
   torch's grouped OIHW by the same transpose;
 - every other parameter keeps its name and layout (learned tokens, PReLU
   slopes, embedding tables such as SkyReels' ``fps_embedding`` [2, dim],
-  NLF's ``canonical`` points, the FLUX.2 VAE's 1-D ``bn_mean`` / ``bn_var``,
+  NLF's ``canonical`` points, HiDream's MoE ``gate_weight`` [experts, dim],
+  the FLUX.2 VAE's 1-D ``bn_mean`` / ``bn_var``,
   and the inference BatchNorms the preprocessors keep as parameters:
   EfficientNet's ``BNInf`` ``scale`` / ``bias`` / ``mean`` / ``var``, LeReS'
   ``running_mean`` / ``running_var``, M-LSD's and Manga Line's ``bn_*``).

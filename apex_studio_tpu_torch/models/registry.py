@@ -18,7 +18,9 @@ encoder, in the text-encoder registry as in JAX); ``wan.s2v``, ``wan.multitalk``
 and ``hunyuanvideo.avatar`` (the audio-driven DiTs); ``wan.recam``,
 ``wan.holocine``, ``wan.apex_framepack``, ``wan.animate``, ``wan.lynx`` and
 ``wan.scail`` (the rest of the Wan family) and ``LynxResampler`` (Lynx's
-identity resampler, in the text-encoder registry as in JAX).
+identity resampler, in the text-encoder registry as in JAX); ``chroma.base``,
+``ovis.base``, ``fibo.base``, ``hidream.base`` and ``hunyuanimage.base`` (the
+other image DiTs) and ``hunyuanimage.vae`` (HunyuanImage 2.1's 32× VAE).
 """
 
 import importlib
@@ -59,6 +61,12 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.transformers.wan_animate",
     "apex_studio_tpu_torch.models.transformers.wan_lynx",
     "apex_studio_tpu_torch.models.transformers.wan_scail",
+    "apex_studio_tpu_torch.models.transformers.chroma",
+    "apex_studio_tpu_torch.models.transformers.ovis",
+    "apex_studio_tpu_torch.models.transformers.fibo",
+    "apex_studio_tpu_torch.models.transformers.hidream",
+    "apex_studio_tpu_torch.models.transformers.hunyuanimage",
+    "apex_studio_tpu_torch.models.vaes.hunyuanimage_vae",
 )
 
 

@@ -92,7 +92,9 @@ class FluxJointAttention(nn.Module):
         self.heads = cfg.num_attention_heads
         self.head_dim = cfg.attention_head_dim
 
-    def forward(self, img, txt, rope_cos, rope_sin):
+    def forward(self, img, txt, rope_cos, rope_sin, mask_bias=None):
+        """``mask_bias``: an additive key bias over ``[txt, img]`` (Chroma's
+        and FIBO's text padding), as the JAX module takes it."""
         b, n_img, _ = img.shape
         n_txt = txt.shape[1]
 
@@ -106,7 +108,7 @@ class FluxJointAttention(nn.Module):
         q = apply_rope(torch.cat([q_t, q_i], dim=1), rope_cos, rope_sin)
         k = apply_rope(torch.cat([k_t, k_i], dim=1), rope_cos, rope_sin)
         v = torch.cat([v_t, v_i], dim=1)
-        out = attention_op(q, k, v).reshape(b, n_txt + n_img, -1)
+        out = attention_op(q, k, v, bias=mask_bias).reshape(b, n_txt + n_img, -1)
         txt_out, img_out = out[:, :n_txt], out[:, n_txt:]
         return self.to_out(img_out), self.to_add_out(txt_out)
 

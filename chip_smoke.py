@@ -262,6 +262,18 @@ Phases, each printed as one JSON line:
              time chunks), two chained 17-frame segments twice
              (bit-identical) and replace mode, Lynx at ip_scale 1 and 0 and
              Lynx-lite; the frames differ where the conditioning does
+  image_rest the other image families from their manifests (Chroma, Ovis-Image,
+             FIBO, HiDream-I1 t2i and edit, HunyuanImage 2.1 and its
+             distilled manifest) at their default sizes (1024², HunyuanImage
+             2048²), full width and depth, synthetic bf16 weights (the
+             configs the repository lacks written into one home): the kernel
+             at their shapes (Chroma's text key padding, FIBO's mask and its
+             dual blocks' 0/1 bias, HiDream's 20 heads, HunyuanImage's 28
+             heads and its refiner); 1 + 1-block DiTs at full width against
+             f32 and the 32x VAE against float64; each family's request with
+             seeds 0, 0, 1 (1 and 2 bit-identical, 3 not), 2 steps, CFG (FIBO
+             on a JSON prompt, HunyuanImage with APG), a HiDream edit from a
+             seeded image, the distilled HunyuanImage once
   preprocess_pose
              the last preprocessors: the transformers delegates at published
              widths written with save_pretrained (DPT-Large, ZoeDepth
@@ -285,14 +297,16 @@ rows with a [1, Sk] bias at its first and last block and with a window and a
 sink), and the Flux editing paths' (FLUX.2 at 48 heads over 4608 and 8704
 tokens, Kontext over 8704 and DreamOmni2 over 12,800 at 24); the timing phase
 times each beside its bound and the library call. The hyv, humo, s2v,
-multitalk, avatar, skyreels, wan_5b, wan_more and sam2 phases hold and time the
+multitalk, avatar, skyreels, wan_5b, wan_more, image_rest and sam2 phases hold and time the
 kernel at their own shapes (``path_kernel_rows``); the kernels phase also holds it at head dims
 16, 32, 56, 72 and 96 (ragged, with a bias, on fused-qkv views in bf16 and
 f32).
 Then a ``wall`` line, a ``kernels`` line, the card and, last,
 ``{"ok": true, "device": {...}}``.
 
-Any failed check exits non-zero before the last line. Run from the root of a
+The CPU halves of the card-vs-CPU checks run on a worker thread beside the
+card; each phase waits for its own before its time is read. Any failed check
+exits non-zero before the last line. Run from the root of a
 checkout: ``python3 chip_smoke.py`` (``--phases kernels,timing`` for a short run;
 add ``trace`` to the default list for the profile).
 """
@@ -311,6 +325,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -330,7 +345,8 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "skyreels,wan_5b,wan_more,rife,sam2,preprocess,preprocess_nets,preprocess_rest,preprocess_pose")
+                  "skyreels,wan_5b,wan_more,image_rest,rife,sam2,preprocess,preprocess_nets,preprocess_rest,"
+                  "preprocess_pose")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
 # tie may fall one int8 step apart. int4 and dequant in f32: summation order.
@@ -695,8 +711,13 @@ def check(cond: bool, msg: str) -> None:
         raise CheckFailed(msg)
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    with _EMIT_LOCK:  # the CPU references emit from their worker thread
+        print(line, flush=True)
 
 
 def card_line() -> str:
@@ -962,21 +983,23 @@ def timing_row(case, q, k, v, bias=None, plain_rows=None, path=None) -> dict:
     bias = None if bias is None else bias.reshape(bias.shape[0], -1)
     plain_rows = sq if plain_rows is None else plain_rows
     huge, big = sq * sk * h > 1 << 33, sq * sk > 1 << 22
-    reps = 5 if huge else 10 if big else 25
-    calls = 5 if huge else 20
+    # a huge call takes 30-190 ms: 3 timed after 1 warm-up
+    reps = 3 if huge else 10 if big else 25
+    calls = 3 if huge else 20
+    warm = 1 if huge else 3
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     mask = library_mask(bias)
-    kernel_ms = time_ms(lambda: flash_attention(q, k, v, bias=bias), reps=reps)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=reps)
+    kernel_ms = time_ms(lambda: flash_attention(q, k, v, bias=bias), reps=reps, warmup=warm)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=reps, warmup=warm)
     plain_ms = (time_ms(lambda: plain_in_row_chunks(q[:, :plain_rows], k, v, rows=1024, bias=bias),
                         reps=3 if big else reps, warmup=1) if plain_rows else None)
     work = attention_bound(q, k, bias)
     row = {"phase": "timing", "path": path, "kernel": "flash_attention", "case": case, "shape": list(q.shape),
            "sk": sk, "bias": bias is not None, "ms": kernel_ms,
-           "queued_ms": queued_ms(lambda: flash_attention(q, k, v, bias=bias), calls=calls),
+           "queued_ms": queued_ms(lambda: flash_attention(q, k, v, bias=bias), calls=calls, warmup=warm),
            "plain_ms": plain_ms, "plain_rows": plain_rows, "library_ms": library_ms,
            "library_queued_ms": queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
-                                          calls=calls),
+                                          calls=calls, warmup=warm),
            "library_call": "torch.nn.functional.scaled_dot_product_attention", **work,
            "of_bound": work["bound_ms"] / kernel_ms, "vs_library": kernel_ms / library_ms,
            "tflops_achieved": work["flops"] / kernel_ms / 1e9, "blocks": -(-sq // 128) * b * h}
@@ -2890,24 +2913,54 @@ def bf16_card_and_f32_cpu(build, seed):
 
 def card_vs_cpu(label, build, forward, inputs, tol, seed, phase="wan_edit", **extra):
     """``forward(model, *inputs)`` on ``bf16_card_and_f32_cpu(build, seed)``:
-    relative L2 of the card's output against the CPU's, within ``tol``."""
+    relative L2 of the card's output against the CPU's, within ``tol``. The
+    card's forward runs here; the CPU's, the comparison and its check run on
+    the worker thread (``in_background``) while the card goes on."""
     import torch
 
     cpu, card = bf16_card_and_f32_cpu(build, seed)
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        ref = forward(cpu, *inputs)
-        cpu_s = time.perf_counter() - t0
         out = forward(card, *(x.cuda() if isinstance(x, torch.Tensor) else x for x in inputs)).float().cpu()
-    row = {"phase": phase, "check": "card_bf16_vs_cpu_f32", "model": label,
-           "parameters": sum(p.numel() for p in cpu.parameters()), **extra, "rel_l2": rel_l2(out, ref),
-           "max_abs_err": (out - ref).abs().max().item(), "max_abs_ref": ref.abs().max().item(),
-           "finite": bool(torch.isfinite(out).all()), "tol_rel_l2": tol, "cpu_seconds": cpu_s}
-    emit(row)
-    check(row["finite"] and row["rel_l2"] <= tol, f"{label} on the card is {row['rel_l2']} from the CPU (limit {tol})")
-    del cpu, card
+    del card
     release()
-    return row
+
+    def compare():
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref = forward(cpu, *inputs)
+            cpu_s = time.perf_counter() - t0
+        row = {"phase": phase, "check": "card_bf16_vs_cpu_f32", "model": label,
+               "parameters": sum(p.numel() for p in cpu.parameters()), **extra, "rel_l2": rel_l2(out, ref),
+               "max_abs_err": (out - ref).abs().max().item(), "max_abs_ref": ref.abs().max().item(),
+               "finite": bool(torch.isfinite(out).all()), "tol_rel_l2": tol, "cpu_seconds": cpu_s}
+        emit(row)
+        check(row["finite"] and row["rel_l2"] <= tol,
+              f"{label} on the card is {row['rel_l2']} from the CPU (limit {tol})")
+
+    in_background(compare)
+
+
+_BACKGROUND = {"pool": None, "pending": []}
+
+
+def in_background(compare) -> None:
+    """Run ``compare`` (a CPU reference forward, its comparison with the
+    card's output and its ``check``) on one worker thread, so that the CPU's
+    f32 forwards overlap the card's work; ``finish_background_checks``
+    collects the results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if _BACKGROUND["pool"] is None:
+        _BACKGROUND["pool"] = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu-reference")
+    _BACKGROUND["pending"].append(_BACKGROUND["pool"].submit(compare))
+
+
+def finish_background_checks() -> None:
+    """Wait for every CPU reference in flight; re-raise the first failure
+    (``CheckFailed`` or any error of the worker)."""
+    pending, _BACKGROUND["pending"] = _BACKGROUND["pending"], []
+    for future in pending:
+        future.result()
 
 
 def wan_edit_reference():
@@ -3778,7 +3831,8 @@ def path_kernel_rows(label, inputs):
     bias or None)) against its plain version: whole where its f32 scores
     take at most 4 GB, else on three 128-row subsets over all keys (the first
     tile, the last and ragged one, one across an interior tile edge); a
-    biased case also against the plain version over its kept keys alone.
+    masked case (a bias of 0 and -1e30 only) also against the plain version
+    over its kept keys alone.
     Each shape timed (``timing_row``) with the plain version over its first
     128 rows where the scores cannot be held. Returns (timing rows, the
     largest max|Δ|)."""
@@ -3797,7 +3851,7 @@ def path_kernel_rows(label, inputs):
                    {"first_tile": slice(0, 128), "last_tile": slice(s - tail, s),
                     "interior_tile_edge": slice(s // 256 * 128 - 64, s // 256 * 128 + 64)})
         refs = {"": lambda sl: flash_attention_reference(q[:, sl], k, v, bias=bias)}
-        if bias is not None:
+        if bias is not None and bool(((bias == 0) | (bias <= -1e29)).all()):  # a key mask, not a key bias
             keep = bias.reshape(-1, k.shape[1])[0] > -1e29
             refs["_vs_kept_keys_only"] = lambda sl: flash_attention_reference(q[:, sl], k[:, keep], v[:, keep])
         for suffix, reference in refs.items():
@@ -5010,6 +5064,442 @@ def phase_wan_more(home: Path):
     holocine_plain_timing()
     wan_more_reference()
     return wan_more_requests(home), rows, err
+
+
+# -- the other image families: Chroma, Ovis-Image, FIBO, HiDream-I1, HunyuanImage 2.1 -------
+
+IMAGE_REST_MANIFESTS = {name: REPO / "manifests" / "image" / f for name, f in (
+    ("chroma", "chroma-hd-text-to-image.yml"), ("ovis", "ovis-image-t2i.yml"), ("fibo", "fibo-ti2i.yml"),
+    ("hidream", "hidream-i1-full.yml"), ("hunyuanimage", "hunyuanimage-2.1.yml"),
+    ("hunyuanimage_distilled", "hunyuanimage-2.1-distilled.yml"))}
+IMAGE_REST_STEPS = 2
+# HiDream's 1 + 1 blocks in bf16 against f32: five bf16 SwiGLU experts a token (4 routed, 1 shared, each
+# rounded before the f32 sum) put 1.27-1.31% there on an H100, where Flux-shaped blocks read
+# 0.7-0.9%; the check reads the same module in bf16 on the CPU beside it
+HIDREAM_BF16_REL_L2 = 1.5e-2
+# Published configs the repository lacks, written where the manifests name them. Qwen3-1.7B, the text
+# tower of Ovis2.5-2B (its 2048 features are the DiT's joint_attention_dim); SmolLM3-3B, FIBO's encoder,
+# every hidden state stacked (FIBO's 57 blocks take the last 37, the first padded, as the engine pads);
+# Llama-3.1-8B with HiDream's llama_layers (hidden states 1..32, the last repeated for blocks 33..48);
+# CLIP-G/14's text tower; HiDream-I1-Full's and HunyuanImage 2.1's transformer configs (byT5-small's 1472
+# glyph features) and its VAE's. Values the repository does not hold: FIBO's VAE is a 16x AutoencoderKL of the DiT's 64
+# latent channels (the manifest's `base: auto`; the published FIBO decodes Wan 2.2 latents, ROADMAP Queue 3).
+OVIS_QWEN3 = {"vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 6144, "num_hidden_layers": 28,
+              "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 128, "rope_theta": 1000000.0}
+SMOLLM3 = {"vocab_size": 128256, "hidden_size": 2048, "intermediate_size": 11008, "num_hidden_layers": 36,
+           "num_attention_heads": 16, "num_key_value_heads": 4, "head_dim": 128, "rope_theta": 5000000.0,
+           "rms_norm_eps": 1e-6, "stack_layers": list(range(37))}
+FIBO_VAE = {"latent_channels": 64, "block_out_channels": [128, 256, 512, 512, 512]}
+HIDREAM_LLAMA_LAYERS = list(range(32)) + [31] * 16
+HIDREAM_TRANSFORMER = {"patch_size": 2, "in_channels": 16, "out_channels": 16, "num_layers": 16,
+                       "num_single_layers": 32, "attention_head_dim": 128, "num_attention_heads": 20,
+                       "text_emb_dim": 2048, "caption_channels": [4096, 4096], "num_routed_experts": 4,
+                       "num_activated_experts": 2, "axes_dims_rope": [64, 32, 32],
+                       "llama_layers": HIDREAM_LLAMA_LAYERS}
+LLAMA31_8B = {"vocab_size": 128256, "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+              "num_attention_heads": 32, "num_key_value_heads": 8, "rope_theta": 500000.0,
+              "stack_layers": [1 + i for i in HIDREAM_LLAMA_LAYERS]}
+CLIP_G = {"vocab_size": 49408, "hidden_size": 1280, "intermediate_size": 5120, "num_hidden_layers": 32,
+          "num_attention_heads": 20, "hidden_act": "gelu", "projection_dim": 1280}
+HYI_TRANSFORMER = {"in_channels": 64, "out_channels": 64, "num_attention_heads": 28, "attention_head_dim": 128,
+                   "num_layers": 20, "num_single_layers": 40, "num_refiner_layers": 2, "mlp_ratio": 4.0,
+                   "patch_size": [1, 1], "text_embed_dim": 3584, "text_embed_2_dim": 1472, "rope_theta": 256.0,
+                   "rope_axes_dim": [64, 64]}
+# the published 32x VAE: six levels, five resamplers (the family's defaults list five levels: 16x)
+HYI_VAE = {"latent_channels": 64, "block_out_channels": [128, 256, 512, 512, 1024, 1024], "layers_per_block": 2,
+           "spatial_compression_ratio": 32, "scaling_factor": 0.75289}
+IMAGE_REST_CONFIGS = {
+    "chroma": {}, "ovis": {"text_encoder": OVIS_QWEN3}, "fibo": {"text_encoder": SMOLLM3, "vae": FIBO_VAE},
+    "hidream": {"transformer": HIDREAM_TRANSFORMER, "text_encoder_2": CLIP_G, "text_encoder_4": LLAMA31_8B},
+    "hunyuanimage": {"transformer": HYI_TRANSFORMER, "text_encoder_2": BYT5_SMALL, "vae": HYI_VAE},
+    "hunyuanimage_distilled": {"transformer": dict(HYI_TRANSFORMER, guidance_embeds=True, use_meanflow=True),
+                               "text_encoder_2": BYT5_SMALL, "vae": HYI_VAE}}
+# flash launches a forward (one a block; HunyuanImage's two refiner blocks add two), and forwards a CFG step
+IMAGE_REST_LAUNCHES = {"chroma": 19 + 38, "ovis": 6 + 27, "fibo": 19 + 38, "hidream": 16 + 32,
+                       "hunyuanimage": 20 + 40 + 2, "hunyuanimage_distilled": 20 + 40 + 2}
+IMAGE_REST_SIZE = {"hunyuanimage": 2048, "hunyuanimage_distilled": 2048}
+# joint lengths at the manifests' defaults: 4096 image tokens (1024² at 8x packed 2x2, 16x, or 2048² at
+# 32x) and each family's text: T5's 512; Ovis' 256 after the crop; FIBO's 2048; HiDream's T5 128 + two
+# Llama layers of 128; HunyuanImage's byT5 128 + 1000
+IMAGE_REST_TOKENS = {"chroma": 4096 + 512, "ovis": 4096 + 256, "fibo": 4096 + 2048, "hidream": 4096 + 3 * 128,
+                     "hunyuanimage": 4096 + 128 + 1000}
+IMAGE_REST_PROMPT = 'A lighthouse on a rocky coast at golden hour, a sign reading "OPEN" above the door'
+FIBO_PROMPT = json.dumps({"short_description": "A lighthouse on a rocky coast at golden hour",
+                          "style_medium": "photograph", "lighting": {"conditions": "golden hour"}})
+
+
+def write_named_configs(root: Path, manifest: Path, configs: dict) -> None:
+    """Each ``configs`` entry (component name or type → config) as the
+    config.json its component's ``config_path`` names, under ``root``'s
+    components."""
+    import yaml
+
+    for comp in yaml.safe_load(manifest.read_text())["spec"]["components"]:
+        cfg = configs.get(comp.get("name") or comp["type"], configs.get(comp["type"]))
+        if cfg is not None and comp.get("config_path"):
+            path = root / "components" / comp["config_path"]
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(cfg))
+
+
+def image_rest_kernel_inputs():
+    """(case, q, k, v, bias) at the joint lengths of the new DiTs: Chroma's
+    with the text key padding (the kernel route, ROADMAP Queue 3), Ovis's,
+    FIBO's with its single blocks' mask and its dual blocks' 0/1 key bias,
+    HiDream's at 20 heads, HunyuanImage's at 28 heads with the text bias and
+    its refiner's 1000 rows."""
+    import torch
+
+    chroma = torch.zeros(1, IMAGE_REST_TOKENS["chroma"], device="cuda")
+    chroma[:, 90:512] = -1e30  # [txt | img]: 90 of 512 text tokens kept
+    fibo_s = IMAGE_REST_TOKENS["fibo"]
+    fibo_mask = torch.zeros(1, fibo_s, device="cuda")
+    fibo_mask[:, 120:2048] = -1e30
+    fibo_dual = torch.ones(1, fibo_s, device="cuda")
+    fibo_dual[:, 120:2048] = 0.0
+    hyi_s = IMAGE_REST_TOKENS["hunyuanimage"]
+    hyi = torch.zeros(1, hyi_s, device="cuda")
+    hyi[:, 4096 + 6:4096 + 128] = -1e30  # [img | byT5 (6 kept) | mllm (60 kept)]
+    hyi[:, 4096 + 128 + 60:] = -1e30
+    refiner = torch.zeros(1, 1000, device="cuda")
+    refiner[:, 60:] = -1e30
+    cases = [(f"chroma_joint_s{IMAGE_REST_TOKENS['chroma']}_h24_bias", IMAGE_REST_TOKENS["chroma"], 24, chroma),
+             (f"ovis_joint_s{IMAGE_REST_TOKENS['ovis']}_h24", IMAGE_REST_TOKENS["ovis"], 24, None),
+             (f"fibo_single_s{fibo_s}_h24_bias", fibo_s, 24, fibo_mask),
+             (f"fibo_dual_s{fibo_s}_h24_bias01", fibo_s, 24, fibo_dual),
+             (f"hidream_joint_s{IMAGE_REST_TOKENS['hidream']}_h20", IMAGE_REST_TOKENS["hidream"], 20, None),
+             (f"hunyuanimage_joint_s{hyi_s}_h28_bias", hyi_s, 28, hyi),
+             ("hunyuanimage_refiner_s1000_h28_bias", 1000, 28, refiner)]
+    for i, (name, s, h, bias) in enumerate(cases):
+        yield (name, *qkv(1, s, s, h, 128, 200 + i), bias)
+
+
+def image_rest_reference():
+    """Each new DiT at full width with 1 + 1 blocks, on the card in bf16 (the
+    kernel) against the same weights on the CPU in f32 (the plain version),
+    within BF16_REL_L2, over a 16 x 16 latent token grid and 64 text rows of
+    which 40 are real where the DiT takes a mask: Chroma (the approximator's
+    17 rows), Ovis, FIBO (two text-encoder layers), HiDream (the MoE at its 4
+    experts, top 2) and HunyuanImage 2.1 distilled (the refiner, byT5,
+    guidance and meanflow); then HunyuanImage's 32x VAE decode of a seeded
+    8 x 8 latent against float64, within 2e-2."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers import chroma, fibo, hidream, hunyuanimage, ovis
+    from apex_studio_tpu_torch.models.vaes import hunyuanimage_vae
+
+    rng = np.random.default_rng(211)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    mask = (torch.arange(64) < 40)[None].to(torch.int32)
+    one = dict(num_layers=1, num_single_layers=1)
+    card_vs_cpu("chroma.base 24 heads of 128, 1 + 1 blocks, the approximator, text padding",
+                lambda dt: chroma.ChromaTransformer2DModel(chroma.ChromaConfig(**one), dtype=dt),
+                lambda m, x, c, t, k: m(x, c, t, attention_mask=k, grid_hw=(16, 16)),
+                (tensor(1, 256, 64), tensor(1, 64, 4096), torch.tensor([0.7]), mask), BF16_REL_L2, 212,
+                phase="image_rest")
+    card_vs_cpu("ovis.base 24 heads of 128, 1 + 1 blocks", lambda dt: ovis.OvisImageTransformer2DModel(
+        ovis.OvisConfig(**one), dtype=dt), lambda m, x, c, t: m(x, c, t, grid_hw=(16, 16)),
+                (tensor(1, 256, 64), tensor(1, 64, 2048), torch.tensor([0.7])), BF16_REL_L2, 213, phase="image_rest")
+    card_vs_cpu("fibo.base 24 heads of 128, 1 + 1 blocks, two text-encoder layers, text padding",
+                lambda dt: fibo.BriaFiboTransformer2DModel(fibo.FiboConfig(**one), dtype=dt),
+                lambda m, x, c, l1, l2, t, k: m(x, c, [l1, l2], t, text_mask=k, grid_hw=(16, 16)),
+                (tensor(1, 256, 64), tensor(1, 64, 4096), tensor(1, 64, 2048), tensor(1, 64, 2048),
+                 torch.tensor([700.0]), mask), BF16_REL_L2, 214, phase="image_rest")
+    hidream_card_vs_cpu((tensor(1, 16, 32, 32), torch.tensor([700.0]), tensor(1, 64, 4096),
+                         [tensor(1, 64, 4096), tensor(1, 64, 4096)], tensor(1, 2048)), 215)
+    card_vs_cpu("hunyuanimage.base 28 heads of 128, 1 + 1 blocks, distilled, the refiner and byT5",
+                lambda dt: hunyuanimage.HunyuanImageTransformer2DModel(hunyuanimage.HunyuanImageConfig.from_dict(
+                    dict(HYI_TRANSFORMER, guidance_embeds=True, use_meanflow=True, **one)), dtype=dt),
+                lambda m, x, t, txt, k, y, yk, g, r: m(x, t, txt, k, y, yk, guidance=g, t_r=r),
+                (tensor(1, 64, 16, 16), torch.tensor([870.0]), tensor(1, 64, 3584), mask, tensor(1, 16, 1472),
+                 (torch.arange(16) < 6)[None].to(torch.int32), torch.tensor([3250.0]), torch.tensor([500.0])),
+                BF16_REL_L2, 216, phase="image_rest")
+    vae = materialize_random_vae(lambda: hunyuanimage_vae.AutoencoderKLHunyuanImage(
+        hunyuanimage_vae.HunyuanImageVAEConfig.from_dict(HYI_VAE)), seed=217)
+    g = torch.Generator("cuda").manual_seed(218)
+    z = torch.randn(1, vae.cfg.latent_channels, 8, 8, generator=g, device="cuda")
+    row = {"phase": "image_rest", "check": "vae_decode_vs_float64", "vae": "hunyuanimage.vae 32x",
+           **vae_decode_vs_float64(vae, z), "tol": 2e-2}
+    emit(row)
+    check(row["pixels"] == [1, 3, 256, 256], f"the 32x VAE decoded {row['pixels']}")
+    check(row["rel_l2_vs_float64"] <= 2e-2, f"the 32x VAE's decode is {row['rel_l2_vs_float64']} from float64")
+    del vae
+    release()
+
+
+def hidream_card_vs_cpu(inputs, seed: int):
+    """The HiDream DiT at full width with 1 + 1 blocks (the MoE at its 4
+    experts, top 2), card (bf16) against CPU (f32). The router reads bf16
+    activations on the card and f32 ones on the CPU, and is discrete: a token
+    whose second and third scores lie within bf16's rounding of each other
+    picks another expert. So the CPU reference takes each token's routing
+    weights from the card; the tokens whose f32 choice differs are counted
+    (at most 1%), and the distance with the CPU's own f32 weights at the
+    card's experts is reported beside. Held within HIDREAM_BF16_REL_L2: the
+    same module in bf16 on the CPU (the plain route, the card's routing) is
+    read against f32 beside it, the distance bf16 itself puts there."""
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import hidream
+
+    def build(dt):
+        return hidream.HiDreamImageTransformer2DModel(hidream.HiDreamConfig.from_dict(
+            dict(HIDREAM_TRANSFORMER, llama_layers=[0, 1], num_layers=1, num_single_layers=1)), dtype=dt)
+
+    cpu, card = bf16_card_and_f32_cpu(build, seed)
+    picked, calls, mode = [], [], {}
+
+    def moes(model):
+        return [m for m in model.modules() if isinstance(m, hidream._MoESwiGLU)]
+
+    for moe in moes(card):
+        def card_routing(x, moe=moe):
+            w = type(moe).routing(moe, x)
+            picked.append(w.float().cpu())
+            return w
+
+        moe.routing = card_routing
+    for moe in moes(cpu):
+        def cpu_routing(x, moe=moe):
+            own, card_w = type(moe).routing(moe, x), picked[len(calls) % len(picked)]
+            calls.append(int(((own > 0) != (card_w > 0)).any(-1).sum()))
+            if mode["weights"] == "card":
+                return card_w
+            return torch.softmax(x.float() @ moe.gate_weight.float().t(), dim=-1) * (card_w > 0)
+
+        moe.routing = cpu_routing
+    with torch.inference_mode():
+        out = card(*(x.cuda() if isinstance(x, torch.Tensor) else [y.cuda() for y in x] for x in inputs)).float().cpu()
+    del card
+    release()
+
+    def compare():
+        cpu16 = materialize_random(lambda: build(torch.bfloat16), torch.device("cpu"), seed=0)
+        cpu16.load_state_dict(cpu.state_dict())
+        for n, moe in enumerate(moes(cpu16)):
+            moe.routing = lambda x, n=n: picked[n].to(x.device)
+        with torch.inference_mode():
+            refs = {}
+            for weights in ("card", "cpu_scores"):
+                mode["weights"] = weights
+                t0 = time.perf_counter()
+                refs[weights] = cpu(*inputs)
+                cpu_s = time.perf_counter() - t0
+            bf16_on_cpu = cpu16(*inputs).float()
+        tokens = sum(int(w.shape[-2]) for w in picked)
+        rerouted = sum(calls[:len(picked)])
+        ref = refs["card"]
+        row = {"phase": "image_rest", "check": "card_bf16_vs_cpu_f32",
+               "model": "hidream.base 20 heads of 128, 1 + 1 blocks, the MoE (4 experts, top 2), the card's routing",
+               "parameters": sum(p.numel() for p in cpu.parameters()), "tokens_routed": tokens,
+               "tokens_rerouted_in_f32": rerouted, "rel_l2": rel_l2(out, ref),
+               "rel_l2_cpu_scores_at_the_card_experts": rel_l2(out, refs["cpu_scores"]),
+               "rel_l2_cpu_bf16_vs_cpu_f32": rel_l2(bf16_on_cpu, ref),
+               "max_abs_err": (out - ref).abs().max().item(), "max_abs_ref": ref.abs().max().item(),
+               "finite": bool(torch.isfinite(out).all()), "tol_rel_l2": HIDREAM_BF16_REL_L2, "cpu_seconds": cpu_s}
+        emit(row)
+        check(row["finite"] and row["rel_l2"] <= HIDREAM_BF16_REL_L2 and rerouted <= tokens // 100,
+              f"HiDream on the card is {row['rel_l2']} from the CPU (limit {HIDREAM_BF16_REL_L2}), "
+              f"{rerouted} of {tokens} tokens routed otherwise in f32")
+
+    in_background(compare)
+
+
+def materialize_random_vae(build, seed: int):
+    """A VAE in f32 on the card with seeded random weights, its group norms
+    at scale 1 and shift 0 (a random scale shrinks every activation)."""
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.vaes.autoencoder_kl import GroupNorm
+
+    vae = materialize_random(build, torch.device("cuda"), seed=seed)
+    with torch.no_grad():
+        for m in vae.modules():
+            if isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+    return vae
+
+
+def image_rest_engine(name: str, home: Path, model_type: str = None):
+    """``name``'s engine from its repository manifest in the phase's one home
+    (its configs written there, the shared prompts' encodes read back from
+    the disk cache), synthetic bf16 weights (the manifests' precisions; the
+    memory fallback's gate read at the DiT's load), the byte-level tokenizer,
+    its VAE loaded and its decode observed: the latents each decode gets
+    (``engine.decoded``)."""
+    import yaml
+
+    manifest = IMAGE_REST_MANIFESTS[name]
+    write_named_configs(home / "image_rest", manifest, IMAGE_REST_CONFIGS[name])
+    model_type = model_type or yaml.safe_load(manifest.read_text())["spec"]["model_type"]
+    engine = image_engine("image_rest", manifest, model_type[0] if isinstance(model_type, list) else model_type,
+                          home, "bf16")
+    engine.load_component_by_type("vae")
+    decode, engine.decoded = engine.vae.decode, []
+
+    def observed_decode(z):
+        engine.decoded.append(z.detach().float().clone())
+        return decode(z)
+
+    engine.vae.decode = observed_decode
+    return engine
+
+
+_IMAGE_STEP = re.compile(r"(?:Denoising )?step (\d+)/(\d+)")
+
+
+def image_rest_drive(label, engine, requests, launches_per_step, size):
+    """Requests (run keyword dicts) through ``engine`` at ``size``², each with
+    the kernel's launch count set to 0 before and read after: every progress
+    message stamped (synchronised) with the peak GiB of the stage it ends,
+    seconds per step, the latents handed to the decode checked finite, the
+    frame checked. Returns (rows, frames, decoded latents)."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    rows, frames_out, latents = [], [], []
+    for i, kw in enumerate(requests):
+        stamps, peaks = [], {}
+
+        def progress(p, message, *_a, **_k):
+            torch.cuda.synchronize()
+            stamps.append((message, time.perf_counter()))
+            stage = "denoise" if _IMAGE_STEP.fullmatch(message) else message
+            peaks[stage] = max(peaks.get(stage, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+
+        engine.decoded.clear()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        frames = engine.run(height=size, width=size, num_inference_steps=IMAGE_REST_STEPS,
+                            progress_callback=progress, **kw)
+        torch.cuda.synchronize()
+        total, launches = time.perf_counter() - t0, flash_attention.launches
+        step_t = [t for m, t in stamps if _IMAGE_STEP.fullmatch(m)]
+        before = max(t for m, t in stamps if t < step_t[0] and not _IMAGE_STEP.fullmatch(m))
+        per_step = [b - a for a, b in zip([before] + step_t[:-1], step_t)]
+        finite = [bool(torch.isfinite(z).all()) for z in engine.decoded]
+        row = {
+            "phase": label, "model_type": engine.model_type, "request": i + 1,
+            "inputs": {k: (v if isinstance(v, (int, float, str)) else list(np.shape(v))) for k, v in kw.items()},
+            "steps": IMAGE_REST_STEPS, "seconds_total": total, "seconds_per_step": per_step,
+            "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
+            "stages": {m: t - t0 for m, t in dict(reversed(stamps)).items() if not _IMAGE_STEP.fullmatch(m)},
+            "peak_gib_by_stage": peaks, "peak_gib": max(peaks.values()),
+            "flash_launches": launches, "flash_launches_per_step": launches / IMAGE_REST_STEPS,
+            "flash_launches_expected": launches_per_step * IMAGE_REST_STEPS,
+            "frames": [list(f.shape) for f in frames], "latents": [list(z.shape) for z in engine.decoded],
+            "latents_finite": finite,
+        }
+        emit(row)
+        check(len(frames) == 1 and frames[0].shape == (size, size, 3) and frames[0].dtype == np.uint8,
+              f"{label} request {i + 1}: bad frames {row['frames']}")
+        check(finite == [True], f"{label} request {i + 1}: latents {finite}")
+        check(launches == launches_per_step * IMAGE_REST_STEPS,
+              f"{label} request {i + 1}: flash launched {launches} times, expected "
+              f"{launches_per_step * IMAGE_REST_STEPS}")
+        rows.append(row)
+        frames_out.append(frames[0])
+        latents.append(engine.decoded[0])
+    return rows, frames_out, latents
+
+
+def image_rest_family(name: str, home: Path, kw: dict, launches_per_step: int, model_type: str = None,
+                      extra=()):
+    """``kw`` with seeds 0, 0 and 1 through ``name``'s engine (latents and
+    frames of the first two bit-identical, the third's frame different),
+    then each ``extra`` request. Returns (rows, engine facts)."""
+    import numpy as np
+    import torch
+
+    engine = image_rest_engine(name, home, model_type)
+    size = IMAGE_REST_SIZE.get(name, SIZE)
+    rows, frames, latents = image_rest_drive(name, engine, [dict(kw, seed=s) for s in (0, 0, 1)],
+                                             launches_per_step, size)
+    same = bool(torch.equal(latents[0], latents[1]) and np.array_equal(frames[0], frames[1]))
+    differ = not np.array_equal(frames[0], frames[2])
+    if extra:
+        rows += image_rest_drive(name, engine, list(extra), launches_per_step, size)[0]
+    tf = engine.transformer
+    facts = {"phase": "image_rest", "family": name, "requests_1_2_identical": same, "requests_1_3_differ": differ,
+             "dit_parameters": sum(p.numel() for p in tf.parameters()), "dit_dtype": str(tf.dtype),
+             "dit_bits": dit_bits(tf), "dit_dim": tf.cfg.dim, "heads": tf.cfg.num_attention_heads,
+             "memory_fallback_gate": engine.gate, "latents": list(latents[0].shape),
+             "peak_gib": max(r["peak_gib"] for r in rows)}
+    emit(facts)
+    check(same, f"{name}: requests 1 and 2 (same inputs and seed) differ")
+    check(differ, f"{name}: requests 1 and 3 (other seed) are identical")
+    del engine, tf, frames, latents
+    release()
+    return rows, facts
+
+
+def phase_image_rest(home: Path):
+    """The other image families: the kernel at their shapes, the 1 + 1-block
+    DiTs against f32 and the 32x VAE against float64, then each manifest at
+    its default size (1024², HunyuanImage 2048²), full width and depth,
+    synthetic bf16 weights, 2 steps a request: Chroma with CFG, Ovis, FIBO
+    on a JSON prompt, HiDream t2i and edit (a seeded image), HunyuanImage 2.1
+    with CFG and APG, each thrice (seeds 0, 0, 1), and the distilled
+    manifest once (guidance embedded, meanflow)."""
+    import numpy as np
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    kernel_rows, err = path_kernel_rows("image_rest", image_rest_kernel_inputs())
+    lap("kernel_rows")
+    image_rest_reference()
+    lap("card_vs_cpu_and_vae_on_the_card")
+    neg = "blurry, low quality, watermark"
+    paths, facts = {}, {}
+    for name, kw in (("chroma", dict(prompt=IMAGE_REST_PROMPT, negative_prompt=neg, guidance_scale=3.0)),
+                     ("ovis", dict(prompt=IMAGE_REST_PROMPT, negative_prompt=neg, guidance_scale=5.0)),
+                     ("fibo", dict(prompt=FIBO_PROMPT, guidance_scale=5.0))):
+        paths[f"{name}_1024"], facts[name] = image_rest_family(name, home, kw, 2 * IMAGE_REST_LAUNCHES[name])
+        lap(name)
+    edit = dict(prompt="make the sky purple", negative_prompt=neg, image=cv2_smooth(np.random.default_rng(219),
+                                                                                    (SIZE, SIZE)),
+                guidance_scale=5.0, image_strength=0.75, seed=2)
+    paths["hidream_1024"], facts["hidream"] = image_rest_family(
+        "hidream", home, dict(prompt=IMAGE_REST_PROMPT, negative_prompt=neg, guidance_scale=5.0),
+        2 * IMAGE_REST_LAUNCHES["hidream"], "t2i", extra=[edit])
+    lap("hidream")
+    paths["hunyuanimage_2048"], facts["hunyuanimage"] = image_rest_family(
+        "hunyuanimage", home, dict(prompt=IMAGE_REST_PROMPT, negative_prompt=neg, guidance_scale=3.5),
+        2 * IMAGE_REST_LAUNCHES["hunyuanimage"])
+    lap("hunyuanimage")
+    engine = image_rest_engine("hunyuanimage_distilled", home)
+    paths["hunyuanimage_distilled_2048"], _, _ = image_rest_drive(
+        "hunyuanimage_distilled", engine, [dict(prompt=IMAGE_REST_PROMPT, guidance_scale=1.0,
+                                                distilled_guidance_scale=3.25, seed=0)],
+        IMAGE_REST_LAUNCHES["hunyuanimage_distilled"], 2048)
+    cfg = engine.transformer.cfg
+    check(cfg.guidance_embeds and cfg.use_meanflow and engine.vae.cfg.spatial_scale == 32,
+          "the distilled DiT's guidance / meanflow or the 32x VAE")
+    del engine
+    release()
+    lap("hunyuanimage_distilled")
+    emit({"phase": "image_rest", "seconds_by_step": seconds})
+    widths = {"chroma": (3072, 24), "ovis": (3072, 24), "fibo": (3072, 24), "hidream": (2560, 20),
+              "hunyuanimage": (3584, 28)}
+    bad = [n for n, f in facts.items() if (f["dit_dim"], f["heads"]) != widths[n]]
+    check(not bad, f"DiT widths other than published: {bad}")
+    return paths, kernel_rows, err
 
 
 # -- SAM2 point masks and tracking; the preprocessors ------------------------------------
@@ -6936,6 +7426,7 @@ def main() -> int:
     def timed(name, fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
+        finish_background_checks()  # the phase's CPU references, before its time is read
         torch.cuda.synchronize()
         wall[name] = time.perf_counter() - t0
         return out
@@ -7018,7 +7509,8 @@ def main() -> int:
         path_rows, path_err = {}, {}
         for name, phase in (("hyv", phase_hyv), ("humo", phase_humo), ("s2v", phase_s2v),
                             ("multitalk", phase_multitalk), ("avatar", phase_avatar), ("skyreels", phase_skyreels),
-                            ("wan_5b", phase_wan_5b), ("wan_more", phase_wan_more)):
+                            ("wan_5b", phase_wan_5b), ("wan_more", phase_wan_more),
+                            ("image_rest", phase_image_rest)):
             if name in phases:
                 new_paths, path_rows[name], path_err[name] = timed(name, phase, home)
                 paths.update(new_paths)
@@ -7077,6 +7569,8 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
+        if _BACKGROUND["pool"] is not None:
+            _BACKGROUND["pool"].shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(home, ignore_errors=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

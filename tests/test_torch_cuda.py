@@ -793,3 +793,89 @@ def test_wan_rest_dits_launch_the_kernel_per_attention(cuda):
                    shot_ids=torch.tensor([[0] * 128 + [1] * 64], device=cuda))
         assert flash_attention.launches == before + 3
         assert out.shape == (1, 16, 3, 16, 16) and torch.isfinite(out.float()).all()
+
+
+# The other image families' joint lengths at their default sizes: (name, s, h, masked key spans, key bias):
+# Chroma's [txt | img] with 90 of 512 text keys kept (its key-padding route), Ovis' 4352, FIBO's 6144 with its
+# single blocks' mask and its dual blocks' 0/1 additive key bias, HiDream's 4480 at 20 heads, HunyuanImage's
+# [img | byT5 | mllm] at 28 heads and its refiner's 1000 rows
+IMAGE_FAMILY_SHAPES = [
+    ("chroma_joint_s4608_h24_text_padding", 4608, 24, [(90, 512)], "mask"),
+    ("ovis_joint_s4352_h24", 4352, 24, [], "mask"),
+    ("fibo_single_s6144_h24_text_padding", 6144, 24, [(120, 2048)], "mask"),
+    ("fibo_dual_s6144_h24_zero_one_bias", 6144, 24, [(120, 2048)], "zero_one"),
+    ("hidream_joint_s4480_h20", 4480, 20, [], "mask"),
+    ("hunyuanimage_joint_s5224_h28_text_bias", 5224, 28, [(4102, 4224), (4284, 5224)], "mask"),
+    ("hunyuanimage_refiner_s1000_h28_bias", 1000, 28, [(60, 1000)], "mask"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", IMAGE_FAMILY_SHAPES, ids=[c[0] for c in IMAGE_FAMILY_SHAPES])
+def test_flash_kernel_image_family_shapes(shape, cuda):
+    """The kernel at the new DiTs' shapes against its plain version: a
+    [1, S] key bias that masks spans inside the sequence (-1e30), or FIBO's
+    dual blocks' 0/1 bias (a kept key's logit raised by 1, as the JAX module
+    passes its boolean mask)."""
+    _, s, h, spans, kind = shape
+    g = torch.Generator(cuda).manual_seed(7)
+    q, k, v = (torch.randn(1, s, h, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    keep = torch.ones(1, s, dtype=torch.bool, device=cuda)
+    for start, stop in spans:
+        keep[:, start:stop] = False
+    bias = _prep_bias(None, keep) if kind == "mask" else keep.float()
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias=bias if spans else None)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert_agrees(out, flash_attention_reference(q, k, v, bias=bias if spans else None))
+
+
+@pytest.mark.cuda
+def test_image_family_dits_launch_the_kernel_per_attention(cuda):
+    """Small Chroma, Ovis, FIBO, HiDream and HunyuanImage DiTs (head dim 128)
+    in bf16 on the card: one launch a block (HunyuanImage's refiner blocks
+    one each too), Chroma's and FIBO's text padding and HunyuanImage's
+    text bias on the kernel; outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import chroma, fibo, hidream, hunyuanimage, ovis
+
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    small = dict(num_layers=2, num_single_layers=3, num_attention_heads=2, attention_head_dim=128)
+    mask = (torch.arange(16) < 10)[None].to(cuda)
+    models = {
+        "chroma": materialize_random(lambda: chroma.ChromaTransformer2DModel(chroma.ChromaConfig(
+            **small, joint_attention_dim=64, approximator_hidden_dim=64, approximator_layers=1)), cuda, seed=0),
+        "ovis": materialize_random(lambda: ovis.OvisImageTransformer2DModel(ovis.OvisConfig(
+            **small, joint_attention_dim=64)), cuda, seed=1),
+        "fibo": materialize_random(lambda: fibo.BriaFiboTransformer2DModel(fibo.FiboConfig(
+            **small, joint_attention_dim=64, text_encoder_dim=32)), cuda, seed=2),
+        "hidream": materialize_random(lambda: hidream.HiDreamImageTransformer2DModel(hidream.HiDreamConfig(
+            **small, in_channels=4, out_channels=4, text_emb_dim=32, caption_dim=64,
+            llama_layers=tuple(range(5)))), cuda, seed=3),
+        "hunyuanimage": materialize_random(lambda: hunyuanimage.HunyuanImageTransformer2DModel(
+            hunyuanimage.HunyuanImageConfig(**small, in_channels=4, out_channels=4, text_embed_dim=64,
+                                            text_embed_2_dim=32)), cuda, seed=4),
+    }
+    t01, t1000 = torch.tensor([0.6], device=cuda), torch.tensor([600.0], device=cuda)
+    calls = {
+        "chroma": (lambda m: m(rand(1, 64, 64), rand(1, 16, 64), t01, attention_mask=mask, grid_hw=(8, 8)), 5),
+        "ovis": (lambda m: m(rand(1, 64, 64), rand(1, 16, 64), t01, grid_hw=(8, 8)), 5),
+        "fibo": (lambda m: m(rand(1, 64, 64), rand(1, 16, 64), [rand(1, 16, 32) for _ in range(5)], t1000,
+                             text_mask=mask, grid_hw=(8, 8)), 5),
+        "hidream": (lambda m: m(rand(1, 4, 16, 16), t1000, rand(1, 16, 64), [rand(1, 8, 64) for _ in range(5)],
+                                rand(1, 32)), 5),
+        "hunyuanimage": (lambda m: m(rand(1, 4, 8, 8), t1000, rand(1, 16, 64), mask, rand(1, 8, 32),
+                                     torch.ones(1, 8, device=cuda)), 5 + 2),
+    }
+    with torch.inference_mode():
+        for name, (call, launches) in calls.items():
+            before = flash_attention.launches
+            out = call(models[name])
+            assert flash_attention.launches == before + launches, name
+            assert torch.isfinite(out.float()).all(), name
