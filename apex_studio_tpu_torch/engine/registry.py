@@ -6,7 +6,9 @@
 ``("wan", "t2v" | "t2i" | "i2v" | "fflf" | "inp" | "v2v" | "svi" | "vace" |
 "fun_vace" | "phantom" | "fun_control" | "fun" | "causal" | "humo" | "s2v" | "multitalk")``,
 ``("chroma", "t2i")``, ``("ovis", "t2i")``, ``("fibo", "ti2i" | "t2i")``,
-``("hidream", "t2i" | "edit")`` and ``("hunyuanimage", "t2i")``."""
+``("hidream", "t2i" | "edit")``, ``("hunyuanimage", "t2i")``, ``("longcat", "t2v" |
+"i2v" | "vc" | "continuation" | "long_video" | "interactive" | "refine")``,
+``("cosmos2", "i2v" | "v2v")`` and ``("kandinsky5", "t2v" | "i2v")``."""
 
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.e
                   "apex_studio_tpu_torch.engine.skyreels", "apex_studio_tpu_torch.engine.lucy",
                   "apex_studio_tpu_torch.engine.chroma", "apex_studio_tpu_torch.engine.ovis",
                   "apex_studio_tpu_torch.engine.fibo", "apex_studio_tpu_torch.engine.hidream",
-                  "apex_studio_tpu_torch.engine.hunyuanimage")
+                  "apex_studio_tpu_torch.engine.hunyuanimage", "apex_studio_tpu_torch.engine.longcat",
+                  "apex_studio_tpu_torch.engine.cosmos2", "apex_studio_tpu_torch.engine.kandinsky5")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

@@ -21,7 +21,8 @@ the last Wan DiTs' ``wan_animate``, ``wan_lynx`` and ``wan_scail``, Lynx's
 keys in ``wan``); the other image families' ``chroma``, ``ovis``, ``fibo``,
 ``hidream`` (the MoE gate as a raw matrix), ``hunyuanimage`` and
 ``hunyuanimage_vae``, their text encoders through ``t5``, ``clip``,
-``llama``, ``qwen2`` and ``qwen3``).
+``llama``, ``qwen2`` and ``qwen3``; the video DiTs on the ported VAEs and
+encoders: ``longcat``, ``cosmos`` and ``kandinsky5``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -1275,5 +1276,74 @@ converter_registry.add(
             (r"(caption_projection\.\d+)\.weight$", r"\1.kernel"),
         ],
         drop=(r"^pos_embed\.",),
+    ),
+)
+
+converter_registry.add(
+    # LongCat-Video DiT (reference src/transformer/longcat/base/model.py:171):
+    # the patch embedding is a Conv3d, flattened to the Linear by the loader
+    "longcat",
+    KeyConverter(
+        renames=[
+            (r"^x_embedder\.proj\.weight$", "x_embedder.kernel"),
+            (r"^x_embedder\.proj\.bias$", "x_embedder.bias"),
+            (r"^t_embedder\.mlp\.0\.", "t_linear_1."),
+            (r"^t_embedder\.mlp\.2\.", "t_linear_2."),
+            (r"^y_embedder\.y_proj\.0\.", "y_linear_1."),
+            (r"^y_embedder\.y_proj\.2\.", "y_linear_2."),
+            (r"^final_layer\.adaLN_modulation\.1\.", "final_adaLN_linear."),
+            (r"\.adaLN_modulation\.1\.", ".adaLN_linear."),
+            (r"\.cross_attn\.q_linear\.", ".q_linear."),
+            (r"\.cross_attn\.kv_linear\.", ".kv_linear."),
+            (r"\.cross_attn\.proj\.", ".cross_proj."),
+            (r"\.cross_attn\.q_norm\.", ".cross_q_norm."),
+            (r"\.cross_attn\.k_norm\.", ".cross_k_norm."),
+            (r"\.attn\.", "."),
+            (r"\.ffn\.w(\d)\.", r".ffn_w\1."),
+            (r"^final_layer\.linear\.", "final_linear."),
+            (r"(qkv|proj|cross_proj|q_linear|kv_linear|ffn_w\d|adaLN_linear|final_adaLN_linear|final_linear|"
+             r"t_linear_\d|y_linear_\d)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope",),
+    ),
+)
+
+converter_registry.add(
+    # Cosmos Predict2 (diffusers' CosmosTransformer3DModel, reference
+    # transformer/cosmos/base/model.py:489); the learnable position embedding
+    # and the RoPE buffers are dropped, as the JAX table drops them
+    "cosmos",
+    KeyConverter(
+        renames=[
+            (r"^time_embed\.t_embedder\.linear_(\d)\.", r"t_linear_\1."),
+            (r"^time_embed\.norm\.", "t_norm."),
+            (r"^patch_embed\.proj\.", "patch_embed."),
+            (r"\.attn(\d)\.to_out\.0\.", r".attn\1.to_out."),
+            (r"\.ff\.net\.0\.proj\.", ".ff_in."),
+            (r"\.ff\.net\.2\.", ".ff_out."),
+            (r"(to_q|to_k|to_v|to_out|ff_in|ff_out|patch_embed|proj_out|t_linear_\d|linear_1|linear_2)\.weight$",
+             r"\1.kernel"),
+        ],
+        drop=(r"^learnable_pos_embed", r"\.rope\."),
+    ),
+)
+
+converter_registry.add(
+    # Kandinsky 5.0 (reference transformer/kandinsky5/base/model.py:592)
+    "kandinsky5",
+    KeyConverter(
+        renames=[
+            (r"^time_embeddings\.in_layer\.", "time_in."),
+            (r"^time_embeddings\.out_layer\.", "time_out."),
+            (r"^text_embeddings\.in_layer\.", "text_in."),
+            (r"^text_embeddings\.norm\.", "text_norm."),
+            (r"^pooled_text_embeddings\.in_layer\.", "pooled_in."),
+            (r"^pooled_text_embeddings\.norm\.", "pooled_norm."),
+            (r"^visual_embeddings\.in_layer\.", "visual_in."),
+            (r"^out_layer\.modulation\.out_layer\.", "out_modulation.out_layer."),
+            (r"^out_layer\.out_layer\.", "out_layer."),
+            (r"(to_query|to_key|to_value|in_layer|out_layer|time_in|time_out|text_in|pooled_in|visual_in)"
+             r"\.weight$", r"\1.kernel"),
+        ],
     ),
 )

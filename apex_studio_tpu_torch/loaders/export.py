@@ -49,7 +49,10 @@ prefixed, the blocks unchunked); the other image families' ``chroma``,
 heads), ``hidream`` (diffusers' ``HiDreamImageTransformer2DModel``, the MoE
 gate as ``ff_i.gate.weight``), ``hunyuanimage`` (diffusers'
 ``HunyuanImageTransformer2DModel``) and ``hunyuanimage_vae``
-(``AutoencoderKLHunyuanImage``). PiDiNet has none: its converter folds the published pixel-difference weights into
+(``AutoencoderKLHunyuanImage``); ``longcat`` (LongCat-Video's reference
+names, ``x_embedder.proj`` as its Conv3d weight), ``cosmos`` (diffusers'
+``CosmosTransformer3DModel``) and ``kandinsky5`` (Kandinsky 5.0's reference
+names). PiDiNet has none: its converter folds the published pixel-difference weights into
 vanilla kernels, which is not invertible.
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
@@ -698,6 +701,47 @@ _HUNYUANIMAGE_VAE = (
 )
 
 
+# the video DiTs on the ported VAEs and encoders
+_LONGCAT = (
+    (r"^x_embedder\.", "x_embedder.proj."),
+    (r"^t_linear_1\.", "t_embedder.mlp.0."), (r"^t_linear_2\.", "t_embedder.mlp.2."),
+    (r"^y_linear_1\.", "y_embedder.y_proj.0."), (r"^y_linear_2\.", "y_embedder.y_proj.2."),
+    (r"^final_adaLN_linear\.", "final_layer.adaLN_modulation.1."),
+    (r"^final_linear\.", "final_layer.linear."),
+    (r"\.adaLN_linear\.", ".adaLN_modulation.1."),
+    (r"\.(q_linear|kv_linear)\.", r".cross_attn.\1."),
+    (r"\.cross_proj\.", ".cross_attn.proj."),
+    (r"\.cross_(q_norm|k_norm)\.", r".cross_attn.\1."),
+    (r"^(blocks\.\d+)\.(qkv|proj|q_norm|k_norm)\.", r"\1.attn.\2."),
+    (r"\.ffn_w(\d)\.", r".ffn.w\1."),
+)
+_COSMOS = (
+    (r"^t_linear_(\d)\.", r"time_embed.t_embedder.linear_\1."),
+    (r"^t_norm\.", "time_embed.norm."),
+    (r"^patch_embed\.", "patch_embed.proj."),
+    (r"\.attn(\d)\.to_out\.", r".attn\1.to_out.0."),
+    (r"\.ff_in\.", ".ff.net.0.proj."),
+    (r"\.ff_out\.", ".ff.net.2."),
+)
+_KANDINSKY5 = (
+    (r"^out_layer\.", "out_layer.out_layer."),
+    (r"^out_modulation\.", "out_layer.modulation."),
+    (r"^time_in\.", "time_embeddings.in_layer."),
+    (r"^time_out\.", "time_embeddings.out_layer."),
+    (r"^text_in\.", "text_embeddings.in_layer."),
+    (r"^text_norm\.", "text_embeddings.norm."),
+    (r"^pooled_in\.", "pooled_text_embeddings.in_layer."),
+    (r"^pooled_norm\.", "pooled_text_embeddings.norm."),
+    (r"^visual_in\.", "visual_embeddings.in_layer."),
+)
+
+
+def _longcat_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """``x_embedder.proj.weight`` as the published Conv3d weight
+    ``[O, C, 1, 2, 2]``."""
+    return value.reshape(value.shape[0], -1, 1, 2, 2) if key == "x_embedder.proj.weight" else value
+
+
 def _hed_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """``norm`` as the published ``[1, 3, 1, 1]``."""
     return value.reshape(1, 3, 1, 1) if key == "norm" else value
@@ -716,7 +760,7 @@ _LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
     "clip_vision": _clip_vision_layout,
     "wan_humo": _wan_humo_layout, "wan_multitalk": _wan_humo_layout, "wan_s2v": _wan_s2v_layout,
     "wan_animate": _wan_layout, "wan_lynx": _wan_layout, "wan_scail": _wan_layout,
-    "hed": _hed_layout, "normalbae": _normalbae_layout}
+    "hed": _hed_layout, "normalbae": _normalbae_layout, "longcat": _longcat_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
@@ -732,7 +776,7 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "efficientnet": _EFFICIENTNET, "normalbae": _NORMALBAE, "dsine": _DSINE, "leres": _LERES,
     "u2net": _U2NET, "isnet": _ISNET, "anime_face": _ANIME_FACE, "gmflow": _GMFLOW, "metric3d": _METRIC3D,
     "chroma": _CHROMA, "ovis": _OVIS, "fibo": _FIBO, "hidream": _HIDREAM, "hunyuanimage": _HUNYUANIMAGE,
-    "hunyuanimage_vae": _HUNYUANIMAGE_VAE}
+    "hunyuanimage_vae": _HUNYUANIMAGE_VAE, "longcat": _LONGCAT, "cosmos": _COSMOS, "kandinsky5": _KANDINSKY5}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

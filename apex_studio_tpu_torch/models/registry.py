@@ -20,7 +20,9 @@ and ``hunyuanvideo.avatar`` (the audio-driven DiTs); ``wan.recam``,
 ``wan.scail`` (the rest of the Wan family) and ``LynxResampler`` (Lynx's
 identity resampler, in the text-encoder registry as in JAX); ``chroma.base``,
 ``ovis.base``, ``fibo.base``, ``hidream.base`` and ``hunyuanimage.base`` (the
-other image DiTs) and ``hunyuanimage.vae`` (HunyuanImage 2.1's 32× VAE).
+other image DiTs), ``hunyuanimage.vae`` (HunyuanImage 2.1's 32× VAE) and
+``longcat.base``, ``cosmos.base`` and ``kandinsky5.base`` (the video DiTs that
+run on the ported VAEs and encoders).
 """
 
 import importlib
@@ -67,6 +69,9 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.transformers.hidream",
     "apex_studio_tpu_torch.models.transformers.hunyuanimage",
     "apex_studio_tpu_torch.models.vaes.hunyuanimage_vae",
+    "apex_studio_tpu_torch.models.transformers.longcat",
+    "apex_studio_tpu_torch.models.transformers.cosmos",
+    "apex_studio_tpu_torch.models.transformers.kandinsky5",
 )
 
 

@@ -27,13 +27,13 @@ Phases, each printed as one JSON line:
   main       Flux Dev text-to-image at 1024x1024 through UniversalEngine with
              synthetic int8-resident weights (W8A8) and a rank-16 LoRA on the
              19 double blocks' q/k/v merged into them at load: three requests
-             of 4 steps each, the kernels' launch counts read around each
+             of 2 steps each, the kernels' launch counts read around each
   trace      (only when asked for) one more int8 request under torch.profiler:
              device time by kernel class, by W8A8 pass, and the idle share
-  bf16       one request of 4 steps with synthetic bf16 weights
+  bf16       one request of 2 steps with synthetic bf16 weights
   int4       one request of 2 steps with the DiT packed int4 (encoders int8)
   hyv15      HunyuanVideo 1.5 i2v at 720x1280 from its manifest, full width,
-             the requests' DiT at 18 of its 54 blocks (40 launches a CFG
+             the requests' DiT at 6 of its 54 blocks (16 launches a CFG
              step), synthetic int8 weights: the kernel at the path's shapes
              (113,457 and 34,257 tokens on query-row subsets, the refiner's 1000
              with a bias) timed beside its bound and the library call; two
@@ -61,7 +61,7 @@ Phases, each printed as one JSON line:
              CFG (120 a step), the ControlNet at scales 1 and 0 (65 a step)
              and one bf16 edit, each of 2 steps
   wan        Wan 2.2 A14B from its three manifests, full width, the requests'
-             experts at 10 of their 40 blocks, both 14B experts int4-resident
+             experts at 3 of their 40 blocks, both 14B experts int4-resident
              (UMT5-XXL int8): a 2-block DiT at
              full width on the card (bf16) against the CPU (f32); the fused
              UniPC step against the host step over 30 steps; the bench leg's
@@ -134,8 +134,8 @@ Phases, each printed as one JSON line:
              and a VAE decode against float64; t2v at 33 frames twice (one
              seed, frames bit-identical), at 81 frames (the decode in tiles),
              i2v token_replace at 33 frames (the I2V config written; the first
-             latent frame pinned); 1 step each, the requests' DiT 5 + 10 of
-             its 20 + 40 blocks (17 launches a forward); the W8A8 Linears at
+             latent frame pinned); 1 step each, the requests' DiT 1 + 3 of
+             its 20 + 40 blocks (6 launches a forward); the W8A8 Linears at
              the 81-frame shapes and the step split
   humo       HuMo 17B from its manifest at the WanHuMoConfig widths (the
              requests' DiT cut to 5 of its 40 blocks), the DiT int4 and
@@ -274,6 +274,22 @@ Phases, each printed as one JSON line:
              seeds 0, 0, 1 (1 and 2 bit-identical, 3 not), 2 steps, CFG (FIBO
              on a JSON prompt, HunyuanImage with APG), a HiDream edit from a
              seeded image, the distilled HunyuanImage once
+  video_rest the video families on the ported VAEs and encoders, from their
+             manifests at published widths, synthetic bf16 weights (the
+             configs the repository lacks written into each family's one
+             home): the kernel at their shapes (LongCat's self over 7800 tokens
+             at 32 heads, the i2v conditioning frame alone and its noise against
+             every key, the KV-cache launch, the masked UMT5 cross, refine's
+             720p self; Cosmos' 17,600 tokens at 16 heads and its T5 cross;
+             Kandinsky 5's 28 heads of 64: self, text blocks, cross); the DiTs
+             at full width (2 blocks; Kandinsky 1 + 1) against f32; LongCat's
+             seven types at 480x832 over 17 frames, the DiT at LONGCAT_LAYERS
+             of its 48 blocks, 2 steps, CFG-zero*: t2v (seeds 0, 0, 1), i2v,
+             vc with the KV cache, continuation, long_video with one segment,
+             interactive with two sentences, and refine at 720x1280; Cosmos
+             Predict2 2B i2v (seeds 0, 0, 1) and v2v at 704x1280 over 17
+             frames, full depth; Kandinsky 5 Lite t2v (seeds 0, 0, 1) and i2v
+             on the visual_cond twin at 512x768 over 17 frames, full depth
   preprocess_pose
              the last preprocessors: the transformers delegates at published
              widths written with save_pretrained (DPT-Large, ZoeDepth
@@ -297,7 +313,7 @@ rows with a [1, Sk] bias at its first and last block and with a window and a
 sink), and the Flux editing paths' (FLUX.2 at 48 heads over 4608 and 8704
 tokens, Kontext over 8704 and DreamOmni2 over 12,800 at 24); the timing phase
 times each beside its bound and the library call. The hyv, humo, s2v,
-multitalk, avatar, skyreels, wan_5b, wan_more, image_rest and sam2 phases hold and time the
+multitalk, avatar, skyreels, wan_5b, wan_more, image_rest, video_rest and sam2 phases hold and time the
 kernel at their own shapes (``path_kernel_rows``); the kernels phase also holds it at head dims
 16, 32, 56, 72 and 96 (ragged, with a bias, on fused-qkv views in bf16 and
 f32).
@@ -340,12 +356,12 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 MAX_ERR_OF_MAX_REF = 2e-2  # max|Δ| ≤ 2e-2·max|ref|, about 2.5 bf16 ulps of the largest output
 REL_L2_TOL = 1e-2          # ‖Δ‖₂ ≤ 1e-2·‖ref‖₂
 FLUX_SHAPE = dict(b=1, s=4096 + 512, h=24, d=128)
-STEPS = 4
+STEPS = 2
 SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "skyreels,wan_5b,wan_more,image_rest,rife,sam2,preprocess,preprocess_nets,preprocess_rest,"
+                  "skyreels,wan_5b,wan_more,image_rest,video_rest,rife,sam2,preprocess,preprocess_nets,preprocess_rest,"
                   "preprocess_pose")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
 # W8A8 against the same arithmetic elsewhere (f32 compute): x / sx on a rounding
@@ -370,9 +386,9 @@ HYV15_MLLM_TOKENS, HYV15_HEADS, HYV15_STEPS = 1000, 16, 1
 # (a cut of depth that keeps the whole script inside its time limit)
 HYV15_LONG_STEPS = 1
 HYV15_SIZE, HYV15_FRAMES, HYV15_SCALES = (720, 1280), (33, 33, 121), (4, 16)  # VAE time, space
-# the requests' DiT has 18 of its published 54 blocks (a cut of depth that keeps
+# the requests' DiT has 6 of its published 54 blocks (a cut of depth that keeps
 # the whole script inside its limit; the kernel rows at the 121-frame shape stay)
-HYV15_LAYERS = 18
+HYV15_LAYERS = 6
 HYV15_LAUNCHES_PER_STEP = 2 * (HYV15_LAYERS + 2)  # CFG: two forwards of the blocks' joint + 2 refiner attentions
 # rows, in, out and calls a CFG step of the DiT's resident Linears at 121 frames
 # (111,600 image rows, 1,857 context rows, adaLN on one row): 8, 2, 2 and 4 a block
@@ -436,10 +452,10 @@ WAN_HEADS, WAN_LAYERS, WAN_TEXT_TOKENS = 40, 40, 512
 # step an expert across the boundary at 0.875, where the manifests' shift 12
 # needs 3 (999, 959 | 856) (a cut of steps)
 WAN_CLIP_STEPS, WAN_CLIP_SHIFT = 2, 3.0
-# the wan phase's experts have 10 of the published 40 blocks (a cut of depth
+# the wan phase's experts have 3 of the published 40 blocks (a cut of depth
 # that keeps the whole script inside its limit; the 2-block full-width check
 # and the kernel rows at Wan's shapes stay)
-WAN_REQUEST_LAYERS = 10
+WAN_REQUEST_LAYERS = 3
 WAN_SMOKE_STEPS = 3
 WAN_TOKENS = {"frame": 1560, "t2i": 4096, "clip": 32760}
 # the bench leg's prompts (bench_e2e.py PROMPT, NEG)
@@ -569,10 +585,10 @@ HYV_I2V_TRANSFORMER = {"_class_name": "HunyuanVideoTransformer3DModel", "in_chan
                        "image_condition_type": "token_replace"}
 # (rows, in, out): W8A8 Linear calls a forward at 81 frames, the dual blocks'
 # 75,600-row image stream reckoned at the single blocks' 75,856 rows
-# the hyv requests' DiT has 5 + 10 of the published 20 + 40 blocks (a cut of
+# the hyv requests' DiT has 1 + 3 of the published 20 + 40 blocks (a cut of
 # depth that keeps the whole script inside its limit; the 1 + 1-block
 # full-width check stays)
-HYV_DUAL, HYV_SINGLE = 5, 10
+HYV_DUAL, HYV_SINGLE = 1, 3
 HYV_T2V_TRANSFORMER = dict(HYV_I2V_TRANSFORMER, num_layers=HYV_DUAL, num_single_layers=HYV_SINGLE,
                            image_condition_type=None)
 HYV_REQUEST_LAUNCHES = HYV_DUAL + HYV_SINGLE + 2
@@ -971,9 +987,10 @@ ROW_KEYS = ("case", "shape", "sk", "bias", "ms", "queued_ms", "plain_ms", "plain
 
 def timing_row(case, q, k, v, bias=None, plain_rows=None, path=None) -> dict:
     """The kernel at one shape timed (single and queued) beside its plain
-    version over its first ``plain_rows`` query rows (all by default, in
-    1024-row chunks; 0 for none), ``scaled_dot_product_attention`` (the bias
-    as its mask) and its bound; emitted and returned."""
+    version over its first ``plain_rows`` query rows (by default all, in
+    1024-row chunks, or the first 128 above 2³³ score elements; 0 for none),
+    ``scaled_dot_product_attention`` (the bias as its mask) and its bound;
+    emitted and returned."""
     import torch.nn.functional as F
 
     from apex_studio_tpu_torch.ops.attention.flash import flash_attention
@@ -981,8 +998,8 @@ def timing_row(case, q, k, v, bias=None, plain_rows=None, path=None) -> dict:
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     bias = None if bias is None else bias.reshape(bias.shape[0], -1)
-    plain_rows = sq if plain_rows is None else plain_rows
     huge, big = sq * sk * h > 1 << 33, sq * sk > 1 << 22
+    plain_rows = (128 if huge else sq) if plain_rows is None else plain_rows
     # a huge call takes 30-190 ms: 3 timed after 1 warm-up
     reps = 3 if huge else 10 if big else 25
     calls = 3 if huge else 20
@@ -4027,7 +4044,7 @@ def phase_hyv(home: Path):
     token_replace at 33 frames from a seeded image (the first latent frame
     pinned to the image latent), both decoded whole; t2v at 81 frames
     (75,856 tokens), decoded in tiles; 1 step each, the requests' DiT at
-    ``HYV_DUAL`` + ``HYV_SINGLE`` of its blocks (17 launches a forward); the
+    ``HYV_DUAL`` + ``HYV_SINGLE`` of its blocks (6 launches a forward); the
     resident Linears at the 81-frame shapes and the step split."""
     import numpy as np
     import torch
@@ -5499,6 +5516,407 @@ def phase_image_rest(home: Path):
               "hunyuanimage": (3584, 28)}
     bad = [n for n, f in facts.items() if (f["dit_dim"], f["heads"]) != widths[n]]
     check(not bad, f"DiT widths other than published: {bad}")
+    return paths, kernel_rows, err
+
+
+# -- the video families on the ported VAEs and encoders: LongCat, Cosmos, Kandinsky 5 --------
+
+LONGCAT_TYPES = ("t2v", "i2v", "vc", "continuation", "long_video", "interactive", "refine")
+LONGCAT_MANIFESTS = {t: REPO / "manifests" / "video" / f"longcat-video-{t.replace('_', '-')}.yml"
+                     for t in LONGCAT_TYPES}
+COSMOS_MANIFEST = REPO / "manifests" / "video" / "cosmos-predict2-2b-video2world.yml"
+KANDINSKY5_MANIFEST = REPO / "manifests" / "video" / "kandinsky5-t2v.yml"
+VIDEO_REST_STEPS, VIDEO_REST_FRAMES = 2, 17
+LONGCAT_LAYERS = 8  # of the published 48: a cut of depth
+# Published configs the repository lacks, written where the manifests name them: LongCat-Video's DiT
+# (the LongCatConfig defaults, at the requests' depth) over UMT5-XXL; Cosmos-Predict2-2B-Video2World's DiT
+# (16 heads of 128, 28 layers, 16 latent channels + the condition mask, no learnable position embedding)
+# and its T5 at T5-11B's widths (d_model 1024: the published encoder's FFN is ReLU, the JAX module's
+# gated GELU, ROADMAP Queue 3); Kandinsky 5.0 T2V Lite's DiT (1792 wide, 2 + 32 blocks, 28 heads of 64)
+# and its i2v twin with the visual_cond input, which no manifest names. Qwen2.5-VL-7B, CLIP-L and the
+# Wan 2.1 and HunyuanVideo VAEs are their families' defaults.
+LONGCAT_TRANSFORMER = {"_class_name": "LongCatVideoTransformer3DModel", "in_channels": 16, "out_channels": 16,
+                       "hidden_size": 4096, "depth": LONGCAT_LAYERS, "num_heads": 32, "caption_channels": 4096,
+                       "mlp_ratio": 4, "adaln_tembed_dim": 512, "frequency_embedding_size": 256,
+                       "patch_size": [1, 2, 2]}
+COSMOS_TRANSFORMER = {"_class_name": "CosmosTransformer3DModel", "in_channels": 17, "out_channels": 16,
+                      "num_attention_heads": 16, "attention_head_dim": 128, "num_layers": 28, "mlp_ratio": 4.0,
+                      "text_embed_dim": 1024, "adaln_lora_dim": 256, "max_size": [128, 240, 240],
+                      "patch_size": [1, 2, 2], "rope_scale": [1.0, 3.0, 3.0], "concat_padding_mask": True,
+                      "extra_pos_embed_type": None}
+COSMOS_T5 = {"model_type": "t5", "vocab_size": 32128, "d_model": 1024, "d_kv": 128, "d_ff": 65536, "num_layers": 24,
+             "num_heads": 128, "relative_attention_num_buckets": 32, "feed_forward_proj": "relu"}
+KANDINSKY5_TRANSFORMER = {"in_visual_dim": 16, "out_visual_dim": 16, "in_text_dim": 3584, "in_text_dim2": 768,
+                          "time_dim": 512, "patch_size": [1, 2, 2], "model_dim": 1792, "ff_dim": 7168,
+                          "num_text_blocks": 2, "num_visual_blocks": 32, "axes_dims": [16, 24, 24],
+                          "visual_cond": False}
+KANDINSKY5_I2V_CONFIG = "ai-forever/Kandinsky-5.0-I2V-Lite-5s/transformer/config.json"
+# tokens at the requests' sizes: 480x832 (LongCat: 30 x 52 a latent frame), 720x1280 (refine: 45 x 80),
+# 704x1280 (Cosmos: 44 x 80), 512x768 (Kandinsky: 32 x 48), 17 frames = 5 latent frames; LongCat's
+# continuations keep 13 frames (4 latent frames) as context
+VIDEO_REST_TOKENS = {"longcat": 5 * 1560, "longcat_frame": 1560, "longcat_ctx": 4 * 1560,
+                     "longcat_refine": 4 * 3600, "cosmos": 5 * 3520, "kandinsky5": 5 * 1536}
+LONGCAT_TEXT_KEPT, KANDINSKY5_TEXT = 120, 256
+# flash launches a forward: LongCat one self and one cross a block (i2v two self: the conditioning frame
+# alone, then the noise against every key; the cache's pass self only); Cosmos self and T5 cross a block;
+# Kandinsky one a text block, self and cross a visual block
+VIDEO_REST_LAUNCHES = {"longcat": 2 * LONGCAT_LAYERS, "longcat_i2v": 3 * LONGCAT_LAYERS,
+                       "longcat_cache": LONGCAT_LAYERS, "cosmos": 2 * 28, "kandinsky5": 2 + 2 * 32}
+VIDEO_REST_NEG = "blurry, low quality, watermark"
+
+
+def video_rest_kernel_inputs():
+    """(case, q, k, v, bias) at the launches of the three families: LongCat
+    at 32 heads (self over 7800 tokens, the i2v conditioning frame alone and
+    its noise against every key, the KV-cache launch of the new frames
+    against context + new keys, the UMT5 cross-attention with its mask,
+    refine's 720p self-attention), Cosmos at 16 heads (self over 17,600 and
+    the T5 cross, unmasked), Kandinsky 5 at 28 heads of 64 (self over 7680,
+    its text blocks and the cross-attention over the Qwen sequence)."""
+    import torch
+
+    t = VIDEO_REST_TOKENS
+    n, f, ctx, ref = t["longcat"], t["longcat_frame"], t["longcat_ctx"], t["longcat_refine"]
+    mask = torch.zeros(1, WAN_TEXT_TOKENS, device="cuda")
+    mask[:, LONGCAT_TEXT_KEPT:] = -1e30
+    yield ("longcat_self_s%d_h32" % n, *qkv(1, n, n, 32, 128, 230), None)
+    yield ("longcat_cond_s%d_h32" % f, *qkv(1, f, f, 32, 128, 231), None)
+    yield ("longcat_noise_vs_all_sq%d_sk%d_h32" % (n - f, n), *qkv(1, n - f, n, 32, 128, 232), None)
+    yield ("longcat_kv_cache_sq%d_sk%d_h32" % (n, ctx + n), *qkv(1, n, ctx + n, 32, 128, 233), None)
+    yield ("longcat_cross_sq%d_sk%d_h32_bias" % (n, WAN_TEXT_TOKENS), *qkv(1, n, WAN_TEXT_TOKENS, 32, 128, 234), mask)
+    yield ("longcat_refine_self_s%d_h32" % ref, *qkv(1, ref, ref, 32, 128, 235), None)
+    c = t["cosmos"]
+    yield ("cosmos_self_s%d_h16" % c, *qkv(1, c, c, 16, 128, 236), None)
+    yield ("cosmos_t5_cross_sq%d_sk%d_h16" % (c, WAN_TEXT_TOKENS), *qkv(1, c, WAN_TEXT_TOKENS, 16, 128, 237), None)
+    k5 = t["kandinsky5"]
+    yield ("kandinsky5_self_s%d_h28_d64" % k5, *qkv(1, k5, k5, 28, 64, 238), None)
+    yield ("kandinsky5_text_s%d_h28_d64" % KANDINSKY5_TEXT, *qkv(1, KANDINSKY5_TEXT, KANDINSKY5_TEXT, 28, 64, 239),
+           None)
+    yield ("kandinsky5_cross_sq%d_sk%d_h28_d64" % (k5, KANDINSKY5_TEXT), *qkv(1, k5, KANDINSKY5_TEXT, 28, 64, 240),
+           None)
+
+
+def video_rest_reference():
+    """Each DiT at full width, on the card in bf16 (the kernel) against the
+    same weights on the CPU in f32 (the plain version), within BF16_REL_L2,
+    over 3 latent frames of 16 x 32 (128 tokens a frame) and 64 text rows:
+    LongCat with 2 blocks, the first frame a conditioning frame at t = 0
+    (the isolated launch and the noise-vs-all one) and 40 real text rows;
+    Cosmos with 2 blocks, per-frame times and the condition mask; Kandinsky
+    5 with 1 + 1 blocks and the visual_cond input."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers import cosmos, kandinsky5, longcat
+
+    rng = np.random.default_rng(241)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    mask = (torch.arange(64) < 40)[None].to(torch.int32)
+    card_vs_cpu("longcat.base 32 heads of 128, 2 blocks, a conditioning frame, text padding",
+                lambda dt: longcat.LongCatVideoTransformer3DModel(longcat.LongCatConfig.from_dict(
+                    dict(LONGCAT_TRANSFORMER, depth=2)), dtype=dt),
+                lambda m, x, t, c, k: m(x, t, c, k, num_cond_latents=1),
+                (tensor(1, 16, 3, 16, 32), torch.tensor([[0.0, 700.0, 700.0]]), tensor(1, 64, 4096), mask),
+                BF16_REL_L2, 242, phase="video_rest")
+    cond = torch.zeros(1, 1, 3, 16, 32)
+    cond[:, :, :1] = 1.0
+    card_vs_cpu("cosmos.base 16 heads of 128, 2 blocks, per-frame times, the condition mask",
+                lambda dt: cosmos.CosmosTransformer3DModel(cosmos.CosmosConfig.from_dict(
+                    dict(COSMOS_TRANSFORMER, num_layers=2)), dtype=dt),
+                lambda m, x, t, c, k: m(x, t, c, condition_mask=k),
+                (tensor(1, 16, 3, 16, 32), torch.tensor([[1e-4 / 1.0001, 0.5, 0.5]]), tensor(1, 64, 1024), cond),
+                BF16_REL_L2, 243, phase="video_rest")
+    card_vs_cpu("kandinsky5.base 28 heads of 64, 1 + 1 blocks, visual_cond",
+                lambda dt: kandinsky5.Kandinsky5Transformer3DModel(kandinsky5.Kandinsky5Config.from_dict(
+                    dict(KANDINSKY5_TRANSFORMER, num_text_blocks=1, num_visual_blocks=1, visual_cond=True)),
+                    dtype=dt),
+                lambda m, x, t, c, p: m(x, t, c, p),
+                (tensor(1, 33, 3, 16, 32), torch.tensor([730.0]), tensor(1, 64, 3584), tensor(1, 768)),
+                BF16_REL_L2, 244, phase="video_rest")
+
+
+_VIDEO_STEP = re.compile(r"step (\d+)/(\d+)")
+
+
+def video_rest_engine(manifest: Path, model_type: str, home: Path, configs: dict, label: str, share=None):
+    """``model_type``'s engine from ``manifest`` in its family's one home
+    (``label``: the configs written there, the shared prompts' encodes read
+    back from the disk cache), synthetic bf16 weights (the manifests'
+    precisions), the byte-level tokenizer; with ``share``, that engine's
+    components (the same files in every manifest of the family) instead of
+    building them again. Each decode's latents are kept (``engine.decoded``)."""
+    write_named_configs(home / label, manifest, configs)
+    engine = image_engine(label, manifest, model_type, home, "bf16")
+    if share is not None:
+        for name in ("text_encoder", "text_encoder_2", "transformer", "vae", "scheduler"):
+            if getattr(share, name, None) is not None:
+                setattr(engine, name, getattr(share, name))
+        engine.gate = share.gate
+    engine.decoded = []
+    for attr in ("decode_video", "decode_latents"):
+        decode = getattr(engine, attr, None)
+        if decode is not None:
+            def observed(z, decode=decode):
+                engine.decoded.append(z.detach().float().clone())
+                return decode(z)
+
+            setattr(engine, attr, observed)
+    return engine
+
+
+def video_rest_drive(label, engine, kw, launches, frames_expected=None, size=None, latents_expected=()):
+    """One request through ``engine``, the kernel's launch count set to 0
+    before and read after (``launches`` expected), every progress message
+    stamped (synchronised), seconds per step (each from the message before
+    it), peak GiB; the frames' count and size (or, with ``return_latents``,
+    the latents' shape) and every decoded latent checked finite. Returns
+    (row, output)."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    os.environ["APEX_HOME_DIR"] = str(Path(engine.components_root).parent)
+    stamps = []
+
+    def progress(p, message, *_a, **_k):
+        torch.cuda.synchronize()
+        stamps.append((message, time.perf_counter()))
+
+    engine.decoded.clear()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = engine.run(progress_callback=progress, **kw)
+    torch.cuda.synchronize()
+    total, n_launch = time.perf_counter() - t0, flash_attention.launches
+    times = [t0] + [t for _, t in stamps]
+    per_step = [times[i + 1] - times[i] for i, (m, _) in enumerate(stamps) if _VIDEO_STEP.fullmatch(m)]
+    latents = [out] if isinstance(out, torch.Tensor) else engine.decoded
+    row = {"phase": "video_rest", "path": label, "model_type": engine.model_type,
+           "request": {k: (v if isinstance(v, (int, float, str)) else list(np.shape(v))) for k, v in kw.items()},
+           "seconds_total": total, "seconds_per_step": per_step,
+           "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
+           "stages": {m: t - t0 for m, t in dict(reversed(stamps)).items() if not _VIDEO_STEP.fullmatch(m)},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "flash_launches": n_launch,
+           "flash_launches_expected": launches, "latents": [list(z.shape) for z in latents],
+           "latents_finite": all(bool(torch.isfinite(z).all()) for z in latents)}
+    if not isinstance(out, torch.Tensor):
+        row["frames"], row["frame_shape"] = len(out), list(out[0].shape)
+    emit(row)
+    check(row["latents_finite"], f"{label}: latents not finite")
+    check(n_launch == launches, f"{label}: flash launched {n_launch} times, expected {launches}")
+    if latents_expected:
+        check(row["latents"] == [list(s) for s in latents_expected],
+              f"{label}: latents {row['latents']}, expected {latents_expected}")
+    if frames_expected is not None:
+        check(len(out) == frames_expected and all(f.shape == (*size, 3) and f.dtype == np.uint8 for f in out),
+              f"{label}: {len(out)} frames of {out[0].shape}, expected {frames_expected} of {size}")
+    return row, out
+
+
+def seed_pair(label, engine, kw, launches, lat, frames_expected, size):
+    """``kw`` with seeds 0, 0 and 1, the last two returning their latents:
+    the first two's latents bit-identical, the third's different. Returns
+    (rows, the first request's frames, its latents, the third's)."""
+    import torch
+
+    row1, frames = video_rest_drive(label, engine, dict(kw, seed=0), launches, frames_expected, size, [lat])
+    first = engine.decoded[0]
+    row2, again = video_rest_drive(label, engine, dict(kw, seed=0, return_latents=True), launches,
+                                   latents_expected=[lat])
+    row3, other = video_rest_drive(label, engine, dict(kw, seed=1, return_latents=True), launches,
+                                   latents_expected=[lat])
+    same, differ = bool(torch.equal(first, again)), not torch.equal(first, other)
+    emit({"phase": "video_rest", "path": label, "seeds_0_0_identical": same, "seeds_0_1_differ": differ})
+    check(same, f"{label}: two requests with one seed differ")
+    check(differ, f"{label}: requests with seeds 0 and 1 are identical")
+    return [row1, row2, row3], frames, first, other
+
+
+def longcat_requests(home: Path):
+    """The seven LongCat types from their manifests, the DiT at LONGCAT_LAYERS
+    of its 48 blocks (4096 wide, 32 heads), UMT5-XXL, the Wan 2.1 VAE, bf16,
+    2 steps, CFG-zero* at 4.0 with a negative prompt: t2v (seeds 0, 0, 1),
+    i2v from a seeded image, vc on a 17-frame clip with the KV cache (13
+    context frames), continuation of a 30 fps clip, long_video with one
+    continuation segment, interactive with two sentences, all 480x832 over
+    17 frames; refine at 720x1280 on the t2v request's first 5 frames (2x in
+    time: 10 frames)."""
+    import numpy as np
+    import torch
+
+    configs = {"transformer": LONGCAT_TRANSFORMER, "text_encoder": UMT5_XXL}
+    lat = (1, 16, 5, 60, 104)
+    kw = dict(prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG, height=480, width=832, num_frames=VIDEO_REST_FRAMES,
+              num_inference_steps=VIDEO_REST_STEPS, guidance_scale=4.0)
+    forwards = 2 * VIDEO_REST_STEPS  # CFG
+    lc = VIDEO_REST_LAUNCHES
+    t2v = video_rest_engine(LONGCAT_MANIFESTS["t2v"], "t2v", home, configs, "longcat")
+    paths, rows = {}, {}
+    rows["t2v"], frames, _, _ = seed_pair("longcat_t2v", t2v, kw, forwards * lc["longcat"], lat, VIDEO_REST_FRAMES,
+                                          (480, 832))
+    paths["longcat_t2v_480x832"] = rows["t2v"]
+    engines = {t: video_rest_engine(LONGCAT_MANIFESTS[t], t, home, configs, "longcat", share=t2v)
+               for t in LONGCAT_TYPES[1:]}
+    image = cv2_smooth(np.random.default_rng(245), (480, 832))
+    clip, _ = disk_clip(VIDEO_REST_FRAMES, seed=246)
+    cached = lc["longcat_cache"] + forwards * lc["longcat"]  # the context's pass, then the new frames' steps
+    continued = (1, 16, 4 + 5, 60, 104)  # 13 context frames and 17 new ones
+    requests = [
+        ("i2v", dict(kw, image=image, seed=0), forwards * lc["longcat_i2v"], VIDEO_REST_FRAMES, [lat]),
+        ("vc", dict(kw, video=clip, use_kv_cache=True, seed=0), cached, 33, [continued]),
+        ("continuation", dict(kw, video=disk_clip(26, seed=247)[0], source_fps=30, seed=0), cached, 33,
+         [continued]),
+        ("long_video", dict(kw, num_segments=1, seed=0), forwards * lc["longcat"] + cached, VIDEO_REST_FRAMES + 20,
+         [lat, continued]),
+        ("interactive", dict(kw, prompt="A lighthouse on a rocky coast. Waves crash against the rocks at dusk.",
+                             seed=0), forwards * lc["longcat"] + cached, VIDEO_REST_FRAMES + 20, [lat, continued]),
+        ("refine", dict(prompt=WAN_PROMPT, video=frames[:5], height=720, width=1280,
+                        num_inference_steps=VIDEO_REST_STEPS, seed=0), VIDEO_REST_STEPS * lc["longcat"],
+         10, [(1, 16, 4, 90, 160)]),
+    ]
+    i2v, i2v.encoded = engines["i2v"], []
+    encode = i2v._encode
+
+    def observed_encode(px):
+        i2v.encoded.append(encode(px))
+        return i2v.encoded[-1]
+
+    i2v._encode = observed_encode
+    for t, req, launches, n_frames, lats in requests:
+        size = (req["height"], req["width"])
+        row, out = video_rest_drive(f"longcat_{t}", engines[t], req, launches, n_frames, size, lats)
+        paths[f"longcat_{t}_{size[0]}x{size[1]}"] = [row]
+        rows[t] = [row]
+        if t == "i2v":
+            pinned = bool(torch.equal(i2v.decoded[0][:, :, :1], i2v.encoded[0]))
+            emit({"phase": "video_rest", "path": "longcat_i2v", "image_latent_pinned": pinned})
+            check(pinned, "LongCat i2v: the first latent frame is not the image's latent")
+    tf = t2v.transformer
+    facts = {"phase": "video_rest", "family": "longcat", "dit_dim": tf.cfg.hidden_size, "dit_blocks": len(tf.blocks),
+             "heads": tf.cfg.num_heads, "dit_parameters": sum(p.numel() for p in tf.parameters()),
+             "dit_dtype": str(tf.dtype), "dit_bits": dit_bits(tf), "memory_fallback_gate": t2v.gate,
+             "peak_gib": max(r["peak_gib"] for rs in rows.values() for r in rs)}
+    emit(facts)
+    check(tf.cfg.hidden_size == 4096 and tf.cfg.num_heads == 32 and len(tf.blocks) == LONGCAT_LAYERS
+          and not dit_bits(tf), f"the LongCat DiT's widths: {facts}")
+    del t2v, i2v, engines, tf, frames
+    release()
+    return paths
+
+
+def cosmos_requests(home: Path):
+    """Cosmos Predict2 2B video2world from its manifest at the published
+    widths, full depth (28 layers), bf16, its T5 at T5-11B's widths, the Wan
+    2.1 VAE: i2v from a seeded image (seeds 0, 0, 1) and v2v continuing the
+    first 9 frames of a clip, both 704x1280 over 17 frames, 2 steps, CFG 7
+    against a negative prompt."""
+    import numpy as np
+    import torch
+
+    configs = {"transformer": COSMOS_TRANSFORMER, "text_encoder": COSMOS_T5}
+    lat = (1, 16, 5, 88, 160)
+    kw = dict(prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG, height=704, width=1280,
+              num_frames=VIDEO_REST_FRAMES, num_inference_steps=VIDEO_REST_STEPS, guidance_scale=7.0)
+    launches = 2 * VIDEO_REST_STEPS * VIDEO_REST_LAUNCHES["cosmos"]
+    i2v = video_rest_engine(COSMOS_MANIFEST, "i2v", home, configs, "cosmos")
+    image = cv2_smooth(np.random.default_rng(248), (704, 1280))
+    rows, _, first, other = seed_pair("cosmos_i2v", i2v, dict(kw, image=image), launches, lat, VIDEO_REST_FRAMES,
+                                      (704, 1280))
+    paths = {"cosmos_i2v_704x1280": rows}
+    pinned = bool(torch.equal(first[:, :, :1], other[:, :, :1]))
+    v2v = video_rest_engine(COSMOS_MANIFEST, "v2v", home, configs, "cosmos", share=i2v)
+    clip, _ = disk_clip(VIDEO_REST_FRAMES, 704, 1280, seed=249)
+    row, _ = video_rest_drive("cosmos_v2v", v2v, dict(kw, video=clip, conditioning_frames=9, seed=0), launches,
+                              VIDEO_REST_FRAMES, (704, 1280), [lat])
+    paths["cosmos_v2v_704x1280"] = [row]
+    tf = i2v.transformer
+    facts = {"phase": "video_rest", "family": "cosmos", "dit_dim": tf.cfg.dim, "dit_blocks": len(tf.transformer_blocks),
+             "heads": tf.cfg.num_attention_heads, "in_channels": tf.cfg.in_channels,
+             "dit_parameters": sum(p.numel() for p in tf.parameters()), "dit_dtype": str(tf.dtype),
+             "t5_d_model": i2v.text_encoder._ensure_model().cfg.d_model, "memory_fallback_gate": i2v.gate,
+             "conditioning_frame_pinned": pinned, "peak_gib": max(r["peak_gib"] for r in rows + [row])}
+    emit(facts)
+    check(pinned, "Cosmos i2v: the conditioning latent frame moves with the seed")
+    check(tf.cfg.dim == 2048 and tf.cfg.num_attention_heads == 16 and len(tf.transformer_blocks) == 28
+          and not dit_bits(tf), f"the Cosmos DiT's widths: {facts}")
+    del i2v, v2v, tf, first, other
+    release()
+    return paths
+
+
+def kandinsky5_requests(home: Path):
+    """Kandinsky 5.0 T2V Lite from its manifest at full width and depth
+    (1792 wide, 2 + 32 blocks, 28 heads of 64), bf16, Qwen2.5-VL-7B, CLIP-L
+    and the HunyuanVideo VAE: t2v (seeds 0, 0, 1) and i2v from a seeded image
+    on the visual_cond twin the script writes, 512x768 over 17 frames, 2
+    steps, CFG 5 against a negative prompt."""
+    import numpy as np
+    import yaml
+
+    lat = (1, 16, 5, 64, 96)
+    kw = dict(prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG, height=512, width=768,
+              num_frames=VIDEO_REST_FRAMES, num_inference_steps=VIDEO_REST_STEPS, guidance_scale=5.0)
+    launches = 2 * VIDEO_REST_STEPS * VIDEO_REST_LAUNCHES["kandinsky5"]
+    t2v = video_rest_engine(KANDINSKY5_MANIFEST, "t2v", home, {"transformer": KANDINSKY5_TRANSFORMER}, "kandinsky5")
+    rows = seed_pair("kandinsky5_t2v", t2v, kw, launches, lat, VIDEO_REST_FRAMES, (512, 768))[0]
+    paths = {"kandinsky5_t2v_512x768": rows}
+    peaks = [r["peak_gib"] for r in rows]
+    doc = yaml.safe_load(KANDINSKY5_MANIFEST.read_text())
+    doc["metadata"]["id"] += "-i2v-smoke"
+    next(c for c in doc["spec"]["components"] if c["type"] == "transformer")["config_path"] = KANDINSKY5_I2V_CONFIG
+    manifest = home / "kandinsky5-i2v.yml"
+    manifest.write_text(yaml.safe_dump(doc))
+    i2v = video_rest_engine(manifest, "i2v", home, {"transformer": dict(KANDINSKY5_TRANSFORMER, visual_cond=True)},
+                            "kandinsky5", share=t2v)
+    i2v.transformer = None  # the visual_cond twin is another DiT
+    del t2v
+    release()
+    image = cv2_smooth(np.random.default_rng(250), (512, 768))
+    row, _ = video_rest_drive("kandinsky5_i2v", i2v, dict(kw, image=image, seed=0), launches, VIDEO_REST_FRAMES,
+                              (512, 768), [lat])
+    paths["kandinsky5_i2v_512x768"] = [row]
+    tf = i2v.transformer
+    facts = {"phase": "video_rest", "family": "kandinsky5", "dit_dim": tf.cfg.model_dim,
+             "heads": tf.cfg.model_dim // tf.cfg.head_dim, "head_dim": tf.cfg.head_dim,
+             "blocks": [len(tf.text_transformer_blocks), len(tf.visual_transformer_blocks)],
+             "visual_in_channels": tf.visual_in_channels, "dit_parameters": sum(p.numel() for p in tf.parameters()),
+             "dit_dtype": str(tf.dtype), "memory_fallback_gate": i2v.gate, "peak_gib": max(peaks + [row["peak_gib"]])}
+    emit(facts)
+    check(tf.cfg.model_dim == 1792 and tf.cfg.head_dim == 64 and len(tf.visual_transformer_blocks) == 32
+          and tf.visual_in_channels == 33 and not dit_bits(tf), f"the Kandinsky 5 DiT's widths: {facts}")
+    del i2v, tf
+    release()
+    return paths
+
+
+def phase_video_rest(home: Path):
+    """The video families on the ported VAEs and encoders: the kernel at
+    their shapes, the DiTs at full width against f32, then LongCat's seven
+    types, Cosmos' i2v and v2v and Kandinsky 5's t2v and i2v from their
+    manifests (``longcat_requests``, ``cosmos_requests``,
+    ``kandinsky5_requests``), each family in one home."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    kernel_rows, err = path_kernel_rows("video_rest", video_rest_kernel_inputs())
+    lap("kernel_rows")
+    video_rest_reference()
+    lap("card_vs_cpu")
+    paths = {}
+    for name, requests in (("longcat", longcat_requests), ("cosmos", cosmos_requests),
+                           ("kandinsky5", kandinsky5_requests)):
+        paths.update(requests(home))
+        lap(name)
+    emit({"phase": "video_rest", "seconds_by_step": seconds})
     return paths, kernel_rows, err
 
 
@@ -7510,7 +7928,7 @@ def main() -> int:
         for name, phase in (("hyv", phase_hyv), ("humo", phase_humo), ("s2v", phase_s2v),
                             ("multitalk", phase_multitalk), ("avatar", phase_avatar), ("skyreels", phase_skyreels),
                             ("wan_5b", phase_wan_5b), ("wan_more", phase_wan_more),
-                            ("image_rest", phase_image_rest)):
+                            ("image_rest", phase_image_rest), ("video_rest", phase_video_rest)):
             if name in phases:
                 new_paths, path_rows[name], path_err[name] = timed(name, phase, home)
                 paths.update(new_paths)

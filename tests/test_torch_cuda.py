@@ -879,3 +879,91 @@ def test_image_family_dits_launch_the_kernel_per_attention(cuda):
             out = call(models[name])
             assert flash_attention.launches == before + launches, name
             assert torch.isfinite(out.float()).all(), name
+
+
+# The video families on the ported VAEs and encoders: (name, sq, sk, h, d, kept keys or None):
+# Kandinsky 5's 28 heads of 64 (self over 7680, its text blocks over the 256-row Qwen sequence, the cross);
+# LongCat's noise queries against every key of an i2v clip (6240 against 7800: Sq ≠ Sk), its KV-cache
+# launch (the new frames against context + new keys), its UMT5 cross-attention with the text mask;
+# Cosmos' self-attention over 17,600 tokens at 16 heads, on row subsets below
+VIDEO_REST_SHAPES = [
+    ("kandinsky5_self_s7680_h28_d64", 7680, 7680, 28, 64, None),
+    ("kandinsky5_text_s256_h28_d64", 256, 256, 28, 64, None),
+    ("kandinsky5_cross_sq7680_sk256_h28_d64", 7680, 256, 28, 64, None),
+    ("longcat_noise_vs_all_sq6240_sk7800_h32", 6240, 7800, 32, 128, None),
+    ("longcat_kv_cache_sq7800_sk14040_h32", 7800, 14040, 32, 128, None),
+    ("longcat_cross_sq7800_sk512_h32_text_mask", 7800, 512, 32, 128, 120),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VIDEO_REST_SHAPES, ids=[c[0] for c in VIDEO_REST_SHAPES])
+def test_flash_kernel_video_rest_shapes(shape, cuda):
+    """The kernel at the new launches against its plain version over the
+    first, last (ragged) and an interior 128-row tile, every key."""
+    _, sq, sk, h, d, kept = shape
+    g = torch.Generator(cuda).manual_seed(9)
+    q = torch.randn(1, sq, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(1, sk, h, d, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    bias = None if kept is None else _prep_bias(None, (torch.arange(sk, device=cuda) < kept)[None])
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    tail = sq % 128 or 128
+    for rows in (slice(0, 128), slice(sq - tail, sq), slice(sq // 256 * 128 - 64, sq // 256 * 128 + 64)):
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v, bias=bias))
+
+
+@pytest.mark.cuda
+def test_video_rest_dits_launch_the_kernel_per_attention(cuda):
+    """Small LongCat, Cosmos and Kandinsky 5 DiTs in bf16 on the card: LongCat
+    two launches a block (three with a conditioning frame: the frame alone,
+    then the noise against every key), one a block for the KV cache's pass and
+    two for a forward against it; Cosmos self and cross a block; Kandinsky 5
+    (head dim 64) one a text block and two a visual block; outputs finite and
+    the cached forward within bf16 of the joint one over the new frames."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import cosmos, kandinsky5, longcat
+
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    lc = materialize_random(lambda: longcat.LongCatVideoTransformer3DModel(longcat.LongCatConfig(
+        hidden_size=256, depth=2, num_heads=2, caption_channels=64, adaln_tembed_dim=32)), cuda, seed=0)
+    cs = materialize_random(lambda: cosmos.CosmosTransformer3DModel(cosmos.CosmosConfig(
+        in_channels=17, num_attention_heads=2, num_layers=2, text_embed_dim=64, adaln_lora_dim=16,
+        extra_pos_embed_type=None)), cuda, seed=1)
+    k5 = materialize_random(lambda: kandinsky5.Kandinsky5Transformer3DModel(kandinsky5.Kandinsky5Config(
+        in_text_dim=64, in_text_dim2=32, time_dim=32, model_dim=128, ff_dim=256, num_text_blocks=1,
+        num_visual_blocks=2)), cuda, seed=2)
+    text, mask = rand(1, 16, 64), (torch.arange(16, device=cuda) < 10)[None]
+    x, t = rand(1, 16, 3, 16, 16), torch.tensor([[0.0, 600.0, 600.0]], device=cuda)
+    with torch.inference_mode():
+        for kw, launches in (({}, 2 * 2), ({"num_cond_latents": 1}, 3 * 2)):
+            before = flash_attention.launches
+            out = lc(x, t, text, mask, **kw)
+            assert flash_attention.launches == before + launches, kw
+            assert torch.isfinite(out).all()
+        joint = out[:, :, 1:]
+        before = flash_attention.launches
+        _, cache = lc(x[:, :, :1], torch.zeros(1, 1, device=cuda), torch.zeros(1, 16, 64, device=cuda),
+                      return_kv=True, skip_crs_attn=True)
+        cached = lc(x[:, :, 1:], t[:, 1:], text, mask, kv_cache=cache, num_ctx_latents=1)
+        assert flash_attention.launches == before + 2 + 2 * 2
+        rel = torch.linalg.vector_norm(cached - joint) / torch.linalg.vector_norm(joint)
+        assert rel.item() <= 2e-2
+
+        before = flash_attention.launches
+        cond = torch.zeros(1, 1, 3, 16, 16, device=cuda)
+        out = cs(rand(1, 16, 3, 16, 16), torch.tensor([[1e-4, 0.5, 0.5]], device=cuda), text, condition_mask=cond)
+        assert flash_attention.launches == before + 2 * 2
+        assert torch.isfinite(out).all()
+
+        before = flash_attention.launches
+        out = k5(rand(1, 16, 3, 16, 16), torch.tensor([600.0], device=cuda), text, rand(1, 32))
+        assert flash_attention.launches == before + 1 + 2 * 2
+        assert torch.isfinite(out).all()
