@@ -80,6 +80,11 @@ def configure_float32_matmul() -> None:
 
 
 class BaseEngine:
+    # bytes each component built on the card must leave free beside its
+    # parameters (``_check_fits``): an engine whose activations are large
+    # next to the free memory its weights leave raises it
+    resident_headroom_bytes = 0
+
     def __init__(
         self,
         config: Dict[str, Any],
@@ -112,6 +117,8 @@ class BaseEngine:
         self.vae = None
         self.text_encoder = None
         self.helpers: Dict[str, Any] = {}
+        # each component type's parameter bytes as ``_check_fits`` reckoned them
+        self.reckoned_bytes: Dict[str, int] = {}
         # one entry per LoRA merged at transformer load: source, scale, applied, skipped
         self.lora_results: List[Dict[str, Any]] = []
 
@@ -286,6 +293,8 @@ class BaseEngine:
           one tensor at a time.
         - else (the tiny test manifests): random weights in the component's
           dtype, which tests then overwrite.
+
+        Before any storage is given: ``_check_fits`` at that residency.
         """
         from apex_studio_tpu_torch.loaders.converters import convert_keys, converter_registry
         from apex_studio_tpu_torch.loaders.state_mapping import apply_state_dict
@@ -306,6 +315,13 @@ class BaseEngine:
         dtype = self._component_dtype(spec)
         with torch.device("meta"):
             model = cls(cfg, dtype=dtype)
+        if synth == "int4" and registry is transformer_registry:
+            bits = 4
+        elif synth in ("int8", "int4", "1", "true"):
+            bits = 8
+        else:  # "bf16", a checkpoint, or no checkpoint named: no residency
+            bits = None
+        self._check_fits(spec, model, bits, dtype)
 
         sd = None if synth else self._load_state_dict(spec)
         if sd is not None:
@@ -316,11 +332,11 @@ class BaseEngine:
             return model.eval().requires_grad_(False)
 
         seed = zlib.crc32(f"{base}/{converter_family}".encode()) & 0x7FFFFFFF
-        if synth == "int4" and registry is transformer_registry:
+        if bits == 4:
             n = materialize_random_int4(model, device=self.device, seed=seed, scale=SYNTHETIC_STD)
-        elif synth in ("int8", "int4", "1", "true"):
+        elif bits == 8:
             n = materialize_random_int8(model, device=self.device, seed=seed, scale=SYNTHETIC_STD)
-        else:  # "bf16", or no checkpoint named: random weights, no residency
+        else:  # random weights, no residency
             n = materialize_random_int8(model, device=self.device, seed=seed, scale=SYNTHETIC_STD,
                                         min_numel=1 << 62)
         # Departure from the JAX engine, which draws running statistics like
@@ -330,6 +346,25 @@ class BaseEngine:
         logger.info("random %s weights for %s on %s (seed %d, %d resident weights)",
                     synth or "unquantized", base, self.device, seed, n)
         return model.eval().requires_grad_(False)
+
+    def _check_fits(self, spec: Dict[str, Any], model, bits: Optional[int], dtype) -> None:
+        """Before a component is built: its parameters' bytes on the ``meta``
+        model at the residency about to be applied (``bits``, or ``dtype``
+        throughout), kept in ``reckoned_bytes``; on the card, a
+        ``MemoryError`` naming that need when it and
+        ``resident_headroom_bytes`` exceed the free memory."""
+        from apex_studio_tpu_torch.quantize.residency import resident_bytes
+        from apex_studio_tpu_torch.utils import memory
+
+        need = resident_bytes(model, bits)
+        self.reckoned_bytes[spec.get("type")] = need
+        free = memory.free_memory_bytes(self.device)
+        if free is not None and need + self.resident_headroom_bytes > free:
+            raise MemoryError(
+                f"the {spec.get('type')} {spec.get('base')} needs {need / 2**30:.1f} GiB at "
+                f"{f'int{bits}' if bits else str(dtype).removeprefix('torch.')} residency plus "
+                f"{self.resident_headroom_bytes / 2**30:.0f} GiB beside it; {free / 2**30:.1f} GiB free on "
+                f"{self.device}")
 
     def _load_transformer(self, spec: Dict[str, Any]):
         from apex_studio_tpu_torch.loaders.converters import converter_registry

@@ -8,7 +8,8 @@
 ``("chroma", "t2i")``, ``("ovis", "t2i")``, ``("fibo", "ti2i" | "t2i")``,
 ``("hidream", "t2i" | "edit")``, ``("hunyuanimage", "t2i")``, ``("longcat", "t2v" |
 "i2v" | "vc" | "continuation" | "long_video" | "interactive" | "refine")``,
-``("cosmos2", "i2v" | "v2v")`` and ``("kandinsky5", "t2v" | "i2v")``."""
+``("cosmos2", "i2v" | "v2v")``, ``("kandinsky5", "t2v" | "i2v")``, ``("hunyuanimage3",
+"t2i")`` and ``("cogvideo", "t2v" | "i2v" | "v2v" | "control" | "inp")``."""
 
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.e
                   "apex_studio_tpu_torch.engine.chroma", "apex_studio_tpu_torch.engine.ovis",
                   "apex_studio_tpu_torch.engine.fibo", "apex_studio_tpu_torch.engine.hidream",
                   "apex_studio_tpu_torch.engine.hunyuanimage", "apex_studio_tpu_torch.engine.longcat",
-                  "apex_studio_tpu_torch.engine.cosmos2", "apex_studio_tpu_torch.engine.kandinsky5")
+                  "apex_studio_tpu_torch.engine.cosmos2", "apex_studio_tpu_torch.engine.kandinsky5",
+                  "apex_studio_tpu_torch.engine.hunyuanimage3", "apex_studio_tpu_torch.engine.cogvideox")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

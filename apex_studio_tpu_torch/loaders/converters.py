@@ -22,7 +22,9 @@ keys in ``wan``); the other image families' ``chroma``, ``ovis``, ``fibo``,
 ``hidream`` (the MoE gate as a raw matrix), ``hunyuanimage`` and
 ``hunyuanimage_vae``, their text encoders through ``t5``, ``clip``,
 ``llama``, ``qwen2`` and ``qwen3``; the video DiTs on the ported VAEs and
-encoders: ``longcat``, ``cosmos`` and ``kandinsky5``).
+encoders: ``longcat``, ``cosmos`` and ``kandinsky5``; HunyuanImage 3's
+``hunyuanimage3`` and ``hunyuanimage3_vae``, CogVideoX's ``cogvideo`` and
+``cogvideo_vae``, its T5-XXL through ``t5``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -1345,5 +1347,93 @@ converter_registry.add(
             (r"(to_query|to_key|to_value|in_layer|out_layer|time_in|time_out|text_in|pooled_in|visual_in)"
              r"\.weight$", r"\1.kernel"),
         ],
+    ),
+)
+
+converter_registry.add(
+    # CogVideoX DiT (diffusers CogVideoXTransformer3DModel)
+    "cogvideo",
+    KeyConverter(
+        renames=[
+            (r"^patch_embed\.proj\.", "patch_embed_proj."),
+            (r"^patch_embed\.text_proj\.", "text_proj."),
+            (r"^time_embedding\.linear_1\.", "time_embed.in_layer."),
+            (r"^time_embedding\.linear_2\.", "time_embed.out_layer."),
+            (r"\.attn1\.to_out\.0\.", ".attn1.to_out."),
+            (r"\.ff\.net\.0\.proj\.", ".ff.fc1."),
+            (r"\.ff\.net\.2\.", ".ff.fc2."),
+            (r"^norm_out\.linear\.", "norm_out_linear."),
+            (r"(to_q|to_k|to_v|to_out|fc1|fc2|patch_embed_proj|text_proj|in_layer|out_layer|norm_out_linear|proj_out|"
+             r"norm1\.linear|norm2\.linear)\.weight$", r"\1.kernel"),
+        ],
+        # 2B-style learned positional embeddings and the param-free output norm
+        drop=(r"^patch_embed\.pos_embedding", r"^norm_out\.norm\.", r"^time_proj\."),
+    ),
+)
+
+converter_registry.add(
+    # CogVideoX VAE (diffusers AutoencoderKLCogVideoX)
+    "cogvideo_vae",
+    KeyConverter(
+        renames=[
+            # (down|up)samplers are plain Conv2ds named .conv in both layouts
+            (r"(downsamplers|upsamplers)\.0\.conv\.weight$", r"\1.0.conv.kernel"),
+            # CogVideoXCausalConv3d wraps a .conv submodule (samplers keep theirs)
+            (r"(?<!samplers\.0)\.conv\.weight$", ".kernel"),
+            (r"(?<!samplers\.0)\.conv\.bias$", ".bias"),
+            (r"^(encoder|decoder)\.conv_in\.weight$", r"\1.conv_in.kernel"),
+            (r"^(encoder|decoder)\.conv_out\.weight$", r"\1.conv_out.kernel"),
+            (r"\.conv_shortcut\.weight$", ".conv_shortcut.kernel"),
+            (r"\.(conv1|conv2)\.weight$", r".\1.kernel"),
+        ],
+        drop=(r"^quant_conv\.", r"^post_quant_conv\."),
+    ),
+)
+
+converter_registry.add(
+    # HunyuanImage 3.0 3D-conv DC-AE (reference src/vae/hunyuanimage3/model.py:554
+    # AutoencoderKLConv3D); GroupNorm names already match
+    "hunyuanimage3_vae",
+    KeyConverter(
+        renames=[
+            (r"\.down\.(\d+)\.block\.(\d+)\.", r".down_blocks.\1.resnets.\2."),
+            (r"\.down\.(\d+)\.downsample\.", r".down_blocks.\1.downsamplers.0."),
+            (r"\.up\.(\d+)\.block\.(\d+)\.", r".up_blocks.\1.resnets.\2."),
+            (r"\.up\.(\d+)\.upsample\.", r".up_blocks.\1.upsamplers.0."),
+            (r"\.mid\.block_1\.", ".mid_block_1."),
+            (r"\.mid\.attn_1\.", ".mid_attn_1."),
+            (r"\.mid\.block_2\.", ".mid_block_2."),
+            (r"\.(q|k|v|proj_out|conv|conv1|conv2|nin_shortcut|conv_in|conv_out)\.weight$", r".\1.kernel"),
+        ],
+        strip_prefixes=("vae.",),
+        drop=(),
+    ),
+)
+
+converter_registry.add(
+    # HunyuanImage 3.0 causal-MM MoE backbone (reference
+    # src/transformer/hunyuanimage3/base/model.py:2189 HunyuanImage3ForCausalMM):
+    # the decoder under `model.`, the UNet patch embed / final layer and three
+    # TimestepEmbedders at the top level
+    "hunyuanimage3",
+    KeyConverter(
+        renames=[
+            (r"^model\.wte\.weight$", "wte"),
+            (r"^model\.layers\.", "layers."),
+            (r"\.mlp\.0\.(weight|bias)$", r".mlp_0.\1"),
+            (r"\.mlp\.2\.(weight|bias)$", r".mlp_2.\1"),
+            (r"\.in_layers\.0\.", ".in_norm."),
+            (r"\.in_layers\.2\.", ".in_conv."),
+            (r"\.emb_layers\.1\.", ".emb_layers."),
+            (r"\.out_layers\.0\.", ".out_norm."),
+            (r"\.out_layers\.3\.", ".out_conv."),
+            (r"(final_layer\.model\.\d+)\.0\.(weight|bias)$", r"\1.norm.\2"),
+            (r"(final_layer\.model\.\d+)\.2\.(weight|bias)$", r"\1.conv.\2"),
+            (r"\.(qkv_proj|o_proj|wg|gate_and_up_proj|down_proj|emb_layers|mlp_0|mlp_2)\.weight$", r".\1.kernel"),
+            (r"(patch_embed\.model\.0)\.weight$", r"\1.kernel"),
+            (r"\.(in_conv|out_conv|skip_connection|conv)\.weight$", r".\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"rotary_emb", r"num_batches_tracked", r"lm_head"),
     ),
 )

@@ -52,7 +52,11 @@ gate as ``ff_i.gate.weight``), ``hunyuanimage`` (diffusers'
 (``AutoencoderKLHunyuanImage``); ``longcat`` (LongCat-Video's reference
 names, ``x_embedder.proj`` as its Conv3d weight), ``cosmos`` (diffusers'
 ``CosmosTransformer3DModel``) and ``kandinsky5`` (Kandinsky 5.0's reference
-names). PiDiNet has none: its converter folds the published pixel-difference weights into
+names); ``hunyuanimage3`` (the reference's ``HunyuanImage3ForCausalMM``,
+the decoder under ``model.``) and ``hunyuanimage3_vae`` (its
+``AutoencoderKLConv3D``); ``cogvideo`` (diffusers'
+``CogVideoXTransformer3DModel``) and ``cogvideo_vae``
+(``AutoencoderKLCogVideoX``, each causal conv's ``.conv``). PiDiNet has none: its converter folds the published pixel-difference weights into
 vanilla kernels, which is not invertible.
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
@@ -735,6 +739,37 @@ _KANDINSKY5 = (
     (r"^visual_in\.", "visual_embeddings.in_layer."),
 )
 
+# HunyuanImage 3.0 and CogVideoX
+_HUNYUANIMAGE3 = (
+    (r"^wte$", "model.wte.weight"),
+    (r"^layers\.", "model.layers."),
+    (r"\.mlp_(\d)\.", r".mlp.\1."),
+    (r"\.in_norm\.", ".in_layers.0."),
+    (r"\.in_conv\.", ".in_layers.2."),
+    (r"\.emb_layers\.", ".emb_layers.1."),
+    (r"\.out_norm\.", ".out_layers.0."),
+    (r"\.out_conv\.", ".out_layers.3."),
+    (r"^(final_layer\.model\.\d+)\.norm\.", r"\1.0."),
+    (r"^(final_layer\.model\.\d+)\.conv\.", r"\1.2."),
+)
+_HUNYUANIMAGE3_VAE = (
+    (r"\.(down|up)_blocks\.(\d+)\.resnets\.(\d+)\.", r".\1.\2.block.\3."),
+    (r"\.down_blocks\.(\d+)\.downsamplers\.0\.", r".down.\1.downsample."),
+    (r"\.up_blocks\.(\d+)\.upsamplers\.0\.", r".up.\1.upsample."),
+    (r"\.mid_(block_1|attn_1|block_2)\.", r".mid.\1."),
+)
+_COGVIDEO = (
+    (r"^patch_embed_proj\.", "patch_embed.proj."),
+    (r"^text_proj\.", "patch_embed.text_proj."),
+    (r"^time_embed\.in_layer\.", "time_embedding.linear_1."),
+    (r"^time_embed\.out_layer\.", "time_embedding.linear_2."),
+    (r"\.attn1\.to_out\.", ".attn1.to_out.0."),
+    (r"\.ff\.fc1\.", ".ff.net.0.proj."),
+    (r"\.ff\.fc2\.", ".ff.net.2."),
+    (r"^norm_out_linear\.", "norm_out.linear."),
+)
+_COGVIDEO_VAE = ((r"\.(conv_in|conv_out|conv1|conv2|conv_y|conv_b)\.(weight|bias)$", r".\1.conv.\2"),)
+
 
 def _longcat_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """``x_embedder.proj.weight`` as the published Conv3d weight
@@ -776,7 +811,9 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "efficientnet": _EFFICIENTNET, "normalbae": _NORMALBAE, "dsine": _DSINE, "leres": _LERES,
     "u2net": _U2NET, "isnet": _ISNET, "anime_face": _ANIME_FACE, "gmflow": _GMFLOW, "metric3d": _METRIC3D,
     "chroma": _CHROMA, "ovis": _OVIS, "fibo": _FIBO, "hidream": _HIDREAM, "hunyuanimage": _HUNYUANIMAGE,
-    "hunyuanimage_vae": _HUNYUANIMAGE_VAE, "longcat": _LONGCAT, "cosmos": _COSMOS, "kandinsky5": _KANDINSKY5}
+    "hunyuanimage_vae": _HUNYUANIMAGE_VAE, "longcat": _LONGCAT, "cosmos": _COSMOS, "kandinsky5": _KANDINSKY5,
+    "hunyuanimage3": _HUNYUANIMAGE3, "hunyuanimage3_vae": _HUNYUANIMAGE3_VAE, "cogvideo": _COGVIDEO,
+    "cogvideo_vae": _COGVIDEO_VAE}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

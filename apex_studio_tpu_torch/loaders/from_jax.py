@@ -39,6 +39,7 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
 - every other parameter keeps its name and layout (learned tokens, PReLU
   slopes, embedding tables such as SkyReels' ``fps_embedding`` [2, dim],
   NLF's ``canonical`` points, HiDream's MoE ``gate_weight`` [experts, dim],
+  HunyuanImage 3's token table ``wte`` [vocab, hidden],
   Cosmos' learnable axial ``pos_emb_t`` / ``pos_emb_h`` / ``pos_emb_w``
   [positions, dim],
   the FLUX.2 VAE's 1-D ``bn_mean`` / ``bn_var``,
@@ -48,7 +49,9 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
 
 A fused projection (FLUX.2's ``to_qkv_mlp_proj``, its SwiGLU ``linear_in``,
 LongCat's ``qkv`` and cross ``kv_linear``) is one Linear on both sides and
-carries as any other; so are Kandinsky 5's f32 modulation Linears.
+carries as any other; so are Kandinsky 5's f32 modulation Linears,
+HunyuanImage 3's fused ``qkv_proj`` and ``gate_and_up_proj`` and its f32
+router ``wg``, and CogVideoX's 5-D causal conv kernels (DHWIO to OIDHW).
 
 The input is a flat ``{dotted.nnx.path: np.ndarray}`` dict (list indices are
 path components, e.g. ``transformer_blocks.0.attn.to_q.kernel``). Loading is

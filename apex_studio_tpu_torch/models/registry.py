@@ -22,7 +22,10 @@ identity resampler, in the text-encoder registry as in JAX); ``chroma.base``,
 ``ovis.base``, ``fibo.base``, ``hidream.base`` and ``hunyuanimage.base`` (the
 other image DiTs), ``hunyuanimage.vae`` (HunyuanImage 2.1's 32× VAE) and
 ``longcat.base``, ``cosmos.base`` and ``kandinsky5.base`` (the video DiTs that
-run on the ported VAEs and encoders).
+run on the ported VAEs and encoders); ``hunyuanimage3.base`` (HunyuanImage 3's
+MoE backbone) and ``hunyuanimage3`` (its DC-AE VAE); ``cogvideo.base`` in the
+transformer registry (the CogVideoX DiT) and in the VAE registry (its causal
+VAE).
 """
 
 import importlib
@@ -72,6 +75,10 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.transformers.longcat",
     "apex_studio_tpu_torch.models.transformers.cosmos",
     "apex_studio_tpu_torch.models.transformers.kandinsky5",
+    "apex_studio_tpu_torch.models.transformers.hunyuanimage3",
+    "apex_studio_tpu_torch.models.vaes.hunyuanimage3_vae",
+    "apex_studio_tpu_torch.models.transformers.cogvideox",
+    "apex_studio_tpu_torch.models.vaes.cogvideox_vae",
 )
 
 

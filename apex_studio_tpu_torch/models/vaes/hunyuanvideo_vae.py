@@ -132,12 +132,13 @@ class CausalConv3d(nn.Module):
 
 
 class GroupNormCh(nn.Module):
-    """GroupNorm over channels in f32 (population variance) with the f32
-    affine, cast back to the input's dtype; port of the JAX
+    """GroupNorm over channels in f32 (population variance; float64 kept) with
+    the f32 affine, cast back to the input's dtype; port of the JAX
     ``cogvideox_vae.GroupNormCh``. A half input of more than
     ``GROUP_NORM_CHUNK_ELEMENTS`` elements is normalised in chunks of frames
-    (two f32 passes for the statistics, one for the output), so no f32 copy
-    of a 720p activation is built."""
+    (``whole`` / ``chunks``: two f32 passes for the statistics, summed in
+    float64, one for the output), so no f32 copy of a 720p activation is
+    built."""
 
     def __init__(self, num_groups: int, dim: int, *, eps: float = 1e-6):
         super().__init__()
@@ -148,29 +149,45 @@ class GroupNormCh(nn.Module):
             self.groups -= 1
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype in (torch.float32, torch.float64) or x.numel() <= GROUP_NORM_CHUNK_ELEMENTS:
-            x32 = x if x.dtype == torch.float64 else x.float()
-            return F.group_norm(x32, self.groups, self.weight.to(x32.dtype), self.bias.to(x32.dtype),
-                                self.eps).to(x.dtype)
-        b, c, t = x.shape[:3]
+    def whole(self, x: torch.Tensor) -> bool:
+        return x.dtype in (torch.float32, torch.float64) or x.numel() <= GROUP_NORM_CHUNK_ELEMENTS
+
+    def chunks(self, x: torch.Tensor):
+        frames = max(1, GROUP_NORM_CHUNK_ELEMENTS // x[:, :, :1].numel())
+        return [slice(t0, min(x.shape[2], t0 + frames)) for t0 in range(0, x.shape[2], frames)]
+
+    def stats(self, x: torch.Tensor):
+        """(mean, rstd) [B, G, 1, 1] in f32 over every frame of ``x``, summed
+        chunk by chunk in float64."""
+        b, c = x.shape[:2]
         g = self.groups
-        frames = max(1, GROUP_NORM_CHUNK_ELEMENTS // (x[:, :, :1].numel()))
-        chunks = [slice(t0, min(t, t0 + frames)) for t0 in range(0, t, frames)]
 
         def grouped(sl):
             return x[:, :, sl].float().reshape(b, g, c // g, -1)
 
+        chunks = self.chunks(x)
         n = x.numel() // (b * g)
         mean = sum(grouped(sl).sum(dim=(2, 3), dtype=torch.float64) for sl in chunks) / n
         mean = mean.float()[:, :, None, None]
         var = sum(((grouped(sl) - mean) ** 2).sum(dim=(2, 3), dtype=torch.float64) for sl in chunks) / n
-        rstd = torch.rsqrt(var.float() + self.eps)[:, :, None, None]
-        out = torch.empty_like(x)
+        return mean, torch.rsqrt(var.float() + self.eps)[:, :, None, None]
+
+    def apply(self, x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor) -> torch.Tensor:
+        """``x`` (some frames) normalised by ``stats`` of the whole, with the affine."""
+        b, c = x.shape[:2]
+        y = ((x.float().reshape(b, self.groups, c // self.groups, -1) - mean) * rstd).reshape(x.shape)
         shape = (1, c) + (1,) * (x.ndim - 2)
-        for sl in chunks:
-            y = ((grouped(sl) - mean) * rstd).reshape(x[:, :, sl].shape)
-            out[:, :, sl] = (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.whole(x):
+            x32 = x if x.dtype == torch.float64 else x.float()
+            return F.group_norm(x32, self.groups, self.weight.to(x32.dtype), self.bias.to(x32.dtype),
+                                self.eps).to(x.dtype)
+        mean, rstd = self.stats(x)
+        out = torch.empty_like(x)
+        for sl in self.chunks(x):
+            out[:, :, sl] = self.apply(x[:, :, sl], mean, rstd)
         return out
 
 

@@ -14,7 +14,7 @@ offset-binary (``q + 8``, ``q ∈ [-8, 7]``).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,6 +73,21 @@ def _is_quantizable(mod: nn.Module, min_numel: int, bits: int) -> bool:
     if w.ndim != 2 or w.numel() < min_numel:
         return False
     return bits == 8 or w.shape[0] % 2 == 0  # an odd ``out`` cannot be nibble-paired
+
+
+def resident_bytes(model: nn.Module, bits: Optional[int], *, min_numel: int = DEFAULT_MIN_NUMEL) -> int:
+    """Bytes the parameters of ``model`` (``meta``-built or not) take once every
+    Linear weight the residency quantizes is held at ``bits`` with its f32
+    scales, every other parameter in its own dtype; ``bits`` None keeps every
+    parameter in its dtype."""
+    total, quantized = 0, set()
+    if bits is not None:
+        for mod in model.modules():
+            if _is_quantizable(mod, min_numel, bits):
+                out_f, in_f = mod.weight.shape
+                total += out_f * in_f * bits // 8 + 4 * out_f
+                quantized.add(id(mod.weight))
+    return total + sum(p.numel() * p.element_size() for p in model.parameters() if id(p) not in quantized)
 
 
 def count_resident(model: nn.Module) -> int:

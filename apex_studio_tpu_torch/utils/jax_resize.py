@@ -27,7 +27,8 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-_KERNELS = {"linear": _triangle, "bilinear": _triangle, "cubic": _keys_cubic, "bicubic": _keys_cubic}
+_KERNELS = {"linear": _triangle, "bilinear": _triangle, "trilinear": _triangle, "triangle": _triangle,
+            "cubic": _keys_cubic, "bicubic": _keys_cubic}
 
 
 def resize_weights(n_in: int, n_out: int, method: str, antialias: bool = True,
@@ -60,7 +61,7 @@ def nearest_index(n_in: int, n_out: int) -> np.ndarray:
 def resize(x: torch.Tensor, shape: Sequence[int], method: str, antialias: bool = True) -> torch.Tensor:
     """``jax.image.resize(x, shape, method, antialias)``: every axis whose
     size differs from ``shape`` is resized (``nearest``, ``linear`` /
-    ``bilinear`` or ``cubic`` / ``bicubic``); a float result keeps ``x``'s
+    ``bilinear`` / ``trilinear`` / ``triangle`` or ``cubic`` / ``bicubic``); a float result keeps ``x``'s
     dtype, an integer input comes back as f32."""
     if len(shape) != x.ndim:
         raise ValueError(f"shape {tuple(shape)} does not match the rank of {tuple(x.shape)}")

@@ -967,3 +967,80 @@ def test_video_rest_dits_launch_the_kernel_per_attention(cuda):
         out = k5(rand(1, 16, 3, 16, 16), torch.tensor([600.0], device=cuda), text, rand(1, 32))
         assert flash_attention.launches == before + 1 + 2 * 2
         assert torch.isfinite(out).all()
+
+
+# HunyuanImage 3.0 at 1024², 32 heads of 128: the image span's 4096 queries against every key (128 text ids,
+# the timestep token, the image: Sq ≠ Sk) and the causal prefix over the 129 tokens before the span;
+# CogVideoX 5B's joint launch at 48 heads of 64 over [226 text | 17 frames at 480x720]
+HY3_COG_SHAPES = [
+    ("hy3_image_vs_all_sq4096_sk4225_h32", 4096, 4225, 32, 128, False),
+    ("hy3_causal_prefix_s129_h32", 129, 129, 32, 128, True),
+    ("cogvideox_joint_s6976_h48_d64", 6976, 6976, 48, 64, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HY3_COG_SHAPES, ids=[c[0] for c in HY3_COG_SHAPES])
+def test_flash_kernel_hy3_cogvideox_shapes(shape, cuda):
+    """The kernel at the new launches against its plain version over the
+    first, last (ragged) and an interior 128-row tile (every row below 256),
+    every key."""
+    _, sq, sk, h, d, causal = shape
+    g = torch.Generator(cuda).manual_seed(10)
+    q = torch.randn(1, sq, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(1, sk, h, d, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, is_causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    if sq < 256:
+        assert_agrees(out, flash_attention_reference(q, k, v, is_causal=causal))
+        return
+    tail = sq % 128 or 128
+    for rows in (slice(0, 128), slice(sq - tail, sq), slice(sq // 256 * 128 - 64, sq // 256 * 128 + 64)):
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v))
+
+
+@pytest.mark.cuda
+def test_hy3_and_cogvideox_backbones_launch_the_kernel_per_attention(cuda):
+    """Small HunyuanImage 3 and CogVideoX backbones in bf16 on the card:
+    HunyuanImage 3 two launches a layer (the causal prefix, the image span
+    against every key; with trailing tokens a causal launch over the whole
+    sequence and the span against the keys up to its end), no mask handed
+    to ``attention``, within bf16 of the same weights on the masked plain
+    route; CogVideoX one joint launch a block; outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import cogvideox, hunyuanimage3
+    from apex_studio_tpu_torch.ops.attention import naive_attention
+
+    hy = materialize_random(lambda: hunyuanimage3.HunyuanImage3ForCausalMM(hunyuanimage3.HunyuanImage3Config(
+        vocab_size=64, hidden_size=256, intermediate_size=256, moe_intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=2, num_key_value_heads=1, use_qk_norm=True, num_experts=4, moe_topk=2,
+        use_mixed_mlp_moe=True, img_in_channels=4, img_out_channels=4, patch_embed_hidden_dim=32)), cuda, seed=3)
+    cog = materialize_random(lambda: cogvideox.CogVideoXTransformer3DModel(cogvideox.CogVideoXConfig(
+        num_attention_heads=2, attention_head_dim=64, num_layers=2, text_embed_dim=64, time_embed_dim=32)),
+        cuda, seed=4)
+    g = torch.Generator().manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    ids = torch.randint(0, 64, (1, 80), generator=g).to(cuda)
+    img, t = rand(1, 4, 8, 8), torch.tensor([600.0], device=cuda)
+    with torch.inference_mode():
+        for n_ids, img_begin in ((8, None), (80, 4)):  # 64 image tokens; 12 trailing the span
+            before = flash_attention.launches
+            out = hy(img, t, ids[:, :n_ids], img_begin=img_begin)
+            assert flash_attention.launches == before + 2 * 2
+            assert torch.isfinite(out).all()
+        rng = torch.Generator().manual_seed(2)
+        q, k, v = (torch.randn(1, 300, 2, 128, generator=rng).to(cuda, torch.bfloat16) for _ in range(3))
+        mask = torch.ones(300, 300, dtype=torch.bool, device=cuda).tril()
+        mask[40:240, 40:240] = True
+        assert_agrees(hunyuanimage3.span_attention(q, k, v, 40, 200),
+                      naive_attention(q, k, v, bias=_prep_bias(None, mask[None, None])))
+        before = flash_attention.launches
+        out = cog(rand(1, 16, 3, 8, 8), t, rand(1, 12, 64))
+        assert flash_attention.launches == before + 2
+        assert torch.isfinite(out).all()

@@ -37,7 +37,7 @@ from apex_studio_tpu_torch.models.text_encoders.siglip import (
 from apex_studio_tpu_torch.models.text_encoders.t5 import T5Config, T5Encoder
 from apex_studio_tpu_torch.ops.rope import apply_rope_half, rope_freqs_1d
 from apex_studio_tpu_torch.text_encoder import TextEncoder
-from tests.torch_port_helpers import assert_close, jax_build, jax_params, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, jax_params, jitted, port_from_jax
 
 def f32():
     """f32 JAX build arguments with a fresh ``Rngs`` each build."""
@@ -73,8 +73,8 @@ class TestQwen2:
     def test_hidden_states_match_jax(self, qwen_pair, skip, normalize_last):
         jm, pm = qwen_pair
         ids, mask = ids_and_mask(QWEN["vocab_size"])
-        ref = jm(jnp.asarray(ids), attention_mask=jnp.asarray(mask), num_hidden_layers_to_skip=skip,
-                 normalize_last=normalize_last)
+        ref = jitted(jm, lambda m, i, k: m(i, attention_mask=k, num_hidden_layers_to_skip=skip,
+                                           normalize_last=normalize_last), ids, mask)
         with torch.no_grad():
             out = pm(torch.from_numpy(ids).long(), attention_mask=torch.from_numpy(mask),
                      num_hidden_layers_to_skip=skip, normalize_last=normalize_last)
@@ -162,7 +162,7 @@ class TestByT5:
         jm = jax_build(lambda: JaxT5(JaxT5Config(**BYT5), **f32()))
         pm = port_from_jax(lambda: T5Encoder(T5Config(**BYT5), dtype=torch.float32), jm)
         ids, mask = ids_and_mask(BYT5["vocab_size"], seq=16)
-        ref = jm(jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+        ref = jitted(jm, lambda m, i, k: m(i, attention_mask=k), ids, mask)
         with torch.no_grad():
             out = pm(torch.from_numpy(ids).long(), attention_mask=torch.from_numpy(mask))
         assert tuple(out.shape) == (2, 16, 24)
@@ -183,7 +183,7 @@ class TestSiglip:
         pm = port_from_jax(lambda: SiglipVisionEncoder(SiglipVisionConfig(**SIGLIP), dtype=torch.float32), jm)
         img = np.random.default_rng(4).integers(0, 256, size=(40, 60, 3), dtype=np.uint8)
         px = np.concatenate([preprocess_siglip_image(img, 44), preprocess_siglip_image(img[::-1], 44)])
-        ref = jm(jnp.asarray(px))
+        ref = jitted(jm, lambda m, a: m(a), px)
         with torch.no_grad():
             out = pm(torch.from_numpy(px))
         assert tuple(out.shape) == (2, 9, 32)

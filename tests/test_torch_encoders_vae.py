@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from flax import nnx
 
@@ -18,7 +19,7 @@ from apex_studio_tpu.models.vaes.autoencoder_kl import AutoencoderKLConfig as Ja
 from apex_studio_tpu_torch.models.text_encoders.clip import CLIPTextConfig, CLIPTextEncoder
 from apex_studio_tpu_torch.models.text_encoders.t5 import T5Config, T5Encoder
 from apex_studio_tpu_torch.models.vaes.autoencoder_kl import AutoencoderKL, AutoencoderKLConfig
-from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, jitted, port_from_jax
 
 def f32():
     """f32 JAX build arguments with a fresh ``Rngs`` each build."""
@@ -46,7 +47,9 @@ class TestCLIP:
         jm = jax_build(lambda: JaxCLIP(JaxCLIPConfig(**CLIP), **f32()))
         pm = port_from_jax(lambda: CLIPTextEncoder(CLIPTextConfig(**CLIP), dtype=torch.float32), jm)
         ids, mask = ids_and_mask()
-        ref_h, ref_p = jm(jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+        graphdef, state = nnx.split(jm)
+        ref_h, ref_p = jax.jit(lambda s, i, m: nnx.merge(graphdef, s)(i, attention_mask=m))(
+            state, jnp.asarray(ids), jnp.asarray(mask))
         with torch.no_grad():
             h, p = pm(torch.from_numpy(ids).long(), attention_mask=torch.from_numpy(mask))
         assert torch.isfinite(h).all()  # the empty prompt averages, it does not NaN
@@ -61,7 +64,7 @@ class TestT5:
         pm = port_from_jax(lambda: T5Encoder(T5Config(**T5, per_layer_relative_bias=umt5),
                                              dtype=torch.float32), jm)
         ids, mask = ids_and_mask()
-        ref = jm(jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+        ref = jitted(jm, lambda m, i, k: m(i, attention_mask=k), ids, mask)
         with torch.no_grad():
             out = pm(torch.from_numpy(ids).long(), attention_mask=torch.from_numpy(mask))
         assert_close(out, ref)
@@ -77,7 +80,7 @@ class TestAutoencoderKL:
     def test_decode_matches_jax(self, pair):
         jm, pm = pair
         z = np.random.default_rng(0).normal(size=(2, 4, 6, 8)).astype(np.float32)
-        ref = jm.decode(jnp.asarray(z))
+        ref = jitted(jm, lambda m, a: m.decode(a), z)
         with torch.no_grad():
             out = pm.decode(torch.from_numpy(z))
         assert tuple(out.shape) == (2, 3, 12, 16)
@@ -86,7 +89,7 @@ class TestAutoencoderKL:
     def test_encode_matches_jax(self, pair):
         jm, pm = pair
         x = np.random.default_rng(1).uniform(-1, 1, size=(1, 3, 16, 12)).astype(np.float32)
-        ref = jm.encode(jnp.asarray(x))
+        ref = jitted(jm, lambda m, a: m.encode(a), x)
         with torch.no_grad():
             out = pm.encode(torch.from_numpy(x))
         assert_close(out, ref)
@@ -120,7 +123,7 @@ class TestFlux2VAE:
 
         jm, pm = pair
         x = np.random.default_rng(3).uniform(-1, 1, size=(1, 3, 16, 24)).astype(np.float32)
-        ref = jm.normalize_packed(JaxFlux2.pack_latents(jm.encode(jnp.asarray(x))))
+        ref = jitted(jm, lambda m, a: m.normalize_packed(JaxFlux2.pack_latents(m.encode(a))), x)
         with torch.no_grad():
             out = pm.normalize_packed(Flux2Transformer2DModel.pack_latents(pm.encode(torch.from_numpy(x))))
         assert tuple(out.shape) == (1, 24, 16)
@@ -139,7 +142,7 @@ class TestFlux2VAE:
         with torch.no_grad():
             img = pm.decode(torch.from_numpy(z))
         assert tuple(img.shape) == (1, 3, 12, 16)
-        assert_close(img, jm.decode(jnp.asarray(z)))
+        assert_close(img, jitted(jm, lambda m, a: m.decode(a), z))
 
     def test_registered_under_the_manifest_names(self):
         from apex_studio_tpu_torch.models.registry import _load_builtin_families, vae_registry

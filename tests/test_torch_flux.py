@@ -24,7 +24,7 @@ from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
 from apex_studio_tpu_torch.models import layers
 from apex_studio_tpu_torch.models.transformers.flux import FluxConfig, FluxTransformer2DModel
 from apex_studio_tpu_torch.schedulers import compute_dynamic_shift_mu, create_scheduler
-from tests.torch_port_helpers import assert_close, jax_build, jax_params, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, jax_params, jitted, port_from_jax
 
 # tests/test_parity_flux_dit.py TINY (patch_size dropped: both packages pack 2x2 outside the DiT)
 TINY = dict(in_channels=16, out_channels=16, num_layers=2, num_single_layers=2,
@@ -51,8 +51,8 @@ class TestFluxDiT:
         pooled = rng.normal(size=(2, 64)).astype(np.float32)
         t = np.array([0.9, 0.3], np.float32)
         g = np.array([3.5, 2.0], np.float32) if guidance_embeds else None
-        ref = jm(jnp.asarray(x), jnp.asarray(txt), jnp.asarray(pooled), jnp.asarray(t),
-                 None if g is None else jnp.asarray(g), grid_hw=(h, w))
+        ref = jitted(jm, lambda m, *a: m(*a[:4], a[4] if a[4:] else None, grid_hw=(h, w)),
+                     x, txt, pooled, t, *(() if g is None else (g,)))
         with torch.no_grad():
             out = pm(*(torch.from_numpy(a) for a in (x, txt, pooled, t)),
                      None if g is None else torch.from_numpy(g), grid_hw=(h, w))

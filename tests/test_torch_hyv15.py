@@ -25,7 +25,7 @@ from apex_studio_tpu_torch.models.transformers.hunyuanvideo15 import (
     TokenRefiner,
 )
 from apex_studio_tpu_torch.schedulers import create_scheduler
-from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, jitted, port_from_jax
 
 # tests/test_models_hyv15.py's tiny DiT at 2 blocks, 2 heads of 32, rope axes 8/12/12
 TINY = dict(in_channels=9, out_channels=4, num_attention_heads=2, attention_head_dim=32, num_layers=2,
@@ -77,8 +77,9 @@ class TestHYV15DiT:
         jm, pm = pair
         arrs = inputs(TINY)
         kw = {k: arrs[k] for k in keys}
-        ref = jm(jnp.asarray(arrs["x"]), jnp.asarray(arrs["t"]), jnp.asarray(arrs["text"]),
-                 **{k: jnp.asarray(v) for k, v in kw.items()}, image_stream_zeroed=zeroed)
+        ref = jitted(jm, lambda m, x, t, text, *vals: m(x, t, text, **dict(zip(keys, vals)),
+                                                        image_stream_zeroed=zeroed),
+                     arrs["x"], arrs["t"], arrs["text"], *(kw[k] for k in keys))
         with torch.no_grad():
             out = pm(torch.from_numpy(arrs["x"]), torch.from_numpy(arrs["t"]), torch.from_numpy(arrs["text"]),
                      **{k: torch.from_numpy(v) for k, v in kw.items()}, image_stream_zeroed=zeroed)

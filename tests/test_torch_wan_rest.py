@@ -30,7 +30,8 @@ from apex_studio_tpu.models.transformers import wan_lynx as jax_lynx
 from apex_studio_tpu.models.transformers import wan_scail as jax_scail
 from apex_studio_tpu_torch.models import camera, trajectory
 from apex_studio_tpu_torch.models.transformers import wan, wan_animate, wan_framepack, wan_lynx, wan_scail
-from tests.torch_port_helpers import assert_close, assert_published_round_trip, jax_build, jax_params, port_from_jax
+from tests.torch_port_helpers import (assert_close, assert_published_round_trip, jax_build, jax_params, jitted,
+                                      port_from_jax)
 
 WAN_TINY = dict(num_attention_heads=2, attention_head_dim=24, in_channels=4, out_channels=4, text_dim=32,
                 freq_dim=32, ffn_dim=64, num_layers=2)
@@ -199,8 +200,9 @@ def test_framepack_matches_jax(case):
     lc = [] if case == "section_only" else [
         (normal(1, 4, 2, 8, 8, seed=3), np.array([0, 1]), 1), (normal(1, 4, 1, 8, 8, seed=4), np.array([5]), 1),
         (normal(1, 4, 2, 8, 8, seed=5), np.array([6, 7]), 2), (normal(1, 4, 3, 8, 8, seed=6), np.array([8, 9, 10]), 4)]
-    ref = jm(jnp.asarray(x), jnp.asarray(tt), jnp.asarray(ctx),
-             latent_context=[(jnp.asarray(a), i, f) for a, i, f in lc], indices=target)
+    ref = jitted(jm, lambda m, x, tt, ctx, *lat: m(x, tt, ctx, indices=target,
+                                                   latent_context=[(a, i, f) for a, (_, i, f) in zip(lat, lc)]),
+                 x, tt, ctx, *(a for a, _, _ in lc))
     with torch.inference_mode():
         out = pm(t(x), t(tt), t(ctx), latent_context=[(t(a), i, f) for a, i, f in lc], indices=target)
     assert_close(out, np.asarray(ref))

@@ -19,7 +19,7 @@ from flax import nnx
 from apex_studio_tpu.models.transformers import zimage as jax_zimage
 from apex_studio_tpu_torch.models.transformers import zimage
 from apex_studio_tpu_torch.ops.attention import attention_registry
-from tests.torch_port_helpers import assert_close, jax_build, port_from_jax
+from tests.torch_port_helpers import assert_close, jax_build, jitted, port_from_jax
 
 BASE = dict(dim=64, n_layers=2, n_refiner_layers=2, n_heads=2, n_kv_heads=2, in_channels=4,
             cap_feat_dim=48, axes_dims=(8, 12, 12), axes_lens=(64, 32, 32))
@@ -75,7 +75,7 @@ class TestBase:
         ref, port = models["base"]
         x, t, cap, mask, _ = inputs()
         m = mask if masked else None
-        want = ref(jnp.asarray(x), jnp.asarray(t), jnp.asarray(cap), None if m is None else jnp.asarray(m))
+        want = jitted(ref, lambda r, *a: r(*a[:3], a[3] if a[3:] else None), x, t, cap, *(() if m is None else (m,)))
         out = run_port(port, x, t, cap, m)
         assert out.shape == x.shape
         assert_close(out, np.asarray(want), rel=1e-4)
@@ -139,15 +139,15 @@ class TestControl:
     def test_forward_matches_jax(self, models, scale):
         ref, port = models["control"]
         x, t, cap, mask, cc = inputs(3)
-        want = ref(jnp.asarray(x), jnp.asarray(t), jnp.asarray(cap), jnp.asarray(mask),
-                   control_context=jnp.asarray(cc), control_context_scale=scale)
+        want = jitted(ref, lambda r, *a: r(*a[:4], control_context=a[4], control_context_scale=scale),
+                      x, t, cap, mask, cc)
         out = run_port(port, x, t, cap, mask, control_context=torch.from_numpy(cc), control_context_scale=scale)
         assert_close(out, np.asarray(want), rel=1e-4)
 
     def test_without_context_is_the_base_forward(self, models):
         ref, port = models["control"]
         x, t, cap, mask, _ = inputs(4)
-        want = ref(jnp.asarray(x), jnp.asarray(t), jnp.asarray(cap), jnp.asarray(mask))
+        want = jitted(ref, lambda r, *a: r(*a), x, t, cap, mask)
         assert_close(run_port(port, x, t, cap, mask), np.asarray(want), rel=1e-4)
 
     def test_hints_reach_the_output(self, models):

@@ -8,6 +8,7 @@ files, so the share holds for the whole run of each worker. A run in one
 process keeps torch's default.
 """
 
+import contextlib
 import os
 import zlib
 
@@ -22,6 +23,18 @@ from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
 _WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
 if _WORKERS > 1:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
+
+
+@contextlib.contextmanager
+def flushed_denormals():
+    """torch's CPU arithmetic with denormals flushed to zero for the block, as
+    XLA's CPU backend computes: seeded weights shrink some activations into
+    the denormal range, where x86 arithmetic runs some 30× slower."""
+    torch.set_flush_denormal(True)
+    try:
+        yield
+    finally:
+        torch.set_flush_denormal(False)
 
 
 def jax_build(build, seed: int = 0):
@@ -79,6 +92,15 @@ def fast_jax_engine(engine):
 
     engine._instantiate_family = instantiate
     return engine
+
+
+def jitted(model, fn, *args):
+    """``fn(model, *args)`` for a JAX module through one ``jax.jit`` over its
+    split state (one XLA program, where op-by-op dispatch compiles one a
+    primitive and shape), as numpy."""
+    graphdef, state = nnx.split(model)
+    return np.asarray(jax.jit(lambda s, *a: fn(nnx.merge(graphdef, s), *a))(
+        state, *(jax.numpy.asarray(a) for a in args)))
 
 
 def jax_params(model) -> dict:
