@@ -9,7 +9,8 @@
 ``("hidream", "t2i" | "edit")``, ``("hunyuanimage", "t2i")``, ``("longcat", "t2v" |
 "i2v" | "vc" | "continuation" | "long_video" | "interactive" | "refine")``,
 ``("cosmos2", "i2v" | "v2v")``, ``("kandinsky5", "t2v" | "i2v")``, ``("hunyuanimage3",
-"t2i")`` and ``("cogvideo", "t2v" | "i2v" | "v2v" | "control" | "inp")``."""
+"t2i")``, ``("cogvideo", "t2v" | "i2v" | "v2v" | "control" | "inp")``, ``("mochi", "t2v")`` and
+``("ltx", "x2v")``."""
 
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.e
                   "apex_studio_tpu_torch.engine.fibo", "apex_studio_tpu_torch.engine.hidream",
                   "apex_studio_tpu_torch.engine.hunyuanimage", "apex_studio_tpu_torch.engine.longcat",
                   "apex_studio_tpu_torch.engine.cosmos2", "apex_studio_tpu_torch.engine.kandinsky5",
-                  "apex_studio_tpu_torch.engine.hunyuanimage3", "apex_studio_tpu_torch.engine.cogvideox")
+                  "apex_studio_tpu_torch.engine.hunyuanimage3", "apex_studio_tpu_torch.engine.cogvideox",
+                  "apex_studio_tpu_torch.engine.mochi", "apex_studio_tpu_torch.engine.ltx")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

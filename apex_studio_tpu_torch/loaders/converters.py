@@ -24,7 +24,8 @@ keys in ``wan``); the other image families' ``chroma``, ``ovis``, ``fibo``,
 ``llama``, ``qwen2`` and ``qwen3``; the video DiTs on the ported VAEs and
 encoders: ``longcat``, ``cosmos`` and ``kandinsky5``; HunyuanImage 3's
 ``hunyuanimage3`` and ``hunyuanimage3_vae``, CogVideoX's ``cogvideo`` and
-``cogvideo_vae``, its T5-XXL through ``t5``).
+``cogvideo_vae``, its T5-XXL through ``t5``; Mochi-1's ``mochi`` and
+``mochi_vae``, LTX-Video's ``ltx`` and ``ltx_vae``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -1387,6 +1388,107 @@ converter_registry.add(
             (r"\.(conv1|conv2)\.weight$", r".\1.kernel"),
         ],
         drop=(r"^quant_conv\.", r"^post_quant_conv\."),
+    ),
+)
+
+converter_registry.add(
+    # LTX-Video DiT: the diffusers layout and the original Lightricks naming,
+    # the latter pre-renamed to the former first
+    "ltx",
+    KeyConverter(
+        renames=[
+            (r"^proj_in\.", "patchify_proj."),
+            (r"^time_embed\.", "adaln_single."),
+            (r"\.norm_q\.", ".q_norm."),
+            (r"\.norm_k\.", ".k_norm."),
+            (r"^adaln_single\.emb\.timestep_embedder\.linear_1\.", "time_embed.in_layer."),
+            (r"^adaln_single\.emb\.timestep_embedder\.linear_2\.", "time_embed.out_layer."),
+            (r"^adaln_single\.linear\.", "time_proj."),
+            (r"^caption_projection\.linear_1\.", "caption_in."),
+            (r"^caption_projection\.linear_2\.", "caption_out."),
+            (r"^transformer_blocks\.", "blocks."),
+            (r"\.to_out\.0\.", ".to_out."),
+            (r"\.ff\.net\.0\.proj\.", ".ff.fc1."),
+            (r"\.ff\.net\.2\.", ".ff.fc2."),
+            (r"(to_q|to_k|to_v|to_out|fc1|fc2|patchify_proj|proj_out|in_layer|out_layer|time_proj|caption_in|"
+             r"caption_out)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^rope\.",),
+    ),
+)
+
+converter_registry.add(
+    # LTX causal video VAE: convs inside CausalConv3d wrappers (".conv.weight"),
+    # LayerNorms one level deeper, the per-channel statistics under hyphenated
+    # buffer names
+    "ltx_vae",
+    KeyConverter(
+        renames=[
+            (r"^vae\.", ""),
+            (r"^per_channel_statistics\.std-of-means$", "std_of_means"),
+            (r"^per_channel_statistics\.mean-of-means$", "mean_of_means"),
+            (r"\.time_embedder\.timestep_embedder\.linear_1\.", ".time_embedder.in_layer."),
+            (r"\.time_embedder\.timestep_embedder\.linear_2\.", ".time_embedder.out_layer."),
+            (r"^decoder\.last_time_embedder\.timestep_embedder\.linear_1\.", "decoder.last_time_embedder.in_layer."),
+            (r"^decoder\.last_time_embedder\.timestep_embedder\.linear_2\.", "decoder.last_time_embedder.out_layer."),
+            (r"\.norm(\d)\.norm\.", r".norm\1."),
+            (r"\.conv_norm_out\.norm\.", ".conv_norm_out."),
+            (r"\.conv\.conv\.weight$", ".conv.kernel"),
+            (r"\.conv\.conv\.bias$", ".conv.bias"),
+            (r"(conv_in|conv_out|conv1|conv2)\.conv\.weight$", r"\1.kernel"),
+            (r"(conv_in|conv_out|conv1|conv2)\.conv\.bias$", r"\1.bias"),
+            (r"(conv_shortcut)\.weight$", r"\1.kernel"),
+            (r"(in_layer|out_layer)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"per_channel_statistics\.(channel|mean-of-stds)",),
+    ),
+)
+
+converter_registry.add(
+    # Mochi-1 AsymmDiT (diffusers MochiTransformer3DModel)
+    "mochi",
+    KeyConverter(
+        renames=[
+            (r"^patch_embed\.proj\.", "patch_proj."),
+            (r"^time_embed\.timestep_embedder\.linear_1\.", "time_embed.in_layer."),
+            (r"^time_embed\.timestep_embedder\.linear_2\.", "time_embed.out_layer."),
+            (r"^time_embed\.pooler\.", "pooler."),
+            (r"^time_embed\.caption_proj\.", "caption_proj."),
+            (r"^pos_frequencies$", "rope.pos_frequencies"),
+            (r"^transformer_blocks\.(\d+)\.norm1\.linear\.", r"blocks.\1.mod_x."),
+            (r"^transformer_blocks\.(\d+)\.norm1_context\.linear(_1)?\.", r"blocks.\1.mod_y."),
+            (r"^transformer_blocks\.(\d+)\.attn1\.", r"blocks.\1.attn."),
+            (r"^transformer_blocks\.(\d+)\.ff\.net\.0\.proj\.", r"blocks.\1.ff_x.proj_in."),
+            (r"^transformer_blocks\.(\d+)\.ff\.net\.2\.", r"blocks.\1.ff_x.proj_out."),
+            (r"^transformer_blocks\.(\d+)\.ff_context\.net\.0\.proj\.", r"blocks.\1.ff_y.proj_in."),
+            (r"^transformer_blocks\.(\d+)\.ff_context\.net\.2\.", r"blocks.\1.ff_y.proj_out."),
+            (r"^norm_out\.linear(_1)?\.", "norm_out_linear."),
+            (r"\.to_out\.0\.", ".to_out."),
+            # the per-head RMS-norm scales are bare parameters
+            (r"\.(norm_q|norm_k|norm_added_q|norm_added_k)\.weight$", r".\1"),
+            (r"(to_q|to_k|to_v|to_kv|add_q_proj|add_k_proj|add_v_proj|to_out|to_add_out|proj_in|proj_out|in_layer|"
+             r"out_layer|mod_x|mod_y|patch_proj|caption_proj|norm_out_linear|pooler\.to_q|pooler\.to_kv|"
+             r"pooler\.to_out)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^norm_out\.norm\.",),
+    ),
+)
+
+converter_registry.add(
+    # Mochi-1 VAE (diffusers AutoencoderKLMochi), encoder and decoder: the norms
+    # wrap a ".norm_layer", the causal convs a ".conv"; the up blocks'
+    # projections, proj_in and proj_out are Linears
+    "mochi_vae",
+    KeyConverter(
+        renames=[
+            (r"\.norm_layer\.", "."),
+            (r"\.conv\.weight$", ".kernel"),
+            (r"\.conv\.bias$", ".bias"),
+            (r"^decoder\.conv_in\.weight$", "decoder.conv_in.kernel"),
+            (r"\.to_out\.0\.", ".to_out."),
+            (r"(to_q|to_k|to_v|to_out|proj|proj_in|proj_out)\.weight$", r"\1.kernel"),
+        ],
+        drop=(),
     ),
 )
 

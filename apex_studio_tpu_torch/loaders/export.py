@@ -56,7 +56,11 @@ names); ``hunyuanimage3`` (the reference's ``HunyuanImage3ForCausalMM``,
 the decoder under ``model.``) and ``hunyuanimage3_vae`` (its
 ``AutoencoderKLConv3D``); ``cogvideo`` (diffusers'
 ``CogVideoXTransformer3DModel``) and ``cogvideo_vae``
-(``AutoencoderKLCogVideoX``, each causal conv's ``.conv``). PiDiNet has none: its converter folds the published pixel-difference weights into
+(``AutoencoderKLCogVideoX``, each causal conv's ``.conv``); ``mochi`` and
+``mochi_vae`` (diffusers' ``MochiTransformer3DModel`` and ``AutoencoderKLMochi``,
+the norms' ``.norm_layer`` and the causal convs' ``.conv``), ``ltx`` and
+``ltx_vae`` (diffusers' ``LTXVideoTransformer3DModel`` and the Lightricks
+``CausalVideoAutoencoder``, its convs' ``.conv`` and ``per_channel_statistics``). PiDiNet has none: its converter folds the published pixel-difference weights into
 vanilla kernels, which is not invertible.
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
@@ -770,6 +774,57 @@ _COGVIDEO = (
 )
 _COGVIDEO_VAE = ((r"\.(conv_in|conv_out|conv1|conv2|conv_y|conv_b)\.(weight|bias)$", r".\1.conv.\2"),)
 
+_MOCHI = (
+    (r"^patch_proj\.", "patch_embed.proj."),
+    (r"^time_embed\.in_layer\.", "time_embed.timestep_embedder.linear_1."),
+    (r"^time_embed\.out_layer\.", "time_embed.timestep_embedder.linear_2."),
+    (r"^pooler\.", "time_embed.pooler."),
+    (r"^caption_proj\.", "time_embed.caption_proj."),
+    (r"^rope\.pos_frequencies$", "pos_frequencies"),
+    (r"^blocks\.(\d+)\.mod_x\.", r"transformer_blocks.\1.norm1.linear."),
+    (r"^blocks\.(\d+)\.mod_y\.", r"transformer_blocks.\1.norm1_context.linear."),
+    (r"^blocks\.(\d+)\.attn\.", r"transformer_blocks.\1.attn1."),
+    (r"^blocks\.(\d+)\.ff_x\.proj_in\.", r"transformer_blocks.\1.ff.net.0.proj."),
+    (r"^blocks\.(\d+)\.ff_x\.proj_out\.", r"transformer_blocks.\1.ff.net.2."),
+    (r"^blocks\.(\d+)\.ff_y\.proj_in\.", r"transformer_blocks.\1.ff_context.net.0.proj."),
+    (r"^blocks\.(\d+)\.ff_y\.proj_out\.", r"transformer_blocks.\1.ff_context.net.2."),
+    (r"^norm_out_linear\.", "norm_out.linear."),
+    (r"\.attn1\.to_out\.", ".attn1.to_out.0."),
+    (r"\.attn1\.(norm_q|norm_k|norm_added_q|norm_added_k)$", r".attn1.\1.weight"),
+)
+_MOCHI_VAE = (
+    (r"\.(norm1|norm2|norm_out)\.(weight|bias)$", r".\1.norm_layer.\2"),
+    (r"\.norms\.(\d+)\.(weight|bias)$", r".norms.\1.norm_layer.\2"),
+    (r"\.(conv1|conv2)\.(weight|bias)$", r".\1.conv.\2"),
+    (r"\.down_blocks\.(\d+)\.conv_in\.(weight|bias)$", r".down_blocks.\1.conv_in.conv.\2"),
+    (r"\.attentions\.(\d+)\.to_out\.", r".attentions.\1.to_out.0."),
+)
+_LTX = (
+    (r"^time_embed\.in_layer\.", "adaln_single.emb.timestep_embedder.linear_1."),
+    (r"^time_embed\.out_layer\.", "adaln_single.emb.timestep_embedder.linear_2."),
+    (r"^time_proj\.", "adaln_single.linear."),
+    (r"^caption_in\.", "caption_projection.linear_1."),
+    (r"^caption_out\.", "caption_projection.linear_2."),
+    (r"^blocks\.", "transformer_blocks."),
+    (r"\.to_out\.", ".to_out.0."),
+    (r"\.q_norm\.", ".norm_q."),
+    (r"\.k_norm\.", ".norm_k."),
+    (r"\.ff\.fc1\.", ".ff.net.0.proj."),
+    (r"\.ff\.fc2\.", ".ff.net.2."),
+)
+_LTX_VAE = (
+    (r"^(encoder|decoder)\.(conv_in|conv_out)\.(weight|bias)$", r"\1.\2.conv.\3"),
+    (r"\.(conv1|conv2)\.(weight|bias)$", r".\1.conv.\2"),
+    (r"\.(down_blocks|up_blocks)\.(\d+)\.conv\.(weight|bias)$", r".\1.\2.conv.conv.\3"),
+    (r"\.norm3\.(weight|bias)$", r".norm3.norm.\1"),
+    (r"\.time_embedder\.in_layer\.", ".time_embedder.timestep_embedder.linear_1."),
+    (r"\.time_embedder\.out_layer\.", ".time_embedder.timestep_embedder.linear_2."),
+    (r"^decoder\.last_time_embedder\.in_layer\.", "decoder.last_time_embedder.timestep_embedder.linear_1."),
+    (r"^decoder\.last_time_embedder\.out_layer\.", "decoder.last_time_embedder.timestep_embedder.linear_2."),
+    (r"^std_of_means$", "per_channel_statistics.std-of-means"),
+    (r"^mean_of_means$", "per_channel_statistics.mean-of-means"),
+)
+
 
 def _longcat_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """``x_embedder.proj.weight`` as the published Conv3d weight
@@ -813,7 +868,7 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "chroma": _CHROMA, "ovis": _OVIS, "fibo": _FIBO, "hidream": _HIDREAM, "hunyuanimage": _HUNYUANIMAGE,
     "hunyuanimage_vae": _HUNYUANIMAGE_VAE, "longcat": _LONGCAT, "cosmos": _COSMOS, "kandinsky5": _KANDINSKY5,
     "hunyuanimage3": _HUNYUANIMAGE3, "hunyuanimage3_vae": _HUNYUANIMAGE3_VAE, "cogvideo": _COGVIDEO,
-    "cogvideo_vae": _COGVIDEO_VAE}
+    "cogvideo_vae": _COGVIDEO_VAE, "mochi": _MOCHI, "mochi_vae": _MOCHI_VAE, "ltx": _LTX, "ltx_vae": _LTX_VAE}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

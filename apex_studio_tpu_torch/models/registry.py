@@ -25,7 +25,8 @@ other image DiTs), ``hunyuanimage.vae`` (HunyuanImage 2.1's 32× VAE) and
 run on the ported VAEs and encoders); ``hunyuanimage3.base`` (HunyuanImage 3's
 MoE backbone) and ``hunyuanimage3`` (its DC-AE VAE); ``cogvideo.base`` in the
 transformer registry (the CogVideoX DiT) and in the VAE registry (its causal
-VAE).
+VAE); ``mochi.base`` in both (Mochi-1's AsymmDiT and its VAE), ``ltx.base``
+(the LTX-Video DiT) and ``ltx_vae.base`` (its causal VAE).
 """
 
 import importlib
@@ -79,6 +80,10 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.vaes.hunyuanimage3_vae",
     "apex_studio_tpu_torch.models.transformers.cogvideox",
     "apex_studio_tpu_torch.models.vaes.cogvideox_vae",
+    "apex_studio_tpu_torch.models.transformers.mochi",
+    "apex_studio_tpu_torch.models.vaes.mochi_vae",
+    "apex_studio_tpu_torch.models.transformers.ltx",
+    "apex_studio_tpu_torch.models.vaes.ltx_vae",
 )
 
 

@@ -212,11 +212,12 @@ class CogResnetBlock3D(nn.Module):
         self.conv_shortcut = CogCausalConv3d(cin, cout, kernel=1, dtype=dtype) if cin != cout else None
 
     def forward(self, x: torch.Tensor, zq: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # each norm's output is this block's own: its silu runs in place
         n1 = self.norm1(x, zq) if self.spatial else self.norm1(x)
-        h = self.conv1(F.silu(n1))
+        h = self.conv1(F.silu(n1, inplace=True))
         del n1
         n2 = self.norm2(h, zq) if self.spatial else self.norm2(h)
-        h = self.conv2(F.silu(n2))
+        h = self.conv2(F.silu(n2, inplace=True))
         del n2
         skip = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return skip + h

@@ -3,7 +3,9 @@
 
 Backends:
   - ``flash`` — the hand-written CUDA kernel (ops/attention/flash.py), the
-    default; on CPU tensors it runs its plain PyTorch version
+    default; on CPU tensors it runs its plain PyTorch version. One query a
+    head past the kernel's head dims runs ``one_query_wide_head_attention``
+    on it.
   - ``xla``   — plain math with the semantics of ``jax.nn.dot_product_attention``:
     f32 scores, bias added in f32, f32 softmax cast to the value dtype, P·V.
     No library attention kernel.
@@ -72,6 +74,30 @@ def xla_attention(q, k, v, bias=None, scale=None, is_causal=False):
 attention_registry.add("flash", flash_attention, default=True)
 
 
+def one_query_wide_head_attention(q, k, v, bias=None, scale=None):
+    """One query a head (Sq == 1) at a head dim past the kernel's 128 (Mochi's
+    caption pooler: 8 heads of 512), on the kernel: the f32 scores q·kᵀ·scale
+    (+ the key bias) become the kernel's key bias over zero q and k, so the
+    kernel takes exactly those scores into its softmax, and v's 128-wide (or
+    64-wide) slices are its heads, each weighted by the same softmax. One
+    launch; [B, 1, H, D] like ``flash_attention``."""
+    b, _, h, d = q.shape
+    sk = k.shape[1]
+    width = 128 if d % 128 == 0 else 64
+    if d % width:
+        raise ValueError(f"a wide-head query needs a head dim that is a multiple of 64, got {d}")
+    scale = scale if scale is not None else d ** -0.5
+    scores = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), k.float()) * scale
+    if bias is not None:
+        scores = scores + bias.float().reshape(bias.shape[0], 1, sk)
+    parts = d // width
+    vs = v.permute(0, 2, 1, 3).reshape(b * h, sk, parts, width)
+    zq = torch.zeros(b * h, 1, parts, width, dtype=v.dtype, device=v.device)
+    zk = torch.zeros(b * h, sk, parts, width, dtype=v.dtype, device=v.device)
+    out = flash_attention(zq, zk, vs, bias=scores.reshape(b * h, sk), scale=1.0)
+    return out.reshape(b, h, 1, d).transpose(1, 2)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -91,4 +117,6 @@ def attention(
         # The kernel takes a key-padding bias only; per-head or per-query
         # biases go to the plain-math backend.
         name = "xla"
+    if name == "flash" and q.shape[1] == 1 and q.shape[-1] > 128 and not is_causal:
+        return one_query_wide_head_attention(q, k, v, bias=bias, scale=scale)
     return attention_registry.get(name)(q, k, v, bias=bias, scale=scale, is_causal=is_causal)

@@ -50,16 +50,17 @@ Phases, each printed as one JSON line:
              and 3 identical); the resident Linears at ZImage's shapes; one
              bf16 request, one CFG request from zimage.yml (68 launches a
              step) and one control request (51), each of 2 steps
-  qwenimage  QwenImage Edit 2509 at 1024x1024 from its manifest, full width and
-             depth, the 20B DiT int4-resident: a 2-block DiT and ControlNet at
-             full width on the card (bf16) against the CPU (f32); the bench
-             leg's edit request ("make the sky purple", 2 of its 8 steps, true CFG off)
-             three times (60 launches a step, requests 1 and 3 identical, the
-             repeated prompt a disk-cache hit); one Wan VAE decode against
-             float64; the resident Linears at QwenImage's shapes and the int4
-             step split; edit_plus with two condition images, t2i with true
-             CFG (120 a step), the ControlNet at scales 1 and 0 (65 a step)
-             and one bf16 edit, each of 2 steps
+  qwenimage  QwenImage Edit 2509 at 1024x1024 from its manifest, full width,
+             the DiT int4-resident (the requests' at 15 of its 60 blocks since
+             PR 21): a 2-block DiT and ControlNet at full width on the card
+             (bf16) against the CPU (f32); the bench leg's edit request ("make
+             the sky purple", 2 of its 8 steps, true CFG off) three times (15
+             launches a step, requests 1 and 3 identical, the repeated prompt
+             a disk-cache hit); one Wan VAE decode against float64; the
+             resident Linears at QwenImage's shapes and the int4 step split;
+             edit_plus with two condition images, t2i with true CFG (30 a
+             step), the ControlNet at scales 1 and 0 (20 a step) and one bf16
+             edit, each of 2 steps
   wan        Wan 2.2 A14B from its three manifests, full width, the requests'
              experts at 3 of their 40 blocks, both 14B experts int4-resident
              (UMT5-XXL int8): a 2-block DiT at
@@ -265,8 +266,10 @@ Phases, each printed as one JSON line:
   image_rest the other image families from their manifests (Chroma, Ovis-Image,
              FIBO, HiDream-I1 t2i and edit, HunyuanImage 2.1 and its
              distilled manifest) at their default sizes (1024², HunyuanImage
-             2048²), full width and depth, synthetic bf16 weights (the
-             configs the repository lacks written into one home): the kernel
+             2048²), full width (Chroma, Ovis and HunyuanImage 2.1 at a
+             quarter to a third of their depth since PR 21), synthetic bf16
+             weights (the configs the repository lacks written into one
+             home): the kernel
              at their shapes (Chroma's text key padding, FIBO's mask and its
              dual blocks' 0/1 bias, HiDream's 20 heads, HunyuanImage's 28
              heads and its refiner); 1 + 1-block DiTs at full width against
@@ -288,8 +291,9 @@ Phases, each printed as one JSON line:
              vc with the KV cache, continuation, long_video with one segment,
              interactive with two sentences, and refine at 720x1280; Cosmos
              Predict2 2B i2v (seeds 0, 0, 1) and v2v at 704x1280 over 17
-             frames, full depth; Kandinsky 5 Lite t2v (seeds 0, 0, 1) and i2v
-             on the visual_cond twin at 512x768 over 17 frames, full depth
+             frames at COSMOS_LAYERS of 28 layers; Kandinsky 5 Lite t2v
+             (seeds 0, 0, 1) and i2v on the visual_cond twin at 512x768 over
+             17 frames, 2 + KANDINSKY5_VISUAL_BLOCKS of its 2 + 32 blocks
   hunyuanimage3
              HunyuanImage 3.0 from its manifest at the published widths: the
              80B MoE backbone int4 on the card (the fit check's reckoning at
@@ -301,11 +305,25 @@ Phases, each printed as one JSON line:
              then t2i at 1024² with the backbone cut to HY3_LAYERS layers, CFG
              7.5, 2 steps, seeds 0, 0, 1
   cogvideox  CogVideoX 5B from its three manifests and control and inp twins at
-             full width and depth (42 layers, 48 heads of 64) in bf16, T5-XXL,
-             the VAE in f32: the kernel at the joint launch over 17 and 49
-             frames; a 2-block DiT against f32 and the VAE against float64;
-             480x720 over 17 frames, 2 steps, CFG 6 with dynamic CFG: t2v
-             (seeds 0, 0, 1), v2v at strength 0.8, i2v, control, inp
+             full width (48 heads of 64) in bf16, T5-XXL, the VAE in f32: the
+             kernel at the joint launch over 17 and 49 frames; a 2-block DiT
+             against f32 and the VAE against float64; 480x720 over 17 frames,
+             the DiTs at COG_LAYERS of their 42 layers (since PR 21), 2 steps,
+             CFG 6 with dynamic CFG: t2v (seeds 0, 0, 1), v2v at strength 0.8,
+             i2v, control, inp
+  mochi      Mochi-1 t2v from its manifest at full width in bf16, T5-XXL, the
+             VAE in f32: the kernel at the joint launch over 24,106 tokens (24
+             heads of 128) and the pooler's query over 257 keys; a 1 + 1-block
+             DiT against f32 and the VAE against float64; one forward at all
+             48 blocks; then 480x848 over 85 frames with the DiT cut to
+             MOCHI_LAYERS blocks, 2 steps, CFG 4.5, seeds 0, 0, 1
+  ltx        LTX-Video x2v from its manifest at full width and depth (28
+             layers, 32 heads of 64) in bf16, T5-XXL, the VAE in f32: the
+             kernel at the self-attention over 7410 tokens and the cross
+             launch against 128 text rows; a 2-block DiT (with and without
+             an STG skip) against f32 and the VAE against float64; 480x832
+             over 145 frames, 2 steps, CFG 3 with STG: t2v (seeds 0, 0, 1),
+             i2v, an extension of a 17-frame clip
   preprocess_pose
              the last preprocessors: the transformers delegates at published
              widths written with save_pretrained (DPT-Large, ZoeDepth
@@ -378,7 +396,7 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "skyreels,wan_5b,wan_more,image_rest,video_rest,hunyuanimage3,cogvideox,rife,sam2,preprocess,"
+                  "skyreels,wan_5b,wan_more,image_rest,video_rest,hunyuanimage3,cogvideox,mochi,ltx,rife,sam2,preprocess,"
                   "preprocess_nets,preprocess_rest,"
                   "preprocess_pose")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
@@ -444,7 +462,9 @@ QWENIMAGE_EDIT_MANIFEST = REPO / "manifests" / "image" / "qwenimage-edit-2509.ym
 QWENIMAGE_MANIFEST = REPO / "manifests" / "image" / "qwenimage.yml"
 # 1024x1024: 128x128 latents packed 2x2 into 4096 tokens of 24 heads of 128;
 # 60 DiT blocks and 5 ControlNet blocks, one joint launch each
-QWENIMAGE_TOKENS, QWENIMAGE_HEADS, QWENIMAGE_LAYERS, QWENIMAGE_CN_LAYERS = 4096, 24, 60, 5
+QWENIMAGE_TOKENS, QWENIMAGE_HEADS, QWENIMAGE_CN_LAYERS = 4096, 24, 5
+# the requests' DiT: 15 of the 60 blocks (a cut of depth, PR 21); the kernel rows stay at the full shapes
+QWENIMAGE_REQUEST_LAYERS = 15
 # the bench leg's edit request runs 2 of its 8 steps: a cut that keeps the
 # whole script inside its limit
 QWENIMAGE_EDIT_PROMPT, QWENIMAGE_EDIT_STEPS = "make the sky purple", 2
@@ -452,8 +472,10 @@ QWENIMAGE_EDIT_PROMPT, QWENIMAGE_EDIT_STEPS = "make the sky purple", 2
 # image stream (4096 noise + 4096 condition rows) q/k/v/out, MLP in and out, and
 # the two 6·d modulations on one row (the text stream's q/k/v/out are added at
 # its bucket's rows)
-QWENIMAGE_LINEAR_CALLS = {(8192, 3072, 3072): 240, (8192, 3072, 12288): 60, (8192, 12288, 3072): 60,
-                          (1, 3072, 18432): 120}
+QWENIMAGE_LINEAR_CALLS = {(8192, 3072, 3072): 4 * QWENIMAGE_REQUEST_LAYERS,
+                          (8192, 3072, 12288): QWENIMAGE_REQUEST_LAYERS,
+                          (8192, 12288, 3072): QWENIMAGE_REQUEST_LAYERS,
+                          (1, 3072, 18432): 2 * QWENIMAGE_REQUEST_LAYERS}
 WAN_T2V_MANIFEST = REPO / "manifests" / "video" / "wan-2.2-a14b-text-to-video.yml"
 WAN_T2I_MANIFEST = REPO / "manifests" / "image" / "wan-2.2-a14b-text-to-image.yml"
 WAN_I2V_MANIFEST = REPO / "manifests" / "video" / "wan2.2-a14b-image-to-video.yml"
@@ -2317,6 +2339,7 @@ def qwenimage_drive(label, manifest, model_type, weights, requests, steps, home,
 
     os.environ["APEX_SYNTHETIC_WEIGHTS"] = weights
     os.environ["APEX_HOME_DIR"] = str(home / label)
+    write_manifest_config(home / label, manifest, "transformer", {"num_layers": QWENIMAGE_REQUEST_LAYERS})
     engine = UniversalEngine(manifest, model_type=model_type, device="cuda")
     engine._spec_for_type("text_encoder")["tokenizer"] = make_tokenizer()
     encode_image, decode = engine.encode_image_latents, engine._decode_frames
@@ -2401,8 +2424,9 @@ def qwenimage_drive(label, manifest, model_type, weights, requests, steps, home,
 
 
 def phase_qwenimage(home: Path, kernel_rows=()):
-    """QwenImage Edit 2509 at 1024x1024 from its manifest, full width and
-    depth, the DiT int4-resident (encoder and VAE int8 / bf16): the 2-block
+    """QwenImage Edit 2509 at 1024x1024 from its manifest, full width, the
+    requests' DiT at QWENIMAGE_REQUEST_LAYERS of its 60 blocks, int4-resident
+    (encoder and VAE int8 / bf16): the 2-block
     card-vs-CPU check; the bench leg's edit request three times (4 of its 8
     steps, true_cfg_scale 1.0; request 2 with another seed); the Wan VAE against
     float64; the resident Linears at QwenImage's shapes and the step split;
@@ -2421,7 +2445,7 @@ def phase_qwenimage(home: Path, kernel_rows=()):
     rows, frames, engine = qwenimage_drive(
         "qwenimage_edit", QWENIMAGE_EDIT_MANIFEST, "edit", "int4",
         [dict(edit, seed=0), dict(edit, seed=1), dict(edit, seed=0)], QWENIMAGE_EDIT_STEPS, home,
-        QWENIMAGE_LAYERS)
+        QWENIMAGE_REQUEST_LAYERS)
     paths["qwenimage_edit"] = rows
     bucket = engine.encode_prompt(QWENIMAGE_EDIT_PROMPT).shape[1]  # a disk-cache hit
     same, differ = bool(np.array_equal(frames[0], frames[2])), not np.array_equal(frames[0], frames[1])
@@ -2441,11 +2465,11 @@ def phase_qwenimage(home: Path, kernel_rows=()):
     qwenimage_vae_precision(engine.vae)
     del engine, frames
     release()
-    calls = {**QWENIMAGE_LINEAR_CALLS, (bucket, 3072, 3072): 240}
+    calls = {**QWENIMAGE_LINEAR_CALLS, (bucket, 3072, 3072): 4 * QWENIMAGE_REQUEST_LAYERS}
     linear_rows = residency_timing(list(calls), phase="qwenimage")
     if kernel_rows:
         queued = {r["case"]: r["queued_ms"] for r in kernel_rows}
-        attention_s = QWENIMAGE_LAYERS * queued[f"qwenimage_edit_s{lengths['edit']}_h24"] / 1e3
+        attention_s = QWENIMAGE_REQUEST_LAYERS * queued[f"qwenimage_edit_s{lengths['edit']}_h24"] / 1e3
         by = {key: sum(calls[(r["rows"], r["in"], r["out"])] * r[key] for r in linear_rows) / 1e3
               for key in ("w4_ms", "bf16_ms")}
         emit({"phase": "qwenimage", "step_breakdown_int4": {
@@ -2453,23 +2477,24 @@ def phase_qwenimage(home: Path, kernel_rows=()):
             "w4_linear_seconds": by["w4_ms"], "bf16_linear_seconds_same_calls": by["bf16_ms"],
             "other_seconds": int4_step - attention_s - by["w4_ms"], "attention_share": attention_s / int4_step,
             "w4_linear_share": by["w4_ms"] / int4_step,
-            "reckoning": "queued kernel ms x 60 at the edit length; queued ms x calls of the image stream's "
+            "reckoning": f"queued kernel ms x {QWENIMAGE_REQUEST_LAYERS} at the edit length; queued ms x calls of "
+                         "the image stream's "
                          "Linears (8192 rows), the text stream's q/k/v/out (bucket rows) and the modulation "
                          "rows; other = the rest, the text stream's MLPs with it"}})
     paths["qwenimage_edit_plus"] = qwenimage_drive(
         "qwenimage_edit_plus", QWENIMAGE_EDIT_MANIFEST, "edit_plus", "int4",
-        [dict(edit, image=[source, second], seed=0)], 2, home, QWENIMAGE_LAYERS)[0]
+        [dict(edit, image=[source, second], seed=0)], 2, home, QWENIMAGE_REQUEST_LAYERS)[0]
     release()
     paths["qwenimage_t2i_cfg"] = qwenimage_drive(
         "qwenimage_t2i_cfg", QWENIMAGE_MANIFEST, "t2i", "int4",
         [dict(prompt=PROMPT_A, negative_prompt="blurry, low quality", true_cfg_scale=4.0, seed=2)], 2, home,
-        2 * QWENIMAGE_LAYERS)[0]
+        2 * QWENIMAGE_REQUEST_LAYERS)[0]
     release()
     cn_run = dict(prompt=PROMPT_B, control_image=control, true_cfg_scale=1.0, seed=3)
     cn_rows, cn_frames = qwenimage_drive(
         "qwenimage_controlnet", write_qwenimage_controlnet_manifest(home), "controlnet", "int4",
         [dict(cn_run, controlnet_conditioning_scale=1.0), dict(cn_run, controlnet_conditioning_scale=0.0)], 2,
-        home, QWENIMAGE_LAYERS + QWENIMAGE_CN_LAYERS)[:2]  # the engine is dropped here
+        home, QWENIMAGE_REQUEST_LAYERS + QWENIMAGE_CN_LAYERS)[:2]  # the engine is dropped here
     paths["qwenimage_controlnet"] = cn_rows
     steered = not np.array_equal(cn_frames[0], cn_frames[1])
     emit({"phase": "qwenimage", "controlnet_scale_1_vs_0_frames_differ": steered})
@@ -2485,7 +2510,7 @@ def phase_qwenimage(home: Path, kernel_rows=()):
     try:
         paths["qwenimage_edit_bf16"], _frames, engine = qwenimage_drive(
             "qwenimage_edit_bf16", QWENIMAGE_EDIT_MANIFEST, "edit", "bf16", [dict(edit, seed=0)], 2, home,
-            QWENIMAGE_LAYERS)
+            QWENIMAGE_REQUEST_LAYERS)
     finally:
         if saved is None:
             del os.environ["APEX_MEMORY_FALLBACK"]
@@ -5143,15 +5168,21 @@ HYI_TRANSFORMER = {"in_channels": 64, "out_channels": 64, "num_attention_heads":
 # the published 32x VAE: six levels, five resamplers (the family's defaults list five levels: 16x)
 HYI_VAE = {"latent_channels": 64, "block_out_channels": [128, 256, 512, 512, 1024, 1024], "layers_per_block": 2,
            "spatial_compression_ratio": 32, "scaling_factor": 0.75289}
+# the requests' DiTs cut in depth since PR 21: Chroma 5 + 10 of 19 + 38 blocks, Ovis 2 + 7 of 6 + 27,
+# HunyuanImage 2.1 5 + 10 of 20 + 40; FIBO and HiDream map text-encoder layers onto their blocks and keep
+# their full depth
+_HYI_CUT = dict(HYI_TRANSFORMER, num_layers=5, num_single_layers=10)
 IMAGE_REST_CONFIGS = {
-    "chroma": {}, "ovis": {"text_encoder": OVIS_QWEN3}, "fibo": {"text_encoder": SMOLLM3, "vae": FIBO_VAE},
+    "chroma": {"transformer": {"num_layers": 5, "num_single_layers": 10}},
+    "ovis": {"text_encoder": OVIS_QWEN3, "transformer": {"num_layers": 2, "num_single_layers": 7}},
+    "fibo": {"text_encoder": SMOLLM3, "vae": FIBO_VAE},
     "hidream": {"transformer": HIDREAM_TRANSFORMER, "text_encoder_2": CLIP_G, "text_encoder_4": LLAMA31_8B},
-    "hunyuanimage": {"transformer": HYI_TRANSFORMER, "text_encoder_2": BYT5_SMALL, "vae": HYI_VAE},
-    "hunyuanimage_distilled": {"transformer": dict(HYI_TRANSFORMER, guidance_embeds=True, use_meanflow=True),
+    "hunyuanimage": {"transformer": _HYI_CUT, "text_encoder_2": BYT5_SMALL, "vae": HYI_VAE},
+    "hunyuanimage_distilled": {"transformer": dict(_HYI_CUT, guidance_embeds=True, use_meanflow=True),
                                "text_encoder_2": BYT5_SMALL, "vae": HYI_VAE}}
 # flash launches a forward (one a block; HunyuanImage's two refiner blocks add two), and forwards a CFG step
-IMAGE_REST_LAUNCHES = {"chroma": 19 + 38, "ovis": 6 + 27, "fibo": 19 + 38, "hidream": 16 + 32,
-                       "hunyuanimage": 20 + 40 + 2, "hunyuanimage_distilled": 20 + 40 + 2}
+IMAGE_REST_LAUNCHES = {"chroma": 5 + 10, "ovis": 2 + 7, "fibo": 19 + 38, "hidream": 16 + 32,
+                       "hunyuanimage": 5 + 10 + 2, "hunyuanimage_distilled": 5 + 10 + 2}
 IMAGE_REST_SIZE = {"hunyuanimage": 2048, "hunyuanimage_distilled": 2048}
 # joint lengths at the manifests' defaults: 4096 image tokens (1024² at 8x packed 2x2, 16x, or 2048² at
 # 32x) and each family's text: T5's 512; Ovis' 256 after the crop; FIBO's 2048; HiDream's T5 128 + two
@@ -5479,8 +5510,9 @@ def image_rest_family(name: str, home: Path, kw: dict, launches_per_step: int, m
 def phase_image_rest(home: Path):
     """The other image families: the kernel at their shapes, the 1 + 1-block
     DiTs against f32 and the 32x VAE against float64, then each manifest at
-    its default size (1024², HunyuanImage 2048²), full width and depth,
-    synthetic bf16 weights, 1 step a request: Chroma with CFG, Ovis, FIBO
+    its default size (1024², HunyuanImage 2048²), full width (Chroma, Ovis
+    and HunyuanImage cut in depth: ``IMAGE_REST_CONFIGS``), synthetic bf16
+    weights, 1 step a request: Chroma with CFG, Ovis, FIBO
     on a JSON prompt, HiDream t2i and edit (a seeded image), HunyuanImage 2.1
     with CFG and APG, each thrice (seeds 0, 0, 1), and the distilled
     manifest once (guidance embedded, meanflow)."""
@@ -5543,6 +5575,8 @@ COSMOS_MANIFEST = REPO / "manifests" / "video" / "cosmos-predict2-2b-video2world
 KANDINSKY5_MANIFEST = REPO / "manifests" / "video" / "kandinsky5-t2v.yml"
 VIDEO_REST_STEPS, VIDEO_REST_FRAMES = 1, 17  # of 35-50 steps: a cut of steps
 LONGCAT_LAYERS = 4  # of the published 48: a cut of depth
+# Cosmos 7 of its 28 layers and Kandinsky 5 8 of its 32 visual blocks in the requests (cuts of depth, PR 21)
+COSMOS_LAYERS, KANDINSKY5_VISUAL_BLOCKS = 7, 8
 # Published configs the repository lacks, written where the manifests name them: LongCat-Video's DiT
 # (the LongCatConfig defaults, at the requests' depth) over UMT5-XXL; Cosmos-Predict2-2B-Video2World's DiT
 # (16 heads of 128, 28 layers, 16 latent channels + the condition mask, no learnable position embedding)
@@ -5576,7 +5610,8 @@ LONGCAT_TEXT_KEPT, KANDINSKY5_TEXT = 120, 256
 # alone, then the noise against every key; the cache's pass self only); Cosmos self and T5 cross a block;
 # Kandinsky one a text block, self and cross a visual block
 VIDEO_REST_LAUNCHES = {"longcat": 2 * LONGCAT_LAYERS, "longcat_i2v": 3 * LONGCAT_LAYERS,
-                       "longcat_cache": LONGCAT_LAYERS, "cosmos": 2 * 28, "kandinsky5": 2 + 2 * 32}
+                       "longcat_cache": LONGCAT_LAYERS, "cosmos": 2 * COSMOS_LAYERS,
+                       "kandinsky5": 2 + 2 * KANDINSKY5_VISUAL_BLOCKS}
 VIDEO_REST_NEG = "blurry, low quality, watermark"
 
 
@@ -5674,9 +5709,9 @@ def video_rest_engine(manifest: Path, model_type: str, home: Path, configs: dict
     for attr in ("decode_video", "decode_latents"):
         decode = getattr(engine, attr, None)
         if decode is not None:
-            def observed(z, decode=decode):
+            def observed(z, *args, decode=decode, **kwargs):
                 engine.decoded.append(z.detach().float().clone())
-                return decode(z)
+                return decode(z, *args, **kwargs)
 
             setattr(engine, attr, observed)
     return engine
@@ -5828,14 +5863,14 @@ def longcat_requests(home: Path):
 
 def cosmos_requests(home: Path):
     """Cosmos Predict2 2B video2world from its manifest at the published
-    widths, full depth (28 layers), bf16, its T5 at T5-11B's widths, the Wan
+    widths, COSMOS_LAYERS of its 28 layers, bf16, its T5 at T5-11B's widths, the Wan
     2.1 VAE: i2v from a seeded image (seeds 0, 0, 1) and v2v continuing the
     first 9 frames of a clip, both 704x1280 over 17 frames, 1 step, CFG 7
     against a negative prompt."""
     import numpy as np
     import torch
 
-    configs = {"transformer": COSMOS_TRANSFORMER, "text_encoder": COSMOS_T5}
+    configs = {"transformer": dict(COSMOS_TRANSFORMER, num_layers=COSMOS_LAYERS), "text_encoder": COSMOS_T5}
     lat = (1, 16, 5, 88, 160)
     kw = dict(prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG, height=704, width=1280,
               num_frames=VIDEO_REST_FRAMES, num_inference_steps=VIDEO_REST_STEPS, guidance_scale=7.0)
@@ -5859,7 +5894,7 @@ def cosmos_requests(home: Path):
              "conditioning_frame_pinned": pinned, "peak_gib": max(r["peak_gib"] for r in rows + [row])}
     emit(facts)
     check(pinned, "Cosmos i2v: the conditioning latent frame moves with the seed")
-    check(tf.cfg.dim == 2048 and tf.cfg.num_attention_heads == 16 and len(tf.transformer_blocks) == 28
+    check(tf.cfg.dim == 2048 and tf.cfg.num_attention_heads == 16 and len(tf.transformer_blocks) == COSMOS_LAYERS
           and not dit_bits(tf), f"the Cosmos DiT's widths: {facts}")
     del i2v, v2v, tf, first, other
     release()
@@ -5867,8 +5902,8 @@ def cosmos_requests(home: Path):
 
 
 def kandinsky5_requests(home: Path):
-    """Kandinsky 5.0 T2V Lite from its manifest at full width and depth
-    (1792 wide, 2 + 32 blocks, 28 heads of 64), bf16, Qwen2.5-VL-7B, CLIP-L
+    """Kandinsky 5.0 T2V Lite from its manifest at full width (1792 wide, 28
+    heads of 64; 2 + KANDINSKY5_VISUAL_BLOCKS of the 2 + 32 blocks), bf16, Qwen2.5-VL-7B, CLIP-L
     and the HunyuanVideo VAE: t2v (seeds 0, 0, 1) and i2v from a seeded image
     on the visual_cond twin the script writes, 512x768 over 17 frames, 2
     steps, CFG 5 against a negative prompt."""
@@ -5879,7 +5914,8 @@ def kandinsky5_requests(home: Path):
     kw = dict(prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG, height=512, width=768,
               num_frames=VIDEO_REST_FRAMES, num_inference_steps=VIDEO_REST_STEPS, guidance_scale=5.0)
     launches = 2 * VIDEO_REST_STEPS * VIDEO_REST_LAUNCHES["kandinsky5"]
-    t2v = video_rest_engine(KANDINSKY5_MANIFEST, "t2v", home, {"transformer": KANDINSKY5_TRANSFORMER}, "kandinsky5")
+    k5 = dict(KANDINSKY5_TRANSFORMER, num_visual_blocks=KANDINSKY5_VISUAL_BLOCKS)
+    t2v = video_rest_engine(KANDINSKY5_MANIFEST, "t2v", home, {"transformer": k5}, "kandinsky5")
     rows = seed_pair("kandinsky5_t2v", t2v, kw, launches, lat, VIDEO_REST_FRAMES, (512, 768))[0]
     paths = {"kandinsky5_t2v_512x768": rows}
     peaks = [r["peak_gib"] for r in rows]
@@ -5888,7 +5924,7 @@ def kandinsky5_requests(home: Path):
     next(c for c in doc["spec"]["components"] if c["type"] == "transformer")["config_path"] = KANDINSKY5_I2V_CONFIG
     manifest = home / "kandinsky5-i2v.yml"
     manifest.write_text(yaml.safe_dump(doc))
-    i2v = video_rest_engine(manifest, "i2v", home, {"transformer": dict(KANDINSKY5_TRANSFORMER, visual_cond=True)},
+    i2v = video_rest_engine(manifest, "i2v", home, {"transformer": dict(k5, visual_cond=True)},
                             "kandinsky5", share=t2v)
     i2v.transformer = None  # the visual_cond twin is another DiT
     del t2v
@@ -5904,7 +5940,8 @@ def kandinsky5_requests(home: Path):
              "visual_in_channels": tf.visual_in_channels, "dit_parameters": sum(p.numel() for p in tf.parameters()),
              "dit_dtype": str(tf.dtype), "memory_fallback_gate": i2v.gate, "peak_gib": max(peaks + [row["peak_gib"]])}
     emit(facts)
-    check(tf.cfg.model_dim == 1792 and tf.cfg.head_dim == 64 and len(tf.visual_transformer_blocks) == 32
+    check(tf.cfg.model_dim == 1792 and tf.cfg.head_dim == 64
+          and len(tf.visual_transformer_blocks) == KANDINSKY5_VISUAL_BLOCKS
           and tf.visual_in_channels == 33 and not dit_bits(tf), f"the Kandinsky 5 DiT's widths: {facts}")
     del i2v, tf
     release()
@@ -5984,7 +6021,7 @@ T5_XXL = {"model_type": "t5", "vocab_size": 32128, "d_model": 4096, "d_kv": 64, 
 COG_TWINS = {"control": 32, "inp": 33}
 # [text 226 | video]: 17 frames at 480x720 (5 latent frames of 30 x 45 tokens); the manifests' 49 (13)
 COG_TOKENS = {"17": 226 + 5 * 1350, "49": 226 + 13 * 1350}
-COG_LAUNCHES = 42  # one joint launch a block and forward
+COG_LAYERS = 6  # of the published 42: the requests' cut of depth (PR 21); one joint launch a block and forward
 HY3_CFG = 7.5
 
 
@@ -6307,7 +6344,7 @@ def cog_twin(home: Path, model_type: str) -> Path:
 
 def cogvideox_requests(home: Path):
     """CogVideoX 5B from its three manifests and the control and inp twins at
-    full width and depth (42 layers, 48 heads of 64) in bf16, T5-XXL bf16,
+    full width (48 heads of 64) and COG_LAYERS of the 42 layers in bf16, T5-XXL bf16,
     the VAE in f32; 480x720 over 17 frames, 2 steps, CFG 6 with dynamic CFG
     against a negative prompt: t2v (seeds 0, 0, 1), v2v on a seeded 17-frame
     clip at strength 0.8, i2v from a seeded image (its first latent frame the
@@ -6319,8 +6356,8 @@ def cogvideox_requests(home: Path):
     size = (480, 720)
     kw = dict(prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG, height=480, width=720, num_frames=COG_FRAMES,
               num_inference_steps=COG_STEPS, guidance_scale=6.0, use_dynamic_cfg=True)
-    launches = 2 * COG_STEPS * COG_LAUNCHES
-    t2v_configs = {"transformer": COG_TRANSFORMER, "vae": COG_VAE, "text_encoder": T5_XXL}
+    launches = 2 * COG_STEPS * COG_LAYERS
+    t2v_configs = {"transformer": dict(COG_TRANSFORMER, num_layers=COG_LAYERS), "vae": COG_VAE, "text_encoder": T5_XXL}
     t2v = video_rest_engine(COG_MANIFESTS["t2v"], "t2v", home, t2v_configs, "cogvideox")
     rows = {}
     rows["t2v"] = seed_pair("cogvideox_t2v", t2v, kw, launches, lat, COG_FRAMES, size, phase="cogvideox")[0]
@@ -6335,12 +6372,13 @@ def cogvideox_requests(home: Path):
              "dit_parameters": sum(p.numel() for p in tf.parameters()), "dit_dtype": str(tf.dtype),
              "t5_d_model": t2v.text_encoder._ensure_model().cfg.d_model, "vae_dtype": str(
                  next(t2v.vae.parameters()).dtype), "memory_fallback_gate": t2v.gate}
-    check(tf.cfg.dim == 3072 and tf.cfg.attention_head_dim == 64 and len(tf.transformer_blocks) == 42
+    check(tf.cfg.dim == 3072 and tf.cfg.attention_head_dim == 64 and len(tf.transformer_blocks) == COG_LAYERS
           and not dit_bits(tf), f"the CogVideoX DiT's widths: {facts}")
     t2v.transformer = tf = None
     release()
-    i2v = video_rest_engine(COG_MANIFESTS["i2v"], "i2v", home, {"transformer": COG_I2V_TRANSFORMER, "vae": COG_VAE,
-                                                                 "text_encoder": T5_XXL}, "cogvideox", share=t2v)
+    i2v = video_rest_engine(COG_MANIFESTS["i2v"], "i2v", home,
+                            {"transformer": dict(COG_I2V_TRANSFORMER, num_layers=COG_LAYERS), "vae": COG_VAE,
+                             "text_encoder": T5_XXL}, "cogvideox", share=t2v)
     i2v.transformer = None  # the 32-channel DiT
     i2v.encoded = []
     encode = i2v.encode_video_latents
@@ -6358,7 +6396,7 @@ def cogvideox_requests(home: Path):
     release()
     masks = [np.where(f[..., 0] == 220, 255, 0).astype(np.uint8) for f in clip]
     for model_type, extra in (("control", dict(control_video=clip)), ("inp", dict(video=clip, mask_video=masks))):
-        twin = dict(COG_TRANSFORMER, in_channels=COG_TWINS[model_type])
+        twin = dict(COG_TRANSFORMER, in_channels=COG_TWINS[model_type], num_layers=COG_LAYERS)
         engine = video_rest_engine(cog_twin(home, model_type), model_type, home,
                                    {"transformer": twin, "vae": COG_VAE, "text_encoder": T5_XXL}, "cogvideox",
                                    share=t2v)
@@ -6425,6 +6463,368 @@ def phase_cogvideox(home: Path):
     paths = cogvideox_requests(home)
     lap("requests")
     emit({"phase": "cogvideox", "seconds_by_step": seconds})
+    return paths, rows, err
+
+
+# -- Mochi-1 and LTX-Video (the rectified-flow families) ------------------------------------
+
+MOCHI_MANIFEST = REPO / "manifests" / "video" / "mochi-1-text-to-video.yml"
+LTX_MANIFEST = REPO / "manifests" / "video" / "ltx-video-x2v.yml"
+MOCHI_LAYERS = 4  # of the published 48: the requests' cut of depth (one forward runs all 48)
+MOCHI_STEPS, LTX_STEPS = 2, 2
+# 480x848 over 85 frames: 15 latent frames of 30 x 53 tokens beside the 256 text rows, one joint launch a block
+MOCHI_TOKENS = 15 * 30 * 53 + 256
+# 480x832 over 5 s at 30 fps (145 frames): 19 latent frames of 15 x 26 tokens, 128 text rows
+LTX_TOKENS, LTX_TEXT = 19 * 15 * 26, 128
+LTX_STG_BLOCK = 19
+# The 1 + 1-block AsymmDiT in bf16 is 1.1% from f32 on the CPU and JAX's own bf16 forward of the same weights
+# 1.3% (``python -m tests.torch_bf16_width mochi``): its card-vs-CPU check is held at HiDream's 1.5%, not 1%.
+MOCHI_BF16_REL_L2 = 1.5e-2
+# Published widths the repository lacks, written where the manifests name them. genmo/mochi-1-preview:
+# the AsymmDiT at 48 layers of 24 heads of 128, T5 4096 -> a 1536-wide text stream, time 256, patch 2,
+# 12 latent channels; its VAE's decoder (128, 256, 512, 768), encoder (64, 128, 256, 384), layers
+# (3, 3, 4, 6, 3), time expansions (1, 2, 3), space (2, 2, 2), per-channel latent statistics (seeded here,
+# not the published values). Lightricks/LTX-Video: the DiT at 28 layers of 32 heads of 64, T5 4096, 128
+# latent channels; the causal VAE at the LTXVAEConfig defaults (patch 4, three res-compress stages, the
+# decoder's timestep tables and noise injection). Both on T5 v1.1 XXL (T5_XXL).
+MOCHI_TRANSFORMER = {"_class_name": "MochiTransformer3DModel", "activation_fn": "swiglu", "attention_head_dim": 128,
+                     "in_channels": 12, "max_sequence_length": 256, "num_attention_heads": 24, "num_layers": 48,
+                     "out_channels": 12, "patch_size": 2, "pooled_projection_dim": 1536, "qk_norm": "rms_norm",
+                     "text_embed_dim": 4096, "time_embed_dim": 256}
+MOCHI_VAE = {"_class_name": "AutoencoderKLMochi", "act_fn": "silu",
+             "add_attention_block": [False, True, True, True, True],
+             "block_out_channels": [128, 256, 512, 768], "encoder_block_out_channels": [64, 128, 256, 384],
+             "in_channels": 15, "latent_channels": 12, "layers_per_block": [3, 3, 4, 6, 3], "out_channels": 3,
+             "scaling_factor": 1.0, "spatial_expansions": [2, 2, 2], "temporal_expansions": [1, 2, 3]}
+LTX_TRANSFORMER = {"_class_name": "Transformer3DModel", "activation_fn": "gelu-approximate", "attention_bias": True,
+                   "attention_head_dim": 64, "caption_channels": 4096, "cross_attention_dim": 2048,
+                   "in_channels": 128, "norm_eps": 1e-6, "num_attention_heads": 32, "num_layers": 28,
+                   "out_channels": 128, "positional_embedding_max_pos": [20, 2048, 2048],
+                   "positional_embedding_theta": 10000.0, "qk_norm": "rms_norm", "timestep_scale_multiplier": 1000.0}
+LTX_VAE = {"_class_name": "CausalVideoAutoencoder", "dims": 3, "in_channels": 3, "out_channels": 3,
+           "latent_channels": 128, "base_channels": 128, "patch_size": 4, "norm_layer": "pixel_norm",
+           "latent_log_var": "uniform", "causal_decoder": False, "timestep_conditioning": True,
+           "spatial_padding_mode": "zeros",
+           "encoder_blocks": [["res_x", {"num_layers": 4}], ["compress_all_res", {"multiplier": 2}],
+                              ["res_x", {"num_layers": 6}], ["compress_all_res", {"multiplier": 2}],
+                              ["res_x", {"num_layers": 6}], ["compress_all_res", {"multiplier": 2}],
+                              ["res_x", {"num_layers": 2}], ["res_x", {"num_layers": 2}]],
+           "decoder_blocks": [["res_x", {"num_layers": 5, "inject_noise": True}],
+                              ["compress_all", {"residual": True, "multiplier": 2}],
+                              ["res_x", {"num_layers": 6, "inject_noise": True}],
+                              ["compress_all", {"residual": True, "multiplier": 2}],
+                              ["res_x", {"num_layers": 7, "inject_noise": True}],
+                              ["compress_all", {"residual": True, "multiplier": 2}],
+                              ["res_x", {"num_layers": 8, "inject_noise": False}]]}
+
+
+def mochi_vae_config() -> dict:
+    """MOCHI_VAE with seeded per-channel latent statistics."""
+    import numpy as np
+
+    rng = np.random.default_rng(280)
+    return dict(MOCHI_VAE, latents_mean=(0.05 * rng.normal(size=12)).tolist(),
+                latents_std=(0.9 + 0.1 * rng.random(12)).tolist())
+
+
+def mochi_kernel_inputs():
+    """(case, q, k, v, bias): the joint launch over [video | text] (unmasked,
+    as in JAX) at 24 heads of 128."""
+    yield ("mochi_joint_s%d_h24" % MOCHI_TOKENS, *qkv(1, MOCHI_TOKENS, MOCHI_TOKENS, 24, 128, 281), None)
+
+
+def wide_query_row(label, case, q, k, v, bias) -> dict:
+    """A one-query launch past the kernel's head dims
+    (``one_query_wide_head_attention``: its f32 scores as the key bias) against
+    its plain version, timed beside ``scaled_dot_product_attention`` with the
+    bias as its mask; the bound counts q, k, v, the bias and the output once
+    and 4·Sk·D·H operations."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_studio_tpu_torch.ops.attention import one_query_wide_head_attention
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention, flash_attention_reference
+
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    before = flash_attention.launches
+    out = one_query_wide_head_attention(q, k, v, bias=bias)
+    launched = flash_attention.launches - before
+    agree = agreement(out, flash_attention_reference(q, k, v, bias=bias))
+    finite = bool(torch.isfinite(out.float()).all())
+    emit({"phase": "kernels", "path": label, "cases": [{"case": f"{case}_all_rows", "shape": list(q.shape), "sk": sk,
+                                                        "bias": True, **agree, "finite": finite,
+                                                        "launches": launched}]})
+    check(finite and agree["within"] and launched == 1,
+          f"the wide-head query disagrees with its plain version at {label}'s {case} ({launched} launches)")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = library_mask(bias)
+    flops = 4.0 * b * h * sq * sk * d
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() + bias.numel() * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    ms = time_ms(lambda: one_query_wide_head_attention(q, k, v, bias=bias))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    row = {"phase": "timing", "path": label, "kernel": "flash_attention", "case": case, "shape": list(q.shape),
+           "sk": sk, "bias": True, "ms": ms,
+           "queued_ms": queued_ms(lambda: one_query_wide_head_attention(q, k, v, bias=bias)),
+           "plain_ms": time_ms(lambda: flash_attention_reference(q, k, v, bias=bias)), "plain_rows": sq,
+           "library_ms": library_ms,
+           "library_queued_ms": queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
+           "library_call": "torch.nn.functional.scaled_dot_product_attention",
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes, "keys_kept": sk, "bound_ms_as_launched": max(t_ops, t_bytes),
+           "bound_ms_as_launched_padded": max(t_ops, t_bytes), "vs_library": ms / library_ms}
+    emit(row)
+    return row, agree["max_abs_err"]
+
+
+def mochi_pooler_row():
+    """The pooler's one query over [mean | 256 text rows] at 8 heads of 512,
+    the keys past a 24-token prompt at -1e9 (``wide_query_row``)."""
+    import torch
+
+    bias = torch.zeros(1, 257, device="cuda")
+    bias[:, 1 + 24:] = -1e9
+    return wide_query_row("mochi", "mochi_pooler_sq1_sk257_h8_d512", *qkv(1, 1, 257, 8, 512, 282), bias)
+
+
+def ltx_kernel_inputs():
+    """(case, q, k, v, bias): the self-attention over the video tokens and the
+    cross-attention against the 128 text rows (a 24-token prompt, the padded
+    keys at -10000) at 32 heads of 64."""
+    import torch
+
+    yield ("ltx_self_s%d_h32_d64" % LTX_TOKENS, *qkv(1, LTX_TOKENS, LTX_TOKENS, 32, 64, 283), None)
+    bias = torch.zeros(1, LTX_TEXT, device="cuda")
+    bias[:, 24:] = -10000.0
+    yield ("ltx_cross_sq%d_sk%d_h32_d64" % (LTX_TOKENS, LTX_TEXT), *qkv(1, LTX_TOKENS, LTX_TEXT, 32, 64, 284), bias)
+
+
+def mochi_full_depth(engine) -> dict:
+    """The engine's DiT at all 48 blocks over the manifest's 85 frames at
+    480x848 (24,106 tokens, the prompt's T5 features and mask): one forward
+    timed with its launches (48 joint + the pooler's; the kernel built and
+    its shapes timed before), and the peak GiB."""
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    tf = engine.transformer
+    g = torch.Generator("cuda").manual_seed(285)
+    x = torch.randn(1, 12, 15, 60, 106, generator=g, device="cuda").to(tf.dtype)
+    t = torch.tensor([500.0], device="cuda")
+    context, mask = engine.encode_prompt(WAN_PROMPT)
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        out = tf(x, t, context, encoder_attention_mask=mask)
+        torch.cuda.synchronize()
+        forward_s, launches = time.perf_counter() - t0, flash_attention.launches
+    row = {"phase": "mochi", "check": "full_depth_forward", "blocks": len(tf.blocks), "dim": tf.cfg.dim,
+           "heads": tf.cfg.num_attention_heads, "head_dim": tf.cfg.attention_head_dim,
+           "parameters": sum(p.numel() for p in tf.parameters()), "dtype": str(tf.dtype),
+           "tokens": MOCHI_TOKENS, "text_rows_kept": int(mask.sum().item()), "forward_seconds": forward_s,
+           "flash_launches": launches, "flash_launches_expected": len(tf.blocks) + 1,
+           "out_shape": list(out.shape), "finite": bool(torch.isfinite(out.float()).all()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    check(len(tf.blocks) == 48 and tf.cfg.dim == 3072 and row["finite"] and row["out_shape"] == [1, 12, 15, 60, 106],
+          f"the Mochi DiT's full-depth forward: {row}")
+    check(launches == 49, f"the full-depth Mochi forward launched the kernel {launches} times")
+    return row
+
+
+def mochi_reference():
+    """The AsymmDiT at full width with 1 + 1 blocks (a regular and the last),
+    card (bf16, the kernel) against CPU (f32, the plain version) over 3
+    latent frames of 16 x 24 and 256 text rows (40 kept) within
+    MOCHI_BF16_REL_L2; the VAE's decode of a seeded 2 x 8 x 12 latent
+    against float64."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers import mochi
+    from apex_studio_tpu_torch.models.vaes import mochi_vae
+
+    rng = np.random.default_rng(286)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    mask = torch.zeros(1, 256)
+    mask[:, :40] = 1.0
+    card_vs_cpu("mochi.base 24 heads of 128, 1 + 1 blocks",
+                lambda dt: mochi.MochiTransformer3DModel(mochi.MochiConfig.from_dict(
+                    dict(MOCHI_TRANSFORMER, num_layers=2)), dtype=dt),
+                lambda m, x, t, c, msk: m(x, t, c, encoder_attention_mask=msk),
+                (tensor(1, 12, 3, 16, 24), torch.tensor([731.0]), tensor(1, 256, 4096), mask),
+                MOCHI_BF16_REL_L2, 287, phase="mochi")
+    vae = materialize_random_vae(lambda: mochi_vae.AutoencoderKLMochi(mochi_vae.MochiVAEConfig.from_dict(
+        mochi_vae_config())), seed=288, norms=mochi_vae.MochiGroupNorm)
+    z = torch.randn(1, 12, 2, 8, 12, generator=torch.Generator("cuda").manual_seed(289), device="cuda")
+    vae_vs_float64("mochi", "mochi.base VAE", vae, z, (1, 3, 7, 64, 96))
+    del vae
+    release()
+
+
+def mochi_requests(home: Path):
+    """Mochi-1 from its manifest at full width in bf16 (T5-XXL bf16, the VAE
+    f32): one forward at all 48 blocks (``mochi_full_depth``), then the DiT
+    cut to its first MOCHI_LAYERS - 1 blocks and its last, and t2v at the
+    manifest's 480x848 over 85 frames, 2 steps, CFG 4.5 against a negative
+    prompt, seeds 0, 0 and 1 (the first decoded)."""
+    import torch
+    from torch import nn
+
+    configs = {"transformer": MOCHI_TRANSFORMER, "vae": mochi_vae_config(), "text_encoder": T5_XXL}
+    engine = video_rest_engine(MOCHI_MANIFEST, "t2v", home, configs, "mochi")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.load_components()
+    emit({"phase": "mochi", "load_seconds": time.perf_counter() - t0})
+    full = mochi_full_depth(engine)
+    tf = engine.transformer
+    tf.blocks = nn.ModuleList(list(tf.blocks[:MOCHI_LAYERS - 1]) + [tf.blocks[-1]])
+    release()
+    kw = dict(prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG, height=480, width=848, num_frames=85,
+              num_inference_steps=MOCHI_STEPS, guidance_scale=4.5)
+    rows = seed_pair("mochi_t2v", engine, kw, 2 * MOCHI_STEPS * (MOCHI_LAYERS + 1), (1, 12, 15, 60, 106), 85,
+                     (480, 848), phase="mochi")[0]
+    emit({"phase": "mochi", "requests_blocks": len(tf.blocks), "full_depth_peak_gib": full["peak_gib"],
+          "peak_gib": max(r["peak_gib"] for r in rows), "vae_dtype": str(next(engine.vae.parameters()).dtype),
+          "t5_d_model": engine.text_encoder._ensure_model().cfg.d_model})
+    del engine, tf
+    release()
+    return {"mochi_t2v_480x848x85": rows}, full
+
+
+def phase_mochi(home: Path):
+    """Mochi-1: the kernel at the joint launch and the pooler's, the 1 + 1-block
+    DiT against f32 and the VAE against float64 (``mochi_reference``), the
+    full-depth forward and the t2v requests (``mochi_requests``)."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    rows, err = path_kernel_rows("mochi", mochi_kernel_inputs())
+    pooler, pooler_err = mochi_pooler_row()
+    rows, err = rows + [pooler], max(err, pooler_err)
+    release()
+    lap("kernel_rows")
+    mochi_reference()
+    lap("card_vs_cpu")
+    paths, _ = mochi_requests(home)
+    lap("requests")
+    emit({"phase": "mochi", "seconds_by_step": seconds})
+    return paths, rows, err
+
+
+def ltx_reference():
+    """The LTX DiT at full width with 2 blocks, card (bf16, the kernel) against
+    CPU (f32, the plain version) over 3 latent frames of 8 x 12 tokens with
+    per-token timesteps (the first frame's held at 0) and 128 text rows (24
+    kept), and again with block 1 skipped as STG skips it (one rel L2 over
+    both); the VAE's decode of a seeded 2 x 4 x 6 latent against float64."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.engine.ltx import latent_coords
+    from apex_studio_tpu_torch.models.transformers import ltx
+    from apex_studio_tpu_torch.models.vaes import ltx_vae
+
+    rng = np.random.default_rng(290)
+    s = 3 * 8 * 12
+    tokens = torch.from_numpy(rng.normal(size=(1, s, 128)).astype(np.float32))
+    ctx = torch.from_numpy(rng.normal(size=(1, LTX_TEXT, 4096)).astype(np.float32))
+    mask = torch.zeros(1, LTX_TEXT)
+    mask[:, :24] = 1.0
+    t = torch.full((1, s), 0.7)
+    t[:, :96] = 0.0
+    coords = torch.from_numpy((latent_coords(3, 8, 12) * np.array([[8 / 30], [32], [32]]))[None].astype(np.float32))
+    card_vs_cpu("ltx.base 32 heads of 64, 2 blocks, without and with block 1 skipped",
+                lambda dt: ltx.LTXVideoTransformer3D(ltx.LTXVideoConfig.from_dict(
+                    dict(LTX_TRANSFORMER, num_layers=2)), dtype=dt),
+                lambda m, x, c, tt, msk, xyz: torch.stack([m(x, c, tt, encoder_attention_mask=msk, video_coords=xyz,
+                                                             skip_blocks=skips) for skips in ((), (1,))]),
+                (tokens, ctx, t, mask, coords), BF16_REL_L2, 291, phase="ltx")
+    vae = materialize_random_vae(lambda: ltx_vae.AutoencoderKLLTX(ltx_vae.LTXVAEConfig.from_dict(LTX_VAE)), seed=292)
+    z = torch.randn(1, 128, 2, 4, 6, generator=torch.Generator("cuda").manual_seed(293), device="cuda")
+    vae_vs_float64("ltx", "ltx_vae.base", vae, z, (1, 3, 9, 128, 192))
+    del vae
+    release()
+
+
+def ltx_requests(home: Path):
+    """LTX-Video x2v from its manifest at full width and depth (28 layers) in
+    bf16 (T5-XXL bf16, the VAE f32): 480x832 over 5 s at 30 fps (145
+    frames), 2 steps, CFG 3 with STG (scale 1, block 19, rescaling 0.7), the
+    manifest's decode timestep and noise: t2v (seeds 0, 0, 1), i2v from a
+    seeded image (decoded), and an extension of a 17-frame clip as a
+    ``conditions`` item at strength 0.8 (its latents)."""
+    import numpy as np
+
+    configs = {"transformer": LTX_TRANSFORMER, "vae": LTX_VAE, "text_encoder": T5_XXL}
+    engine = video_rest_engine(LTX_MANIFEST, "x2v", home, configs, "ltx")
+    engine.encoded = []
+    kw = dict(prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG, height=480, width=832, duration=5.0, fps=30,
+              num_inference_steps=LTX_STEPS, guidance_scale=3.0, stg_scale=1.0, skip_block_list=[LTX_STG_BLOCK],
+              rescaling_scale=0.7, image_cond_noise_scale=0.15, decode_timestep=0.05, decode_noise_scale=0.025)
+    # a step: the CFG forward over [neg | pos] (self + cross a block), the STG forward (block 19's self skipped)
+    launches = LTX_STEPS * ((28 + 28) + (27 + 28))
+    lat, size = (1, 128, 19, 15, 26), (480, 832)
+    rows = {"t2v": seed_pair("ltx_t2v", engine, kw, launches, lat, 145, size, phase="ltx")[0]}
+    vae = engine.vae
+    encode = vae.encode
+
+    def observed_encode(x):
+        engine.encoded.append(tuple(x.shape))
+        return encode(x)
+
+    vae.encode = observed_encode
+    image = cv2_smooth(np.random.default_rng(294), size)
+    rows["i2v"] = [video_rest_drive("ltx_i2v", engine, dict(kw, image=image, seed=0), launches, 145, size, [lat],
+                                    phase="ltx")[0]]
+    clip, _ = disk_clip(17, 480, 832, seed=295)
+    rows["extension"] = [video_rest_drive("ltx_extension", engine, dict(
+        kw, conditions=[{"video": np.stack(clip), "frame_number": 0, "strength": 0.8}], seed=0, return_latents=True),
+        launches, latents_expected=[lat], phase="ltx")[0]]
+    vae.encode = encode
+    tf = engine.transformer
+    facts = {"phase": "ltx", "dit_dim": tf.cfg.inner_dim, "dit_blocks": len(tf.blocks),
+             "heads": tf.cfg.num_attention_heads, "head_dim": tf.cfg.attention_head_dim,
+             "dit_parameters": sum(p.numel() for p in tf.parameters()), "dit_dtype": str(tf.dtype),
+             "vae_dtype": str(next(vae.parameters()).dtype), "conditions_encoded": engine.encoded,
+             "peak_gib": max(r["peak_gib"] for rs in rows.values() for r in rs)}
+    emit(facts)
+    check(tf.cfg.inner_dim == 2048 and len(tf.blocks) == 28 and not dit_bits(tf), f"the LTX DiT's widths: {facts}")
+    check(engine.encoded == [(1, 3, 1, 480, 832), (1, 3, 17, 480, 832)],
+          f"LTX: the conditioning media encoded were {engine.encoded}")
+    del engine, tf, vae
+    release()
+    return {f"ltx_{t}_480x832x145": rs for t, rs in rows.items()}
+
+
+def phase_ltx(home: Path):
+    """LTX-Video: the kernel at the self- and cross-attention launches, the
+    2-block DiT against f32 and the VAE against float64 (``ltx_reference``),
+    then the x2v requests (``ltx_requests``)."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    rows, err = path_kernel_rows("ltx", ltx_kernel_inputs())
+    lap("kernel_rows")
+    ltx_reference()
+    lap("card_vs_cpu")
+    paths = ltx_requests(home)
+    lap("requests")
+    emit({"phase": "ltx", "seconds_by_step": seconds})
     return paths, rows, err
 
 
@@ -8554,7 +8954,8 @@ def main() -> int:
                             ("multitalk", phase_multitalk), ("avatar", phase_avatar), ("skyreels", phase_skyreels),
                             ("wan_5b", phase_wan_5b), ("wan_more", phase_wan_more),
                             ("image_rest", phase_image_rest), ("video_rest", phase_video_rest),
-                            ("hunyuanimage3", phase_hunyuanimage3), ("cogvideox", phase_cogvideox)):
+                            ("hunyuanimage3", phase_hunyuanimage3), ("cogvideox", phase_cogvideox),
+                            ("mochi", phase_mochi), ("ltx", phase_ltx)):
             if name in phases:
                 new_paths, path_rows[name], path_err[name] = timed(name, phase, home)
                 paths.update(new_paths)

@@ -11,7 +11,7 @@ Sk grows, so a kernel that drops a key tile cannot pass at a long Sk.
 import pytest
 import torch
 
-from apex_studio_tpu_torch.ops.attention import _prep_bias
+from apex_studio_tpu_torch.ops.attention import _prep_bias, one_query_wide_head_attention
 from apex_studio_tpu_torch.ops.attention.flash import flash_attention, flash_attention_reference
 
 def assert_agrees(out, ref):
@@ -1044,3 +1044,79 @@ def test_hy3_and_cogvideox_backbones_launch_the_kernel_per_attention(cuda):
         out = cog(rand(1, 16, 3, 8, 8), t, rand(1, 12, 64))
         assert flash_attention.launches == before + 2
         assert torch.isfinite(out).all()
+
+
+# Mochi-1 at 480x848 over 85 frames: the joint launch over [23,850 video | 256 text] at 24 heads of 128 and the
+# pooler's one query over [mean | 256 text rows] at 8 heads of 512 with its padded keys at -1e9; LTX-Video at
+# 480x832 over 145 frames: the self-attention over 7410 tokens and the cross launch against 128 text rows (the
+# padded ones at -10000) at 32 heads of 64
+MOCHI_LTX_SHAPES = [
+    ("mochi_joint_s24106_h24", 24106, 24106, 24, 128, None),
+    ("mochi_pooler_sq1_sk257_h8", 1, 257, 8, 512, -1e9),
+    ("ltx_self_s7410_h32_d64", 7410, 7410, 32, 64, None),
+    ("ltx_cross_sq7410_sk128_h32_d64", 7410, 128, 32, 64, -10000.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MOCHI_LTX_SHAPES, ids=[c[0] for c in MOCHI_LTX_SHAPES])
+def test_flash_kernel_mochi_ltx_shapes(shape, cuda):
+    """The kernel at the new launches against its plain version over the
+    first, last (ragged) and an interior 128-row tile (every row below 256),
+    every key; the biased launches with a 24-token prompt's keys kept."""
+    _, sq, sk, h, d, masked = shape
+    g = torch.Generator(cuda).manual_seed(11)
+    q = torch.randn(1, sq, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(1, sk, h, d, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    bias = None
+    if masked is not None:
+        bias = torch.zeros(1, sk, device=cuda)
+        bias[:, sk - 232 if sk == 257 else 24:] = masked
+    before = flash_attention.launches
+    # head dim 512 (the pooler's one query) is past the kernel's widths: its scores go in as the key bias
+    out = (one_query_wide_head_attention if d > 128 else flash_attention)(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    if sq < 256:
+        assert_agrees(out, flash_attention_reference(q, k, v, bias=bias))
+        return
+    tail = sq % 128 or 128
+    for rows in (slice(0, 128), slice(sq - tail, sq), slice(sq // 256 * 128 - 64, sq // 256 * 128 + 64)):
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v, bias=bias))
+
+
+@pytest.mark.cuda
+def test_mochi_and_ltx_dits_launch_the_kernel_per_attention(cuda):
+    """Small Mochi and LTX DiTs in bf16 on the card: Mochi one joint launch a
+    block and the pooler's; LTX a self and a cross launch a block, one fewer
+    with a block's self-attention skipped (STG); outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import ltx, mochi
+
+    mo = materialize_random(lambda: mochi.MochiTransformer3DModel(mochi.MochiConfig(
+        num_attention_heads=2, attention_head_dim=64, num_layers=2, text_embed_dim=128, pooled_projection_dim=32,
+        time_embed_dim=32)), cuda, seed=5)
+    lt = materialize_random(lambda: ltx.LTXVideoTransformer3D(ltx.LTXVideoConfig(
+        in_channels=16, out_channels=16, num_layers=2, num_attention_heads=2, attention_head_dim=64,
+        caption_channels=64)), cuda, seed=6)
+    g = torch.Generator().manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    mask = torch.zeros(1, 12, device=cuda)
+    mask[:, :5] = 1.0
+    coords = rand(1, 3, 48).abs()
+    with torch.inference_mode():
+        before = flash_attention.launches
+        out = mo(rand(1, 12, 3, 8, 8), torch.tensor([600.0], device=cuda), rand(1, 12, 128),
+                 encoder_attention_mask=mask)
+        assert flash_attention.launches == before + 2 + 1
+        assert torch.isfinite(out).all()
+        for skips, launches in (((), 4), ((1,), 3)):
+            before = flash_attention.launches
+            out = lt(rand(2, 48, 16), rand(2, 12, 64), rand(2, 48).abs(), encoder_attention_mask=mask.expand(2, -1),
+                     video_coords=coords.expand(2, -1, -1), skip_blocks=skips)
+            assert flash_attention.launches == before + launches
+            assert torch.isfinite(out).all()

@@ -404,6 +404,24 @@ class TestTextEncoderCache:
         torch.testing.assert_close(again, first.float(), rtol=0, atol=0)
         torch.testing.assert_close(mask2, mask, rtol=0, atol=0)
 
+    def test_repeat_entry_is_read_from_memory_while_its_file_is_there(self, tmp_path, monkeypatch):
+        """A written entry comes back from host memory (no file read) as a
+        copy; once its file is gone it is not served."""
+        from apex_studio_tpu_torch.utils import disk_cache
+
+        cache = disk_cache.EmbeddingCache("memory_test", root=tmp_path)
+        key = {"prompts": ["hello"], "max_len": 4}
+        hidden = np.arange(12, dtype=np.float32).reshape(1, 3, 4)
+        cache.store(key, hidden, np.ones((1, 3), np.int32))
+        monkeypatch.setattr(disk_cache.np, "load", lambda *a, **k: pytest.fail("read the file"))
+        got, mask = cache.load(key)
+        np.testing.assert_array_equal(got, hidden)
+        got[:] = 0.0
+        np.testing.assert_array_equal(cache.load(key)[0], hidden)
+        for f in (tmp_path / "embeddings" / "memory_test").iterdir():
+            f.unlink()
+        assert cache.load(key) is None
+
 
 class TestDeviceRule:
     def test_entry_point_without_device_needs_cuda(self, tmp_path, monkeypatch):

@@ -1,6 +1,8 @@
 """The port's background removal, anime segmentation and optical flow (U²-Net
 full and light, ISNet, the anime face U-Net, GMFlow in its three published
-configurations) against the JAX package's on the CPU.
+configurations) against the JAX package's on the CPU. GMFlow's tests are in
+``tests/test_torch_preprocess_flow.py`` (one file each, so that the test
+workers split them), on this file's helpers.
 
 - Forwards: each JAX module seeded (``jax_build``, BN running means near 0),
   carried into the port (``loaders/from_jax.py``), f32 on the same numpy
@@ -97,7 +99,11 @@ def as_np(t):
     return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-@pytest.mark.parametrize("name", [n for n in NETS if NETS[n][3]])
+def is_flow(name: str) -> bool:
+    return name.startswith("gmflow")
+
+
+@pytest.mark.parametrize("name", [n for n in NETS if NETS[n][3] and not is_flow(n)])
 def test_forward_matches_jax(name):
     """u2netp, ISNet and the anime U-Net are held through their
     preprocessors' own compiled programs (``test_rembg_matches_jax``,
@@ -114,59 +120,6 @@ def test_forward_matches_jax(name):
     with torch.no_grad():
         got = port(*[torch.from_numpy(x) for x in xs])
     assert_rel_l2(got, as_np(want), tol)
-
-
-def test_gmflow_scale2_pieces_match_jax():
-    """The second scale's functions and modules at 1e-4, at the shapes the
-    64² forwards give them (so that JAX, op by op, reuses the programs
-    ``test_forward_matches_jax`` compiled): the features at 16², the
-    8-split shifted windows, the 81-tap correlations, the local
-    propagation, the trident encoder, the refinement's update block."""
-    rng = np.random.default_rng(2)
-    f0, f1 = (rng.normal(size=(1, 16, 16, 128)).astype(np.float32) for _ in range(2))
-    flow = (3 * rng.normal(size=(1, 16, 16, 2))).astype(np.float32)
-    t, j = (lambda a: torch.from_numpy(a)), jnp.asarray
-    assert_rel_l2(unimatch.flow_warp(t(f1), t(flow)), as_np(jax_flow.flow_warp(j(f1), j(flow))), 1e-5)
-    assert_rel_l2(unimatch.local_correlation_flow(t(f0), t(f1), 4),
-                  as_np(jax_flow.local_correlation_flow(j(f0), j(f1), 4)), 1e-4)
-    assert_rel_l2(unimatch.local_correlation_with_flow(t(f0), t(f1), t(flow), 4),
-                  as_np(jax_flow.local_correlation_with_flow(j(f0), j(f1), j(flow), 4)), 1e-5)
-    assert_rel_l2(unimatch._resize_align_corners(t(flow), 32, 32),
-                  as_np(jax_flow._resize_align_corners(j(flow), 32, 32)), 1e-5)
-    np.testing.assert_array_equal(unimatch.swin_shift_mask(16, 16, 8), jax_flow.swin_shift_mask(16, 16, 8))
-    np.testing.assert_array_equal(unimatch.sine_position(2, 2, 128), jax_flow.sine_position(2, 2, 128))
-    q = rng.normal(size=(2, 256, 128)).astype(np.float32)
-    mask = unimatch.swin_shift_mask(16, 16, 8)
-    for shift in (False, True):
-        assert_rel_l2(unimatch._swin_attention(t(q), t(q[::-1].copy()), t(q), 16, 16, 8, shift, t(mask)),
-                      as_np(jax_flow._swin_attention(j(q), j(q[::-1].copy()), j(q), 16, 16, 8, shift, j(mask))),
-                      1e-5)
-    prop = jax_build(lambda: jax_flow.SelfAttnPropagation(128, rngs=nnx.Rngs(0)))
-    port = port_from_jax(lambda: unimatch.SelfAttnPropagation(128), prop)
-    with torch.no_grad():
-        for radius in (0, 1):
-            assert_rel_l2(port(t(f0), t(flow), radius), as_np(prop(j(f0), j(flow), radius)), 1e-5)
-    enc = jax_build(lambda: jax_flow.CNNEncoder(128, 2, rngs=nnx.Rngs(0)))
-    port = port_from_jax(lambda: unimatch.CNNEncoder(128, 2), enc)
-    x = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
-    with torch.no_grad():
-        for g, w in zip(port(t(x)), enc(j(x))):
-            assert_rel_l2(g, as_np(w), 1e-4)
-    upd = jax_build(lambda: jax_flow.BasicUpdateBlock(downsample_factor=4, rngs=nnx.Rngs(0)))
-    port = port_from_jax(lambda: unimatch.BasicUpdateBlock(downsample_factor=4), upd)
-    net, inp = (rng.normal(size=(1, 16, 16, 128)).astype(np.float32) for _ in range(2))
-    corr = rng.normal(size=(1, 16, 16, 81)).astype(np.float32)
-    with torch.no_grad():
-        for g, w in zip(port(t(net), t(inp), t(corr), t(flow)), upd(j(net), j(inp), j(corr), j(flow))):
-            assert_rel_l2(g, as_np(w), 1e-4)
-    mask_up = rng.normal(size=(1, 16, 16, 9 * 16)).astype(np.float32)
-    assert_rel_l2(unimatch.upsample_flow_with_mask(t(flow), t(mask_up), 4),
-                  as_np(jax_flow.upsample_flow_with_mask(j(flow), j(mask_up), 4)), 1e-5)
-
-
-def test_flow_to_image_is_the_jax_one():
-    flow = (5 * np.random.default_rng(3).normal(size=(40, 56, 2))).astype(np.float32)
-    np.testing.assert_array_equal(unimatch.flow_to_image(flow), jax_flow.flow_to_image(flow))
 
 
 def test_u2net_resize_and_pool_are_jax_ones():
@@ -235,7 +188,7 @@ EXPECTED_NAMES = {
 }
 
 
-@pytest.mark.parametrize("name", list(NETS))
+@pytest.mark.parametrize("name", [n for n in NETS if not is_flow(n)])
 def test_converters_agree_with_jax(name, tmp_path):
     """The published file through each side's converter (ISNet's through
     ``weights.py`` from its Lightning checkpoint on disk)."""
@@ -397,46 +350,13 @@ def test_anime_face_segment_matches_jax(models_dir):
         assert_rel_l2(port_proc.model(torch.from_numpy(x)), as_np(jax_proc._fwd(state, jnp.asarray(x))), 1e-4)
 
 
-@pytest.mark.parametrize("name,variant", [("optical_flow", "gmflow-scale1"), ("unimatch", "gmflow-scale2")])
-def test_optical_flow_matches_jax(name, variant, models_dir, monkeypatch):
-    """Three frames at scale1 (two flows, the last repeated), a pair at
-    scale2, whose JAX forward runs op by op (``jax.jit`` the identity for
-    the call), as in ``test_forward_matches_jax``; its flow is held at 5e-4
-    (above), and its colours, whose floors move with it, within one level
-    on any share of the pixels. (The refinement tier differs from scale2
-    by its module, held in ``test_forward_matches_jax``; its preprocessor
-    run op by op in JAX costs a forward's minute of dispatch.)"""
-    scale1 = variant == "gmflow-scale1"
-    if not scale1:
-        monkeypatch.setattr(jax_flow.jax, "jit", lambda fn: fn)
-    write_checkpoint(models_dir, variant)
-    params = {"variant": variant, "detect_resolution": 64}
-    clip = moving_clip(3 if scale1 else 2)
-    jax_proc, jax_flows = jax_registry.get(name)(), []
-    jax_predict = jax_proc.predict_flow
-    jax_proc.predict_flow = lambda *a, **kw: jax_flows.append(jax_predict(*a, **kw)) or jax_flows[-1]
-    want = jax_proc(clip, **params)
-    port_proc = unimatch.OpticalFlowPreprocessor()
-    got = port_proc(clip, device="cpu", **params)
-    assert len(got) == len(clip)
-    assert_frames_close(got, want, max_share=0.01 if scale1 else 1.0)
-    np.testing.assert_array_equal(got[-1], got[-2])
-    assert_rel_l2(port_proc.predict_flow(clip[0], clip[1], 64), jax_flows[0], 1e-4 if scale1 else 5e-4)
-
-
-def test_optical_flow_single_frame_is_black():
-    f = frame()
-    got = run_preprocessor("flow", f, device="cpu")
-    assert len(got) == 1 and not got[0].any() and got[0].shape == f.shape
-
-
 PUBLISHED_CASES = {"rembg": (["u2netp"], {"model_name": "u2netp"}),
                    "anime_face_segment": (["anime_face", "isnet"], {"detect_resolution": 64}),
                    "ptlflow": (["gmflow-scale2-regrefine6"], {"variant": "gmflow-scale2-regrefine6",
                                                                "detect_resolution": 64})}
 
 
-@pytest.mark.parametrize("name", list(PUBLISHED_CASES))
+@pytest.mark.parametrize("name", [n for n in PUBLISHED_CASES if n != "ptlflow"])
 def test_published_file_names_are_found(name, tmp_path, monkeypatch):
     """The published files, folders and containers included
     (``Annotators/UNet.pth``, the Lightning ``isnetis.ckpt``, GMFlow's
@@ -457,25 +377,13 @@ def test_published_file_names_are_found(name, tmp_path, monkeypatch):
         np.testing.assert_array_equal(g, w)
 
 
-def test_jax_loader_drops_the_gmflow_container(tmp_path):
-    """The reference fault the port departs from: GMFlow's published file
-    keeps its weights under ``model``, which the JAX loader's flattening
-    drops (a dict is not an array), so the JAX preprocessor finds nothing to
-    load and runs its random init; the port unwraps ``model``."""
-    from apex_studio_tpu.preprocess.weights import load_preprocessor_weights as jax_load
-
-    torch.save({"model": published("gmflow-scale1")}, tmp_path / "gmflow-scale1.pth")
-    assert jax_load("gmflow-scale1", root=tmp_path) == {}
-    assert set(load_preprocessor_weights("gmflow-scale1", root=tmp_path)) == set(published("gmflow-scale1"))
-
-
 # -- departures -------------------------------------------------------------------------
 
 MISSING = {"rembg": ("u2net.pth", {}), "anime_face_segment": ("UNet.pth", {}),
            "optical_flow": ("gmflow-scale1-mixdata.pth", {})}
 
 
-@pytest.mark.parametrize("name", list(MISSING))
+@pytest.mark.parametrize("name", [n for n in MISSING if n != "optical_flow"])
 def test_missing_checkpoint_raises(name, tmp_path, monkeypatch):
     """Nothing is fetched and no random net stands in: the published file's
     name and the directory are in the error."""
@@ -503,7 +411,7 @@ FAULT_CASES = {"u2netp": ("rembg", {"model_name": "u2netp"}), "isnet": ("anime_f
                "gmflow-scale1": ("optical_flow", {})}
 
 
-@pytest.mark.parametrize("net", list(FAULT_CASES))
+@pytest.mark.parametrize("net", [n for n in FAULT_CASES if not is_flow(n)])
 @pytest.mark.parametrize("fault", ["missing_key", "extra_key"])
 def test_checkpoint_with_a_key_missing_or_extra_raises(net, fault, tmp_path, monkeypatch):
     """The load is strict: one key taken out, or one unknown key added,

@@ -2,8 +2,9 @@
 the port's bf16 forward against the JAX module's bf16 forward of the same
 weights, on the CPU, both against the port's f32 forward of those weights
 (rounded to bf16, so that every forward holds the same values). A 1 + 1-block
-FLUX.2 DiT at 48 heads of 128 (6144 wide, the 15360-wide context) and a
-1 + 1-block HunyuanVideo DiT at 24 heads of 128 (token_replace), the shapes
+FLUX.2 DiT at 48 heads of 128 (6144 wide, the 15360-wide context), a
+1 + 1-block HunyuanVideo DiT at 24 heads of 128 (token_replace) and a 1 + 1-block
+Mochi AsymmDiT at 24 heads of 128 (256 text rows, 40 kept), the shapes
 ``chip_smoke.py`` holds on the card.
 
 Two weight recipes: ``synthetic``, the smoke run's (every floating tensor
@@ -16,7 +17,7 @@ or are as far from f32 as each other, the distance is bf16 rounding and not
 a port fault. A 48-head model takes 18–27 GB of host memory at its peak, so
 this is a script, not a Tier-1 test:
 
-    JAX_PLATFORMS=cpu python -m tests.torch_bf16_width [flux2|hunyuanvideo] [synthetic|jax] [heads]
+    JAX_PLATFORMS=cpu python -m tests.torch_bf16_width [flux2|hunyuanvideo|mochi] [synthetic|jax] [heads]
 
 It prints one JSON line: the relative L2 distances (port bf16 vs f32, JAX
 bf16 vs f32, port bf16 vs JAX bf16).
@@ -34,10 +35,12 @@ from flax import nnx
 
 from apex_studio_tpu.models.transformers import flux2 as jax_flux2
 from apex_studio_tpu.models.transformers import hunyuanvideo as jax_hv
+from apex_studio_tpu.models.transformers import mochi as jax_mochi
 from apex_studio_tpu_torch.engine.base import materialize_random
 from apex_studio_tpu_torch.loaders.from_jax import convert_jax_params, load_from_jax
 from apex_studio_tpu_torch.models.transformers import flux2
 from apex_studio_tpu_torch.models.transformers import hunyuanvideo as hv
+from apex_studio_tpu_torch.models.transformers import mochi
 from tests.torch_port_helpers import jax_build, jax_params
 
 
@@ -64,6 +67,14 @@ def models(name: str, heads: int):
                  np.array([4.0], np.float32), normal(1, 16, 128)),
                 lambda m, x, s, t, g, c: m(x, s, t, g, cond_tokens=c, **call),
                 lambda m, x, s, t, g, c: m(x, s, t, g, cond_tokens=c, **call))
+    if name == "mochi":
+        kw = dict(num_layers=2, num_attention_heads=heads)
+        mask = (np.arange(256) < 40)[None].astype(np.float32)
+        return (lambda: jax_mochi.MochiTransformer3DModel(jax_mochi.MochiConfig(**kw), rngs=nnx.Rngs(0), **bf16),
+                lambda dt: mochi.MochiTransformer3DModel(mochi.MochiConfig(**kw), dtype=dt),
+                (normal(1, 12, 3, 16, 24), np.array([731.0], np.float32), normal(1, 256, 4096), mask),
+                lambda m, x, t, c, k: m(x, t, c, encoder_attention_mask=k),
+                lambda m, x, t, c, k: m(x, t, c, encoder_attention_mask=k))
     kw = dict(num_layers=1, num_single_layers=1, num_attention_heads=heads, image_condition_type="token_replace")
     mask = (np.arange(64) < 40)[None].astype(np.int32)
     return (lambda: jax_hv.HunyuanVideoTransformer3DModel(jax_hv.HunyuanVideoConfig(**kw), rngs=nnx.Rngs(0),

@@ -65,11 +65,17 @@ def jax_build(build, seed: int = 0):
     return model
 
 
+_SEEDED = {}
+
+
 def fast_jax_engine(engine):
     """Make a JAX engine build its components without flax's initialisers: a
     component with a checkpoint is built abstractly and filled from it as the
     JAX loader fills it (converter, strict apply), one without gets
-    :func:`jax_build`'s values, seeded by the component."""
+    :func:`jax_build`'s values, seeded by the component. A seeded component
+    is built once a worker and handed out as clones (``nnx.clone``: its own
+    variables over the same immutable arrays), so an engine that reloads a
+    component, or a test that rebuilds it, traces no constructor again."""
     from apex_studio_tpu.loaders.converters import convert_keys, converter_registry
     from apex_studio_tpu.loaders.state_mapping import apply_state_dict
     from apex_studio_tpu.models.registry import _load_builtin_families
@@ -84,7 +90,10 @@ def fast_jax_engine(engine):
         build = lambda: cls(cfg, dtype=dtype, param_dtype=dtype, rngs=nnx.Rngs(0))  # noqa: E731
         sd = engine._load_state_dict(spec)
         if sd is None:
-            return jax_build(build, seed=zlib.crc32(f"{base}/{converter_family}".encode()))
+            key = (cls, base, converter_family, repr(cfg), str(dtype))
+            if key not in _SEEDED:
+                _SEEDED[key] = jax_build(build, seed=zlib.crc32(f"{base}/{converter_family}".encode()))
+            return nnx.clone(_SEEDED[key])
         family = converter_family if converter_family in converter_registry else None
         model = nnx.eval_shape(build)
         apply_state_dict(model, convert_keys(family, sd) if family else sd, strict=True)
