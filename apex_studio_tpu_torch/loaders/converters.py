@@ -25,7 +25,9 @@ keys in ``wan``); the other image families' ``chroma``, ``ovis``, ``fibo``,
 encoders: ``longcat``, ``cosmos`` and ``kandinsky5``; HunyuanImage 3's
 ``hunyuanimage3`` and ``hunyuanimage3_vae``, CogVideoX's ``cogvideo`` and
 ``cogvideo_vae``, its T5-XXL through ``t5``; Mochi-1's ``mochi`` and
-``mochi_vae``, LTX-Video's ``ltx`` and ``ltx_vae``).
+``mochi_vae``, LTX-Video's ``ltx`` and ``ltx_vae``; LTX-2's ``ltx2``,
+``ltx2_vae``, ``ltx2_audio_vae``, ``ltx2_connectors``, ``ltx2_upsampler``,
+``ltx2_vocoder`` and its Gemma-3 text tower's ``gemma3``).
 
 Each family registers an ordered list of regex renames plus prefixes to strip
 (original / ComfyUI / diffusers layouts) and keys to drop. Converted Linear and
@@ -1537,5 +1539,126 @@ converter_registry.add(
         ],
         strip_prefixes=(),
         drop=(r"rotary_emb", r"num_batches_tracked", r"lm_head"),
+    ),
+)
+
+# -- LTX-2 (the JAX package's tables) -------------------------------------------------
+
+converter_registry.add(
+    # LTX-2's audio-video DiT (diffusers LTX2VideoTransformer3DModel)
+    "ltx2",
+    KeyConverter(
+        renames=[
+            (r"^transformer_blocks\.", "blocks."),
+            (r"^caption_projection\.linear_(\d)\.", r"caption_projection_\1."),
+            (r"^audio_caption_projection\.linear_(\d)\.", r"audio_caption_projection_\1."),
+            (r"\.emb\.timestep_embedder\.linear_(\d)\.", r".emb_\1."),
+            (r"\.ff\.net\.0\.proj\.", ".ff.fc1."),
+            (r"\.ff\.net\.2\.", ".ff.fc2."),
+            (r"\.audio_ff\.net\.0\.proj\.", ".audio_ff.fc1."),
+            (r"\.audio_ff\.net\.2\.", ".audio_ff.fc2."),
+            (r"\.to_out\.0\.", ".to_out."),
+            (r"(to_q|to_k|to_v|to_out|fc1|fc2|proj_in|audio_proj_in|proj_out|"
+             r"audio_proj_out|caption_projection_\d|audio_caption_projection_\d|"
+             r"emb_\d|linear)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"^audio_vae\.", r"^vocoder\."),
+    ),
+)
+
+converter_registry.add(
+    # LTX-2's video VAE (AutoencoderKLLTX2Video): resnets / samplers as the
+    # (resnets, sampler) and (sampler, resnets) pairs of each block
+    "ltx2_vae",
+    KeyConverter(
+        renames=[
+            (r"\.mid_block\.resnets\.", ".mid_resnets."),
+            (r"\.down_blocks\.(\d+)\.resnets\.", r".down_blocks.\1.0."),
+            (r"\.down_blocks\.(\d+)\.downsamplers\.0\.", r".down_blocks.\1.1."),
+            (r"\.up_blocks\.(\d+)\.upsamplers\.0\.", r".up_blocks.\1.0."),
+            (r"\.up_blocks\.(\d+)\.resnets\.", r".up_blocks.\1.1."),
+            (r"\.conv\.weight$", ".kernel"),
+            (r"\.conv\.bias$", ".bias"),
+            (r"\.conv_shortcut\.weight$", ".conv_shortcut.kernel"),
+        ],
+        drop=(r"^latents_mean$", r"^latents_std$", r"per_channel_statistics"),
+    ),
+)
+
+converter_registry.add(
+    # Gemma-3's text tower inside Gemma3ForConditionalGeneration
+    "gemma3",
+    KeyConverter(
+        renames=[
+            (r"^language_model\.model\.", ""),
+            (r"^language_model\.", ""),
+            (r"^model\.", ""),
+            (r"^embed_tokens\.weight$", "embed_tokens"),
+            (r"\.mlp\.(gate_proj|up_proj|down_proj)\.", r".\1."),
+            (r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=(),
+        drop=(r"^vision_tower\.", r"^multi_modal_projector\.", r"^lm_head\.", r"rotary_emb"),
+    ),
+)
+
+converter_registry.add(
+    # LTX-2's audio VAE (AutoencoderKLLTX2Audio): blocks and samplers as pairs
+    "ltx2_audio_vae",
+    KeyConverter(
+        renames=[
+            (r"\.down\.(\d+)\.block\.(\d+)\.", r".down.\1.0.\2."),
+            (r"\.down\.(\d+)\.downsample\.", r".down.\1.1."),
+            (r"\.up\.(\d+)\.block\.(\d+)\.", r".up.\1.0.\2."),
+            (r"\.up\.(\d+)\.upsample\.", r".up.\1.1."),
+            (r"\.mid\.block_1\.", ".mid_1."),
+            (r"\.mid\.block_2\.", ".mid_2."),
+            (r"\.conv\.weight$", ".kernel"),
+            (r"\.conv\.bias$", ".bias"),
+            (r"\.weight$", ".kernel"),  # plain Conv2d downsamplers
+        ],
+        drop=(r"^latents_mean$", r"^latents_std$", r"norm_out"),
+    ),
+)
+
+converter_registry.add(
+    # LTXLatentUpsamplerModel: ``upsampler.0`` is the (conv, pixel shuffle)
+    # variant, ``upsampler.conv`` the rational resampler; the binomial blur is
+    # a fixed buffer computed here
+    "ltx2_upsampler",
+    KeyConverter(
+        renames=[
+            (r"^upsampler\.0\.weight$", "upsampler_conv.kernel"),
+            (r"^upsampler\.0\.bias$", "upsampler_conv.bias"),
+            (r"(norm1|norm2|initial_norm)\.weight$", r"\1.scale"),
+            (r"\.weight$", ".kernel"),
+        ],
+        drop=(r"blur_down",),
+    ),
+)
+
+converter_registry.add(
+    # LTX2Vocoder: the ConvTranspose1d weights keep torch's layout as ``.w``
+    "ltx2_vocoder",
+    KeyConverter(
+        renames=[
+            (r"^upsamplers\.(\d+)\.weight$", r"upsamplers.\1.w"),
+            (r"^upsamplers\.(\d+)\.bias$", r"upsamplers.\1.bias"),
+            (r"(conv_in|conv_out|convs1\.\d+|convs2\.\d+)\.weight$", r"\1.kernel"),
+        ],
+    ),
+)
+
+converter_registry.add(
+    # LTX2TextConnectors
+    "ltx2_connectors",
+    KeyConverter(
+        renames=[
+            (r"\.ff\.net\.0\.proj\.", ".ff.fc1."),
+            (r"\.ff\.net\.2\.", ".ff.fc2."),
+            (r"\.to_out\.0\.", ".to_out."),
+            (r"(to_q|to_k|to_v|to_out|fc1|fc2|text_proj_in)\.weight$", r"\1.kernel"),
+        ],
+        strip_prefixes=("model.", "module.", "connectors."),
     ),
 )

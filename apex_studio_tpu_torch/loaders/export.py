@@ -60,7 +60,12 @@ the decoder under ``model.``) and ``hunyuanimage3_vae`` (its
 ``mochi_vae`` (diffusers' ``MochiTransformer3DModel`` and ``AutoencoderKLMochi``,
 the norms' ``.norm_layer`` and the causal convs' ``.conv``), ``ltx`` and
 ``ltx_vae`` (diffusers' ``LTXVideoTransformer3DModel`` and the Lightricks
-``CausalVideoAutoencoder``, its convs' ``.conv`` and ``per_channel_statistics``). PiDiNet has none: its converter folds the published pixel-difference weights into
+``CausalVideoAutoencoder``, its convs' ``.conv`` and ``per_channel_statistics``);
+LTX-2's ``ltx2`` (diffusers' ``LTX2VideoTransformer3DModel``), ``ltx2_vae``
+and ``ltx2_audio_vae`` (their resnets, samplers and causal convs' ``.conv``),
+``ltx2_connectors``, ``ltx2_upsampler`` (the norms' ``.weight``),
+``ltx2_vocoder`` (the transposed convs' ``.weight``) and ``gemma3``
+(``Gemma3ForConditionalGeneration``'s text tower under ``language_model.model.``). PiDiNet has none: its converter folds the published pixel-difference weights into
 vanilla kernels, which is not invertible.
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
@@ -825,6 +830,46 @@ _LTX_VAE = (
     (r"^mean_of_means$", "per_channel_statistics.mean-of-means"),
 )
 
+_LTX2 = (
+    (r"^blocks\.", "transformer_blocks."),
+    (r"^(audio_caption_projection|caption_projection)_(\d)\.", r"\1.linear_\2."),
+    (r"\.emb_(\d)\.", r".emb.timestep_embedder.linear_\1."),
+    (r"\.to_out\.", ".to_out.0."),
+    (r"\.(ff|audio_ff)\.fc1\.", r".\1.net.0.proj."),
+    (r"\.(ff|audio_ff)\.fc2\.", r".\1.net.2."),
+)
+_LTX2_VAE = (
+    (r"\.mid_resnets\.", ".mid_block.resnets."),
+    (r"\.down_blocks\.(\d+)\.0\.", r".down_blocks.\1.resnets."),
+    (r"\.down_blocks\.(\d+)\.1\.", r".down_blocks.\1.downsamplers.0."),
+    (r"\.up_blocks\.(\d+)\.0\.", r".up_blocks.\1.upsamplers.0."),
+    (r"\.up_blocks\.(\d+)\.1\.", r".up_blocks.\1.resnets."),
+    (r"(conv_in|conv_out|conv1|conv2|samplers\.0\.conv)\.(weight|bias)$", r"\1.conv.\2"),
+)
+_GEMMA3 = (
+    (r"^embed_tokens$", "embed_tokens.weight"),
+    (r"\.(gate_proj|up_proj|down_proj)\.", r".mlp.\1."),
+    (r"^", "language_model.model."),
+)
+_LTX2_AUDIO_VAE = (
+    (r"\.down\.(\d+)\.0\.(\d+)\.", r".down.\1.block.\2."),
+    (r"\.down\.(\d+)\.1\.(weight|bias)$", r".down.\1.downsample.conv.\2"),
+    (r"\.up\.(\d+)\.0\.(\d+)\.", r".up.\1.block.\2."),
+    (r"\.up\.(\d+)\.1\.conv\.", r".up.\1.upsample.conv."),
+    (r"\.mid_(\d)\.", r".mid.block_\1."),
+    (r"(conv_in|conv_out|conv1|conv2|nin_shortcut|upsample\.conv)\.(weight|bias)$", r"\1.conv.\2"),
+)
+_LTX2_UPSAMPLER = (
+    (r"^upsampler_conv\.", "upsampler.0."),
+    (r"\.scale$", ".weight"),
+)
+_LTX2_VOCODER = ((r"^upsamplers\.(\d+)\.w$", r"upsamplers.\1.weight"),)
+_LTX2_CONNECTORS = (
+    (r"\.to_out\.", ".to_out.0."),
+    (r"\.ff\.fc1\.", ".ff.net.0.proj."),
+    (r"\.ff\.fc2\.", ".ff.net.2."),
+)
+
 
 def _longcat_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """``x_embedder.proj.weight`` as the published Conv3d weight
@@ -868,7 +913,9 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "chroma": _CHROMA, "ovis": _OVIS, "fibo": _FIBO, "hidream": _HIDREAM, "hunyuanimage": _HUNYUANIMAGE,
     "hunyuanimage_vae": _HUNYUANIMAGE_VAE, "longcat": _LONGCAT, "cosmos": _COSMOS, "kandinsky5": _KANDINSKY5,
     "hunyuanimage3": _HUNYUANIMAGE3, "hunyuanimage3_vae": _HUNYUANIMAGE3_VAE, "cogvideo": _COGVIDEO,
-    "cogvideo_vae": _COGVIDEO_VAE, "mochi": _MOCHI, "mochi_vae": _MOCHI_VAE, "ltx": _LTX, "ltx_vae": _LTX_VAE}
+    "cogvideo_vae": _COGVIDEO_VAE, "mochi": _MOCHI, "mochi_vae": _MOCHI_VAE, "ltx": _LTX, "ltx_vae": _LTX_VAE,
+    "ltx2": _LTX2, "ltx2_vae": _LTX2_VAE, "gemma3": _GEMMA3, "ltx2_audio_vae": _LTX2_AUDIO_VAE,
+    "ltx2_upsampler": _LTX2_UPSAMPLER, "ltx2_vocoder": _LTX2_VOCODER, "ltx2_connectors": _LTX2_CONNECTORS}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -30,6 +30,10 @@ The port keeps the JAX attribute names, so the mapping is mechanical:
   that sets ``jax_w_torch_layout = True`` (the anime lineart U-Net's ``_Up``,
   whose JAX ``w`` already is ``[in, out, kh, kw]`` for ``lax.conv_transpose``
   with ``transpose_kernel``) takes it as it is;
+- a 3-D ``...w`` is a 1-D transposed-convolution kernel that the JAX
+  module keeps flipped as ``[k, in, out]`` (the LTX-2 vocoder's
+  ``ConvTranspose1d``): it becomes ``ConvTranspose1d``'s ``[in, out, k]``,
+  unflipped, under the same name;
 - a ``...weight`` that the JAX module keeps in its own layout under a torch
   name (Wan Animate's equalized-lr motion encoder) follows its port class:
   ``jax_weight_hwio`` (``MotionConv``) takes HWIO to OIHW and
@@ -98,6 +102,8 @@ def convert_jax_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
             arr = arr.transpose(3, 2, 0, 1)
         elif parts[-1] == "kernel_w" and arr.ndim == 3:
             arr = arr.transpose(2, 1, 0)
+        elif parts[-1] == "w" and arr.ndim == 3:
+            arr = arr.transpose(1, 2, 0)[:, :, ::-1]
         elif parts[-1] == "w" and arr.ndim == 4:
             parts[-1] = "weight"
             arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]

@@ -26,7 +26,10 @@ run on the ported VAEs and encoders); ``hunyuanimage3.base`` (HunyuanImage 3's
 MoE backbone) and ``hunyuanimage3`` (its DC-AE VAE); ``cogvideo.base`` in the
 transformer registry (the CogVideoX DiT) and in the VAE registry (its causal
 VAE); ``mochi.base`` in both (Mochi-1's AsymmDiT and its VAE), ``ltx.base``
-(the LTX-Video DiT) and ``ltx_vae.base`` (its causal VAE).
+(the LTX-Video DiT) and ``ltx_vae.base`` (its causal VAE); ``ltx2.base`` in
+both (LTX-2's audio-video DiT and its video VAE), ``ltx2audio`` (its audio
+VAE), ``Gemma3ForConditionalGeneration`` (its text tower) and, in the helper
+registry, ``ltx2.connectors``, ``ltx2.vocoder`` and ``ltx2.upsampler``.
 """
 
 import importlib
@@ -36,6 +39,7 @@ from apex_studio_tpu_torch.registry import Registry
 transformer_registry = Registry("transformer")
 vae_registry = Registry("vae")
 text_encoder_registry = Registry("text_encoder")
+helper_registry = Registry("helper")
 
 _FAMILIES = (
     "apex_studio_tpu_torch.models.transformers.flux",
@@ -84,6 +88,13 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.vaes.mochi_vae",
     "apex_studio_tpu_torch.models.transformers.ltx",
     "apex_studio_tpu_torch.models.vaes.ltx_vae",
+    "apex_studio_tpu_torch.models.text_encoders.gemma3",
+    "apex_studio_tpu_torch.models.transformers.ltx2",
+    "apex_studio_tpu_torch.models.vaes.ltx2_vae",
+    "apex_studio_tpu_torch.models.vaes.ltx2_audio_vae",
+    "apex_studio_tpu_torch.models.ltx2_connectors",
+    "apex_studio_tpu_torch.models.ltx2_vocoder",
+    "apex_studio_tpu_torch.models.ltx2_upsampler",
 )
 
 

@@ -8,6 +8,7 @@ on disk per canonicalized inputs.
 
 from __future__ import annotations
 
+import inspect
 from pathlib import Path
 from typing import Any, Dict, List, Sequence, Tuple
 
@@ -47,6 +48,8 @@ class TextEncoder:
             return "qwen3"
         if "Qwen2" in self.base:  # Qwen2 and Qwen2.5-VL share one text path and key map
             return "qwen2"
+        if "Gemma3" in self.base:  # the JAX wrapper's lower-cased base names no converter
+            return "gemma3"
         if "T5" in self.base:
             return "t5"
         if "CLIP" in self.base:
@@ -135,8 +138,16 @@ class TextEncoder:
         ids, mask = self.tokenize(texts, max_sequence_length)
         ids_t = torch.from_numpy(ids).long().to(device)
         mask_t = torch.from_numpy(mask).to(device)
-        norm = {"normalize_last": True} if output == "normed" else {}
+        params = inspect.signature(type(model).forward).parameters
+        if output == "hidden_states_all":
+            if "output_hidden_states" not in params:
+                raise ValueError(f"{self.base} does not expose all hidden states (hidden_states_all output)")
+            kw = {"output_hidden_states": True}
+        elif "normalize_last" in params:
+            kw = {"normalize_last": output == "normed"}
+        else:
+            kw = {}
         with torch.inference_mode():
-            hidden = model(ids_t, attention_mask=mask_t, **norm)
+            hidden = model(ids_t, attention_mask=mask_t, **kw)
         cache.store(cache_key, hidden.float().cpu().numpy(), mask)
         return hidden, mask_t

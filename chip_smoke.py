@@ -259,7 +259,7 @@ Phases, each printed as one JSON line:
              against none (the painted condition against the CPU's), two pose
              videos, two shot splits (one twice, bit-identical), FramePack
              over 45 frames (three sections, 1x / 2x / 4x future context),
-             Animate at 720x1280 with its 77-frame segment (the VAE encode in
+             Animate at 720x1280 over a 45-frame segment (the VAE encode in
              time chunks), two chained 17-frame segments twice
              (bit-identical) and replace mode, Lynx at ip_scale 1 and 0 and
              Lynx-lite; the frames differ where the conditioning does
@@ -324,6 +324,15 @@ Phases, each printed as one JSON line:
              an STG skip) against f32 and the VAE against float64; 480x832
              over 145 frames, 2 steps, CFG 3 with STG: t2v (seeds 0, 0, 1),
              i2v, an extension of a 17-frame clip
+  ltx2       LTX-2 from its manifest at full width in bf16 (Gemma-3 12B and
+             the connectors bf16, the audio VAE and vocoder f32): the kernel
+             at its seven launch shapes and its fully masked text rows; a
+             2-block DiT against f32, the VAE against float64; one CFG forward
+             at all 48 blocks over 6144 + 121 tokens; at 4 blocks, 2 steps,
+             CFG 4: t2v at 512x768 over 121 frames (seeds 0, 0, 1; frames and
+             a 24 kHz waveform), i2v, multimodal guidance, IC-LoRA and
+             keyframe interpolation at 17 frames; the latent upsampler in
+             f32 against the CPU
   preprocess_pose
              the last preprocessors: the transformers delegates at published
              widths written with save_pretrained (DPT-Large, ZoeDepth
@@ -396,7 +405,8 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "skyreels,wan_5b,wan_more,image_rest,video_rest,hunyuanimage3,cogvideox,mochi,ltx,rife,sam2,preprocess,"
+                  "skyreels,wan_5b,wan_more,image_rest,video_rest,hunyuanimage3,cogvideox,mochi,ltx,ltx2,rife,sam2,"
+                  "preprocess,"
                   "preprocess_nets,preprocess_rest,"
                   "preprocess_pose")
 LORA_RANK, LORA_SCALE, LORA_BLOCKS = 16, 0.8, 19
@@ -3891,8 +3901,8 @@ def path_kernel_rows(label, inputs):
     bias or None)) against its plain version: whole where its f32 scores
     take at most 4 GB, else on three 128-row subsets over all keys (the first
     tile, the last and ragged one, one across an interior tile edge); a
-    masked case (a bias of 0 and -1e30 only) also against the plain version
-    over its kept keys alone.
+    masked case (a bias of 0 and -1e30 only, one mask for every batch row)
+    also against the plain version over its kept keys alone.
     Each shape timed (``timing_row``) with the plain version over its first
     128 rows where the scores cannot be held. Returns (timing rows, the
     largest max|Δ|)."""
@@ -3911,7 +3921,8 @@ def path_kernel_rows(label, inputs):
                    {"first_tile": slice(0, 128), "last_tile": slice(s - tail, s),
                     "interior_tile_edge": slice(s // 256 * 128 - 64, s // 256 * 128 + 64)})
         refs = {"": lambda sl: flash_attention_reference(q[:, sl], k, v, bias=bias)}
-        if bias is not None and bool(((bias == 0) | (bias <= -1e29)).all()):  # a key mask, not a key bias
+        if (bias is not None and bool(((bias == 0) | (bias <= -1e29)).all())  # a key mask, not a key bias,
+                and bool((bias == bias[:1]).all())):  # one mask for every batch row
             keep = bias.reshape(-1, k.shape[1])[0] > -1e29
             refs["_vs_kept_keys_only"] = lambda sl: flash_attention_reference(q[:, sl], k[:, keep], v[:, keep])
         for suffix, reference in refs.items():
@@ -4707,6 +4718,7 @@ WAN_MORE_TOKENS = {"wan5b_121": 31 * 880, "wan5b_17": 5 * 880, "lucy_81": 21 * 3
                    "animate_77": 21 * 3600, "scail_81": 1560 + 21 * 1560 + 21 * 390, "clip81": 21 * 1560}
 WAN_5B_STEPS, WAN_MORE_STEPS = 1, 1  # of 50 and 20-50: cuts of steps
 WAN_MORE_FRAMES = 17
+ANIMATE_720P_FRAMES = 45  # of the manifest's 77-frame segment: a cut of clip length
 # flash launches a forward of the requests' DiTs (EDIT_LAYERS blocks; 30 for the
 # 5B): self + text cross a block, + the CLIP image cross (ATI, SCAIL, Animate),
 # + the IP cross (Lynx), + Animate's face adapter at block 0; HoloCine's
@@ -4982,7 +4994,8 @@ def wan_more_requests(home: Path):
     ``patch_motion``), SCAIL with two pose videos, HoloCine twice with one
     shot split (bit-identical) and once with another, FramePack over 45
     frames (three sections, the last with 1x, 2x and 4x future context),
-    Animate at the manifest's 720x1280 with its 77-frame segment, then two
+    Animate at the manifest's 720x1280 over ANIMATE_720P_FRAMES frames of one
+    segment (the VAE encode in time chunks), then two
     17-frame segments chained (twice, bit-identical) and replace mode once
     (guidance 1, its default), Lynx at ip_scale 1 and 0, Lynx-lite once."""
     import numpy as np
@@ -5074,13 +5087,16 @@ def wan_more_requests(home: Path):
         return decode(z, *a)
 
     engine.decode_video_tensor = observed
-    pose, _ = disk_clip(77, 720, 1280, seed=194)
-    faces, _ = disk_clip(77, 512, 512, seed=195)
+    # 45 of the segment's 77 frames: a cut of clip length that keeps the chunked VAE encode
+    pose, _ = disk_clip(ANIMATE_720P_FRAMES, 720, 1280, seed=194)
+    faces, _ = disk_clip(ANIMATE_720P_FRAMES, 512, 512, seed=195)
     ref_image = cv2_smooth(np.random.default_rng(196), (720, 1280))
     full = dict(image=ref_image, pose_video=pose, face_video=faces, prompt=WAN_PROMPT, height=720, width=1280,
-                segment_frame_length=77, num_inference_steps=WAN_MORE_STEPS, guidance_scale=1.0, seed=0)
-    row, _ = edit_drive("wan_animate_720p", engine, full, L["animate"], {"transformer": WAN_MORE_STEPS}, 77, 20)
-    paths["wan_animate_720p_77_frames"] = [row]
+                segment_frame_length=ANIMATE_720P_FRAMES, num_inference_steps=WAN_MORE_STEPS, guidance_scale=1.0,
+                seed=0)
+    row, _ = edit_drive("wan_animate_720p", engine, full, L["animate"], {"transformer": WAN_MORE_STEPS},
+                        ANIMATE_720P_FRAMES, (ANIMATE_720P_FRAMES - 1) // 4 + 1)
+    paths[f"wan_animate_720p_{ANIMATE_720P_FRAMES}_frames"] = [row]
     del pose, faces
     short_pose, _ = disk_clip(33, seed=197)
     short_faces, _ = disk_clip(33, 512, 512, seed=198)
@@ -5706,7 +5722,7 @@ def video_rest_engine(manifest: Path, model_type: str, home: Path, configs: dict
                 setattr(engine, name, getattr(share, name))
         engine.gate = share.gate
     engine.decoded = []
-    for attr in ("decode_video", "decode_latents"):
+    for attr in ("decode_video", "decode_latents", "decode_frames"):
         decode = getattr(engine, attr, None)
         if decode is not None:
             def observed(z, *args, decode=decode, **kwargs):
@@ -6825,6 +6841,424 @@ def phase_ltx(home: Path):
     paths = ltx_requests(home)
     lap("requests")
     emit({"phase": "ltx", "seconds_by_step": seconds})
+    return paths, rows, err
+
+
+# -- LTX-2 -------------------------------------------------------------------------------
+
+LTX2_MANIFEST = REPO / "manifests" / "video" / "ltx2-19b-ti2v.yml"
+LTX2_LAYERS = 4  # of the published 48: the requests' cut of depth (one forward runs all 48)
+LTX2_STEPS = 2
+LTX2_STG_BLOCK = 1
+# the manifest's default request: 512x768 over 5 s at 25 fps (121 frames): 16 latent frames of 16 x 24
+# tokens, 121 audio tokens, the prompt at 1024 tokens; the other requests at 17 frames (3 x 16 x 24)
+LTX2_TOKENS, LTX2_AUDIO, LTX2_TEXT = 16 * 16 * 24, 121, 1024
+LTX2_SHORT_TOKENS, LTX2_SHORT_AUDIO = 3 * 16 * 24, 17
+# Published widths the repository lacks, written where the manifest names them. Lightricks/LTX-2: Gemma-3
+# 12B's text tower (48 layers of 3840, 16 query / 8 key-value heads of 256, a 1024-token window on five
+# layers of six, linear RoPE scaling 8 on the global ones); the text connectors (the 49 hidden states'
+# 188,160 features to 3840, two 2-layer stacks of 30 heads of 128 with 128 registers); the video VAE
+# (patch 4, 128 latent channels, encoder 256 -> 2048 over four samplers, decoder 1024 -> 128 over three),
+# with seeded per-channel statistics; the audio VAE (base 128, ch_mult 1, 2, 4, 8 latent channels over 64
+# mel bins) and the vocoder (1024 hidden, 6 x 5 x 2 x 2 x 2 to 24 kHz), at the modules' defaults.
+GEMMA3_12B = {"architectures": ["Gemma3ForConditionalGeneration"], "model_type": "gemma3", "text_config": {
+    "model_type": "gemma3_text", "vocab_size": 262208, "hidden_size": 3840, "intermediate_size": 15360,
+    "num_hidden_layers": 48, "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256,
+    "query_pre_attn_scalar": 256, "sliding_window": 1024, "sliding_window_pattern": 6, "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0, "rope_local_base_freq": 10000.0, "rope_scaling": {"factor": 8.0, "rope_type": "linear"}}}
+LTX2_CONNECTORS = {"caption_channels": 3840, "text_proj_in_factor": 49, "video_connector_num_attention_heads": 30,
+                   "video_connector_attention_head_dim": 128, "video_connector_num_layers": 2,
+                   "video_connector_num_learnable_registers": 128, "audio_connector_num_attention_heads": 30,
+                   "audio_connector_attention_head_dim": 128, "audio_connector_num_layers": 2,
+                   "audio_connector_num_learnable_registers": 128, "connector_rope_base_seq_len": 4096}
+LTX2_AUDIO_VAE = {"base_channels": 128, "ch_mult": [1, 2, 4], "num_res_blocks": 2, "latent_channels": 8,
+                  "mel_bins": 64, "sample_rate": 16000, "mel_hop_length": 160}
+LTX2_VOCODER = {"in_channels": 128, "hidden_channels": 1024, "out_channels": 2,
+                "upsample_kernel_sizes": [16, 15, 8, 4, 4], "upsample_factors": [6, 5, 2, 2, 2],
+                "resnet_kernel_sizes": [3, 7, 11], "resnet_dilations": [[1, 3, 5]] * 3,
+                "output_sampling_rate": 24000}
+# the published latent upsampler (spatial 2x, rational resampler) at its defaults
+LTX2_UPSAMPLER = {"in_channels": 128, "mid_channels": 512, "num_blocks_per_stage": 4, "dims": 3,
+                  "spatial_upsample": True, "rational_resampler": True, "spatial_scale": 2.0}
+
+
+def ltx2_vae_config() -> dict:
+    """The LTX-2 video VAE at its published widths with seeded per-channel statistics."""
+    import dataclasses
+
+    import numpy as np
+
+    from apex_studio_tpu_torch.models.vaes.ltx2_vae import LTX2VAEConfig
+
+    rng = np.random.default_rng(300)
+    return dict(dataclasses.asdict(LTX2VAEConfig()), latents_mean=(0.05 * rng.normal(size=128)).tolist(),
+                latents_std=(0.9 + 0.1 * rng.random(128)).tolist())
+
+
+def ltx2_kernel_inputs():
+    """(case, q, k, v, bias) at the launches of the manifest's default request
+    with CFG (B = 2): the video self-attention (32 heads of 128), the video and
+    audio text cross-attention over the 1024 connector rows (the unconditional
+    row of a request without a negative prompt fully masked, the conditional
+    row kept whole: the registers fill its padding), the AV cross launches at
+    the audio geometry (32 heads of 64) both ways, the audio self-attention,
+    and one connector stack's self-attention (30 heads of 128, unmasked)."""
+    import torch
+
+    bias = torch.zeros(2, LTX2_TEXT, device="cuda")
+    bias[0] = -1e30
+    t, a, x = LTX2_TOKENS, LTX2_AUDIO, LTX2_TEXT
+    yield (f"ltx2_video_self_s{t}_h32_d128", *qkv(2, t, t, 32, 128, 301), None)
+    yield (f"ltx2_video_text_sq{t}_sk{x}_h32_d128", *qkv(2, t, x, 32, 128, 302), bias)
+    yield (f"ltx2_a2v_sq{t}_sk{a}_h32_d64", *qkv(2, t, a, 32, 64, 303), None)
+    yield (f"ltx2_v2a_sq{a}_sk{t}_h32_d64", *qkv(2, a, t, 32, 64, 304), None)
+    yield (f"ltx2_audio_self_s{a}_h32_d64", *qkv(2, a, a, 32, 64, 305), None)
+    yield (f"ltx2_audio_text_sq{a}_sk{x}_h32_d64", *qkv(2, a, x, 32, 64, 306), bias)
+    yield (f"ltx2_connector_s{x}_h30_d128", *qkv(1, x, x, 30, 128, 307), None)
+
+
+def ltx2_masked_rows():
+    """The kernel's fully masked batch rows (the unconditional text cross
+    rows of a request without a negative prompt) against the plain version
+    of what they compute: every query row the mean of V over the keys."""
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    cases = []
+    for name, sq, h, d, seed in (("video_text", LTX2_TOKENS, 32, 128, 308), ("audio_text", LTX2_AUDIO, 32, 64, 309)):
+        q, k, v = qkv(2, sq, LTX2_TEXT, h, d, seed)
+        bias = torch.zeros(2, LTX2_TEXT, device="cuda")
+        bias[0] = -1e30
+        out = flash_attention(q, k, v, bias=bias)
+        mean = v[:1].float().mean(1, keepdim=True).to(v.dtype).expand(1, sq, h, d)
+        cases.append({"case": f"ltx2_{name}_fully_masked_row_vs_mean_of_v", **agreement(out[:1], mean)})
+    emit({"phase": "ltx2", "check": "fully_masked_rows", "cases": cases})
+    check(all(c["within"] for c in cases), f"LTX-2: fully masked rows: {cases}")
+    release()
+
+
+def ltx2_reference():
+    """The LTX-2 DiT at full width with 2 blocks, card (bf16, the kernel)
+    against CPU (f32, the plain version): 3 latent frames of 8 x 12 tokens with
+    per-token timesteps (the first frame's held at 0), 13 audio tokens and 128
+    text rows (batch 0 fully masked, batch 1 keeping 40), the video and audio
+    outputs within BF16_REL_L2; the video VAE's decode of a seeded 2 x 4 x 6
+    latent against float64; the latent upsampler in f32 on the card against
+    the CPU within F32_REL_L2 (``ltx2_upsampler_check``)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from apex_studio_tpu_torch.models.transformers import ltx2
+    from apex_studio_tpu_torch.models.vaes import ltx2_vae
+
+    cfg = next(c for c in yaml.safe_load(LTX2_MANIFEST.read_text())["spec"]["components"]
+               if c["type"] == "transformer")["config"]
+    rng = np.random.default_rng(310)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    s = 3 * 8 * 12
+    t = torch.full((2, s), 0.7)
+    t[:, :96] = 0.0
+    mask = torch.zeros(2, 128)
+    mask[1, :40] = 1.0
+    card_vs_cpu("ltx2.base 32 heads of 128 (audio 32 of 64), 2 blocks",
+                lambda dt: ltx2.LTX2VideoTransformer3D(ltx2.LTX2Config.from_dict(dict(cfg, num_layers=2)), dtype=dt),
+                lambda m, x, xa, tt, c, ca, msk: torch.cat([o.flatten() for o in m(
+                    x, xa, tt, c, video_shape=(3, 8, 12), fps=25.0, ctx_audio=ca, ctx_mask=msk)]),
+                (tensor(2, s, 128), tensor(2, 13, 128), t, tensor(2, 128, 3840), tensor(2, 128, 3840), mask),
+                BF16_REL_L2, 311, phase="ltx2")
+    vae = materialize_random_vae(lambda: ltx2_vae.AutoencoderKLLTX2(ltx2_vae.LTX2VAEConfig.from_dict(
+        ltx2_vae_config())), seed=312)
+    z = torch.randn(1, 128, 2, 4, 6, generator=torch.Generator("cuda").manual_seed(313), device="cuda")
+    vae_vs_float64("ltx2", "ltx2.base VAE", vae, z, (1, 3, 9, 128, 192))
+    del vae
+    release()
+
+
+def ltx2_upsampler_check(engine, lats):
+    """The published latent upsampler (2x spatial, the rational resampler)
+    with seeded weights in f32 on the card over ``lats`` (a request's latents,
+    the VAE's statistics around it) against the same module on the CPU."""
+    import torch
+
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models import ltx2_upsampler
+
+    build = lambda: ltx2_upsampler.LTXLatentUpsampler(  # noqa: E731
+        ltx2_upsampler.LTX2UpsamplerConfig.from_dict(LTX2_UPSAMPLER), dtype=torch.float32)
+    card = materialize_random(build, torch.device("cuda"), seed=314, std=0.02)
+    with torch.no_grad():  # the group norms at scale 1, shift 0 (a random scale shrinks every activation)
+        for m in card.modules():
+            if isinstance(m, ltx2_upsampler._GroupNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+    cpu = materialize_random(build, torch.device("cpu"), seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ltx2_upsampler.upsample_latents(lats, engine.vae, card)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    out, lats_cpu, vae = out.float().cpu(), lats.float().cpu(), engine.vae
+    del card
+    release()
+
+    def compare():
+        with torch.inference_mode():  # the VAE's statistics built on the CPU
+            ref = ltx2_upsampler.upsample_latents(lats_cpu, vae, cpu)
+        row = {"phase": "ltx2", "check": "upsampler_card_f32_vs_cpu_f32", "latent": list(lats_cpu.shape),
+               "upsampled": list(out.shape), "card_seconds": card_s, "rel_l2": rel_l2(out, ref),
+               "tol_rel_l2": F32_REL_L2, "finite": bool(torch.isfinite(out).all())}
+        emit(row)
+        check(row["finite"] and row["rel_l2"] <= F32_REL_L2 and list(out.shape) == [
+            *lats_cpu.shape[:3], 2 * lats_cpu.shape[3], 2 * lats_cpu.shape[4]],
+            f"LTX-2 upsampler on the card against the CPU: {row}")
+
+    in_background(compare)
+
+
+_LTX2_STEP = re.compile(r"denoise step (\d+)/(\d+)")
+
+
+def ltx2_drive(label, engine, kw, launches, frames_expected=None, latents_expected=None):
+    """One request through ``engine`` with the kernel's count set to 0 before
+    and read after (``launches`` expected), seconds per step, peak GiB; the
+    frames (count, 512x768 size), the waveform (stereo, the vocoder's rate,
+    its length) or the latents (shape) checked finite. Returns (row, output)."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    os.environ["APEX_HOME_DIR"] = str(Path(engine.components_root).parent)
+    stamps = []
+
+    def progress(p, message, *_a, **_k):
+        torch.cuda.synchronize()
+        stamps.append((message, time.perf_counter()))
+
+    engine.decoded.clear()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = engine.run(progress_callback=progress, **kw)
+    torch.cuda.synchronize()
+    total, n_launch = time.perf_counter() - t0, flash_attention.launches
+    times = [t0] + [t for _, t in stamps]
+    per_step = [times[i + 1] - times[i] for i, (m, _) in enumerate(stamps) if _LTX2_STEP.fullmatch(m)]
+    row = {"phase": "ltx2", "path": label, "model_type": engine.model_type,
+           "request": {k: (v if isinstance(v, (int, float, str)) else list(np.shape(v))) for k, v in kw.items()},
+           "seconds_total": total, "seconds_per_step": per_step,
+           "stages": {m: t - t0 for m, t in dict(reversed(stamps)).items() if not _LTX2_STEP.fullmatch(m)},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "flash_launches": n_launch,
+           "flash_launches_expected": launches}
+    outs = out if isinstance(out, tuple) else (out,)
+    latents = [o for o in outs if isinstance(o, torch.Tensor)] + engine.decoded
+    row["latents"] = [list(z.shape) for z in latents]
+    row["latents_finite"] = all(bool(torch.isfinite(z).all()) for z in latents)
+    if frames_expected is not None:
+        frames, wave, rate = out
+        row.update(frames=len(frames), frame_shape=list(frames[0].shape), waveform=list(wave.shape),
+                   sample_rate=rate, waveform_finite=bool(np.isfinite(wave).all()))
+    emit(row)
+    check(row["latents_finite"], f"{label}: latents not finite")
+    check(n_launch == launches, f"{label}: flash launched {n_launch} times, expected {launches}")
+    if latents_expected is not None:
+        check(row["latents"] == [list(s) for s in latents_expected],
+              f"{label}: latents {row['latents']}, expected {latents_expected}")
+    if frames_expected is not None:
+        frames_s = frames_expected / float(kw["fps"])
+        check(len(frames) == frames_expected and all(f.shape == (512, 768, 3) and f.dtype == np.uint8
+                                                     for f in frames), f"{label}: frames {row}")
+        # 100 mel frames a second, 4 a latent frame; the vocoder's 240 samples a mel frame
+        check(rate == 24000 and wave.shape[0] == 2 and row["waveform_finite"]
+              and abs(wave.shape[1] / rate - frames_s) <= 0.2, f"{label}: waveform {row}")
+    return row, out
+
+
+def ltx2_full_depth(engine) -> dict:
+    """The DiT at all 48 blocks over the default request's 6144 video and 121
+    audio tokens with CFG (B = 2: a zero context with an all-zero mask beside
+    the prompt's connector rows), per-token timesteps: one forward timed with
+    its launches (6 a block) and the peak GiB."""
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    tf = engine.transformer
+    ctx, ctx_a, mask = engine._encode_prompt(WAN_PROMPT)
+    ctx_b = torch.cat([torch.zeros_like(ctx), ctx]).to(tf.dtype)
+    ctxa_b = torch.cat([torch.zeros_like(ctx_a), ctx_a]).to(tf.dtype)
+    mask_b = torch.cat([torch.zeros_like(mask), mask])
+    g = torch.Generator("cuda").manual_seed(315)
+    x = torch.randn(2, LTX2_TOKENS, 128, generator=g, device="cuda").to(tf.dtype)
+    xa = torch.randn(2, LTX2_AUDIO, 128, generator=g, device="cuda").to(tf.dtype)
+    t = torch.full((2, LTX2_TOKENS), 0.9, device="cuda")
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, a = tf(x, xa, t, ctx_b, video_shape=(16, 16, 24), fps=25.0, t_audio=t[:, 0], ctx_audio=ctxa_b,
+                  ctx_mask=mask_b)
+        torch.cuda.synchronize()
+        first_s, launches = time.perf_counter() - t0, flash_attention.launches
+        t0 = time.perf_counter()  # again, the RoPE tables of the grid now cached
+        tf(x, xa, t, ctx_b, video_shape=(16, 16, 24), fps=25.0, t_audio=t[:, 0], ctx_audio=ctxa_b, ctx_mask=mask_b)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+    row = {"phase": "ltx2", "check": "full_depth_forward", "blocks": len(tf.blocks), "dim": tf.cfg.inner_dim,
+           "audio_dim": tf.cfg.audio_inner_dim, "parameters": sum(p.numel() for p in tf.parameters()),
+           "dtype": str(tf.dtype), "video_tokens": LTX2_TOKENS, "audio_tokens": LTX2_AUDIO, "text_rows": LTX2_TEXT,
+           "first_forward_seconds": first_s, "forward_seconds": forward_s, "flash_launches": launches,
+           "flash_launches_expected": 6 * 48, "out_shapes": [list(v.shape), list(a.shape)],
+           "finite": bool(torch.isfinite(v).all() and torch.isfinite(a).all()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "resident_gib": torch.cuda.memory_allocated() / 2**30}
+    emit(row)
+    check(len(tf.blocks) == 48 and tf.cfg.inner_dim == 4096 and row["finite"]
+          and row["out_shapes"] == [[2, LTX2_TOKENS, 128], [2, LTX2_AUDIO, 128]], f"the LTX-2 full-depth forward: {row}")
+    check(launches == 6 * 48, f"the full-depth LTX-2 forward launched the kernel {launches} times")
+    return row
+
+
+def ltx2_requests(home: Path):
+    """LTX-2 from its manifest at full width in bf16 (Gemma-3 12B and the
+    connectors bf16, the video VAE bf16, the audio VAE and vocoder f32): the
+    full-depth forward (``ltx2_full_depth``), then the DiT cut to its first
+    LTX2_LAYERS blocks and the four types, LTX2_STEPS steps, CFG 4: t2v at the
+    manifest's 512x768 over 121 frames with no negative prompt (seeds 0, 0, 1;
+    the first decoded to frames and a waveform); then 17-frame requests: i2v
+    from a seeded image (its first latent frame pinned across seeds),
+    multimodal guidance (STG on block LTX2_STG_BLOCK, the isolated-modality
+    pass at 1.5, the std rescale 0.5, a negative prompt), IC-LoRA (two
+    keyframe images and a 17-frame conditioning video) and keyframe
+    interpolation (two keyframes, decoded); the upsampler on the i2v latents."""
+    import numpy as np
+    import torch
+    from torch import nn
+
+    configs = {"video_vae": ltx2_vae_config(), "connectors": LTX2_CONNECTORS, "audio_vae": LTX2_AUDIO_VAE,
+               "vocoder": LTX2_VOCODER, "text_encoder": GEMMA3_12B}
+    base = video_rest_engine(LTX2_MANIFEST, "ti2v", home, configs, "ltx2")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # The 35 GiB bf16 DiT fits beside Gemma-3 and the rest (about 62 GiB), but the memory fallback's gate reads
+    # the free memory after the DiT is resident (as the JAX gate does) and would make it int8 (ROADMAP Queue 3):
+    # a user who wants the manifests' bf16 turns the fallback off, and so does this phase. The gate's reading is
+    # kept (``memory_fallback_gate``).
+    saved = os.environ.get("APEX_MEMORY_FALLBACK")
+    os.environ["APEX_MEMORY_FALLBACK"] = "off"
+    try:
+        base.load_missing("text_encoder", "vae", "transformer", "scheduler")
+    finally:
+        if saved is None:
+            del os.environ["APEX_MEMORY_FALLBACK"]
+        else:
+            os.environ["APEX_MEMORY_FALLBACK"] = saved
+    base._get_connectors()
+    base.text_encoder._ensure_model()
+    load = {"phase": "ltx2", "load_seconds": time.perf_counter() - t0, "reckoned_gib": {
+        k: v / 2**30 for k, v in base.reckoned_bytes.items()}, "resident_gib": torch.cuda.memory_allocated() / 2**30,
+        "memory_fallback_gate": base.gate}
+    emit(load)
+    full = ltx2_full_depth(base)
+    tf = base.transformer
+    tf.blocks = nn.ModuleList(list(tf.blocks[:LTX2_LAYERS]))
+    release()
+    engines = {"ti2v": base}
+    for model_type in ("multimodal_guidance", "ic_lora", "keyframe_interpolation"):
+        engines[model_type] = video_rest_engine(LTX2_MANIFEST, model_type, home, configs, "ltx2", share=base)
+        engines[model_type].helpers = base.helpers
+    forward, layers, steps = 6 * LTX2_LAYERS, LTX2_LAYERS, LTX2_STEPS
+    encode = 4  # the two connector stacks of two layers, at each prompt's encode
+    kw = dict(prompt=WAN_PROMPT, height=512, width=768, duration=5.0, fps=25, num_inference_steps=steps,
+              guidance_scale=4.0)
+    short = dict(kw, duration=None, num_frames=17, return_latents=True)
+    lat, lat_short = (1, 128, 16, 16, 24), (1, 128, 3, 16, 24)
+    rows = {}
+    row1, _ = ltx2_drive("ltx2_t2v", base, dict(kw, seed=0), encode + steps * forward, frames_expected=121,
+                         latents_expected=[lat])
+    first = base.decoded[0]
+    row2, again = ltx2_drive("ltx2_t2v", base, dict(kw, seed=0, return_latents=True), encode + steps * forward,
+                             latents_expected=[lat])
+    row3, other = ltx2_drive("ltx2_t2v", base, dict(kw, seed=1, return_latents=True), encode + steps * forward,
+                             latents_expected=[lat])
+    same, differ = bool(torch.equal(first, again)), not torch.equal(first, other)
+    emit({"phase": "ltx2", "path": "ltx2_t2v", "seeds_0_0_identical": same, "seeds_0_1_differ": differ})
+    check(same and differ, f"LTX-2 t2v: seeds 0, 0 identical {same}, seeds 0, 1 differ {differ}")
+    rows["t2v"] = [row1, row2, row3]
+    del first, again, other
+
+    image = cv2_smooth(np.random.default_rng(316), (512, 768))
+    i2v = []
+    for seed in (0, 1):
+        row, out = ltx2_drive("ltx2_i2v", base, dict(short, image=image, seed=seed), encode + steps * forward,
+                              latents_expected=[lat_short])
+        i2v.append((row, out))
+    pinned = bool(torch.equal(i2v[0][1][:, :, 0], i2v[1][1][:, :, 0]))
+    emit({"phase": "ltx2", "path": "ltx2_i2v", "first_latent_frame_pinned_across_seeds": pinned})
+    check(pinned, "LTX-2 i2v: the first latent frame differs across seeds")
+    rows["i2v"] = [r for r, _ in i2v]
+    ltx2_upsampler_check(base, i2v[0][1])
+
+    mm = dict(short, negative_prompt=VIDEO_REST_NEG, seed=0, stg_blocks=[LTX2_STG_BLOCK], modality_scale=1.5,
+              guidance_rescale=0.5)
+    # a step: the CFG forward, the STG pass (block 1's two self launches skipped), the pass without AV cross
+    rows["multimodal_guidance"] = [ltx2_drive(
+        "ltx2_multimodal_guidance", engines["multimodal_guidance"], mm,
+        2 * encode + steps * (forward + (forward - 2) + 4 * layers), latents_expected=[lat_short])[0]]
+    keys = [cv2_smooth(np.random.default_rng(s), (512, 768)) for s in (317, 318)]
+    clip, _ = disk_clip(17, 512, 768, seed=319)
+    rows["ic_lora"] = [ltx2_drive("ltx2_ic_lora", engines["ic_lora"], dict(
+        short, seed=0, image=keys, image_pixel_frame_indices=[0, 16], image_strengths=[1.0, 0.8],
+        conditioning_video=clip, conditioning_video_strength=0.9), encode + steps * forward,
+        latents_expected=[lat_short])[0]]
+    rows["keyframe_interpolation"] = [ltx2_drive("ltx2_keyframe_interpolation", engines["keyframe_interpolation"],
+                                                 dict(short, seed=0, image=keys, image_pixel_frame_indices=[0, 16],
+                                                      return_latents=False),
+                                                 encode + steps * forward, latents_expected=[lat_short])[0]]
+    te = base.text_encoder._ensure_model()
+    facts = {"phase": "ltx2", "dit_dim": tf.cfg.inner_dim, "dit_requests_blocks": len(tf.blocks),
+             "dit_dtype": str(tf.dtype), "gemma3_layers": te.cfg.num_hidden_layers, "gemma3_hidden": te.cfg.hidden_size,
+             "connectors_parameters": sum(p.numel() for p in base.helpers["connectors"].parameters()),
+             "vae_dtype": str(next(base.vae.parameters()).dtype),
+             "audio_vae_dtype": str(next(base.helpers["audio_vae"].parameters()).dtype),
+             "text_encoder_released": base.text_encoder.model is None, "memory_fallback_gate": base.gate,
+             "full_depth_peak_gib": full["peak_gib"], "peak_gib": max(r["peak_gib"] for rs in rows.values() for r in rs)}
+    emit(facts)
+    check(tf.cfg.inner_dim == 4096 and te.cfg.hidden_size == 3840 and te.cfg.num_hidden_layers == 48
+          and not dit_bits(tf), f"the LTX-2 widths: {facts}")
+    del engines, base, tf, te
+    release()
+    return {f"ltx2_{t}": rs for t, rs in rows.items()}
+
+
+def phase_ltx2(home: Path):
+    """LTX-2: the kernel at its seven launch shapes and the fully masked rows,
+    the 2-block DiT against f32 and the VAE against float64
+    (``ltx2_reference``), then the full-depth forward and the requests of the
+    four types (``ltx2_requests``)."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    rows, err = path_kernel_rows("ltx2", ltx2_kernel_inputs())
+    ltx2_masked_rows()
+    lap("kernel_rows")
+    ltx2_reference()
+    lap("card_vs_cpu")
+    paths = ltx2_requests(home)
+    lap("requests")
+    emit({"phase": "ltx2", "seconds_by_step": seconds})
     return paths, rows, err
 
 
@@ -8955,7 +9389,7 @@ def main() -> int:
                             ("wan_5b", phase_wan_5b), ("wan_more", phase_wan_more),
                             ("image_rest", phase_image_rest), ("video_rest", phase_video_rest),
                             ("hunyuanimage3", phase_hunyuanimage3), ("cogvideox", phase_cogvideox),
-                            ("mochi", phase_mochi), ("ltx", phase_ltx)):
+                            ("mochi", phase_mochi), ("ltx", phase_ltx), ("ltx2", phase_ltx2)):
             if name in phases:
                 new_paths, path_rows[name], path_err[name] = timed(name, phase, home)
                 paths.update(new_paths)

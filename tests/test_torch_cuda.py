@@ -1120,3 +1120,89 @@ def test_mochi_and_ltx_dits_launch_the_kernel_per_attention(cuda):
                      video_coords=coords.expand(2, -1, -1), skip_blocks=skips)
             assert flash_attention.launches == before + launches
             assert torch.isfinite(out).all()
+
+
+# LTX-2 at its default request (512x768 over 121 frames) with CFG (B = 2): the video self-attention over 6144
+# tokens at 32 heads of 128, the text cross launches over the 1024 connector rows (the unconditional row of a
+# request without a negative prompt fully masked, the conditional row kept whole), the AV cross launches at the
+# audio geometry (32 heads of 64) both ways, the audio self-attention over 121 tokens, one connector stack's
+# self-attention (30 heads of 128)
+LTX2_SHAPES = [
+    ("ltx2_video_self_s6144_h32_d128", 6144, 6144, 32, 128, False),
+    ("ltx2_video_text_sq6144_sk1024_h32_d128", 6144, 1024, 32, 128, True),
+    ("ltx2_a2v_sq6144_sk121_h32_d64", 6144, 121, 32, 64, False),
+    ("ltx2_v2a_sq121_sk6144_h32_d64", 121, 6144, 32, 64, False),
+    ("ltx2_audio_self_s121_h32_d64", 121, 121, 32, 64, False),
+    ("ltx2_audio_text_sq121_sk1024_h32_d64", 121, 1024, 32, 64, True),
+    ("ltx2_connector_s1024_h30_d128", 1024, 1024, 30, 128, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LTX2_SHAPES, ids=[c[0] for c in LTX2_SHAPES])
+def test_flash_kernel_ltx2_shapes(shape, cuda):
+    """The kernel at LTX-2's launches against its plain version over the
+    first, last (ragged) and an interior 128-row tile (every row below 256),
+    every key; the text launches with batch row 0 fully masked, whose every
+    query row is the mean of V."""
+    _, sq, sk, h, d, masked = shape
+    b = 1 if h == 30 else 2
+    g = torch.Generator(cuda).manual_seed(12)
+    q = torch.randn(b, sq, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(b, sk, h, d, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    bias = None
+    if masked:
+        bias = torch.zeros(b, sk, device=cuda)
+        bias[0] = -1e30
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    if masked:
+        assert_agrees(out[:1], v[:1].float().mean(1, keepdim=True).expand(1, sq, h, d))
+    tail = sq % 128 or 128
+    subsets = ((slice(0, sq),) if sq < 256 else
+               (slice(0, 128), slice(sq - tail, sq), slice(sq // 256 * 128 - 64, sq // 256 * 128 + 64)))
+    for rows in subsets:
+        assert_agrees(out[:, rows], flash_attention_reference(q[:, rows], k, v, bias=bias))
+
+
+@pytest.mark.cuda
+def test_ltx2_dit_and_connectors_launch_the_kernel_per_attention(cuda):
+    """A small LTX-2 DiT in bf16 on the card: six launches a block (video and
+    audio self, their text cross, a2v and v2a), two fewer in a block whose
+    self-attention STG skips, four a block in the isolated-modality pass;
+    the connectors one launch a layer and stack; outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models import ltx2_connectors
+    from apex_studio_tpu_torch.models.transformers import ltx2
+
+    tf = materialize_random(lambda: ltx2.LTX2VideoTransformer3D(ltx2.LTX2Config(
+        in_channels=16, out_channels=16, num_attention_heads=2, attention_head_dim=64, cross_attention_dim=128,
+        audio_in_channels=16, audio_out_channels=16, audio_num_attention_heads=2, audio_attention_head_dim=32,
+        audio_cross_attention_dim=64, num_layers=2, caption_channels=64)), cuda, seed=7)
+    conn = materialize_random(lambda: ltx2_connectors.LTX2TextConnectors(ltx2_connectors.LTX2ConnectorsConfig(
+        caption_channels=64, text_proj_in_factor=3, video_connector_num_attention_heads=2,
+        video_connector_attention_head_dim=32, audio_connector_num_attention_heads=2,
+        audio_connector_attention_head_dim=32, video_connector_num_learnable_registers=8,
+        audio_connector_num_learnable_registers=8)), cuda, seed=8)
+    g = torch.Generator().manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    mask = torch.zeros(2, 16, device=cuda)
+    mask[1, :5] = 1.0
+    with torch.inference_mode():
+        before = flash_attention.launches
+        ctx_v, ctx_a = conn(rand(1, 16, 192).bfloat16(), mask[1:].bool())
+        assert flash_attention.launches == before + 4
+        assert torch.isfinite(ctx_v.float()).all() and torch.isfinite(ctx_a.float()).all()
+        for kw, launches in (({}, 12), ({"skip_video_self_attn_blocks": (1,), "skip_audio_self_attn_blocks": (1,)}, 10),
+                             ({"skip_av_cross_attn": True}, 8)):
+            before = flash_attention.launches
+            v, a = tf(rand(2, 48, 16), rand(2, 5, 16), rand(2, 48).abs(), rand(2, 16, 64), video_shape=(3, 4, 4),
+                      fps=25.0, ctx_mask=mask, **kw)
+            assert flash_attention.launches == before + launches
+            assert torch.isfinite(v).all() and torch.isfinite(a).all()

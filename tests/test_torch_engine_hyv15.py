@@ -34,7 +34,7 @@ from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
 from apex_studio_tpu_torch.loaders.safetensors_io import save_safetensors
 from tests.test_engine_hyv15 import HYV_TINY
 from tests.test_engine_zimage import make_tokenizer
-from tests.torch_port_helpers import assert_close, fast_jax_engine, flushed_denormals, jax_build, jax_params
+from tests.torch_port_helpers import assert_close, fast_jax_engine, jax_build, jax_params
 
 SIGLIP = {"type": "helper", "name": "image_encoder", "base": "SiglipVisionModel", "precision": "fp32",
           "config": {"hidden_size": 16, "intermediate_size": 32, "num_hidden_layers": 1,
@@ -108,7 +108,7 @@ class Pair:
             return self.jax.run(**kw)
 
     def run_port(self, **kw):
-        with self.env("port"), flushed_denormals():
+        with self.env("port"):
             ref = components(self.jax)
             for name, module in components(self.port).items():
                 load_from_jax(module, jax_params(ref[name]))
@@ -235,18 +235,17 @@ class TestBigRunStaging:
         return eng
 
     def run(self, eng, steps, previews, vae_seen=None):
-        """A ``steps``-step request with previews every 3 steps, denormals
-        flushed (``flushed_denormals``: the random weights of std 0.02 shrink
-        the tiled decode's activations into their range)."""
+        """A ``steps``-step request with previews every 3 steps (denormals
+        flushed, ``tests/torch_port_helpers.py``: the random weights of std
+        0.02 shrink the tiled decode's activations into their range)."""
         def on_preview(frames, i):
             previews.append((i, len(frames), frames[0].shape))
             if vae_seen is not None:
                 vae_seen.append(eng.vae)
 
-        with flushed_denormals():
-            return eng.run(prompt="x", height=16, width=16, num_frames=3, num_inference_steps=steps,
-                           guidance_scale=1.0, seed=0, render_on_step=True, render_on_step_callback=on_preview,
-                           render_on_step_interval=3)
+        return eng.run(prompt="x", height=16, width=16, num_frames=3, num_inference_steps=steps,
+                       guidance_scale=1.0, seed=0, render_on_step=True, render_on_step_callback=on_preview,
+                       render_on_step_interval=3)
 
     def test_vae_released_and_previews_ride_the_tae(self, tmp_path, monkeypatch):
         path, tae = write_light_vae(tmp_path)

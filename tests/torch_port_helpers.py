@@ -6,9 +6,13 @@ times over as there are workers; each worker takes its share of the cores
 instead. Every worker imports this module while it collects the port's test
 files, so the share holds for the whole run of each worker. A run in one
 process keeps torch's default.
+
+torch's CPU arithmetic runs with denormals flushed to zero, as XLA's CPU
+backend computes for the JAX reference: seeded weights shrink some
+activations into the denormal range, where x86 arithmetic runs some 30×
+slower.
 """
 
-import contextlib
 import os
 import zlib
 
@@ -23,18 +27,7 @@ from apex_studio_tpu_torch.loaders.from_jax import load_from_jax
 _WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
 if _WORKERS > 1:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
-
-
-@contextlib.contextmanager
-def flushed_denormals():
-    """torch's CPU arithmetic with denormals flushed to zero for the block, as
-    XLA's CPU backend computes: seeded weights shrink some activations into
-    the denormal range, where x86 arithmetic runs some 30× slower."""
-    torch.set_flush_denormal(True)
-    try:
-        yield
-    finally:
-        torch.set_flush_denormal(False)
+torch.set_flush_denormal(True)
 
 
 def jax_build(build, seed: int = 0):
