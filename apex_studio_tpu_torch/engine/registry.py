@@ -10,7 +10,8 @@
 "i2v" | "vc" | "continuation" | "long_video" | "interactive" | "refine")``,
 ``("cosmos2", "i2v" | "v2v")``, ``("kandinsky5", "t2v" | "i2v")``, ``("hunyuanimage3",
 "t2i")``, ``("cogvideo", "t2v" | "i2v" | "v2v" | "control" | "inp")``, ``("mochi", "t2v")``,
-``("ltx", "x2v")`` and ``("ltx2", "ti2v" | "multimodal_guidance" | "ic_lora" | "keyframe_interpolation")``."""
+``("ltx", "x2v")``, ``("ltx2", "ti2v" | "multimodal_guidance" | "ic_lora" | "keyframe_interpolation")``,
+``("magi", "t2v" | "i2v" | "v2v")`` and ``("flashvsr", "upscale")``."""
 
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ _ENGINE_MODULES = ("apex_studio_tpu_torch.engine.flux", "apex_studio_tpu_torch.e
                   "apex_studio_tpu_torch.engine.cosmos2", "apex_studio_tpu_torch.engine.kandinsky5",
                   "apex_studio_tpu_torch.engine.hunyuanimage3", "apex_studio_tpu_torch.engine.cogvideox",
                   "apex_studio_tpu_torch.engine.mochi", "apex_studio_tpu_torch.engine.ltx",
-                  "apex_studio_tpu_torch.engine.ltx2")
+                  "apex_studio_tpu_torch.engine.ltx2", "apex_studio_tpu_torch.engine.magi",
+                  "apex_studio_tpu_torch.engine.flashvsr")
 
 engine_registry: Dict[Tuple[str, str], Type] = {}
 

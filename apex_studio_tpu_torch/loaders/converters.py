@@ -1662,3 +1662,105 @@ converter_registry.add(
         strip_prefixes=("model.", "module.", "connectors."),
     ),
 )
+
+
+class _MagiConverter(KeyConverter):
+    """MAGI-1's DiT (the reference's ``MagiTransformer3DModel`` names). Besides
+    the renames, the zero-centred LayerNorm gammas get +1.0, so they load into
+    plain LayerNorm weights."""
+
+    _ZC_GAMMA = re.compile(r"(self_norm_q|self_norm_k|cross_norm_q|cross_norm_k|norm2|norm3|norm_out)"
+                           r"\.norm\.weight$")
+
+    def __init__(self):
+        super().__init__(
+            renames=[
+                (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+                (r"^timestep_embedding\.mlp\.0\.", "t_mlp1."),
+                (r"^timestep_embedding\.mlp\.2\.", "t_mlp2."),
+                (r"^caption_embedding\.y_proj_xattn\.0\.", "y_proj_xattn."),
+                (r"^caption_embedding\.y_proj_adaln\.0\.", "y_proj_adaln."),
+                (r"^caption_embedding\.null_caption_embedding$", "null_caption_embedding"),
+                (r"\.adaln\.proj\.0\.", ".adaln_proj."),
+                (r"\.attn1\.to_q\.", ".self_q."),
+                (r"\.attn1\.to_k\.", ".self_k."),
+                (r"\.attn1\.to_v\.", ".self_v."),
+                (r"\.attn1\.norm_q\.", ".self_norm_q.norm."),
+                (r"\.attn1\.norm_k\.", ".self_norm_k.norm."),
+                (r"\.attn2\.to_q\.", ".cross_q."),
+                (r"\.attn2\.to_kv\.", ".cross_kv."),
+                (r"\.attn2\.cross_q_norm\.", ".cross_norm_q.norm."),
+                (r"\.attn2\.cross_k_norm\.", ".cross_norm_k.norm."),
+                (r"\.norm2\.", ".norm2.norm."),
+                (r"\.norm3\.", ".norm3.norm."),
+                (r"\.ffn\.norm\.", ".ffn_norm."),
+                (r"\.ffn\.proj1\.", ".ffn_proj1."),
+                (r"\.ffn\.proj2\.", ".ffn_proj2."),
+                (r"^norm_out\.", "norm_out.norm."),
+                (r"^proj_out\.linear\.", "proj_out."),
+                (r"(self_q|self_k|self_v|cross_q|cross_kv|proj|ffn_proj1|ffn_proj2|proj_out|t_mlp1|t_mlp2|"
+                 r"y_proj_xattn|y_proj_adaln|adaln_proj)\.weight$", r"\1.kernel"),
+            ],
+        )
+
+    def convert(self, sd: Dict[str, Any]) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for k, v in sd.items():
+            nk = self.convert_key(k)
+            if nk is None:
+                continue
+            if self._ZC_GAMMA.search(nk):
+                v = v.float() + 1.0 if isinstance(v, torch.Tensor) else np.asarray(v, np.float32) + 1.0
+            out[nk] = v
+        return out
+
+
+converter_registry.add("magi", _MagiConverter())
+
+converter_registry.add(
+    # MAGI-1's ViT VAE (the reference's AutoencoderKLMagi): both trunks under
+    # ``.core``, the patch embedding a Conv3d weight flattened into a Linear
+    "magi_vae",
+    KeyConverter(
+        renames=[
+            (r"^(encoder|decoder)\.cls_token$", r"\1.core.cls_token"),
+            (r"^(encoder|decoder)\.pos_embed$", r"\1.core.pos_embed"),
+            (r"^(encoder|decoder)\.blocks\.", r"\1.core.blocks."),
+            (r"^(encoder|decoder)\.norm\.", r"\1.core.norm."),
+            (r"^encoder\.patch_embed\.proj\.weight$", "encoder.patch_embed.kernel"),
+            (r"^encoder\.patch_embed\.proj\.bias$", "encoder.patch_embed.bias"),
+            (r"\.attn\.qkv\.weight$", ".attn.qkv.kernel"),
+            (r"\.attn\.proj\.weight$", ".attn.proj.kernel"),
+            (r"\.mlp\.fc(\d)\.weight$", r".fc\1.kernel"),
+            (r"\.mlp\.fc(\d)\.bias$", r".fc\1.bias"),
+            (r"(last_layer|proj_in|final_proj)\.weight$", r"\1.kernel"),
+        ],
+        drop=(r"quant", r"loss\."),
+    ),
+)
+
+converter_registry.add(
+    # FlashVSR's streaming DiT in the original Wan layout, with the separate
+    # ``LQ_proj_in.ckpt`` merged under ``LQ_proj_in.`` (extra_model_path)
+    "wan_flashvsr",
+    KeyConverter(
+        renames=[
+            (r"^text_embedding\.0\.", "text_embedding_0."),
+            (r"^text_embedding\.2\.", "text_embedding_2."),
+            (r"^time_embedding\.0\.", "time_embedding_0."),
+            (r"^time_embedding\.2\.", "time_embedding_2."),
+            (r"^time_projection\.1\.", "time_projection_1."),
+            (r"\.ffn\.0\.", ".ffn_0."),
+            (r"\.ffn\.2\.", ".ffn_2."),
+            (r"\.(q|k|v|o|head|conv1|conv2)\.weight$", r".\1.kernel"),
+            (r"^patch_embedding\.weight$", "patch_embedding.kernel"),
+            (r"(text_embedding_\d|time_embedding_\d|time_projection_1|ffn_0|ffn_2|linear_layers\.\d+)\.weight$",
+             r"\1.kernel"),
+        ],
+        drop=(r"\.freqs", r"local_attn_mask"),
+    ),
+)
+
+# the decoder-only, identity-deepened TAEHV (FlashVSR's TCDecoder) keeps the
+# TAE's ``nn.Sequential`` names
+converter_registry.add("tiny_wan_vae", converter_registry.get("tae_vae"))

@@ -65,7 +65,12 @@ LTX-2's ``ltx2`` (diffusers' ``LTX2VideoTransformer3DModel``), ``ltx2_vae``
 and ``ltx2_audio_vae`` (their resnets, samplers and causal convs' ``.conv``),
 ``ltx2_connectors``, ``ltx2_upsampler`` (the norms' ``.weight``),
 ``ltx2_vocoder`` (the transposed convs' ``.weight``) and ``gemma3``
-(``Gemma3ForConditionalGeneration``'s text tower under ``language_model.model.``). PiDiNet has none: its converter folds the published pixel-difference weights into
+(``Gemma3ForConditionalGeneration``'s text tower under ``language_model.model.``);
+MAGI-1's ``magi`` (the reference's names, the zero-centred gammas less 1, the
+patch embedding as its Conv3d weight) and ``magi_vae``; FlashVSR's
+``wan_flashvsr`` (the original Wan layout with ``LQ_proj_in``, its RMS
+gammas as ``[C, 1, 1, 1]``) and ``tiny_wan_vae`` (TAEHV's indices). PiDiNet
+has none: its converter folds the published pixel-difference weights into
 vanilla kernels, which is not invertible.
 
 ``safetensors_io.save_safetensors`` of the result is a file the engine loads
@@ -871,6 +876,35 @@ _LTX2_CONNECTORS = (
 )
 
 
+_MAGI = (
+    (r"^t_mlp1\.", "timestep_embedding.mlp.0."),
+    (r"^t_mlp2\.", "timestep_embedding.mlp.2."),
+    (r"^y_proj_(xattn|adaln)\.", r"caption_embedding.y_proj_\1.0."),
+    (r"^null_caption_embedding$", "caption_embedding.null_caption_embedding"),
+    (r"\.adaln_proj\.", ".adaln.proj.0."),
+    (r"\.self_(q|k|v)\.", r".attn1.to_\1."),
+    (r"\.self_norm_(q|k)\.norm\.", r".attn1.norm_\1."),
+    (r"\.cross_q\.", ".attn2.to_q."),
+    (r"\.cross_kv\.", ".attn2.to_kv."),
+    (r"\.cross_norm_(q|k)\.norm\.", r".attn2.cross_\1_norm."),
+    (r"\.(norm2|norm3)\.norm\.", r".\1."),
+    (r"\.ffn_norm\.", ".ffn.norm."),
+    (r"\.ffn_proj(\d)\.", r".ffn.proj\1."),
+    (r"^norm_out\.norm\.", "norm_out."),
+    (r"^proj_out\.", "proj_out.linear."),
+)
+_MAGI_VAE = (
+    (r"^(encoder|decoder)\.core\.", r"\1."),
+    (r"^encoder\.patch_embed\.", "encoder.patch_embed.proj."),
+    (r"\.fc(\d)\.", r".mlp.fc\1."),
+)
+_WAN_FLASHVSR = (
+    (r"^(text|time)_embedding_(\d)\.", r"\1_embedding.\2."),
+    (r"^time_projection_1\.", "time_projection.1."),
+    (r"\.ffn_(\d)\.", r".ffn.\1."),
+)
+
+
 def _longcat_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     """``x_embedder.proj.weight`` as the published Conv3d weight
     ``[O, C, 1, 2, 2]``."""
@@ -890,12 +924,41 @@ def _normalbae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
     return value
 
 
+# MAGI-1's zero-centred LayerNorm gammas, published as gamma - 1 (the converter adds 1.0)
+_MAGI_ZERO_CENTRED = re.compile(r"(attn1\.norm_[qk]|attn2\.cross_[qk]_norm|norm2|norm3|^norm_out)\.weight$")
+
+
+def _magi_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """The zero-centred gammas less 1; ``patch_embedding.weight`` as the
+    published Conv3d weight ``[O, C, 1, 2, 2]``."""
+    if _MAGI_ZERO_CENTRED.search(key):
+        return value - 1.0
+    return value.reshape(value.shape[0], -1, 1, 2, 2) if key == "patch_embedding.weight" else value
+
+
+def _magi_vae_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """The encoder's patch embedding as the published Conv3d weight
+    ``[O, 3, 4, 8, 8]``."""
+    return value.reshape(value.shape[0], 3, 4, 8, 8) if key == "encoder.patch_embed.proj.weight" else value
+
+
+def _wan_flashvsr_layout(key: str, value: torch.Tensor) -> torch.Tensor:
+    """``patch_embedding.weight`` as the published Conv3d weight
+    ``[O, C, 1, 2, 2]``; the LQ projector's RMS gammas as ``[C, 1, 1, 1]``."""
+    if key == "patch_embedding.weight":
+        return value.reshape(value.shape[0], -1, 1, 2, 2)
+    if re.match(r"^LQ_proj_in\.norm\d\.gamma$", key):
+        return value.reshape(-1, 1, 1, 1)
+    return value
+
+
 _LAYOUTS: Dict[str, Callable[[str, torch.Tensor], torch.Tensor]] = {
     "wan_vae": _wan_vae_layout, "wan": _wan_layout, "skyreels": _wan_layout,
     "clip_vision": _clip_vision_layout,
     "wan_humo": _wan_humo_layout, "wan_multitalk": _wan_humo_layout, "wan_s2v": _wan_s2v_layout,
     "wan_animate": _wan_layout, "wan_lynx": _wan_layout, "wan_scail": _wan_layout,
-    "hed": _hed_layout, "normalbae": _normalbae_layout, "longcat": _longcat_layout}
+    "hed": _hed_layout, "normalbae": _normalbae_layout, "longcat": _longcat_layout, "magi": _magi_layout,
+    "magi_vae": _magi_vae_layout, "wan_flashvsr": _wan_flashvsr_layout}
 _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "flux": _FLUX, "t5": _T5, "clip": _CLIP, "autoencoder_kl": _AUTOENCODER_KL,
     "hunyuanvideo15": _HUNYUANVIDEO15, "hunyuanvideo15_vae": _HUNYUANVIDEO15_VAE, "tae_vae": _TAE_VAE,
@@ -915,7 +978,8 @@ _TABLES: Dict[str, Sequence[Tuple[str, str]]] = {
     "hunyuanimage3": _HUNYUANIMAGE3, "hunyuanimage3_vae": _HUNYUANIMAGE3_VAE, "cogvideo": _COGVIDEO,
     "cogvideo_vae": _COGVIDEO_VAE, "mochi": _MOCHI, "mochi_vae": _MOCHI_VAE, "ltx": _LTX, "ltx_vae": _LTX_VAE,
     "ltx2": _LTX2, "ltx2_vae": _LTX2_VAE, "gemma3": _GEMMA3, "ltx2_audio_vae": _LTX2_AUDIO_VAE,
-    "ltx2_upsampler": _LTX2_UPSAMPLER, "ltx2_vocoder": _LTX2_VOCODER, "ltx2_connectors": _LTX2_CONNECTORS}
+    "ltx2_upsampler": _LTX2_UPSAMPLER, "ltx2_vocoder": _LTX2_VOCODER, "ltx2_connectors": _LTX2_CONNECTORS,
+    "magi": _MAGI, "magi_vae": _MAGI_VAE, "wan_flashvsr": _WAN_FLASHVSR, "tiny_wan_vae": _TAE_VAE}
 
 
 def published_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -29,7 +29,9 @@ VAE); ``mochi.base`` in both (Mochi-1's AsymmDiT and its VAE), ``ltx.base``
 (the LTX-Video DiT) and ``ltx_vae.base`` (its causal VAE); ``ltx2.base`` in
 both (LTX-2's audio-video DiT and its video VAE), ``ltx2audio`` (its audio
 VAE), ``Gemma3ForConditionalGeneration`` (its text tower) and, in the helper
-registry, ``ltx2.connectors``, ``ltx2.vocoder`` and ``ltx2.upsampler``.
+registry, ``ltx2.connectors``, ``ltx2.vocoder`` and ``ltx2.upsampler``;
+``magi.base`` in both (MAGI-1's DiT and its ViT VAE), ``wan.flashvsr``
+(FlashVSR's streaming DiT) and ``tiny_wan`` (its TCDecoder).
 """
 
 import importlib
@@ -95,6 +97,9 @@ _FAMILIES = (
     "apex_studio_tpu_torch.models.ltx2_connectors",
     "apex_studio_tpu_torch.models.ltx2_vocoder",
     "apex_studio_tpu_torch.models.ltx2_upsampler",
+    "apex_studio_tpu_torch.models.transformers.magi",
+    "apex_studio_tpu_torch.models.vaes.magi_vae",
+    "apex_studio_tpu_torch.models.transformers.flashvsr",
 )
 
 

@@ -1,5 +1,7 @@
-"""TAEHV tiny video autoencoder (the HunyuanVideo 1.5 "light VAE" that decodes
-previews), port of ``TAEVAE`` in ``apex_studio_tpu/models/vaes/tae_vae.py``.
+"""TAEHV tiny video autoencoders, port of ``apex_studio_tpu/models/vaes/tae_vae.py``:
+``TAEVAE`` (the HunyuanVideo 1.5 "light VAE" that decodes previews) and
+``TinyWanVAE`` (``tiny_wan``: decoder-only and identity-deepened, FlashVSR's
+TCDecoder).
 
 - per-frame 3×3 convs on [B, T, C, H, W];
 - MemBlock: convs over concat(x, the previous frame's x), zero at t=0;
@@ -9,11 +11,14 @@ previews), port of ``TAEVAE`` in ``apex_studio_tpu/models/vaes/tae_vae.py``.
 - the decoder output drops the first ``frames_to_trim = 2^(#time upscales) − 1``
   frames, so T latent frames give 4(T−1)+1 video frames;
 - ``out_range``: "unit" maps the native [0, 1] to [-1, 1], "sym" clamps to
-  [-1, 1] (HunyuanVideo 1.5).
+  [-1, 1] (HunyuanVideo 1.5);
+- ``deepen`` (tiny_wan): one more 3×3 conv + activation after every
+  sequential-level activation, the indices following the deepened layout;
+- ``decode(z, cond=)``: FlashVSR's upscaled LQ video, PixelShuffle3d(4, 8, 8)
+  to channels, goes before the latent channels (z_dim 784 = 768 + 16).
 
 Layer indices follow the published ``nn.Sequential`` exactly, so the
-``tae_vae`` key converter is regex-only. Not ported: the identity-deepened
-decoder-only ``tiny_wan`` variant and FlashVSR's conditioning input.
+``tae_vae`` key converter is regex-only.
 """
 
 from __future__ import annotations
@@ -166,13 +171,28 @@ def _build_decoder(cfg: TAEConfig, dtype) -> list:
                 TUpsample(2 if space_up else 1), TGrow(cin, 2 if time_up else 1, **kw),
                 TConv(cin, cout, bias=False, **kw)]
 
-    return [
+    layers = [
         TClamp(), TConv(cfg.latent_channels, n_f[0], **kw), TActLayer(cfg),
         *stage(0, n_f[0], False, cfg.decoder_space_upscale[0], n_f[1]),
         *stage(1, n_f[1], cfg.decoder_time_upscale[0], cfg.decoder_space_upscale[1], n_f[2]),
         *stage(2, n_f[2], cfg.decoder_time_upscale[1], cfg.decoder_space_upscale[2], n_f[3]),
         TActLayer(cfg), TConv(n_f[3], 3 * cfg.patch_size ** 2, **kw),
     ]
+    if not cfg.deepen:
+        return layers
+    # identity deepening: after every sequential-level activation, ``deepen``
+    # × (a 3×3 conv at the preceding layer's output width + an activation)
+    out, width = [], None
+    for layer in layers:
+        out.append(layer)
+        if isinstance(layer, TConv):
+            width = layer.weight.shape[0]
+        elif isinstance(layer, TMem):
+            width = layer.conv_4.weight.shape[0]
+        if isinstance(layer, TActLayer) and width is not None:
+            for _ in range(cfg.deepen):
+                out += [TConv(width, width, bias=False, **kw), TActLayer(cfg)]
+    return out
 
 
 def _build_encoder(cfg: TAEConfig, dtype) -> list:
@@ -209,8 +229,6 @@ class TAEVAE(nn.Module):
     def __init__(self, cfg: Optional[TAEConfig] = None, *, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg = cfg or TAEConfig()
-        if cfg.deepen:
-            raise NotImplementedError("the identity-deepened tiny_wan decoder is not ported")
         self.decoder = nn.ModuleList(_build_decoder(cfg, dtype))
         self.encoder = None if cfg.decoder_only else nn.ModuleList(_build_encoder(cfg, dtype))
 
@@ -242,12 +260,35 @@ class TAEVAE(nn.Module):
             z = z * std[None, :, None, None, None] + mean[None, :, None, None, None]
         return z
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Latents [B,C,T,h,w] → video [B,3,4T−3,H,W] in [-1,1]."""
+    def decode(self, z: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latents [B,C,T,h,w] → video [B,3,4T−3,H,W] in [-1,1]. ``cond``
+        ([B,3,F,H,W], FlashVSR's upscaled LQ video, head-padded with its first
+        frame to a multiple of 4) goes before the latent channels after a
+        PixelShuffle3d(4, 8, 8) in torch's channel order (c, f, h, w)."""
         x = self._denormalize(z).permute(0, 2, 1, 3, 4)
+        if cond is not None:
+            c = cond.float()
+            if c.shape[2] % 4:
+                c = torch.cat([c[:, :, :1].expand(-1, -1, 4 - c.shape[2] % 4, -1, -1), c], dim=2)
+            b, cc, fc, hh, ww = c.shape
+            c = c.reshape(b, cc, fc // 4, 4, hh // 8, 8, ww // 8, 8).permute(0, 2, 1, 3, 5, 7, 4, 6)
+            x = torch.cat([c.reshape(b, fc // 4, cc * 256, hh // 8, ww // 8), x], dim=2)
         for layer in self.decoder:
             x = layer(x)
         x = x.clamp(0.0, 1.0) * 2.0 - 1.0 if self.cfg.out_range == "unit" else x.clamp(-1.0, 1.0)
         if self.cfg.patch_size > 1:
             x = _pixel_shuffle(x, self.cfg.patch_size)
         return x[:, self.frames_to_trim:].permute(0, 2, 1, 3, 4)
+
+
+@vae_registry.register("tiny_wan", aliases=("AutoencoderKLTinyWan", "taew2_1"))
+class TinyWanVAE(TAEVAE):
+    """The decoder-only, identity-deepened TAEHV for Wan latents
+    (AutoencoderKLTinyWan): FlashVSR's TCDecoder. Encoding raises."""
+
+    config_class = TAEConfig
+
+    def __init__(self, cfg: Optional[TAEConfig] = None, *, dtype=torch.float32):
+        cfg = cfg or TAEConfig()
+        cfg = dataclasses.replace(cfg, deepen=max(cfg.deepen, 1), decoder_only=True, out_range="unit")
+        super().__init__(cfg, dtype=dtype)

@@ -405,7 +405,8 @@ SIZE = 1024
 BLOCKS = 19 + 38
 DEFAULT_PHASES = ("kernels,timing,reference,residency,checkpoint,main,bf16,int4,hyv15,zimage,server,"
                   "qwenimage,wan,wan_edit,wan_causal,flux_edit,flux2,hyv,humo,s2v,multitalk,avatar,prompt_extension,"
-                  "skyreels,wan_5b,wan_more,image_rest,video_rest,hunyuanimage3,cogvideox,mochi,ltx,ltx2,rife,sam2,"
+                  "skyreels,wan_5b,wan_more,image_rest,video_rest,hunyuanimage3,cogvideox,mochi,ltx,ltx2,magi,flashvsr,"
+                  "rife,sam2,"
                   "preprocess,"
                   "preprocess_nets,preprocess_rest,"
                   "preprocess_pose")
@@ -5734,13 +5735,13 @@ def video_rest_engine(manifest: Path, model_type: str, home: Path, configs: dict
 
 
 def video_rest_drive(label, engine, kw, launches, frames_expected=None, size=None, latents_expected=(),
-                     phase="video_rest"):
+                     phase="video_rest", step=_VIDEO_STEP):
     """One request through ``engine``, the kernel's launch count set to 0
     before and read after (``launches`` expected), every progress message
     stamped (synchronised), seconds per step (each from the message before
-    it), peak GiB; the frames' count and size (or, with ``return_latents``,
-    the latents' shape) and every decoded latent checked finite. Returns
-    (row, output)."""
+    it; ``step`` matches a step's message), peak GiB; the frames' count and
+    size (or, with ``return_latents``, the latents' shape) and every decoded
+    latent checked finite. Returns (row, output)."""
     import numpy as np
     import torch
 
@@ -5761,13 +5762,13 @@ def video_rest_drive(label, engine, kw, launches, frames_expected=None, size=Non
     torch.cuda.synchronize()
     total, n_launch = time.perf_counter() - t0, flash_attention.launches
     times = [t0] + [t for _, t in stamps]
-    per_step = [times[i + 1] - times[i] for i, (m, _) in enumerate(stamps) if _VIDEO_STEP.fullmatch(m)]
+    per_step = [times[i + 1] - times[i] for i, (m, _) in enumerate(stamps) if step.fullmatch(m)]
     latents = [out] if isinstance(out, torch.Tensor) else engine.decoded
     row = {"phase": phase, "path": label, "model_type": engine.model_type,
            "request": {k: (v if isinstance(v, (int, float, str)) else list(np.shape(v))) for k, v in kw.items()},
            "seconds_total": total, "seconds_per_step": per_step,
            "median_seconds_per_step_after_the_first": statistics.median(per_step[1:] or per_step),
-           "stages": {m: t - t0 for m, t in dict(reversed(stamps)).items() if not _VIDEO_STEP.fullmatch(m)},
+           "stages": {m: t - t0 for m, t in dict(reversed(stamps)).items() if not step.fullmatch(m)},
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "flash_launches": n_launch,
            "flash_launches_expected": launches, "latents": [list(z.shape) for z in latents],
            "latents_finite": all(bool(torch.isfinite(z).all()) for z in latents)}
@@ -5785,19 +5786,22 @@ def video_rest_drive(label, engine, kw, launches, frames_expected=None, size=Non
     return row, out
 
 
-def seed_pair(label, engine, kw, launches, lat, frames_expected, size, phase="video_rest"):
-    """``kw`` with seeds 0, 0 and 1, the last two returning their latents:
-    the first two's latents bit-identical, the third's different. Returns
-    (rows, the first request's frames, its latents, the third's)."""
+def seed_pair(label, engine, kw, launches, lat, frames_expected, size, phase="video_rest", step=_VIDEO_STEP,
+              latent_launches=None):
+    """``kw`` with seeds 0, 0 and 1, the last two returning their latents
+    (``latent_launches`` where a decode launches the kernel too): the first
+    two's latents bit-identical, the third's different. Returns (rows, the
+    first request's frames, its latents, the third's)."""
     import torch
 
     row1, frames = video_rest_drive(label, engine, dict(kw, seed=0), launches, frames_expected, size, [lat],
-                                    phase=phase)
+                                    phase=phase, step=step)
     first = engine.decoded[0]
+    launches = launches if latent_launches is None else latent_launches
     row2, again = video_rest_drive(label, engine, dict(kw, seed=0, return_latents=True), launches,
-                                   latents_expected=[lat], phase=phase)
+                                   latents_expected=[lat], phase=phase, step=step)
     row3, other = video_rest_drive(label, engine, dict(kw, seed=1, return_latents=True), launches,
-                                   latents_expected=[lat], phase=phase)
+                                   latents_expected=[lat], phase=phase, step=step)
     same, differ = bool(torch.equal(first, again)), not torch.equal(first, other)
     emit({"phase": phase, "path": label, "seeds_0_0_identical": same, "seeds_0_1_differ": differ})
     check(same, f"{label}: two requests with one seed differ")
@@ -7260,6 +7264,400 @@ def phase_ltx2(home: Path):
     lap("requests")
     emit({"phase": "ltx2", "seconds_by_step": seconds})
     return paths, rows, err
+
+
+# -- MAGI-1 and FlashVSR 1.1 ---------------------------------------------------------------
+
+
+MAGI_MANIFEST = REPO / "manifests" / "video" / "magi-1-t2v.yml"
+FLASHVSR_MANIFESTS = {kind: REPO / "manifests" / "upscalers" / f"flashvsr-1.1-{kind}.yml" for kind in ("full", "tiny")}
+# MAGI-1 4.5B as the manifest writes it (34 layers, 24 heads of 128 over 8 KV groups, FFN 12288, half-channel
+# VAE latents); at 480x832 a chunk of 6 latent frames is 6 x 30 x 52 = 9360 tokens, the default window of 4
+# chunks 37,440
+MAGI_TRANSFORMER = {"num_layers": 34, "num_attention_heads": 24, "attention_head_dim": 128, "ffn_dim": 12288,
+                    "num_query_groups": 8, "in_channels": 32, "out_channels": 32, "patch_size": 2, "t_patch_size": 1,
+                    "caption_channels": 4096, "caption_max_length": 800, "cond_hidden_ratio": 0.25,
+                    "xattn_cond_hidden_ratio": 1.0, "half_channel_vae": True}
+MAGI_CHUNK, MAGI_WINDOW, MAGI_CAPTION, MAGI_CAPTION_KEPT = 6 * 30 * 52, 4, 800, 120
+# the ViT VAE's decode of the default 96 frames: 24 latent frames of 60 x 104 and the cls token, 12 heads of 64
+MAGI_VAE_TOKENS = 24 * 60 * 104 + 1
+MAGI_LAYERS = 4  # of the published 34: the requests' cut of depth (one forward runs all 34)
+MAGI_VAE_DEPTH = 12
+# the requests: 3 chunks (72 frames) with a window of 2, one step a stage: 4 stages of text, previous-chunk and
+# unconditional forwards over 1 + 1 + 1, 2 + 2 + 1, 3 + 3 + 1 and 3 + 3 + 1 chunks; a forward launches one
+# self-attention a chunk (one with a single chunk) and one cross-attention a layer: 34 launches a layer; v2v
+# from a one-chunk clip, 3 stages: 28 a layer
+MAGI_REQUEST = dict(height=480, width=832, num_frames=72, num_inference_steps=2, chunk_width=6, window_size=2,
+                    cfg_number=3)
+MAGI_STEP = re.compile(r"magi stage (\d+) step (\d+)/(\d+)")
+# Wan 2.1 1.3B's widths at full depth (the manifests' inline config), the LQ projector; 41 frames of 160 x 320
+# upscaled x4 to 640 x 1280: 10 latent frames of 40 x 80 tokens in three streaming chunks (6, 2, 2 frames)
+FLASHVSR_FRAMES, FLASHVSR_SIZE, FLASHVSR_OUT = 41, (160, 320), (640, 1280)
+FLASHVSR_FRAME_TOKENS = 40 * 80
+FLASHVSR_STEP = re.compile(r"FlashVSR chunk (\d+)/(\d+)")
+FLASHVSR_CONFIG = {"patch_size": [1, 2, 2], "in_dim": 16, "dim": 1536, "ffn_dim": 8960, "freq_dim": 256,
+                   "text_dim": 4096, "out_dim": 16, "num_heads": 12, "num_layers": 30, "eps": 1e-6,
+                   "lq4x_proj_in_dim": 3, "lq4x_proj_out_dim": 1536, "lq4x_proj_layer_num": 1}
+
+
+def magi_kernel_inputs():
+    """(case, q, k, v, bias): the block-causal self-attention's chunk launches
+    at the default window (chunk i's 9360 queries against 9360·(i + 1) keys,
+    24 heads of 128), the cross-attention over the window's 4 chunks as batch
+    rows against the 800 caption rows (a 120-token prompt kept), the VAE's
+    149,761-token launch at 12 heads of 64 (bf16, as the manifest resolves
+    the VAE)."""
+    import torch
+
+    for i in range(MAGI_WINDOW):
+        yield (f"magi_self_chunk{i}_sq{MAGI_CHUNK}_sk{MAGI_CHUNK * (i + 1)}_h24",
+               *qkv(1, MAGI_CHUNK, MAGI_CHUNK * (i + 1), 24, 128, 330 + i), None)
+    bias = torch.zeros(MAGI_WINDOW, MAGI_CAPTION, device="cuda")
+    bias[:, MAGI_CAPTION_KEPT:] = -1e30
+    yield (f"magi_cross_b{MAGI_WINDOW}_sq{MAGI_CHUNK}_sk{MAGI_CAPTION}_h24",
+           *qkv(MAGI_WINDOW, MAGI_CHUNK, MAGI_CAPTION, 24, 128, 334), bias)
+    yield (f"magi_vae_s{MAGI_VAE_TOKENS}_h12_d64", *qkv(1, MAGI_VAE_TOKENS, MAGI_VAE_TOKENS, 12, 64, 335), None)
+
+
+def magi_block_causal_rows():
+    """``block_causal_attention`` over the default window (4 chunks of 9360
+    rows, 24 heads of 128): 4 launches, and rows at each chunk's first and
+    last tile and across each chunk edge against the plain attention under
+    the explicit block-causal [S, S] mask over every key."""
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers.magi import block_causal_attention
+    from apex_studio_tpu_torch.ops.attention import naive_attention
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    s = MAGI_CHUNK * MAGI_WINDOW
+    q, k, v = qkv(1, s, s, 24, 128, 336)
+    before = flash_attention.launches
+    out = block_causal_attention(q, k, v, MAGI_WINDOW)
+    torch.cuda.synchronize()
+    launched = flash_attention.launches - before
+    chunk_of = torch.arange(s, device="cuda") // MAGI_CHUNK
+    cases = []
+    for i in range(MAGI_WINDOW):
+        a, b = i * MAGI_CHUNK, (i + 1) * MAGI_CHUNK
+        for part, rows in (("first_tile", slice(a, a + 128)), ("last_tile", slice(b - 128, b)),
+                           ("chunk_edge", slice(max(a - 64, 0), a + 64))):
+            bias = torch.where(chunk_of[rows, None] >= chunk_of[None, :], 0.0, -1e30)[None, None]
+            agree = agreement(out[:, rows], naive_attention(q[:, rows], k, v, bias=bias))
+            finite = bool(torch.isfinite(out[:, rows].float()).all())
+            cases.append({"case": f"magi_block_causal_s{s}_chunk{i}_{part}", "shape": list(q.shape), "sk": s,
+                          "rows": [rows.start, rows.stop], "bias": "explicit [S, S] block-causal mask", **agree,
+                          "finite": finite, "ok": finite and agree["within"]})
+    emit({"phase": "kernels", "path": "magi", "block_causal_launches": launched, "cases": cases})
+    check(launched == MAGI_WINDOW, f"the block-causal attention launched the kernel {launched} times")
+    bad = [c["case"] for c in cases if not c["ok"]]
+    check(not bad, f"the block-causal launches disagree with the explicit mask: {bad}")
+    del q, k, v, out
+    release()
+    return max(c["max_abs_err"] for c in cases)
+
+
+def magi_reference():
+    """The DiT at full width with 2 blocks, block-causal over 3 chunks of 2
+    latent frames of 8 x 8 tokens (the first a clean context chunk) against
+    64 caption rows (40 kept), card (bf16, the kernel) against CPU (f32, the
+    plain version) within BF16_REL_L2; the ViT VAE's decode of a 2 x 8 x 8
+    latent likewise within 2e-2."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers import magi
+    from apex_studio_tpu_torch.models.vaes import magi_vae
+
+    rng = np.random.default_rng(337)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    mask = torch.zeros(1, 3, 64, dtype=torch.bool)
+    mask[..., :40] = True
+    card_vs_cpu("magi.base 24 heads of 128 over 8 groups, 2 blocks",
+                lambda dt: magi.MagiTransformer3DModel(magi.MagiConfig.from_dict(
+                    dict(MAGI_TRANSFORMER, num_layers=2)), dtype=dt),
+                lambda m, x, t, y, msk: m(x, t, y, msk),
+                (tensor(1, 16, 6, 16, 16), torch.tensor([[0.9999, 0.5, 0.2]]), tensor(1, 3, 64, 4096), mask),
+                BF16_REL_L2, 338, phase="magi")
+    card_vs_cpu("magi.base ViT VAE decode", lambda dt: magi_vae.AutoencoderKLMagi(magi_vae.MagiVAEConfig(),
+                                                                                 dtype=dt),
+                lambda m, z: m.decode(z), (tensor(1, 16, 2, 8, 8),), 2e-2, 339, phase="magi")
+
+
+def magi_full_depth(engine) -> dict:
+    """The DiT at all 34 layers over the default window at 480x832 (4 chunks
+    of 9360 tokens, 37,440 in all, block-causal, the prompt's T5 rows a chunk):
+    two forwards, the first with its launches counted (4 self + 1 cross a
+    layer: 170); seconds, peak GiB, and the attention's share of the second
+    from the kernel rows' queued times."""
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    tf = engine.transformer
+    g = torch.Generator("cuda").manual_seed(340)
+    x = torch.randn(1, 16, 6 * MAGI_WINDOW, 60, 104, generator=g, device="cuda")
+    t = torch.tensor([[0.9999, 0.62, 0.31, 0.05]], device="cuda")
+    ctx, mask = engine.encode_prompt(WAN_PROMPT)
+    y = ctx[:, None].expand(1, MAGI_WINDOW, *ctx.shape[1:])
+    m = mask[:, None].expand(1, MAGI_WINDOW, mask.shape[-1])
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tf(x, t, y, m)
+        torch.cuda.synchronize()
+        first_s, launches = time.perf_counter() - t0, flash_attention.launches
+        t0 = time.perf_counter()
+        tf(x, t, y, m)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+    row = {"phase": "magi", "check": "full_depth_forward", "blocks": len(tf.blocks), "dim": tf.cfg.dim,
+           "heads": tf.cfg.num_attention_heads, "query_groups": tf.cfg.num_query_groups,
+           "parameters": sum(p.numel() for p in tf.parameters()), "dtype": str(tf.dtype),
+           "tokens": MAGI_CHUNK * MAGI_WINDOW, "chunks": MAGI_WINDOW, "caption_rows_kept": int(mask.sum().item()),
+           "first_forward_seconds": first_s, "forward_seconds": forward_s, "flash_launches": launches,
+           "flash_launches_expected": 34 * (MAGI_WINDOW + 1), "out_shape": list(out.shape),
+           "finite": bool(torch.isfinite(out).all()), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    check(len(tf.blocks) == 34 and tf.cfg.dim == 3072 and row["finite"]
+          and row["out_shape"] == [1, 16, 6 * MAGI_WINDOW, 60, 104], f"the MAGI-1 full-depth forward: {row}")
+    check(launches == 34 * (MAGI_WINDOW + 1), f"the full-depth MAGI-1 forward launched the kernel {launches} times")
+    return row
+
+
+def magi_decode_96(engine) -> dict:
+    """The VAE's decode of seeded latents for the manifest's default 96 frames
+    at 480x832 (24 latent frames: one 149,761-token launch a block), timed,
+    its launches and peak GiB."""
+    import torch
+
+    from apex_studio_tpu_torch.ops.attention.flash import flash_attention
+
+    z = torch.randn(1, 16, 24, 60, 104, generator=torch.Generator("cuda").manual_seed(341), device="cuda")
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = engine.vae.decode(z)
+        torch.cuda.synchronize()
+        seconds, launches = time.perf_counter() - t0, flash_attention.launches
+    row = {"phase": "magi", "check": "vae_decode_96_frames", "latent": list(z.shape), "pixels": list(video.shape),
+           "tokens": MAGI_VAE_TOKENS, "vae_dtype": str(next(engine.vae.decoder.core.blocks.parameters()).dtype),
+           "seconds": seconds, "flash_launches": launches, "flash_launches_expected": MAGI_VAE_DEPTH,
+           "finite": bool(torch.isfinite(video).all()), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    check(row["pixels"] == [1, 3, 96, 480, 832] and row["finite"] and launches == MAGI_VAE_DEPTH,
+          f"the MAGI-1 96-frame decode: {row}")
+    del video
+    release()
+    return row
+
+
+def magi_requests(home: Path):
+    """MAGI-1 from its manifest at full width in bf16 (T5-XXL, whose config the
+    phase writes; the ViT VAE as the manifest resolves it): the full-depth
+    forward (``magi_full_depth``), the 96-frame decode (``magi_decode_96``),
+    then the DiT cut to its first MAGI_LAYERS layers and t2v (seeds 0, 0, 1;
+    the first decoded), i2v from a seeded image and v2v continuing a seeded
+    24-frame clip (one whole chunk), each at MAGI_REQUEST."""
+    import numpy as np
+    import torch
+    from torch import nn
+
+    configs = {"text_encoder": T5_XXL}
+    base = video_rest_engine(MAGI_MANIFEST, "t2v", home, configs, "magi")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base.load_components()
+    emit({"phase": "magi", "load_seconds": time.perf_counter() - t0,
+          "reckoned_gib": {k: v / 2**30 for k, v in base.reckoned_bytes.items()},
+          "resident_gib": torch.cuda.memory_allocated() / 2**30, "memory_fallback_gate": base.gate})
+    full = magi_full_depth(base)
+    decode = magi_decode_96(base)
+    tf = base.transformer
+    tf.blocks = nn.ModuleList(list(tf.blocks[:MAGI_LAYERS]))
+    release()
+    engines = {"t2v": base, **{mt: video_rest_engine(MAGI_MANIFEST, mt, home, configs, "magi", share=base)
+                               for mt in ("i2v", "v2v")}}
+    kw = dict(MAGI_REQUEST, prompt=WAN_PROMPT, negative_prompt=VIDEO_REST_NEG)
+    lat, frames, size, vae = (1, 16, 18, 60, 104), 72, (480, 832), MAGI_VAE_DEPTH
+    rows = {"t2v": seed_pair("magi_t2v", base, kw, 34 * MAGI_LAYERS + vae, lat, frames, size, phase="magi",
+                             step=MAGI_STEP, latent_launches=34 * MAGI_LAYERS)[0]}
+    image = cv2_smooth(np.random.default_rng(342), (512, 896))
+    row, out = video_rest_drive("magi_i2v", engines["i2v"], dict(kw, image=image, seed=0, return_latents=True),
+                                34 * MAGI_LAYERS + vae, latents_expected=[lat], phase="magi", step=MAGI_STEP)
+    rows["i2v"] = [row]
+    clip, _ = disk_clip(24, 480, 832, seed=343)
+    row, frames_out = video_rest_drive("magi_v2v", engines["v2v"], dict(kw, video=clip, seed=0),
+                                       28 * MAGI_LAYERS + 2 * vae, frames, size, [lat], phase="magi",
+                                       step=MAGI_STEP)
+    rows["v2v"] = [row]
+    facts = {"phase": "magi", "dit_dim": tf.cfg.dim, "dit_requests_layers": len(tf.blocks), "dit_dtype": str(tf.dtype),
+             "t5_d_model": base.text_encoder._ensure_model().cfg.d_model,
+             "vae_dtype": str(next(base.vae.decoder.core.blocks.parameters()).dtype),
+             "i2v_first_latent_frame_finite": bool(torch.isfinite(out[:, :, 0]).all()),
+             "full_depth_peak_gib": full["peak_gib"], "decode_96_peak_gib": decode["peak_gib"],
+             "peak_gib": max(r["peak_gib"] for rs in rows.values() for r in rs)}
+    emit(facts)
+    check(tf.cfg.dim == 3072 and facts["t5_d_model"] == 4096 and not dit_bits(tf), f"the MAGI-1 widths: {facts}")
+    del engines, base, tf, out, frames_out
+    release()
+    return {f"magi_{t}": rs for t, rs in rows.items()}, full
+
+
+def phase_magi(home: Path):
+    """MAGI-1: the kernel at the chunk launches, the cross launch and the VAE's
+    149,761-token launch (``magi_kernel_inputs``), the block-causal launches
+    against the explicit mask (``magi_block_causal_rows``), the 2-block DiT
+    and the VAE against f32 (``magi_reference``), then the full-depth forward,
+    the 96-frame decode and the t2v, i2v and v2v requests (``magi_requests``);
+    the attention's share of the full-depth forward from the kernel rows."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    rows, err = path_kernel_rows("magi", magi_kernel_inputs())
+    err = max(err, magi_block_causal_rows())
+    lap("kernel_rows")
+    magi_reference()
+    lap("card_vs_cpu")
+    paths, full = magi_requests(home)
+    lap("requests")
+    attention_ms = 34 * sum(r["queued_ms"] for r in rows if not r["case"].startswith("magi_vae"))
+    emit({"phase": "magi", "seconds_by_step": seconds, "full_depth_attention_ms_from_rows": attention_ms,
+          "full_depth_attention_share": attention_ms / 1e3 / full["forward_seconds"]})
+    return paths, rows, err
+
+
+def flashvsr_kernel_inputs():
+    """(case, q, k, v, bias): FlashVSR at 640x1280 (40 x 80 tokens a latent
+    frame, 12 heads of 128): the first chunk's self-attention (6 frames
+    alone), a later chunk's (2 frames against the 6-frame cache and
+    themselves), and the cross-attention of each against the 512 context
+    rows, unmasked as in JAX."""
+    first, later = 6 * FLASHVSR_FRAME_TOKENS, 2 * FLASHVSR_FRAME_TOKENS
+    yield (f"flashvsr_self_first_s{first}_h12", *qkv(1, first, first, 12, 128, 350), None)
+    yield (f"flashvsr_self_cached_sq{later}_sk{first + later}_h12", *qkv(1, later, first + later, 12, 128, 351), None)
+    yield (f"flashvsr_cross_sq{first}_sk512_h12", *qkv(1, first, 512, 12, 128, 352), None)
+    yield (f"flashvsr_cross_sq{later}_sk512_h12", *qkv(1, later, 512, 12, 128, 353), None)
+
+
+def flashvsr_reference():
+    """The DiT at full width with 2 blocks over two streaming chunks (6 latent
+    frames, then 2 against the cache; 4 x 4 tokens a frame) with the LQ
+    projector's features, card (bf16) against CPU (f32) within BF16_REL_L2;
+    the TCDecoder (``tiny_wan`` at the tiny manifest's widths) decoding 3
+    latent frames of 8 x 8 with its 9-frame LQ condition likewise within 2e-2."""
+    import numpy as np
+    import torch
+
+    from apex_studio_tpu_torch.models.transformers import flashvsr
+    from apex_studio_tpu_torch.models.vaes import tae_vae
+
+    rng = np.random.default_rng(354)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    def two_chunks(m, noise, video, context):
+        t, t_mod = m.time_embed(1000.0)
+        ctx_kv, lq = m.context_kv(context), m.LQ_proj_in(video)
+        caches, preds = None, []
+        for a, b in ((0, 6), (6, 8)):
+            cos, sin = m.rope_for_chunk(b - a, 4, 4, a)
+            pred, caches = m(noise[:, :, a:b], t, t_mod, cos, sin, ctx_kv,
+                             lq_tokens=[x[:, a * 16:b * 16] for x in lq], caches=caches)
+            preds.append(pred)
+        return torch.cat(preds, dim=2)
+
+    card_vs_cpu("wan.flashvsr 12 heads of 128, 2 blocks, two chunks",
+                lambda dt: flashvsr.FlashVSRTransformer3DModel(flashvsr.FlashVSRConfig.from_dict(
+                    dict(FLASHVSR_CONFIG, num_layers=2)), dtype=dt), two_chunks,
+                (tensor(1, 16, 8, 8, 8), torch.rand(1, 3, 33, 64, 64, generator=torch.Generator().manual_seed(355))
+                 * 2 - 1, tensor(1, 512, 4096) * 0.1), BF16_REL_L2, 356, phase="flashvsr")
+    import yaml
+
+    tiny = next(c for c in yaml.safe_load(FLASHVSR_MANIFESTS["tiny"].read_text())["spec"]["components"]
+                if c["type"] == "vae")["config"]
+    card_vs_cpu("tiny_wan TCDecoder decode with its LQ condition",
+                lambda dt: tae_vae.TinyWanVAE(tae_vae.TAEConfig.from_dict(tiny), dtype=dt),
+                lambda m, z, cond: m.decode(z, cond=cond),
+                (tensor(1, 16, 3, 8, 8), torch.rand(1, 3, 9, 64, 64, generator=torch.Generator().manual_seed(357))
+                 * 2 - 1), 2e-2, 358, phase="flashvsr")
+
+
+def flashvsr_requests(home: Path):
+    """Both FlashVSR 1.1 manifests at Wan 2.1 1.3B's widths and full depth
+    (30 layers, the LQ projector), bf16 as they resolve: 41 seeded frames of
+    160x320, x4 to 640x1280 (10 latent frames, three streaming chunks, the
+    cache used and trimmed), 2 launches a block and chunk; the full manifest
+    through the Wan 2.1 VAE with seeds 0, 0, 1 (the first decoded), the tiny
+    one through the TCDecoder with the LQ condition. Seconds a chunk, peak GiB."""
+    import torch
+
+    full = video_rest_engine(FLASHVSR_MANIFESTS["full"], "upscale", home, {}, "flashvsr")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full.load_missing("transformer", "vae")
+    emit({"phase": "flashvsr", "load_seconds": time.perf_counter() - t0,
+          "reckoned_gib": {k: v / 2**30 for k, v in full.reckoned_bytes.items()},
+          "resident_gib": torch.cuda.memory_allocated() / 2**30})
+    tiny = video_rest_engine(FLASHVSR_MANIFESTS["tiny"], "upscale", home, {}, "flashvsr")
+    tiny.transformer = full.transformer
+    tiny.load_missing("vae")
+    clip, _ = disk_clip(FLASHVSR_FRAMES, *FLASHVSR_SIZE, seed=359)
+    launches = 3 * 2 * 30
+    frames = 4 * 10 - 3
+    rows, first, _, _ = seed_pair("flashvsr_full", full, dict(video=clip), launches, (1, 16, 10, 80, 160), frames,
+                                  FLASHVSR_OUT, phase="flashvsr", step=FLASHVSR_STEP)
+    row, out = video_rest_drive("flashvsr_tiny", tiny, dict(video=clip, seed=0), launches, frames, FLASHVSR_OUT,
+                                phase="flashvsr", step=FLASHVSR_STEP)
+    tf = full.transformer
+    facts = {"phase": "flashvsr", "dit_dim": tf.cfg.dim, "dit_layers": len(tf.blocks), "dit_dtype": str(tf.dtype),
+             "parameters": sum(p.numel() for p in tf.parameters()),
+             "lq_proj_parameters": sum(p.numel() for p in tf.LQ_proj_in.parameters()),
+             "full_vae": type(full.vae).__name__, "tiny_vae": type(tiny.vae).__name__,
+             "tiny_vae_decoder_layers": len(tiny.vae.decoder),
+             "seconds_a_chunk": {r["path"]: r["seconds_per_step"] for r in rows + [row]},
+             "peak_gib": max(r["peak_gib"] for r in rows + [row])}
+    emit(facts)
+    check(tf.cfg.dim == 1536 and len(tf.blocks) == 30 and facts["tiny_vae"] == "TinyWanVAE",
+          f"the FlashVSR widths: {facts}")
+    del full, tiny, tf, first, out
+    release()
+    return {"flashvsr_full": rows, "flashvsr_tiny": [row]}
+
+
+def phase_flashvsr(home: Path):
+    """FlashVSR 1.1: the kernel at the first and cached chunks' launches and
+    their cross launches (``flashvsr_kernel_inputs``), the 2-block DiT and
+    the TCDecoder against f32 (``flashvsr_reference``), then both manifests'
+    requests (``flashvsr_requests``)."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    rows, err = path_kernel_rows("flashvsr", flashvsr_kernel_inputs())
+    lap("kernel_rows")
+    flashvsr_reference()
+    lap("card_vs_cpu")
+    paths = flashvsr_requests(home)
+    lap("requests")
+    emit({"phase": "flashvsr", "seconds_by_step": seconds})
+    return paths, rows, err
+
 
 
 # -- SAM2 point masks and tracking; the preprocessors ------------------------------------
@@ -9389,7 +9787,8 @@ def main() -> int:
                             ("wan_5b", phase_wan_5b), ("wan_more", phase_wan_more),
                             ("image_rest", phase_image_rest), ("video_rest", phase_video_rest),
                             ("hunyuanimage3", phase_hunyuanimage3), ("cogvideox", phase_cogvideox),
-                            ("mochi", phase_mochi), ("ltx", phase_ltx), ("ltx2", phase_ltx2)):
+                            ("mochi", phase_mochi), ("ltx", phase_ltx), ("ltx2", phase_ltx2),
+                            ("magi", phase_magi), ("flashvsr", phase_flashvsr)):
             if name in phases:
                 new_paths, path_rows[name], path_err[name] = timed(name, phase, home)
                 paths.update(new_paths)

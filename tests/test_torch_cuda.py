@@ -1206,3 +1206,81 @@ def test_ltx2_dit_and_connectors_launch_the_kernel_per_attention(cuda):
                       fps=25.0, ctx_mask=mask, **kw)
             assert flash_attention.launches == before + launches
             assert torch.isfinite(v).all() and torch.isfinite(a).all()
+
+
+# MAGI-1's block-causal self-attention at 480x832 (chunks of 6 latent frames of 30 x 52 tokens: 9360 rows, not a
+# multiple of the kernel's 128-row tile), 24 heads of 128, as one unmasked launch a chunk
+MAGI_CHUNK = 6 * 30 * 52
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [3, 1])
+def test_magi_block_causal_launches_are_the_masked_attention(chunks, cuda):
+    """``block_causal_attention``: one launch a chunk, chunk i's queries
+    against the first (i + 1)·L keys; rows at every chunk's first and last
+    tile and across each chunk edge against the plain attention under the
+    explicit block-causal [S, S] mask over every key."""
+    from apex_studio_tpu_torch.models.transformers.magi import block_causal_attention
+    from apex_studio_tpu_torch.ops.attention import naive_attention
+
+    s = MAGI_CHUNK * chunks
+    g = torch.Generator(cuda).manual_seed(13)
+    q, k, v = (torch.randn(1, s, 24, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    before = flash_attention.launches
+    out = block_causal_attention(q, k, v, chunks)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + chunks
+    assert torch.isfinite(out.float()).all()
+    chunk_of = torch.arange(s, device=cuda) // MAGI_CHUNK
+    for i in range(chunks):
+        a, b = i * MAGI_CHUNK, (i + 1) * MAGI_CHUNK
+        for rows in (slice(a, a + 128), slice(b - 128, b), slice(max(a - 64, 0), a + 64)):
+            bias = torch.where(chunk_of[rows, None] >= chunk_of[None, :], 0.0, -1e30)[None, None]
+            assert_agrees(out[:, rows], naive_attention(q[:, rows], k, v, bias=bias))
+
+
+@pytest.mark.cuda
+def test_magi_and_flashvsr_launch_the_kernel_per_attention(cuda):
+    """Small bf16 MAGI-1 and FlashVSR DiTs and a MAGI-1 VAE on the card: the
+    Magi DiT R + 1 launches a layer block-causal over R chunks (R self, one
+    cross over B·R rows), 2 with one chunk or ``block_causal`` off; FlashVSR 2
+    a block and chunk, the cache trimmed; the VAE one f32 launch a block
+    through bf16 tiles; outputs finite."""
+    from apex_studio_tpu_torch.engine.base import materialize_random
+    from apex_studio_tpu_torch.models.transformers import flashvsr, magi
+    from apex_studio_tpu_torch.models.vaes import magi_vae
+
+    dit = materialize_random(lambda: magi.MagiTransformer3DModel(magi.MagiConfig(
+        num_layers=2, num_attention_heads=4, attention_head_dim=64, ffn_dim=256, num_query_groups=2, in_channels=8,
+        out_channels=8, caption_channels=64, caption_max_length=8, half_channel_vae=True)), cuda, seed=9)
+    fv = materialize_random(lambda: flashvsr.FlashVSRTransformer3DModel(flashvsr.FlashVSRConfig(
+        dim=256, ffn_dim=512, text_dim=64, num_heads=2, num_layers=2, lq4x_proj_out_dim=256, lq_hidden_dim1=32,
+        lq_hidden_dim2=48)), cuda, seed=10)
+    vae = materialize_random(lambda: magi_vae.AutoencoderKLMagi(magi_vae.MagiVAEConfig(
+        video_size=32, video_length=8, z_chans=4, embed_dim=128, depth=2, num_heads=2)), cuda, seed=11)
+    g = torch.Generator().manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    with torch.inference_mode():
+        for r, block_causal, launches in ((3, True, 2 * 4), (1, True, 2 * 2), (3, False, 2 * 2)):
+            before = flash_attention.launches
+            out = dit(rand(1, 4, 2 * r, 16, 18), rand(1, r).abs(), rand(1, r, 10, 64),
+                      torch.ones(1, r, 10, dtype=torch.bool, device=cuda), block_causal=block_causal)
+            assert flash_attention.launches == before + launches
+            assert torch.isfinite(out).all()
+        t, t_mod = fv.time_embed(1000.0)
+        ctx_kv = fv.context_kv(rand(1, 12, 64).bfloat16())
+        caches = None
+        for f, start in ((6, 0), (2, 6), (2, 8)):
+            cos, sin = fv.rope_for_chunk(f, 4, 4, start)
+            before = flash_attention.launches
+            pred, caches = fv(rand(1, 16, f, 8, 8), t, t_mod, cos, sin, ctx_kv, caches=caches)
+            assert flash_attention.launches == before + 2 * 2
+            assert torch.isfinite(pred.float()).all() and caches[0][0].shape[1] == 3 * 2 * 16
+        before = flash_attention.launches
+        z = vae.encode(rand(1, 3, 8, 48, 40))
+        video = vae.decode(z)
+        assert flash_attention.launches == before + 2 * 2
+        assert z.dtype == video.dtype == torch.float32 and torch.isfinite(video).all()
